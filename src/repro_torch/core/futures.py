@@ -1,0 +1,191 @@
+"""The request subsystem (paper §II, C3; MPI 4.0 persistent operations),
+eager PyTorch form.
+
+* :class:`Future` — host level.  CUDA work is queued asynchronously on the
+  current stream, so a returned tensor is a request: ``get()`` =
+  ``MPI_Wait`` (synchronises the tensors' devices and consumes the future),
+  ``test()`` = ``MPI_Test``, ``then()`` chains a continuation.
+
+* :class:`PersistentRequest` — ``MPI_Send_init`` + ``MPI_Start``.  Eager
+  PyTorch has no trace to amortise, so init binds the argument list (tree
+  structure and each leaf's shape and dtype) and every start validates
+  against it: drift raises ``ERR_REQUEST``.  Capturing the bound step as a
+  CUDA graph (init = capture, start = replay) is the next step of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import errors, tool
+
+
+def _leaves(tree: Any) -> list:
+    return flatten(tree)[0]
+
+
+def flatten(tree: Any) -> tuple[list, Any]:
+    """(leaves, treedef) of a nest of dicts (sorted keys, as JAX does),
+    lists, tuples and dataclasses; ``None`` is an empty node, every other
+    object a leaf.  The treedef is hashable."""
+
+    leaves: list = []
+
+    def walk(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            return (type(node).__name__, len(node), tuple(walk(x) for x in node))
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            fields = tuple(f.name for f in dataclasses.fields(node))
+            return (type(node), fields, tuple(walk(getattr(node, f)) for f in fields))
+        leaves.append(node)
+        return "*"
+
+    treedef = walk(tree)
+    return leaves, treedef
+
+
+def _sync(tree: Any) -> None:
+    devices = {
+        leaf.device for leaf in _leaves(tree)
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda
+    }
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+class Future:
+    """Host-level future over queued (asynchronous) results."""
+
+    def __init__(self, value: Any):
+        self._value = value
+        self._valid = True
+
+    def valid(self) -> bool:
+        return self._valid
+
+    def get(self) -> Any:
+        """``MPI_Wait`` + value retrieval (consumes the future)."""
+
+        errors.check(self._valid, errors.ErrorClass.ERR_REQUEST, "future already consumed")
+        self._valid = False
+        _sync(self._value)
+        return self._value
+
+    def wait(self) -> "Future":
+        """Block until complete (does not consume; ``get()`` does)."""
+
+        errors.check(self._valid, errors.ErrorClass.ERR_REQUEST, "future already consumed")
+        _sync(self._value)
+        return self
+
+    def test(self) -> bool:
+        """Non-blocking completion probe (``MPI_Test``): the current streams
+        of the tensors' devices have drained."""
+
+        devices = {
+            leaf.device for leaf in _leaves(self._value)
+            if isinstance(leaf, torch.Tensor) and leaf.is_cuda
+        }
+        return all(torch.cuda.current_stream(d).query() for d in devices)
+
+    def then(self, fn: Callable[["Future"], Any]) -> "Future":
+        """Chain a continuation (paper Listing 2); consumes this future."""
+
+        errors.check(
+            self._valid, errors.ErrorClass.ERR_REQUEST, "then() on a consumed future"
+        )
+        result = fn(self)
+        self._valid = False
+        if result is self:
+            return Future(self._value)
+        if isinstance(result, Future):
+            return result
+        return Future(result)
+
+
+def _leaf_signature(leaf: Any) -> tuple:
+    shape = tuple(getattr(leaf, "shape", ()))
+    dtype = getattr(leaf, "dtype", None)
+    return (shape, dtype if dtype is None else str(dtype))
+
+
+def argument_signature(tree: Any) -> tuple:
+    """Hashable (treedef, per-leaf shape/dtype) key for one argument list —
+    the signature a :class:`PersistentRequest` is bound to; also the key of
+    per-shape-bucket requests."""
+
+    leaves, treedef = flatten(tree)
+    return treedef, tuple(_leaf_signature(l) for l in leaves)
+
+
+class PersistentRequest:
+    """Persistent operation: a step function bound to its argument list.
+
+    * **validation** — every start checks tree structure and leaf
+      shapes/dtypes against the init-time argument list; any mismatch raises
+      ``ERR_REQUEST`` (a persistent request is *bound* to its arguments).
+    * **continuations** — ``then(fn)`` registers a continuation applied to
+      every start's host future.
+    """
+
+    def __init__(self, fn: Callable, example_args: tuple):
+        tool.pvar_count("persistent_init")
+        self._fn = fn
+        self._signature = argument_signature(example_args)
+        self._continuations: list[Callable[[Future], Any]] = []
+        self._started = 0
+
+    @property
+    def starts(self) -> int:
+        return self._started
+
+    def _validate(self, args: tuple) -> None:
+        treedef, sigs = argument_signature(args)
+        bound_treedef, bound_sigs = self._signature
+        errors.check(
+            treedef == bound_treedef,
+            errors.ErrorClass.ERR_REQUEST,
+            "persistent start: argument structure does not match the "
+            "init-time structure",
+        )
+        for i, (sig, bound) in enumerate(zip(sigs, bound_sigs)):
+            errors.check(
+                sig == bound,
+                errors.ErrorClass.ERR_REQUEST,
+                f"persistent start: argument leaf {i} is {sig}, request was "
+                f"initialised with {bound}",
+            )
+
+    def __call__(self, *args: Any) -> Any:
+        """Fire the persistent operation, returning the raw (asynchronously
+        queued) outputs — the drop-in replacement for the step function."""
+
+        if errors.error_checking_enabled():
+            self._validate(args)
+        out = self._fn(*args)
+        tool.pvar_count("persistent_start")
+        self._started += 1
+        return out
+
+    def start(self, *args: Any) -> Future:
+        """``MPI_Start``: fire the persistent operation; returns a host
+        future, chained through any registered ``then()`` continuations."""
+
+        fut = Future(self(*args))
+        for fn in self._continuations:
+            fut = fut.then(fn)
+        return fut
+
+    def then(self, fn: Callable[[Future], Any]) -> "PersistentRequest":
+        """Register a continuation applied to every start's future."""
+
+        self._continuations.append(fn)
+        return self

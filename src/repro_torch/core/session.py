@@ -1,0 +1,378 @@
+"""The Sessions model (MPI 4.0 §11) over torch devices.
+
+A :class:`Session` enumerates the devices of one type (``cuda`` or ``cpu``)
+into named process sets — ``repro://world``, ``repro://self``,
+``repro://host/0`` and ``repro://platform/<type>`` — plus user-registered
+sets.  :class:`Group` is the immutable ordered device set with the full MPI
+group algebra, copied from :mod:`repro.core.session`.  The port runs in one
+process, so every enumerated device is local and lives on host 0.
+
+A session over ``cuda`` on a machine with no CUDA device raises
+``ERR_SESSION``: the port never falls back to the CPU on its own; the caller
+asks for it with ``device_type="cpu"``.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Any, Iterable, Mapping, Sequence
+
+import torch
+
+from repro_torch.core import errors
+
+#: ``MPI_UNDEFINED`` analogue for rank queries that have no answer.
+UNDEFINED = -1
+
+#: The builtin process-set namespace.  ``mpi://`` spellings are accepted as
+#: aliases (``mpi://world`` → ``repro://world``).
+_SCHEME = "repro://"
+_ALIAS_SCHEME = "mpi://"
+
+WORLD_PSET = _SCHEME + "world"
+SELF_PSET = _SCHEME + "self"
+
+_BUILTIN_PREFIXES = (f"{_SCHEME}host/", f"{_SCHEME}platform/")
+
+#: Device types a session can enumerate.
+DEVICE_TYPES = ("cuda", "cpu")
+
+
+def _is_builtin_pset(name: str) -> bool:
+    return name in (WORLD_PSET, SELF_PSET) or name.startswith(_BUILTIN_PREFIXES)
+
+
+class GroupComparison(enum.Enum):
+    """``MPI_Group_compare`` results."""
+
+    IDENT = "ident"        # same members, same order
+    SIMILAR = "similar"    # same members, different order
+    UNEQUAL = "unequal"
+
+
+class Group:
+    """Immutable ordered set of devices (``MPI_Group``).
+
+    Rank *r* in the group is position *r* in :attr:`devices`.  All algebra
+    follows MPI ordering rules: ``union`` keeps ``self``'s order then appends
+    ``other``'s new members; ``intersection`` and ``difference`` are ordered
+    by ``self``.
+    """
+
+    __slots__ = ("_devices", "_index")
+
+    def __init__(self, devices: Iterable[Any] = ()):
+        seen: dict[Any, int] = {}
+        for d in devices:
+            if d not in seen:
+                seen[d] = len(seen)
+        self._devices = tuple(seen)
+        self._index = seen
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def devices(self) -> tuple[Any, ...]:
+        return self._devices
+
+    def size(self) -> int:
+        """``MPI_Group_size``."""
+
+        return len(self._devices)
+
+    def rank(self, device: Any = None) -> int:
+        """``MPI_Group_rank``: the calling process's rank, or
+        :data:`UNDEFINED` if it is not a member.
+
+        The SPMD analogue of "the calling process" is this host's first
+        device that belongs to the group; pass ``device`` explicitly to ask
+        about a specific member (``rank(dev)``).
+        """
+
+        if device is not None:
+            return self._index.get(device, UNDEFINED)
+        for d in _local_devices_safe():
+            r = self._index.get(d)
+            if r is not None:
+                return r
+        return UNDEFINED
+
+    def device(self, rank: int) -> Any:
+        """The member at ``rank`` (inverse of :meth:`rank`)."""
+
+        errors.check(
+            0 <= rank < len(self._devices),
+            errors.ErrorClass.ERR_RANK,
+            f"rank {rank} out of range for group of size {len(self._devices)}",
+        )
+        return self._devices[rank]
+
+    def __len__(self) -> int:
+        return len(self._devices)
+
+    def __bool__(self) -> bool:
+        return bool(self._devices)
+
+    def __iter__(self):
+        return iter(self._devices)
+
+    def __contains__(self, device: Any) -> bool:
+        return device in self._index
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, Group) and self._devices == other._devices
+
+    def __hash__(self) -> int:
+        return hash(self._devices)
+
+    def __repr__(self) -> str:
+        return f"Group(size={len(self._devices)})"
+
+    # -- algebra -----------------------------------------------------------
+
+    def union(self, other: "Group") -> "Group":
+        """``MPI_Group_union``: self's members, then other's new members."""
+
+        return Group(self._devices + other._devices)
+
+    def intersection(self, other: "Group") -> "Group":
+        """``MPI_Group_intersection``: members of both, ordered by self."""
+
+        return Group(d for d in self._devices if d in other)
+
+    def difference(self, other: "Group") -> "Group":
+        """``MPI_Group_difference``: members of self not in other."""
+
+        return Group(d for d in self._devices if d not in other)
+
+    __or__ = union
+    __and__ = intersection
+    __sub__ = difference
+
+    def incl(self, ranks: Sequence[int]) -> "Group":
+        """``MPI_Group_incl``: the subgroup at ``ranks``, in that order."""
+
+        ranks = list(ranks)
+        errors.check(
+            len(set(ranks)) == len(ranks),
+            errors.ErrorClass.ERR_RANK,
+            f"incl ranks must be distinct: {ranks}",
+        )
+        return Group(self.device(r) for r in ranks)
+
+    def excl(self, ranks: Sequence[int]) -> "Group":
+        """``MPI_Group_excl``: everything but ``ranks``, order preserved."""
+
+        ranks = list(ranks)
+        errors.check(
+            len(set(ranks)) == len(ranks),
+            errors.ErrorClass.ERR_RANK,
+            f"excl ranks must be distinct: {ranks}",
+        )
+        drop = {self.device(r) for r in ranks}
+        return Group(d for d in self._devices if d not in drop)
+
+    def translate_ranks(self, ranks: Sequence[int], other: "Group") -> list[int]:
+        """``MPI_Group_translate_ranks``: where self's ``ranks`` sit in
+        ``other`` (:data:`UNDEFINED` for non-members)."""
+
+        return [other.rank(self.device(r)) for r in ranks]
+
+    def compare(self, other: "Group") -> GroupComparison:
+        """``MPI_Group_compare``."""
+
+        if self._devices == other._devices:
+            return GroupComparison.IDENT
+        if set(self._devices) == set(other._devices):
+            return GroupComparison.SIMILAR
+        return GroupComparison.UNEQUAL
+
+
+def platform_devices(device_type: str = "cuda") -> tuple[torch.device, ...]:
+    """The devices of one type this process can use: every visible CUDA
+    device, or the one CPU device."""
+
+    errors.check(
+        device_type in DEVICE_TYPES,
+        errors.ErrorClass.ERR_ARG,
+        f"unknown device type {device_type!r}; known: {DEVICE_TYPES}",
+    )
+    if device_type == "cpu":
+        return (torch.device("cpu"),)
+    return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+
+
+def _local_devices_safe() -> tuple[Any, ...]:
+    # one process owns every device it can see
+    return platform_devices("cuda") + platform_devices("cpu")
+
+
+def _normalize(name: str) -> str:
+    name = name.lower()
+    if name.startswith(_ALIAS_SCHEME):
+        name = _SCHEME + name[len(_ALIAS_SCHEME):]
+    return name
+
+
+class Session:
+    """``MPI_Session``: a handle onto the named process sets of one device
+    type.  :meth:`finalize` closes it, after which every query raises
+    ``ERR_SESSION``.  Usable as a context manager."""
+
+    def __init__(
+        self,
+        devices: Sequence[Any] | None = None,
+        *,
+        info: Mapping | None = None,
+        device_type: str = "cuda",
+    ):
+        if devices is None:
+            devices = platform_devices(device_type)
+            errors.check(
+                len(devices) > 0,
+                errors.ErrorClass.ERR_SESSION,
+                f"no {device_type} device is visible; pass device='cpu' "
+                f"(--device cpu) to run on the CPU",
+            )
+        self._devices = tuple(devices)
+        errors.check(
+            len(self._devices) > 0,
+            errors.ErrorClass.ERR_SESSION,
+            "a session needs at least one device",
+        )
+        self.info = dict(info or {})
+        self._finalized = False
+        self._psets: dict[str, tuple[Any, ...]] = {}
+        self._enumerate()
+
+    @classmethod
+    def init(
+        cls,
+        devices: Sequence[Any] | None = None,
+        *,
+        info: Mapping | None = None,
+        device_type: str = "cuda",
+    ) -> "Session":
+        """``MPI_Session_init``."""
+
+        return cls(devices, info=info, device_type=device_type)
+
+    # -- platform enumeration ----------------------------------------------
+
+    def _enumerate(self) -> None:
+        self._psets[WORLD_PSET] = self._devices
+        self._psets[SELF_PSET] = self._devices
+        self._psets[f"{_SCHEME}host/0"] = self._devices
+        by_platform: dict[str, list[Any]] = {}
+        for d in self._devices:
+            by_platform.setdefault(getattr(d, "type", "unknown"), []).append(d)
+        for platform, devs in sorted(by_platform.items()):
+            self._psets[f"{_SCHEME}platform/{platform}"] = tuple(devs)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def finalized(self) -> bool:
+        return self._finalized
+
+    def finalize(self) -> None:
+        """``MPI_Session_finalize``.  Idempotent."""
+
+        self._finalized = True
+
+    def __enter__(self) -> "Session":
+        self._live()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.finalize()
+
+    def _live(self) -> None:
+        if self._finalized:
+            errors.fail(
+                errors.ErrorClass.ERR_SESSION,
+                "session is finalized (MPI_Session_finalize was called)",
+            )
+
+    # -- process-set discovery ---------------------------------------------
+
+    def num_psets(self) -> int:
+        """``MPI_Session_get_num_psets``."""
+
+        self._live()
+        return len(self._psets)
+
+    def psets(self) -> list[str]:
+        """All process-set names (``MPI_Session_get_nth_pset``, vectorised)."""
+
+        self._live()
+        return list(self._psets)
+
+    def pset(self, name: str) -> tuple[Any, ...]:
+        """The device tuple behind a named process set."""
+
+        self._live()
+        key = _normalize(name)
+        errors.check(
+            key in self._psets,
+            errors.ErrorClass.ERR_ARG,
+            f"unknown process set {name!r}; known: {list(self._psets)}",
+        )
+        return self._psets[key]
+
+    def pset_info(self, name: str) -> dict:
+        """``MPI_Session_get_pset_info`` (the standard mandates ``mpi_size``)."""
+
+        devs = self.pset(name)
+        return {"mpi_size": len(devs), "size": len(devs), "name": _normalize(name)}
+
+    def group(self, name: str = WORLD_PSET) -> Group:
+        """``MPI_Group_from_session_pset``."""
+
+        return Group(self.pset(name))
+
+    # -- user-registered sets ----------------------------------------------
+
+    def register_pset(self, name: str, members: "Group | Sequence[Any]") -> str:
+        """Register a user process set (over devices or an existing group).
+        Returns the normalised name.  Builtin sets cannot be shadowed."""
+
+        self._live()
+        key = _normalize(name)
+        errors.check(
+            not _is_builtin_pset(key),
+            errors.ErrorClass.ERR_ARG,
+            f"cannot shadow builtin process set {name!r}",
+        )
+        devices = tuple(
+            dict.fromkeys(members.devices if isinstance(members, Group) else members)
+        )
+        errors.check(
+            len(devices) > 0, errors.ErrorClass.ERR_GROUP, f"process set {name!r} is empty"
+        )
+        known = set(self._devices)
+        for d in devices:
+            errors.check(
+                d in known,
+                errors.ErrorClass.ERR_GROUP,
+                f"device {d} of pset {name!r} is not part of this session",
+            )
+        self._psets[key] = devices
+        return key
+
+    def __repr__(self) -> str:
+        state = "finalized" if self._finalized else f"{len(self._psets)} psets"
+        return f"Session(devices={len(self._devices)}, {state})"
+
+
+_DEFAULT: dict[str, Session] = {}
+
+
+def default_session(refresh: bool = False, device_type: str = "cuda") -> Session:
+    """The process-default session of one device type.  ``refresh=True``
+    re-enumerates the platform; a finalized default is replaced."""
+
+    sess = _DEFAULT.get(device_type)
+    if sess is None or sess.finalized or refresh:
+        sess = _DEFAULT[device_type] = Session.init(device_type=device_type)
+    return sess

@@ -1,0 +1,161 @@
+"""Tool interface (paper §II — MPI 4.0 chapter 15, ``MPI_T_``): the pvar/cvar
+registry of :mod:`repro.core.tool`, without its HLO parsing and TPU roofline
+constants, which describe XLA artifacts and a TPU and have no counterpart in
+the port.
+
+* **pvars** are call-site counters (``pvar_count`` / ``pvar_add``), with a
+  documented registry (``PVARS``) and an optional strict mode that rejects
+  writes to unregistered names.
+* **cvars** are a typed runtime configuration registry (error checking).
+
+Kernel launch counts are not pvars: each kernel wrapper keeps a plain integer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import defaultdict
+from typing import Any, Callable
+
+from repro_torch.core import errors
+
+# --------------------------------------------------------------------------
+# control variables (cvars)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Cvar:
+    name: str
+    type: type
+    value: Any
+    doc: str
+    on_set: Callable[[Any], None] | None = None
+
+
+_CVARS: dict[str, _Cvar] = {}
+
+
+def cvar_register(
+    name: str, type_: type, default: Any, doc: str, on_set: Callable[[Any], None] | None = None
+) -> None:
+    _CVARS[name] = _Cvar(name, type_, default, doc, on_set)
+    if on_set:
+        on_set(default)
+
+
+def cvar_set(name: str, value: Any) -> None:
+    v = _CVARS.get(name)
+    if v is None:
+        errors.fail(errors.ErrorClass.ERR_ARG, f"unknown control variable {name!r}")
+    if not isinstance(value, v.type):
+        errors.fail(
+            errors.ErrorClass.ERR_TYPE,
+            f"cvar {name!r} expects {v.type.__name__}, got {type(value).__name__}",
+        )
+    v.value = value
+    if v.on_set:
+        v.on_set(value)
+
+
+def cvar_get(name: str) -> Any:
+    v = _CVARS.get(name)
+    if v is None:
+        errors.fail(errors.ErrorClass.ERR_ARG, f"unknown control variable {name!r}")
+    return v.value
+
+
+def cvar_list() -> dict[str, str]:
+    return {v.name: v.doc for v in _CVARS.values()}
+
+
+cvar_register(
+    "error_checking",
+    bool,
+    True,
+    "argument validation (the paper's compile-time macro)",
+    on_set=errors.set_error_checking,
+)
+
+
+# --------------------------------------------------------------------------
+# pvar call-site counters
+# --------------------------------------------------------------------------
+
+pvar_counters: dict[str, int] = defaultdict(int)
+
+# `+=` on a dict entry is not atomic, so updates take this lock
+_PVAR_LOCK = threading.Lock()
+
+#: Documented performance variables (``MPI_T_pvar_get_info`` analogue).
+PVARS: dict[str, str] = {}
+
+
+def pvar_register(name: str, doc: str) -> None:
+    """Describe a pvar (idempotent).  Counting does not require prior
+    registration — unknown counters still count — but registered pvars are
+    enumerable via :func:`pvar_info` with a zero initial value."""
+
+    PVARS.setdefault(name, doc)
+
+
+#: When True, counting an unregistered pvar is an ``ERR_ARG`` instead of a
+#: silent new counter.
+PVAR_STRICT = False
+
+
+def pvar_strict(enabled: bool) -> bool:
+    """Toggle fail-fast on unregistered pvar writes; returns the previous
+    value."""
+
+    global PVAR_STRICT
+    prev = PVAR_STRICT
+    PVAR_STRICT = bool(enabled)
+    return prev
+
+
+def _pvar_check(op: str) -> None:
+    if op not in PVARS:
+        errors.fail(
+            errors.ErrorClass.ERR_ARG,
+            f"pvar {op!r} written but never registered — add a "
+            f"pvar_register({op!r}, ...) where the counter is defined",
+        )
+
+
+def pvar_count(op: str) -> None:
+    if PVAR_STRICT:
+        _pvar_check(op)
+    with _PVAR_LOCK:
+        pvar_counters[op] += 1
+
+
+def pvar_add(op: str, amount: int) -> None:
+    """Add to an accumulating pvar (byte counters and the like)."""
+
+    if PVAR_STRICT:
+        _pvar_check(op)
+    with _PVAR_LOCK:
+        pvar_counters[op] += int(amount)
+
+
+def pvar_reset() -> None:
+    with _PVAR_LOCK:
+        pvar_counters.clear()
+
+
+def pvar_read() -> dict[str, int]:
+    counts = {name: 0 for name in PVARS}
+    with _PVAR_LOCK:
+        counts.update(pvar_counters)
+    return counts
+
+
+def pvar_info() -> dict[str, str]:
+    return dict(PVARS)
+
+
+# request-layer pvars (persistent operations, C3)
+pvar_register("persistent_init", "persistent requests initialised (argument list bound)")
+pvar_register("persistent_start", "MPI_Start analogues fired on persistent requests")

@@ -1,0 +1,206 @@
+"""Loader and wrapper of the CUDA flash-attention forward kernel
+(``csrc/flash_attention_fwd.cu``), the Hopper port of the TPU kernel
+``repro/kernels/flash_attention/kernel.py:_fwd_kernel``.
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use, under ``build/flash_attention/<hash>``
+at the repository root (keyed by a hash of the source), and loaded with
+``ctypes``.  Nothing is built when this module is imported.
+
+:func:`flash_attention_fwd` takes CUDA tensors only, launches on the current
+stream and counts its launches in :data:`LAUNCHES`; a build or launch
+failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.core import errors
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
+BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "flash_attention"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: ctypes declaration of the C entry point: q, k, v, o; dtype, b, sq, sk, h,
+#: hk, d; the 12 strides of q, k, v; scale, softcap; causal, window,
+#: prefix; stream.
+ARGTYPES = (
+    [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 7
+    + [ctypes.c_longlong] * 12
+    + [ctypes.c_float] * 2
+    + [ctypes.c_int] * 3
+    + [ctypes.c_void_p]
+)
+
+#: Kernel launches since the last :func:`reset_launches`.
+LAUNCHES = 0
+#: ``nvcc``'s output of the build this process loaded (``-Xptxas -v``).
+BUILD_LOG = ""
+
+_LIB: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    errors.fail(
+        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+        "nvcc not found (set CUDA_HOME): the flash-attention kernel is built "
+        "from source at first use",
+    )
+
+
+def build() -> Path:
+    """Compile the kernel unless this source's build exists; returns the
+    shared library's path."""
+
+    global BUILD_LOG
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    out_dir = BUILD_ROOT / digest
+    lib = out_dir / "libflash_attention_fwd.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".libflash_attention_fwd.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        errors.fail(
+            errors.ErrorClass.ERR_OTHER,
+            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}",
+        )
+    os.replace(tmp, lib)  # atomic: another process never loads half a file
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        errors.check(
+            t.is_cuda and t.device == q.device,
+            errors.ErrorClass.ERR_ARG,
+            f"flash kernel: {name} must be a CUDA tensor on {q.device}, got {t.device}",
+        )
+        errors.check(
+            t.dtype == q.dtype and t.dtype in _DTYPE_CODES,
+            errors.ErrorClass.ERR_TYPE,
+            f"flash kernel: q/k/v must share one of {list(_DTYPE_CODES)}, "
+            f"got {q.dtype}/{k.dtype}/{v.dtype}",
+        )
+        errors.check(
+            t.dim() == 4 and t.numel() > 0,
+            errors.ErrorClass.ERR_DIMS,
+            f"flash kernel: {name} must be a non-empty (b, s, heads, d) tensor, "
+            f"got shape {tuple(t.shape)}",
+        )
+    b, _, h, d = q.shape
+    errors.check(
+        k.shape == v.shape and k.shape[0] == b and k.shape[3] == d,
+        errors.ErrorClass.ERR_DIMS,
+        f"flash kernel: k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q "
+        f"{tuple(q.shape)}",
+    )
+    errors.check(
+        h % k.shape[2] == 0,
+        errors.ErrorClass.ERR_DIMS,
+        f"flash kernel: {h} query heads do not group over {k.shape[2]} KV heads",
+    )
+    errors.check(
+        d % 8 == 0 and d <= MAX_HEAD_DIM,
+        errors.ErrorClass.ERR_DIMS,
+        f"flash kernel: head_dim must be a multiple of 8 up to {MAX_HEAD_DIM}, got {d}",
+    )
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sliding_window: int | None = None,
+    prefix_len: int | None = None,
+    logit_softcap: float | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """q: (b, sq, h, d); k/v: (b, sk, hk, d), h % hk == 0, any strides.
+    → contiguous (b, sq, h, d) in q's dtype (bf16 or fp32)."""
+
+    global LAUNCHES
+    _check_inputs(q, k, v)
+    errors.check(
+        sliding_window is None or sliding_window >= 1,
+        errors.ErrorClass.ERR_ARG,
+        f"flash kernel: sliding_window must be >= 1, got {sliding_window}",
+    )
+    errors.check(
+        prefix_len is None or prefix_len >= 0,
+        errors.ErrorClass.ERR_ARG,
+        f"flash kernel: prefix_len must be >= 0, got {prefix_len}",
+    )
+    errors.check(
+        logit_softcap is None or logit_softcap > 0,
+        errors.ErrorClass.ERR_ARG,
+        f"flash kernel: logit_softcap must be > 0, got {logit_softcap}",
+    )
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, sq, sk, h, hk, d,
+            *q.stride(), *k.stride(), *v.stride(),
+            float(scale),
+            float(logit_softcap) if logit_softcap is not None else 0.0,
+            int(causal),
+            int(sliding_window) if sliding_window is not None else 0,
+            int(prefix_len) if prefix_len is not None else -1,
+            stream,
+        )
+    if rc != 0:
+        errors.fail(
+            errors.ErrorClass.ERR_OTHER,
+            f"flash kernel launch failed: cudaError {rc} "
+            f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})",
+        )
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,96 @@
+"""Serving launcher: batched prefill + decode with the port's Server.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b --smoke \\
+        --requests 8 --prompt-len 64 --new-tokens 16 [--device cpu]
+
+Runs on the CUDA device unless ``--device cpu`` is given; a machine with no
+CUDA device raises ``ERR_SESSION`` instead of falling back.  The other
+serving modes of :mod:`repro.launch.serve` (``--disaggregate``,
+``--fanout``, ``--plan``, ``--mesh``, ``--continuous-batching``) are not
+ported yet and raise ``ERR_UNSUPPORTED_OPERATION``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+_NOT_PORTED = ("disaggregate", "fanout", "plan", "mesh", "continuous_batching")
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument(
+        "--pset",
+        default="repro://world",
+        help="session process set the server owns (e.g. repro://host/0)",
+    )
+    ap.add_argument(
+        "--device", default="cuda", choices=("cuda", "cpu"),
+        help="device type to serve on (default: the CUDA device)",
+    )
+    # serving modes of the reference launcher that the port has not reached
+    ap.add_argument("--mesh", default=None, help="not ported yet")
+    ap.add_argument("--disaggregate", action="store_true", help="not ported yet")
+    ap.add_argument("--plan", default=None, help="not ported yet")
+    ap.add_argument("--fanout", default=None, help="not ported yet")
+    ap.add_argument("--continuous-batching", action="store_true", help="not ported yet")
+    return ap
+
+
+def run(argv=None):
+    """Serve one batch of random prompts; returns (server, tokens, stats)."""
+
+    args = _parser().parse_args(argv)
+
+    from repro_torch.configs import base
+    from repro_torch.core import errors
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+
+    for flag in _NOT_PORTED:
+        errors.check(
+            not getattr(args, flag),
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            f"--{flag.replace('_', '-')} is not ported yet",
+        )
+    try:
+        cfg = base.get_smoke_config(args.arch) if args.smoke else base.get_config(args.arch)
+        pcfg = base.get_parallel(args.arch)
+    except ModuleNotFoundError as e:
+        errors.fail(
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            f"arch {args.arch!r} is not ported yet ({e})",
+        )
+
+    comm = make_host_communicator(pset=args.pset, device=args.device)
+    rng = np.random.default_rng(0)
+    reqs = [
+        Request(tokens=rng.integers(1, cfg.vocab_size, size=(args.prompt_len,), dtype=np.int32))
+        for _ in range(args.requests)
+    ]
+    scfg = ServerConfig(max_batch=args.requests, max_new_tokens=args.new_tokens,
+                        temperature=args.temperature)
+    server = Server(cfg, pcfg, scfg, comm)
+    tokens, stats = server.generate(reqs)
+    return server, tokens, stats
+
+
+def main(argv=None):
+    _, tokens, stats = run(argv)
+    print("generated shape:", tokens.shape)
+    print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()},
+                     indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,259 @@
+"""Attention: GQA/MQA (+ RoPE, sliding window, softcap) and the bf16 KV
+cache (linear or ring-buffer), the dense serving path of
+:mod:`repro.models.attention`.  Not ported yet: the int8 cache, per-row
+decode positions, MLA, ring attention and the sequence-sharded decode."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core import errors
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models import common
+from repro_torch.models.common import dense_init
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-model stacked KV cache.  ``k``/``v``: (L, B, S, Hk, Dh).
+    ``pos``: () int32 tensor, the global position count; sliding-window
+    layers use S == window with ring addressing.  ``k_scale``/``v_scale``
+    belong to the int8 cache, not ported yet, and stay ``None``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor | None
+    v_scale: torch.Tensor | None
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(
+        num_layers: int,
+        batch: int,
+        length: int,
+        kv_heads: int,
+        head_dim: int,
+        *,
+        dtype=torch.bfloat16,
+        quantized: bool = False,
+        device=None,
+    ) -> "KVCache":
+        _no_int8(quantized)
+        shape = (num_layers, batch, length, kv_heads, head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            k_scale=None,
+            v_scale=None,
+            pos=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+
+def _no_int8(quantized: bool) -> None:
+    errors.check(
+        not quantized,
+        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+        "the int8 KV cache is not ported yet (kv_cache_dtype='bfloat16' only)",
+    )
+
+
+def cache_layer_update(k_layer, v_layer, k_scale_l, v_scale_l, k_new, v_new, pos, *, ring: bool):
+    """Write k_new/v_new (B, T, Hk, Dh) at the scalar ``pos`` (ring: pos %
+    capacity).  The write is in place (``index_copy_``): it stands in for
+    the reference's donated cache buffers, so decode allocates no new
+    cache."""
+
+    _no_int8(k_layer.dtype == torch.int8)
+    errors.check(
+        pos.dim() == 0,
+        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+        "per-row decode positions are not ported yet (scalar pos only)",
+    )
+    capacity = k_layer.shape[1]
+    write_pos = (pos % capacity) if ring else pos
+    idx = write_pos.long() + torch.arange(k_new.shape[1], device=k_layer.device)
+    k_layer.index_copy_(1, idx, k_new.to(k_layer.dtype))
+    v_layer.index_copy_(1, idx, v_new.to(v_layer.dtype))
+    return k_layer, v_layer, k_scale_l, v_scale_l
+
+
+def cache_layer_read(k_layer, v_layer, k_scale_l, v_scale_l, dtype):
+    _no_int8(k_layer.dtype == torch.int8)
+    return k_layer.to(dtype), v_layer.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA parameters
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Params:
+    """``stack`` prepends leading dims (the scanned unit stack)."""
+
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, d, stack + (d, h, dh), dtype),
+        "wk": dense_init(gen, d, stack + (d, hk, dh), dtype),
+        "wv": dense_init(gen, d, stack + (d, hk, dh), dtype),
+        "wo": dense_init(gen, h * dh, stack + (h, dh, d), dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(stack + (h, dh), dtype=dtype, device=gen.device)
+        p["bk"] = torch.zeros(stack + (hk, dh), dtype=dtype, device=gen.device)
+        p["bv"] = torch.zeros(stack + (hk, dh), dtype=dtype, device=gen.device)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul."""
+
+    d, h, k = w.shape
+    return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _out(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+
+    h, k, d = w.shape
+    return torch.matmul(y.flatten(-2), w.reshape(h * k, d))
+
+
+def _project_qkv(p, x, cfg, positions):
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = common.rope(q, positions, theta=cfg.rope_theta)
+    k = common.rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _scale(cfg) -> float:
+    return cfg.query_scale if cfg.query_scale is not None else 1.0 / math.sqrt(cfg.head_dim)
+
+
+def _no_ring(pcfg) -> None:
+    errors.check(
+        not pcfg.ring_attention,
+        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+        "ring attention is not ported yet",
+    )
+
+
+def _attend(q, k, v, cfg, pcfg, sliding_window, prefix_len):
+    return fa_ops.flash_attention(
+        q,
+        k,
+        v,
+        causal=True,
+        sliding_window=sliding_window,
+        prefix_len=prefix_len,
+        logit_softcap=cfg.attn_logit_softcap,
+        scale=_scale(cfg),
+        impl=getattr(pcfg, "attn_impl", "ref"),
+    )
+
+
+# ---------------------------------------------------------------------------
+# full-sequence attention (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def attention_full(
+    p: common.Params,
+    x: torch.Tensor,         # (B, S, D)
+    cfg,
+    pcfg,
+    *,
+    positions: torch.Tensor,  # (S,) or (B, S)
+    sliding_window: int | None,
+    prefix_len: int | None = None,
+    mesh=None,
+) -> torch.Tensor:
+    _no_ring(pcfg)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    return _out(_attend(q, k, v, cfg, pcfg, sliding_window, prefix_len), p["wo"])
+
+
+def attention_prefill(
+    p, x, cfg, pcfg, *, positions, sliding_window, prefix_len=None, mesh=None
+):
+    """Full-sequence attention that also returns the layer's new KV entries
+    (B, S_cache, Hk, Dh) — S_cache is min(S, window) for windowed layers."""
+
+    _no_ring(pcfg)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    y = _out(_attend(q, k, v, cfg, pcfg, sliding_window, prefix_len), p["wo"])
+    if sliding_window is not None and k.shape[1] > sliding_window:
+        # ring-buffer layout: global position p lives in slot p % window
+        s = k.shape[1]
+        start = s - sliding_window
+        roll = s % sliding_window
+        k_keep = torch.roll(k[:, start:], roll, dims=1)
+        v_keep = torch.roll(v[:, start:], roll, dims=1)
+        return y, (k_keep, v_keep)
+    return y, (k, v)
+
+
+def attention_decode(
+    p,
+    x1: torch.Tensor,         # (B, 1, D)
+    k_layer,
+    v_layer,
+    k_scale_l,
+    v_scale_l,
+    pos: torch.Tensor,        # () int32 tokens already cached
+    cfg,
+    pcfg,
+    *,
+    sliding_window: int | None,
+    mesh=None,
+):
+    """Single-token attention against a cached layer (updated in place).
+    Returns (y (B,1,D), cache slices)."""
+
+    dtype = x1.dtype
+    q, k_new, v_new = _project_qkv(p, x1, cfg, pos[None])
+    ring = sliding_window is not None and k_layer.shape[1] == sliding_window
+    k_layer, v_layer, k_scale_l, v_scale_l = cache_layer_update(
+        k_layer, v_layer, k_scale_l, v_scale_l, k_new, v_new, pos, ring=ring
+    )
+    capacity = k_layer.shape[1]
+    slots = torch.arange(capacity, device=k_layer.device)
+    if ring:
+        # slot i holds global position p_i = pos - ((pos - i) mod capacity)
+        slot_pos = pos - torch.remainder(pos - slots, capacity)
+        valid = slot_pos >= torch.clamp(pos - capacity + 1, min=0)
+        valid = valid & (slot_pos <= pos)
+    else:
+        slot_pos = slots
+        valid = slot_pos <= pos
+    if sliding_window is not None:
+        valid = valid & (pos - slot_pos < sliding_window)
+    kc, vc = cache_layer_read(k_layer, v_layer, k_scale_l, v_scale_l, dtype)
+    y = _decode_attend(q, kc, vc, valid, cfg)
+    return _out(y, p["wo"]), (k_layer, v_layer, k_scale_l, v_scale_l)
+
+
+def _decode_attend(q, kc, vc, valid, cfg):
+    h = q.shape[2]
+    kc = fa_ref._repeat_heads(kc, h)
+    vc = fa_ref._repeat_heads(vc, h)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc.float())
+    s = s * _scale(cfg)
+    s = common.softcap(s, cfg.attn_logit_softcap)
+    s = torch.where(valid[None, None, None, :], s, fa_ref.NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", pattn, vc.float()).to(q.dtype)

@@ -1,0 +1,126 @@
+"""Shared model components: norms, RoPE, initialisers, activation helpers.
+
+Numerics follow :mod:`repro.models.common` exactly: ``rms_norm`` scales by
+``1 + scale`` in fp32 (the scale is stored as zeros, gemma-style), RoPE
+splits the head dimension into halves with fp32 angles, and ``"gelu"`` is
+the tanh form (``jax.nn.gelu`` defaults to ``approximate=True``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float16": torch.float16,
+}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# -- init ----------------------------------------------------------------------
+
+
+def _truncated_normal(gen: torch.Generator, shape, stddev: float, dtype) -> torch.Tensor:
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * stddev).to(dtype)
+
+
+def trunc_normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    stddev = scale / math.sqrt(max(1, shape[0] if len(shape) else 1))
+    return _truncated_normal(gen, shape, stddev, dtype)
+
+
+def dense_init(gen: torch.Generator, in_dim: int, shape: tuple[int, ...], dtype) -> torch.Tensor:
+    return _truncated_normal(gen, shape, 1.0 / math.sqrt(in_dim), dtype)
+
+
+# -- norms -----------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, dtype, device) -> torch.Tensor:
+    return torch.zeros((d,), dtype=dtype, device=device)  # stored as (scale - 1)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + scale.float())).to(x.dtype)
+
+
+# -- activations --------------------------------------------------------------------
+
+
+def activation(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+    }[name]
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# -- rotary embeddings -----------------------------------------------------------------
+
+
+def rope(
+    x: torch.Tensor, positions: torch.Tensor, *, theta: float, rope_dim: int | None = None
+) -> torch.Tensor:
+    """Apply rotary embedding.  x: (..., seq, heads, head_dim); positions:
+    broadcastable to (..., seq).  ``rope_dim`` rotates only the first
+    ``rope_dim`` features (partial RoPE)."""
+
+    d = x.shape[-1]
+    rd = rope_dim or d
+    half = rd // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    angles = positions[..., None].float() * freqs  # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    xr, rest = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    out = torch.cat([out1, out2], dim=-1).to(x.dtype)
+    if rest.shape[-1]:
+        out = torch.cat([out, rest], dim=-1)
+    return out
+
+
+def constrain(x: torch.Tensor, pcfg, *, logits: bool = False) -> torch.Tensor:
+    """Activation sharding constraint of the reference; the identity in the
+    single-device port."""
+
+    return x
+
+
+# -- losses -------------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *, softcap_val=None) -> torch.Tensor:
+    """Token-mean CE in fp32; logits (..., V), labels (...)."""
+
+    logits = logits.float()
+    if softcap_val is not None:
+        logits = softcap(logits, softcap_val)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -1,0 +1,315 @@
+"""Decoder-only LM trunk, dense family (qwen/phi4/granite, and gemma-2's
+local-global alternation with softcaps), with forward / loss / prefill /
+decode entry points — the dense path of :mod:`repro.models.transformer`.
+
+The parameter tree is the reference's: ``params["layers"][name]`` stacks
+every leaf of one sub-layer along a leading unit dimension.  The reference
+``scan``\\ s over that dimension; eager PyTorch loops over it.  Not ported
+yet: MoE, MLA, the VLM prefix, ``first_dense_layers``, remat and the
+pipeline decomposition.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core import errors
+from repro_torch.models import attention as attn
+from repro_torch.models import common, mlp
+from repro_torch.models.attention import KVCache
+from repro_torch.models.common import dense_init
+
+
+def _check_dense(cfg) -> None:
+    errors.check(
+        cfg.family == "dense" and not cfg.mla and not cfg.num_experts
+        and not cfg.first_dense_layers,
+        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+        f"only the dense family is ported yet, not {cfg.name!r} ({cfg.family})",
+    )
+
+
+# ---------------------------------------------------------------------------
+# layer units
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Params:
+    """One residual block: attention + dense MLP with pre-norms (+ gemma-2
+    post-norms); ``stack`` prepends the unit dimension to every leaf."""
+
+    def norm():
+        return torch.zeros(stack + (cfg.d_model,), dtype=dtype, device=gen.device)
+
+    p: common.Params = {"ln_attn": norm(), "ln_mlp": norm()}
+    if cfg.post_norms:
+        p["ln_attn_post"] = norm()
+        p["ln_mlp_post"] = norm()
+    p["attn"] = attn.init_attention(gen, cfg, dtype, stack=stack)
+    p["mlp"] = mlp.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, stack=stack)
+    return p
+
+
+def _block_full(
+    p, x, cfg, pcfg, *, kind, sliding_window, positions, prefix_len, mesh, collect_cache
+):
+    """Full-sequence block.  Returns (x, cache_entry, aux)."""
+
+    h = common.rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    cache_entry = None
+    if collect_cache:
+        a, cache_entry = attn.attention_prefill(
+            p["attn"], h, cfg, pcfg, positions=positions,
+            sliding_window=sliding_window, prefix_len=prefix_len, mesh=mesh,
+        )
+    else:
+        a = attn.attention_full(
+            p["attn"], h, cfg, pcfg, positions=positions,
+            sliding_window=sliding_window, prefix_len=prefix_len, mesh=mesh,
+        )
+    if cfg.post_norms:
+        a = common.rms_norm(a, p["ln_attn_post"], cfg.norm_eps)
+    x = x + a
+
+    h = common.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    m = mlp.mlp(p["mlp"], h, cfg.act)
+    if cfg.post_norms:
+        m = common.rms_norm(m, p["ln_mlp_post"], cfg.norm_eps)
+    return x + m, cache_entry, {}
+
+
+def _block_decode(p, x1, cache_slices, pos, cfg, pcfg, *, kind, sliding_window, mesh):
+    """Single-token block.  ``cache_slices``: layer slices of the cache
+    arrays, updated in place.  Returns (x1, cache_slices)."""
+
+    h = common.rms_norm(x1, p["ln_attn"], cfg.norm_eps)
+    k_l, v_l, ks_l, vs_l = cache_slices
+    a, new_slices = attn.attention_decode(
+        p["attn"], h, k_l, v_l, ks_l, vs_l, pos, cfg, pcfg,
+        sliding_window=sliding_window, mesh=mesh,
+    )
+    if cfg.post_norms:
+        a = common.rms_norm(a, p["ln_attn_post"], cfg.norm_eps)
+    x1 = x1 + a
+
+    h = common.rms_norm(x1, p["ln_mlp"], cfg.norm_eps)
+    m = mlp.mlp(p["mlp"], h, cfg.act)
+    if cfg.post_norms:
+        m = common.rms_norm(m, p["ln_mlp_post"], cfg.norm_eps)
+    return x1 + m, new_slices
+
+
+# ---------------------------------------------------------------------------
+# layer-stack layout
+# ---------------------------------------------------------------------------
+
+
+def _unit_plan(cfg) -> list[tuple[str, str, int | None]]:
+    """The sub-layers of one unit: list of (name, kind, window)."""
+
+    if cfg.layer_pattern == "local_global":
+        return [
+            ("local", "dense", cfg.sliding_window),
+            ("global", "dense", None),
+        ]
+    return [("layer", "dense", cfg.sliding_window)]
+
+
+def _num_units(cfg) -> int:
+    per_unit = len(_unit_plan(cfg))
+    errors.check(
+        cfg.num_layers % per_unit == 0,
+        errors.ErrorClass.ERR_DIMS,
+        f"{cfg.num_layers} layers do not fold into units of {per_unit}",
+    )
+    return cfg.num_layers // per_unit
+
+
+def _unit(tree: Any, i: int) -> Any:
+    """Unit ``i`` of a stacked parameter tree (views, no copy)."""
+
+    if isinstance(tree, dict):
+        return {k: _unit(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_lm(gen: torch.Generator, cfg) -> common.Params:
+    """Random parameters on ``gen.device``, drawn from ``gen``."""
+
+    _check_dense(cfg)
+    dtype = common.dtype_of(cfg)
+    params: common.Params = {
+        "embed": common.trunc_normal(gen, (cfg.padded_vocab, cfg.d_model), 1.0, dtype),
+        "final_norm": common.init_rmsnorm(cfg.d_model, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, (cfg.d_model, cfg.padded_vocab), dtype)
+    n_units = _num_units(cfg)
+    params["layers"] = {
+        name: _init_block(gen, cfg, dtype, stack=(n_units,)) for name, _, _ in _unit_plan(cfg)
+    }
+    return params
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, tokens, cfg):
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def _head(params, x, cfg, pcfg=None):
+    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return torch.matmul(x, params["embed"].t())
+    return torch.matmul(x, params["lm_head"])
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def _prepare_inputs(params, batch: dict, cfg):
+    """tokens → (x, positions, prefix_len)."""
+
+    x = _embed(params, batch["tokens"], cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    return x, positions, None
+
+
+def lm_forward(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward → (logits, aux metrics)."""
+
+    _check_dense(cfg)
+    x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
+    for u in range(_num_units(cfg)):
+        unit_params = _unit(params["layers"], u)
+        for name, kind, window in _unit_plan(cfg):
+            x, _, _ = _block_full(
+                unit_params[name], x, cfg, pcfg, kind=kind, sliding_window=window,
+                positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=False,
+            )
+    logits = _head(params, x, cfg, pcfg)
+    aux = {"load_balance_loss": 0.0, "router_z_loss": 0.0, "dropped_fraction": 0.0}
+    return logits, aux
+
+
+def lm_loss(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, dict]:
+    logits, aux = lm_forward(params, batch, cfg, pcfg, mesh)
+    tokens = batch["tokens"]
+    loss = common.cross_entropy(
+        logits[:, :-1], tokens[:, 1:], softcap_val=cfg.final_logit_softcap
+    )
+    metrics = {"loss": loss, **{k: torch.as_tensor(v) for k, v in aux.items()}}
+    return loss, metrics
+
+
+# -- caches -------------------------------------------------------------------
+
+
+def init_cache(cfg, pcfg, batch: int, length: int, device=None) -> dict[str, Any]:
+    """Cache tree for decode: one entry per unit sub-layer name."""
+
+    _check_dense(cfg)
+    n_units = _num_units(cfg)
+    dtype = common.dtype_of(cfg)
+    quant = pcfg.kv_cache_dtype == "int8"
+    caches: dict[str, Any] = {}
+    for name, _, window in _unit_plan(cfg):
+        cap = min(length, window) if window else length
+        caches[name] = KVCache.init(
+            n_units, batch, cap, cfg.num_kv_heads, cfg.head_dim, dtype=dtype,
+            quantized=quant, device=device,
+        )
+    return caches
+
+
+def lm_prefill(params, batch: dict, cfg, pcfg, mesh=None, extra_capacity: int = 0):
+    """Prefill: full forward that also builds the cache.  Returns
+    (last-token logits, cache dict)."""
+
+    _check_dense(cfg)
+    x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
+    seq = x.shape[1]
+    plan = _unit_plan(cfg)
+    entries: dict[str, list] = {name: [] for name, _, _ in plan}
+    for u in range(_num_units(cfg)):
+        unit_params = _unit(params["layers"], u)
+        for name, kind, window in plan:
+            x, entry, _ = _block_full(
+                unit_params[name], x, cfg, pcfg, kind=kind, sliding_window=window,
+                positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=True,
+            )
+            entries[name].append(entry)
+    caches: dict[str, Any] = {}
+    pos = torch.tensor(seq, dtype=torch.int32, device=x.device)
+    for name, _, window in plan:
+        # windowed layers use a fixed ring buffer — no headroom needed
+        extra = 0 if (window is not None and seq > window) else extra_capacity
+        k = torch.stack([e[0] for e in entries[name]])
+        v = torch.stack([e[1] for e in entries[name]])
+        caches[name] = dataclasses.replace(
+            _entry_to_cache((k, v), cfg, pcfg, stack=False, extra=extra), pos=pos
+        )
+    logits = _head(params, x[:, -1:], cfg, pcfg)
+    if cfg.final_logit_softcap:
+        logits = common.softcap(logits, cfg.final_logit_softcap)
+    return logits, caches
+
+
+def _pad_seq(arr, extra: int):
+    """Decode headroom: grow the cache's sequence axis (axis 2 of the
+    stacked layout) by ``extra`` zero slots so decode never writes past
+    capacity."""
+
+    if not extra:
+        return arr
+    return torch.nn.functional.pad(arr, (0, 0, 0, 0, 0, extra))
+
+
+def _entry_to_cache(entry, cfg, pcfg, *, stack: bool, extra: int = 0):
+    attn._no_int8(pcfg.kv_cache_dtype == "int8")
+    dtype = common.dtype_of(cfg)
+    k, v = entry
+    if stack:
+        k, v = k[None], v[None]
+    k, v = _pad_seq(k, extra), _pad_seq(v, extra)
+    return KVCache(
+        k=k.to(dtype), v=v.to(dtype), k_scale=None, v_scale=None,
+        pos=torch.zeros((), dtype=torch.int32, device=k.device),
+    )
+
+
+def lm_decode(params, caches: dict, token: torch.Tensor, cfg, pcfg, mesh=None):
+    """One decode step.  token: (B, 1) int32.  Returns (logits, caches); the
+    cache tensors are updated in place and every cache's ``pos`` advances."""
+
+    _check_dense(cfg)
+    pos = next(iter(caches.values())).pos
+    x = _embed(params, token, cfg)
+    plan = _unit_plan(cfg)
+    for u in range(_num_units(cfg)):
+        unit_params = _unit(params["layers"], u)
+        for name, kind, window in plan:
+            c = caches[name]
+            slices = (c.k[u], c.v[u], None, None)
+            x, _ = _block_decode(
+                unit_params[name], x, slices, pos, cfg, pcfg,
+                kind=kind, sliding_window=window, mesh=mesh,
+            )
+    new_pos = pos + 1
+    caches = {name: dataclasses.replace(c, pos=new_pos) for name, c in caches.items()}
+    logits = _head(params, x, cfg, pcfg)
+    if cfg.final_logit_softcap:
+        logits = common.softcap(logits, cfg.final_logit_softcap)
+    return logits, caches

@@ -1,0 +1,109 @@
+"""The port stands alone: no file of ``src/repro_torch`` nor
+``chip_smoke.py`` imports JAX or the reference package, and what it copied
+from the reference (error classes, the dense configs, the Group algebra)
+still equals the reference."""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+import enum
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.core import errors as jerrors
+from repro.core import session as jsession
+from repro_torch.configs import base as tbase
+from repro_torch.core import errors as terrors
+from repro_torch.core import session as tsession
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "repro")
+_DENSE = ("gemma2_9b", "phi4_mini_3_8b", "granite_3_8b", "qwen1_5_32b")
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            arg = node.args[0] if node.args else None
+            if isinstance(arg, ast.Constant):
+                roots.add(arg.value.split(".")[0])
+            elif isinstance(arg, ast.JoinedStr) and isinstance(arg.values[0], ast.Constant):
+                roots.add(arg.values[0].value.split(".")[0])
+    return roots
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = _port_files()
+    assert len(files) > 20 and all(f.exists() for f in files)
+    bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
+           for f in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_error_classes_equal_the_reference():
+    assert {m.name: m.value for m in terrors.ErrorClass} == \
+        {m.name: m.value for m in jerrors.ErrorClass}
+    for klass in jerrors.ErrorClass:
+        je = jerrors.exception(klass, "x")
+        te = terrors.exception(terrors.ErrorClass[klass.name], "x")
+        assert (type(te).__name__, te.code, str(te)) == (type(je).__name__, je.code, str(je))
+
+
+def _plain(obj):
+    """A dataclass as a dict, enums by value, so copies compare across
+    packages."""
+
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _plain(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_plain(x) for x in obj)
+    return obj
+
+
+@pytest.mark.parametrize("arch", _DENSE)
+def test_dense_configs_equal_the_reference(arch):
+    assert _plain(tbase.get_config(arch)) == _plain(jbase.get_config(arch))
+    assert _plain(tbase.get_smoke_config(arch)) == _plain(jbase.get_smoke_config(arch))
+    assert _plain(tbase.get_parallel(arch)) == _plain(jbase.get_parallel(arch))
+    assert _plain(tbase.plan_space(arch)) == _plain(jbase.plan_space(arch))
+    assert tbase.get_config(arch).param_count() == jbase.get_config(arch).param_count()
+
+
+def test_group_algebra_equals_the_reference():
+    a_t, b_t = tsession.Group(range(6)), tsession.Group([4, 5, 6, 7])
+    a_j, b_j = jsession.Group(range(6)), jsession.Group([4, 5, 6, 7])
+    for op in ("union", "intersection", "difference"):
+        assert getattr(a_t, op)(b_t).devices == getattr(a_j, op)(b_j).devices
+    assert a_t.incl([3, 1]).devices == a_j.incl([3, 1]).devices
+    assert a_t.excl([0, 2]).devices == a_j.excl([0, 2]).devices
+    assert a_t.translate_ranks([4, 5], b_t) == a_j.translate_ranks([4, 5], b_j)
+    assert a_t.compare(tsession.Group(reversed(range(6)))).value == \
+        a_j.compare(jsession.Group(reversed(range(6)))).value
+
+
+def test_cpu_session_psets():
+    sess = tsession.Session(device_type="cpu")
+    cpu = (torch.device("cpu"),)
+    for name in ("repro://world", "mpi://self", "repro://host/0", "repro://platform/cpu"):
+        assert sess.pset(name) == cpu
+    sess.finalize()
+    with pytest.raises(terrors.Error) as ei:
+        sess.psets()
+    assert ei.value.klass == terrors.ErrorClass.ERR_SESSION

@@ -1,0 +1,184 @@
+"""The port's flash attention on CPU tensors against the reference: the JAX
+Pallas kernel in interpret mode, the jnp oracle and the jnp chunked path.
+Inputs are numpy arrays from a seed, handed to both frameworks.
+
+fp32 tolerance 2e-5 and bf16 2e-2, as in ``tests/test_kernels.py``: both
+sides compute an exact fp32 softmax, in different summation orders, and
+bf16 outputs round once more at the end."""
+
+from __future__ import annotations
+
+import ctypes
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import kernel as jfk
+from repro.kernels.flash_attention import ops as jfa
+from repro.kernels.flash_attention import ref as jref
+from repro_torch.core import errors
+from repro_torch.kernels.flash_attention import kernel as tfk
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.flash_attention import ref as tref
+
+torch.set_num_threads(1)
+
+
+def _qkv(seed, B, Sq, H, Hk, D, Sk=None):
+    rng = np.random.default_rng(seed)
+    Sk = Sq if Sk is None else Sk
+    return (
+        rng.standard_normal((B, Sq, H, D), dtype=np.float32),
+        rng.standard_normal((B, Sk, Hk, D), dtype=np.float32),
+        rng.standard_normal((B, Sk, Hk, D), dtype=np.float32),
+    )
+
+
+def _both(arrs, dtype="float32"):
+    jx = [jnp.asarray(a, dtype) for a in arrs]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, tx
+
+
+def _close(t_out, j_out, tol):
+    np.testing.assert_allclose(
+        t_out.float().numpy(), np.asarray(j_out, np.float32), atol=tol, rtol=tol
+    )
+
+
+@pytest.mark.parametrize("B,S,H,Hk,D", [
+    (1, 128, 4, 4, 32),      # MHA
+    (2, 256, 4, 2, 32),      # GQA
+    (1, 128, 4, 1, 64),      # MQA
+    (1, 512, 2, 2, 16),      # long-ish, small heads
+])
+def test_flash_shapes_match_pallas(B, S, H, Hk, D):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(0, B, S, H, Hk, D))
+    out = tfa.flash_attention(tq, tk, tv, causal=True, impl="pallas")
+    ref = jfa.flash_attention(jq, jk, jv, causal=True, impl="pallas")
+    _close(out, ref, 2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_flash_dtypes_match_pallas(dtype, tol):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 1, 128, 4, 2, 32), dtype)
+    out = tfa.flash_attention(tq, tk, tv, causal=True, impl="pallas")
+    ref = jfa.flash_attention(jq, jk, jv, causal=True, impl="pallas")
+    assert out.dtype == tq.dtype
+    _close(out, ref, tol)
+
+
+_FEATURES = {
+    "window": dict(sliding_window=64),
+    "softcap": dict(logit_softcap=50.0),
+    "prefix": dict(prefix_len=32),
+    "noncausal": dict(causal=False),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(_FEATURES))
+def test_flash_features_match_pallas(feature):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, 1, 256, 4, 2, 32))
+    kw = {"causal": True, **_FEATURES[feature]}
+    out = tfa.flash_attention(tq, tk, tv, impl="pallas", **kw)
+    ref = jfa.flash_attention(jq, jk, jv, impl="pallas", **kw)
+    _close(out, ref, 2e-5)
+
+
+@pytest.mark.parametrize("sq,sk,causal", [
+    (100, 100, True),
+    (600, 600, True),
+    (600, 600, False),
+    (37, 81, False),
+    (130, 50, False),
+])
+def test_flash_ragged_lengths_match_pallas(sq, sk, causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(4, 1, sq, 4, 2, 16, Sk=sk))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal)
+    ref = jfk.flash_attention_fwd(jq, jk, jv, causal=causal, block_q=128, block_k=128)
+    assert tuple(out.shape) == tuple(ref.shape)
+    _close(out, ref, 2e-5)
+
+
+@pytest.mark.parametrize("feature", ["window", "prefix", "softcap"])
+def test_flash_ragged_features_match_pallas(feature):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(5, 1, 330, 4, 2, 16))
+    kw = {"window": dict(sliding_window=100),
+          "prefix": dict(prefix_len=40),
+          "softcap": dict(logit_softcap=30.0)}[feature]
+    out = tfa.flash_attention(tq, tk, tv, causal=True, **kw)
+    ref = jfk.flash_attention_fwd(jq, jk, jv, causal=True, block_q=128, block_k=128, **kw)
+    _close(out, ref, 2e-5)
+
+
+def test_flash_prefix_longer_than_a_block_matches_oracle():
+    """A prefix-LM prefix longer than one tile (paligemma: 256 > 64-row
+    tiles).  Held against the jnp oracle, not the Pallas kernel, whose
+    causal tile skip drops prefix columns here (ROADMAP C1)."""
+
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(6, 1, 256, 4, 2, 32))
+    kw = dict(causal=True, prefix_len=200, sliding_window=64)
+    out = tfa.flash_attention(tq, tk, tv, **kw)
+    _close(out, jref.mha(jq, jk, jv, **kw), 2e-5)
+    chunked = tref.chunked_mha(tq, tk, tv, q_block=64, k_block=64, **kw)
+    _close(chunked, jref.mha(jq, jk, jv, **kw), 2e-5)
+
+
+@pytest.mark.parametrize("feature", sorted(_FEATURES) + ["plain"])
+def test_chunked_matches_reference_chunked(feature):
+    """``impl="chunked"`` with blocks that divide the sequence runs the
+    blockwise loops (ragged shapes fall back to ``mha`` on both sides)."""
+
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(7, 2, 256, 4, 2, 16))
+    kw = {"causal": True, **_FEATURES.get(feature, {})}
+    out = tref.chunked_mha(tq, tk, tv, q_block=64, k_block=64, **kw)
+    ref = jref.chunked_mha(jq, jk, jv, q_block=64, k_block=64, **kw)
+    _close(out, ref, 2e-5)
+    _close(tfa.flash_attention(tq, tk, tv, impl="chunked", **kw),
+           jfa.flash_attention(jq, jk, jv, impl="pallas", **kw), 2e-5)
+
+
+def test_flash_backward_matches_reference_grads():
+    """The CPU path is differentiable; its grads equal the reference's."""
+
+    import jax
+
+    arrs = _qkv(3, 1, 64, 2, 2, 16)
+    (jq, jk, jv), _ = _both(arrs)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in arrs)
+    tfa.flash_attention(tq, tk, tv, causal=True, logit_softcap=20.0).sum().backward()
+    g_ref = jax.grad(
+        lambda q, k, v: jfa.flash_attention(q, k, v, causal=True, logit_softcap=20.0).sum(),
+        argnums=(0, 1, 2),
+    )(jq, jk, jv)
+    for t, j in zip((tq, tk, tv), g_ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=2e-4, rtol=2e-4)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper takes CUDA tensors only; it raises before any
+    build on anything else."""
+
+    _, (tq, tk, tv) = _both(_qkv(8, 1, 16, 2, 1, 16))
+    with pytest.raises(errors.Error) as ei:
+        tfk.flash_attention_fwd(tq, tk, tv)
+    assert ei.value.klass == errors.ErrorClass.ERR_ARG
+    assert tfk.LAUNCHES == 0
+
+
+def test_kernel_argtypes_match_the_c_signature():
+    """The ctypes declaration covers every parameter of the C entry point,
+    so no pointer or stride is cut to 32 bits."""
+
+    src = tfk.SOURCE.read_text()
+    sig = re.search(r'extern "C" int flash_attention_fwd\((.*?)\)\s*\{', src, re.S).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    assert len(params) == len(tfk.ARGTYPES)
+    want = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    for decl, ctype in zip(params, tfk.ARGTYPES):
+        base = decl.rsplit(" ", 1)[0].replace("const ", "").strip()
+        assert ctype is want[base], (decl, ctype)

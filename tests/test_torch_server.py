@@ -1,0 +1,133 @@
+"""The port's Server against the reference Server, on CPU tensors: the same
+prompts through the same weights give identical tokens at temperature 0.
+Also the persistent-request bookkeeping, the CLI and the refusal to fall
+back to the CPU on a machine without a GPU."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.core import tool as jtool
+from repro.launch.mesh import make_host_communicator as j_comm
+from repro.runtime import server as jserver
+from repro_torch.configs import base as tbase
+from repro_torch.convert import params_from_jax
+from repro_torch.core import errors, tool
+from repro_torch.core.futures import PersistentRequest
+from repro_torch.launch import serve
+from repro_torch.runtime import server as tserver
+
+torch.set_num_threads(1)
+
+
+def _prompts(n=2, length=16, vocab=512, seed=3):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, size=(length,), dtype=np.int32) for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def servers():
+    """The gemma2 smoke model in fp32 on both sides, the reference through
+    its Pallas flash kernel (interpret mode), the port with the reference's
+    weights."""
+
+    scfg = dict(max_batch=2, max_new_tokens=4, temperature=0.0)
+    jcfg = dataclasses.replace(jbase.get_smoke_config("gemma2_9b"), dtype="float32")
+    jpcfg = dataclasses.replace(jbase.get_parallel("gemma2_9b"), attn_impl="pallas")
+    js = jserver.Server(jcfg, jpcfg, jserver.ServerConfig(**scfg), j_comm())
+    tcfg = dataclasses.replace(tbase.get_smoke_config("gemma2_9b"), dtype="float32")
+    tpcfg = dataclasses.replace(tbase.get_parallel("gemma2_9b"), attn_impl="pallas")
+    ts = tserver.Server(tcfg, tpcfg, tserver.ServerConfig(**scfg), device="cpu")
+    ts.params = params_from_jax(jax.tree_util.tree_map(np.asarray, js.params), "cpu")
+    return js, ts
+
+
+def test_tokens_identical_to_reference_server(servers):
+    """16-token prompts exceed the smoke window of 8: the local layers'
+    ring-buffer cache is filled at prefill and wrapped during decode."""
+
+    js, ts = servers
+    prompts = _prompts()
+    jtok, jstats = js.generate([jserver.Request(tokens=p) for p in prompts])
+    ttok, tstats = ts.generate([tserver.Request(tokens=p) for p in prompts])
+    np.testing.assert_array_equal(ttok, jtok)
+    assert set(tstats) == set(jstats)
+    assert tstats["generated_tokens"] == jstats["generated_tokens"] == 8
+
+
+def test_one_request_per_signature(servers):
+    _, ts = servers
+    before = tool.pvar_read()
+    for seed in (5, 6):
+        ts.generate([tserver.Request(tokens=p) for p in _prompts(seed=seed)])
+    after = tool.pvar_read()
+    # the bucket of 2 x 16 prompts exists already: no new request is built
+    assert after["trace:prefill_step"] == before["trace:prefill_step"]
+    assert after["trace:decode_step"] == before["trace:decode_step"]
+    assert after["persistent_start"] - before["persistent_start"] == 2 * 4
+    # a new prompt length is a new bucket: one prefill request, one decode
+    ts.generate([tserver.Request(tokens=p) for p in _prompts(length=9)])
+    final = tool.pvar_read()
+    assert final["trace:prefill_step"] == after["trace:prefill_step"] + 1
+    assert final["trace:decode_step"] == after["trace:decode_step"] + 1
+    assert len(ts._decode_reqs) == len(ts._prefill_reqs)
+
+
+def test_persistent_request_rejects_drift():
+    req = PersistentRequest(lambda x, y: x + y["a"], (torch.zeros(3), {"a": torch.ones(3)}))
+    req(torch.ones(3), {"a": torch.ones(3)})
+    assert req.starts == 1
+    drifted = [
+        (torch.ones(4), {"a": torch.ones(3)}),                    # shape
+        (torch.ones(3, dtype=torch.float64), {"a": torch.ones(3)}),  # dtype
+        (torch.ones(3), {"b": torch.ones(3)}),                    # structure
+    ]
+    for args in drifted:
+        with pytest.raises(errors.Error) as ei:
+            req(*args)
+        assert ei.value.klass == errors.ErrorClass.ERR_REQUEST
+    assert req.starts == 1
+
+
+def test_serve_cli_on_cpu(capsys):
+    assert serve.main(["--arch", "gemma2_9b", "--smoke", "--device", "cpu",
+                       "--requests", "2", "--prompt-len", "12", "--new-tokens", "3"]) == 0
+    assert "generated shape: (2, 3)" in capsys.readouterr().out
+
+
+def test_no_silent_cpu_fallback():
+    """Without ``--device cpu`` the port asks for the CUDA device; this
+    machine has none, so it raises instead of running on the CPU."""
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(errors.Error) as ei:
+        serve.main(["--arch", "gemma2_9b", "--smoke", "--requests", "1",
+                    "--prompt-len", "4", "--new-tokens", "2"])
+    assert ei.value.klass == errors.ErrorClass.ERR_SESSION
+    with pytest.raises(errors.Error):
+        tserver.Server(tbase.get_smoke_config("gemma2_9b"), tbase.ParallelConfig(),
+                       tserver.ServerConfig())
+
+
+@pytest.mark.parametrize("argv,klass", [
+    (["--arch", "mamba2_2_7b"], "ERR_UNSUPPORTED_OPERATION"),
+    (["--arch", "gemma2_9b", "--disaggregate"], "ERR_UNSUPPORTED_OPERATION"),
+    (["--arch", "gemma2_9b", "--continuous-batching"], "ERR_UNSUPPORTED_OPERATION"),
+])
+def test_unported_modes_raise_typed(argv, klass):
+    with pytest.raises(errors.Error) as ei:
+        serve.main(argv + ["--smoke", "--device", "cpu"])
+    assert ei.value.klass.name == klass
+
+
+def test_pvar_names_are_the_references():
+    """Every pvar the port registers exists in the reference registry."""
+
+    assert set(tool.PVARS) <= set(jtool.PVARS)

@@ -2,10 +2,10 @@
 (``csrc/flash_attention_fwd.cu``), the Hopper port of the TPU kernel
 ``repro/kernels/flash_attention/kernel.py:_fwd_kernel``.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, under ``build/flash_attention/<hash>``
-at the repository root (keyed by a hash of the source), and loaded with
-``ctypes``.  Nothing is built when this module is imported.
+The source is compiled with ``nvcc`` for ``sm_90a`` at first use, under
+``build/flash_attention/<hash>`` at the repository root (keyed by a hash of
+the source), and loaded with ``ctypes`` (:mod:`repro_torch.kernels.nvcc`).
+Nothing is built when this module is imported.
 
 :func:`flash_attention_fwd` takes CUDA tensors only, launches on the current
 stream and counts its launches in :data:`LAUNCHES`; a build or launch
@@ -15,23 +15,15 @@ failure raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from repro_torch.core import errors
+from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "flash_attention"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: ctypes declaration of the C entry point: q, k, v, o; dtype, b, sq, sk, h,
@@ -46,66 +38,15 @@ ARGTYPES = (
     + [ctypes.c_void_p]
 )
 
+#: The shared library and its C entry point, built at first use.
+LIBRARY = nvcc.Library(SOURCE, "flash_attention", "flash_attention_fwd", ARGTYPES)
 #: Kernel launches since the last :func:`reset_launches`.
 LAUNCHES = 0
-#: ``nvcc``'s output of the build this process loaded (``-Xptxas -v``).
-BUILD_LOG = ""
-
-_LIB: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    errors.fail(
-        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        "nvcc not found (set CUDA_HOME): the flash-attention kernel is built "
-        "from source at first use",
-    )
-
-
-def build() -> Path:
-    """Compile the kernel unless this source's build exists; returns the
-    shared library's path."""
-
-    global BUILD_LOG
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / digest
-    lib = out_dir / "libflash_attention_fwd.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".libflash_attention_fwd.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        errors.fail(
-            errors.ErrorClass.ERR_OTHER,
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}",
-        )
-    os.replace(tmp, lib)  # atomic: another process never loads half a file
-    return lib
-
-
-def _library() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -182,10 +123,10 @@ def flash_attention_fwd(
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lib = _library()
+    entry = LIBRARY.entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
+        rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], b, sq, sk, h, hk, d,
             *q.stride(), *k.stride(), *v.stride(),

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b --smoke \\
         --requests 8 --prompt-len 64 --new-tokens 16 [--device cpu]
 
+``--arch`` takes the ported configs: the dense family (gemma2_9b,
+phi4_mini_3_8b, granite_3_8b, qwen1_5_32b), mamba2_2_7b and zamba2_7b.
 Runs on the CUDA device unless ``--device cpu`` is given; a machine with no
 CUDA device raises ``ERR_SESSION`` instead of falling back.  The other
 serving modes of :mod:`repro.launch.serve` (``--disaggregate``,

@@ -1,6 +1,7 @@
 """Unified model API: ``build(cfg)`` returns a :class:`ModelBundle` with
-init / loss / prefill / decode entry points.  Only the dense family is
-ported; the other families raise ``ERR_UNSUPPORTED_OPERATION``."""
+init / loss / prefill / decode entry points.  The dense, ``ssm`` and
+``hybrid`` families are ported; ``moe``, ``vlm`` and ``encdec`` raise
+``ERR_UNSUPPORTED_OPERATION``."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.core import errors
-from repro_torch.models import transformer
+from repro_torch.models import ssm_lm, transformer
 
 
 @dataclasses.dataclass
@@ -22,21 +23,50 @@ class ModelBundle:
 
 
 def build(cfg) -> ModelBundle:
-    errors.check(
-        cfg.family == "dense",
+    fam = cfg.family
+    if fam == "dense":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen: transformer.init_lm(gen, cfg),
+            loss=lambda p, b, pc, mesh=None: transformer.lm_loss(p, b, cfg, pc, mesh),
+            prefill=lambda p, b, pc, mesh=None, extra_capacity=0: transformer.lm_prefill(
+                p, b, cfg, pc, mesh, extra_capacity=extra_capacity
+            ),
+            decode=lambda p, c, t, pc, mesh=None: transformer.lm_decode(p, c, t, cfg, pc, mesh),
+            init_cache=lambda pc, batch, length, device=None: transformer.init_cache(
+                cfg, pc, batch, length, device
+            ),
+        )
+    if fam == "ssm":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen: ssm_lm.init_ssm_lm(gen, cfg),
+            loss=lambda p, b, pc, mesh=None: ssm_lm.ssm_lm_loss(p, b, cfg, pc, mesh),
+            prefill=lambda p, b, pc, mesh=None, extra_capacity=0: ssm_lm.ssm_lm_prefill(
+                p, b, cfg, pc, mesh, extra_capacity=extra_capacity
+            ),
+            decode=lambda p, c, t, pc, mesh=None: ssm_lm.ssm_lm_decode(p, c, t, cfg, pc, mesh),
+            init_cache=lambda pc, batch, length, device=None: ssm_lm.SSMCache.init(
+                cfg.num_layers, batch, cfg, device=device
+            ),
+        )
+    if fam == "hybrid":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen: ssm_lm.init_hybrid_lm(gen, cfg),
+            loss=lambda p, b, pc, mesh=None: ssm_lm.hybrid_lm_loss(p, b, cfg, pc, mesh),
+            prefill=lambda p, b, pc, mesh=None, extra_capacity=0: ssm_lm.hybrid_lm_prefill(
+                p, b, cfg, pc, mesh, extra_capacity=extra_capacity
+            ),
+            decode=lambda p, c, t, pc, mesh=None: ssm_lm.hybrid_lm_decode(
+                p, c, t, cfg, pc, mesh
+            ),
+            init_cache=lambda pc, batch, length, device=None: ssm_lm.init_hybrid_cache(
+                cfg, pc, batch, length, device
+            ),
+        )
+    errors.fail(
         errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        f"model family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-        f"serves the dense family",
-    )
-    return ModelBundle(
-        cfg=cfg,
-        init=lambda gen: transformer.init_lm(gen, cfg),
-        loss=lambda p, b, pc, mesh=None: transformer.lm_loss(p, b, cfg, pc, mesh),
-        prefill=lambda p, b, pc, mesh=None, extra_capacity=0: transformer.lm_prefill(
-            p, b, cfg, pc, mesh, extra_capacity=extra_capacity
-        ),
-        decode=lambda p, c, t, pc, mesh=None: transformer.lm_decode(p, c, t, cfg, pc, mesh),
-        init_cache=lambda pc, batch, length, device=None: transformer.init_cache(
-            cfg, pc, batch, length, device
-        ),
+        f"model family {fam!r} ({cfg.name}) is not ported yet; the port serves the "
+        f"dense, ssm and hybrid families",
     )

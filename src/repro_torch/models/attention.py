@@ -1,6 +1,7 @@
 """Attention: GQA/MQA (+ RoPE, sliding window, softcap) and the bf16 KV
-cache (linear or ring-buffer), the dense serving path of
-:mod:`repro.models.attention`.  Not ported yet: the int8 cache, per-row
+cache (linear or ring-buffer), the serving path of
+:mod:`repro.models.attention` for the dense family and the hybrid's shared
+block.  Not ported yet: the int8 cache, per-row
 decode positions, MLA, ring attention and the sequence-sharded decode."""
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 :class:`repro.runtime.server.Server` in eager PyTorch.
 
 Requests are grouped into one batch (left-padded so the last prompt tokens
-align), prefilled once, then decoded step by step over the KV cache.
+align), prefilled once, then decoded step by step over the model's cache:
+the KV cache of the dense family, the ``SSMCache`` of Mamba-2, the
+``HybridCache`` of zamba2.
 
 **Persistent steps**: prefill and the single-token decode step are each
 bound once per argument signature as a
@@ -101,9 +103,13 @@ class Server:
         req = self._prefill_reqs.get(key)
         if req is None:
             tool.pvar_count("trace:prefill_step")
+            # the steps capture the bundle, not the server: a server that
+            # referenced itself through its requests would hold its weights
+            # after ``del`` until the cyclic garbage collector ran
+            bundle, pcfg = self.bundle, self.pcfg
 
             def prefill_step(p, b):
-                return self.bundle.prefill(p, b, self.pcfg, None, extra_capacity=extra)
+                return bundle.prefill(p, b, pcfg, None, extra_capacity=extra)
 
             req = PersistentRequest(prefill_step, (self.params, batch))
             self._prefill_reqs[key] = req
@@ -114,9 +120,10 @@ class Server:
         req = self._decode_reqs.get(key)
         if req is None:
             tool.pvar_count("trace:decode_step")
+            bundle, pcfg = self.bundle, self.pcfg
 
             def decode_step(p, c, t):
-                return self.bundle.decode(p, c, t, self.pcfg, None)
+                return bundle.decode(p, c, t, pcfg, None)
 
             req = PersistentRequest(decode_step, (self.params, cache, tok))
             self._decode_reqs[key] = req

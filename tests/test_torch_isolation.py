@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the reference package, and what it copied
-from the reference (error classes, the dense configs, the Group algebra)
+from the reference (error classes, the ported configs, the Group algebra)
 still equals the reference."""
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 _FORBIDDEN = ("jax", "jaxlib", "repro")
-_DENSE = ("gemma2_9b", "phi4_mini_3_8b", "granite_3_8b", "qwen1_5_32b")
+_DENSE = ("gemma2_9b", "phi4_mini_3_8b", "granite_3_8b", "qwen1_5_32b", "mamba2_2_7b",
+          "zamba2_7b")
 
 
 def _port_files():

@@ -23,6 +23,7 @@ from repro_torch.core import errors
 from repro_torch.kernels.flash_attention import kernel as tfk
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.flash_attention import ref as tref
+from repro_torch.kernels.ssd_scan import kernel as tsk
 
 torch.set_num_threads(1)
 
@@ -170,15 +171,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_kernel_argtypes_match_the_c_signature():
-    """The ctypes declaration covers every parameter of the C entry point,
-    so no pointer or stride is cut to 32 bits."""
+    """The ctypes declaration of each kernel (flash attention, SSD scan)
+    covers every parameter of its C entry point, so no pointer or stride is
+    cut to 32 bits."""
 
-    src = tfk.SOURCE.read_text()
-    sig = re.search(r'extern "C" int flash_attention_fwd\((.*?)\)\s*\{', src, re.S).group(1)
-    params = [p.strip() for p in sig.split(",")]
-    assert len(params) == len(tfk.ARGTYPES)
     want = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
             "long long": ctypes.c_longlong, "float": ctypes.c_float}
-    for decl, ctype in zip(params, tfk.ARGTYPES):
-        base = decl.rsplit(" ", 1)[0].replace("const ", "").strip()
-        assert ctype is want[base], (decl, ctype)
+    for mod in (tfk, tsk):
+        symbol = mod.LIBRARY.symbol
+        src = mod.SOURCE.read_text()
+        sig = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*\{{', src, re.S).group(1)
+        params = [p.strip() for p in sig.split(",")]
+        assert len(params) == len(mod.ARGTYPES) == len(mod.LIBRARY.argtypes), symbol
+        for decl, ctype in zip(params, mod.ARGTYPES):
+            base = decl.rsplit(" ", 1)[0].replace("const ", "").strip()
+            assert ctype is want[base], (symbol, decl, ctype)

@@ -1,6 +1,7 @@
-"""The port's model against the reference, on CPU tensors: the common
-layers, then ``lm_prefill`` (logits and every cache leaf) and two
-``lm_decode`` steps, with parameters converted from the reference's init.
+"""The port's models against the reference, on CPU tensors: the common
+layers, then ``prefill`` (logits and every cache leaf) and two ``decode``
+steps of the dense, SSM and hybrid families, with parameters converted from
+the reference's init.
 
 The models run in fp32.  Logits agree within 1e-4: the two frameworks sum
 the same products in different orders, and those rounding differences grow
@@ -64,12 +65,20 @@ def _models(arch):
     return jcfg, jb, jparams, tcfg, tb, tparams
 
 
-def _leaves(cache):
-    return {
-        f"{name}.{f}": getattr(c, f)
-        for name, c in sorted(cache.items())
-        for f in ("k", "v", "k_scale", "v_scale", "pos")
-    }
+def _leaves(cache, prefix=""):
+    """Every leaf of a cache (dicts of KVCache, SSMCache, HybridCache) by
+    its path; ``None`` leaves included."""
+
+    if isinstance(cache, dict):
+        items = sorted(cache.items())
+    elif dataclasses.is_dataclass(cache):
+        items = [(f.name, getattr(cache, f.name)) for f in dataclasses.fields(cache)]
+    else:
+        return {prefix: cache}
+    out = {}
+    for name, sub in items:
+        out.update(_leaves(sub, f"{prefix}.{name}" if prefix else name))
+    return out
 
 
 def _same_cache(tcache, jcache):
@@ -83,10 +92,14 @@ def _same_cache(tcache, jcache):
             _close(t[key], j[key])
 
 
-@pytest.mark.parametrize("arch,seq", [("gemma2_9b", 12), ("phi4_mini_3_8b", 10)])
+@pytest.mark.parametrize("arch,seq", [
+    ("gemma2_9b", 12), ("phi4_mini_3_8b", 10), ("mamba2_2_7b", 12), ("zamba2_7b", 12),
+])
 def test_prefill_and_decode_match(arch, seq):
     """gemma2's smoke window is 8, so a 12-token prompt fills the ring
-    buffer of its local layers and decode wraps it."""
+    buffer of its local layers and decode wraps it.  The SSM caches
+    (``SSMCache``, and ``HybridCache.attn`` / ``.ssm``) are held leaf by
+    leaf: conv window, fp32 state, KV and ``pos``."""
 
     jcfg, jb, jparams, tcfg, tb, tparams = _models(arch)
     toks = np.random.default_rng(1).integers(1, jcfg.vocab_size, size=(2, seq), dtype=np.int32)
@@ -113,11 +126,20 @@ def test_loss_matches():
     _close(tloss, jloss)
 
 
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_7b"])
+def test_ssm_loss_matches(arch):
+    jcfg, jb, jparams, tcfg, tb, tparams = _models(arch)
+    toks = np.random.default_rng(2).integers(1, jcfg.vocab_size, size=(2, 12), dtype=np.int32)
+    jloss, _ = jb.loss(jparams, {"tokens": jnp.asarray(toks)}, jbase.ParallelConfig())
+    tloss, _ = tb.loss(tparams, {"tokens": torch.from_numpy(toks)}, tbase.ParallelConfig())
+    _close(tloss, jloss)
+
+
 def test_init_matches_reference_tree():
     """The port's own random init has the reference's tree: names, shapes
     and dtypes (the values differ: torch and jax draw different numbers)."""
 
-    for arch in ("gemma2_9b", "qwen1_5_32b"):
+    for arch in ("gemma2_9b", "qwen1_5_32b", "mamba2_2_7b", "zamba2_7b"):
         jcfg = jbase.get_smoke_config(arch)
         jparams = japi.build(jcfg).init(jax.random.PRNGKey(0))
         gen = torch.Generator().manual_seed(0)
@@ -131,6 +153,21 @@ def test_init_matches_reference_tree():
         for path, leaf in flat_j:
             key = jax.tree_util.keystr(path)
             assert flat_t[key] == (tuple(leaf.shape), str(leaf.dtype)), key
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_7b"])
+def test_params_from_jax_carries_the_ssm_trees(arch):
+    """The converted reference tree has the port's own tree: the stacked
+    ``layers``, the hybrid's ``(groups, attn_every, …)`` ``ssm_layers``,
+    ``ssm_tail`` and the unstacked ``shared_attn``."""
+
+    *_, tb, tparams = _models(arch)
+    own = tb.init(torch.Generator().manual_seed(0))
+    flat = {jax.tree_util.keystr(p): (tuple(t.shape), t.dtype)
+            for p, t in jax.tree_util.tree_flatten_with_path(own)[0]}
+    conv = {jax.tree_util.keystr(p): (tuple(t.shape), t.dtype)
+            for p, t in jax.tree_util.tree_flatten_with_path(tparams)[0]}
+    assert conv == flat
 
 
 def test_other_families_raise_typed():

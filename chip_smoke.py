@@ -8,8 +8,9 @@ any failure.  In order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles every kernel of the serving paths from the sources in
-   this checkout, one ``nvcc`` per source, all started together, and
-   prints each one's ptxas usage;
+   this checkout, one ``nvcc`` per source (flash attention, SSD scan, int8
+   quantize/dequantize), all started together, and prints each one's
+   ptxas usage;
 3. flash attention against its plain version on the card, at gemma2-9b
    width (b 2, h 16, hk 8, d 256, softcap 50, bf16; one fp32 case) and at
    zamba2-7b's (b 2, s 4096, h = hk = 32, d 112, bf16; one fp32 case):
@@ -24,18 +25,38 @@ any failure.  In order:
    timed.  No single PyTorch call computes the scan, so its ``library_ms``
    is null.  Every output element of both kernels is held within the
    limits stated at ``BF16_RTOL``;
-5. serve: ``repro_torch.launch.serve`` on the full gemma2-9b config (42
+5. the int8 quantize and dequantize kernels against their plain versions
+   (``core/compress.py``) on the card, **bit for bit** (``torch.equal`` on
+   the payload, the scales and the dequantized output): gemma2-9b's
+   global-layer prefill call (1,553,664 rows of 256, bf16, and the same in
+   fp32), width 128, zamba2's width 112 (bf16 and fp32), the flat API on a
+   ragged 25,600-element payload (100 rows, which the Pallas kernel
+   rejects), rows of zeros, rows whose x / scale lands on exact halves,
+   ±absmax rows, and rows holding a NaN or an inf (NaN where the plain
+   version has NaN).  The quantize of gemma2's prefill call and the
+   dequantize of one global decode layer (73,984 rows) are timed.  No
+   single PyTorch call computes the quantize (it needs the row's absmax
+   first), so its ``library_ms`` is null; the dequantize's is
+   ``torch.mul(q, s, out=bf16)``, held equal to the kernel as well;
+6. serve: ``repro_torch.launch.serve`` on the full gemma2-9b config (42
    layers, 2 requests of 4608 tokens, over the 4096 window), the full
    mamba2-2.7b (64 layers, 2 x 4096) and the full zamba2-7b (81 layers,
-   2 x 4096), random weights from a seed, 16 new tokens each.  Launch
-   counts are zeroed just before each serve and read just after; every
-   kernel of the path must have launched its expected number of times per
-   prefill.  A second, warm ``generate`` must repeat the tokens; one
-   prefill and four decode steps are profiled;
-6. small inputs: the gemma2, mamba2 and zamba2 smoke models in fp32
-   generate the same tokens on the card as on the CPU path (held against
-   the JAX reference by the CPU tests);
-7. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+   2 x 4096), random weights from a seed, 16 new tokens each; then
+   gemma2-9b and zamba2-7b again with the int8 KV cache, through
+   ``Server`` with ``kv_cache_dtype="int8"`` (the CLI has no flag for it),
+   with the same weights and prompts.  Launch counts are zeroed just before
+   each serve and read just after; every kernel of the path must have
+   launched exactly its expected number of times per prefill and per decode
+   step.  A second, warm ``generate`` must repeat the tokens; one prefill
+   and four decode steps are profiled.  An int8 serve must give the bf16
+   serve's first token and hold its KV cache in 0.5 (1 + 4 / head_dim) of
+   the bf16 cache's bytes; the prefill and first-decode logits' max |Δ| and
+   the share of later tokens that agree are logged;
+7. small inputs: the gemma2, mamba2 and zamba2 smoke models in fp32 (and
+   gemma2 and zamba2 with the int8 cache) generate the same tokens on the
+   card as on the CPU path (held against the JAX reference by the CPU
+   tests);
+8. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Also writes everything it prints as JSON to ``artifacts/chip_smoke.json``.
 """
@@ -65,18 +86,37 @@ BF16_RTOL = 2.0 ** -8
 FLASH_FP32_TOL = 1e-4  # flash: atol, rtol 0
 SSD_FP32_TOL = 5e-5    # SSD: atol and rtol, as tests/test_kernels.py
 NEW_TOKENS = 16
-# arch, layers, d_model, prompt length, kernel launches per prefill
+QUANT, DEQUANT = "quantize_int8_rows", "dequantize_int8_rows"
+# arch, layers, d_model, prompt length, KV cache dtype, kernel launches per
+# prefill and per decode step (a kernel not named launches none): gemma2
+# quantizes k and v of its local and global stacks once each per prefill,
+# and k_new, v_new and reads the cache in each of 42 layers per step;
+# zamba2 does the same for its one stack of 13 shared-attention layers
 SERVES = [
-    ("gemma2_9b", 42, 3584, 4608, {"flash_attention_fwd": 42, "ssd_scan_fwd": 0}),
-    ("mamba2_2_7b", 64, 2560, 4096, {"flash_attention_fwd": 0, "ssd_scan_fwd": 64}),
-    ("zamba2_7b", 81, 3584, 4096, {"flash_attention_fwd": 13, "ssd_scan_fwd": 81}),
+    ("gemma2_9b", 42, 3584, 4608, "bfloat16", {"flash_attention_fwd": 42}, {}),
+    ("mamba2_2_7b", 64, 2560, 4096, "bfloat16", {"ssd_scan_fwd": 64}, {}),
+    ("zamba2_7b", 81, 3584, 4096, "bfloat16", {"flash_attention_fwd": 13, "ssd_scan_fwd": 81},
+     {}),
+    ("gemma2_9b", 42, 3584, 4608, "int8", {"flash_attention_fwd": 42, QUANT: 4},
+     {QUANT: 84, DEQUANT: 84}),
+    ("zamba2_7b", 81, 3584, 4096, "int8",
+     {"flash_attention_fwd": 13, "ssd_scan_fwd": 81, QUANT: 2}, {QUANT: 26, DEQUANT: 26}),
 ]
 
+# the port's kernel bodies, as the profiler names them
+PORT_KERNELS = ("fwd_kernel<", "ssd_kernel<", "quant_kernel<")
+
 RESULTS: dict = {}
+# the bf16 serves' tokens, logits and KV bytes, which the int8 serves are read against
+BF16_SERVES: dict = {}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_row(row: dict) -> None:
+    log(json.dumps({k: (round(v, 6) if isinstance(v, float) else v) for k, v in row.items()}))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -120,25 +160,38 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _kernel_modules() -> dict:
+def _kernel_modules() -> list:
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.quant import kernel as qk
     from repro_torch.kernels.ssd_scan import kernel as sk
 
-    return {"flash_attention_fwd": fk, "ssd_scan_fwd": sk}
+    return [fk, sk, qk]
+
+
+def _reset_launches() -> None:
+    for m in _kernel_modules():
+        m.reset_launches()
+
+
+def _launches() -> dict:
+    """Launches of every kernel entry point since the last reset."""
+
+    fk, sk, qk = _kernel_modules()
+    return {"flash_attention_fwd": fk.LAUNCHES, "ssd_scan_fwd": sk.LAUNCHES, **qk.LAUNCHES}
 
 
 def phase_build():
     from repro_torch.kernels import nvcc
 
-    mods = _kernel_modules()
+    libs = [m.LIBRARY for m in _kernel_modules()]
     t0 = time.perf_counter()
-    nvcc.build_all(m.LIBRARY for m in mods.values())
+    nvcc.build_all(libs)
     RESULTS["build_s"] = time.perf_counter() - t0
-    log(f"built {', '.join(mods)} in {RESULTS['build_s']:.1f}s")
-    for name, m in mods.items():
-        usage = [l.split("info    : ")[-1] for l in m.LIBRARY.log.splitlines()
+    log(f"built {', '.join(lib.name for lib in libs)} in {RESULTS['build_s']:.1f}s")
+    for lib in libs:
+        usage = [l.split("info    : ")[-1] for l in lib.log.splitlines()
                  if "registers" in l or "spill" in l]
-        log(f"{name} ptxas: " + " | ".join(usage))
+        log(f"{lib.name} ptxas: " + " | ".join(usage))
 
 
 def _held(name, out, plain, atol, rtol) -> dict:
@@ -194,8 +247,7 @@ def _attention_case(name, seed, *, b, s, h, hk, d, dtype, reps, **kw):
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             flops=flops, bytes=nbytes,
         )
-    log(json.dumps({k_: (round(v_, 6) if isinstance(v_, float) else v_)
-                    for k_, v_ in row.items()}))
+    log_row(row)
     del q, k, v, out, plain
     torch.cuda.empty_cache()
     return row
@@ -267,8 +319,7 @@ def _ssd_case(name, seed, *, b, l, h, p, n, g, dtype, chunk=128, reps=0):
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             flops=flops, bytes=nbytes,
         )
-    log(json.dumps({k_: (round(v_, 6) if isinstance(v_, float) else v_)
-                    for k_, v_ in row.items()}))
+    log_row(row)
     del xbc, x, B, C, y, state, py, pstate
     torch.cuda.empty_cache()
     return row
@@ -289,80 +340,334 @@ def phase_ssd():
     ]
 
 
-def phase_serve(arch, layers, d_model, prompt_len, per_prefill):
-    """Serve ``arch`` at its full config through the launcher; the kernels'
+def _bit_equal(name, out, plain) -> float:
+    """``out`` must equal ``plain`` exactly: same dtype and shape, the same
+    value in every element, NaN where ``plain`` is NaN; returns the max
+    |out - plain| over the elements that differ (0.0)."""
+
+    check(out.dtype == plain.dtype and out.shape == plain.shape,
+          f"{name}: {out.dtype} {tuple(out.shape)} vs {plain.dtype} {tuple(plain.shape)}")
+    differ = (out != plain) & ~(out.isnan() & plain.isnan())
+    mismatches = int(differ.sum().item())
+    err = (out.float() - plain.float())[differ].abs().max().item() if mismatches else 0.0
+    check(mismatches == 0,
+          f"{name}: {mismatches} elements differ from the plain version, max abs err {err}")
+    return err
+
+
+def _quant_bound(rows, width, in_bytes, out_bytes, ops_per_element):
+    """Bytes: each input element read once, each output written once, and
+    one fp32 scale a row; operations over the fp32 rate (the arithmetic is
+    fp32 whatever the storage type)."""
+
+    nbytes = rows * width * (in_bytes + out_bytes) + rows * 4
+    flops = rows * width * ops_per_element
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def _quant_case(name, x, *, reps=0, want_q=None):
+    """Quantize ``x`` (rows, width) with the kernel and with the plain
+    version on the card, then dequantize the kernel's payload into bf16 and
+    fp32 with both: every output equal.  With ``reps``, times the quantize
+    and its bound (|x|, max, divide, round and the two-sided clip: 6
+    operations an element)."""
+
+    import torch
+
+    from repro_torch.kernels.quant import kernel as qk
+    from repro_torch.kernels.quant import ref
+
+    q, s = qk.quantize_int8_rows(x)
+    pq, ps = ref.quantize_int8_rows(x)
+    torch.cuda.synchronize()
+    rows, width = x.shape
+    row = {"case": name, "shape": [rows, width], "dtype": str(x.dtype).removeprefix("torch.")}
+    errs = [_bit_equal(f"quant {name} payload", q, pq), _bit_equal(f"quant {name} scales", s, ps)]
+    if want_q is not None:
+        check(torch.equal(q.cpu(), want_q), f"quant {name}: payload differs from the expected")
+    derrs = []
+    for dt in (torch.bfloat16, torch.float32):
+        derrs.append(_bit_equal(f"dequant {name} -> {dt}", qk.dequantize_int8_rows(q, s, dt),
+                                ref.dequantize_int8_rows(q, s, dt)))
+    row.update(max_abs_err_quant=max(errs), max_abs_err_dequant=max(derrs), bit_equal=True)
+    if reps:
+        row.update(
+            ms=time_ms(lambda: qk.quantize_int8_rows(x), reps),
+            plain_ms=time_ms(lambda: ref.quantize_int8_rows(x), max(2, reps // 4)),
+            library_ms=None,
+            **_quant_bound(rows, width, x.element_size(), 1, 6),
+        )
+    log_row(row)
+    del q, s, pq, ps
+    torch.cuda.empty_cache()
+    return row
+
+
+def _edge_rows():
+    """Rows of 256 → (x, expected payload): zeros (scale 1.0); exact halves
+    at scale 1 and 2 (x / scale = k + 0.5, rounded to even); ±absmax
+    (±127); tiny values; a NaN (the row's scale is 1, the NaN quantizes to
+    0), an inf (scale inf, every element 0, dequantized to NaN), and both
+    (scale 1, -inf clipped to -127), as the reference quantizes them."""
+
+    import torch
+
+    halves = torch.arange(-63, 64, dtype=torch.float32) + 0.5
+    x = torch.zeros((8, 256))
+    x[1, :127], x[1, 127] = halves, 127.0
+    x[2, :127], x[2, 127] = 2 * halves, 254.0
+    x[3, 0::2], x[3, 1::2] = 5.5, -5.5
+    x[4, 0], x[4, 1:] = -3.0e-3, 1.0e-3
+    x[5, :4], x[5, 4:] = torch.tensor([1.0, math.nan, -3.0, 0.5]), 0.25
+    x[6, :4], x[6, 4:] = torch.tensor([2.0, math.inf, -1.0, 0.0]), 1.0
+    x[7, :4], x[7, 4:] = torch.tensor([math.nan, -math.inf, 4.0, 1.0]), 0.25
+    want = torch.zeros((8, 256), dtype=torch.int8)
+    want[1, :127] = want[2, :127] = torch.round(halves).to(torch.int8)
+    want[1, 127] = want[2, 127] = 127
+    want[3, 0::2], want[3, 1::2] = 127, -127
+    want[4, 0], want[4, 1:] = -127, 42
+    want[5, 0], want[5, 2] = 1, -3
+    want[7, 1:4] = torch.tensor([-127, 4, 1])
+    return x, want
+
+
+def _dequant_timed(name, rows, width, seed, reps):
+    """The dequantize of one cache layer into bf16, timed with its bound
+    (convert and multiply: 2 operations an element), the plain version's
+    time and the library's: ``torch.mul(q, s, out=bf16)``, which promotes
+    to fp32 and rounds the product once, as the kernel does, and is held
+    equal to it too."""
+
+    import torch
+
+    from repro_torch.kernels.quant import kernel as qk
+    from repro_torch.kernels.quant import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, width), generator=gen, device="cuda").to(torch.bfloat16)
+    q, s = qk.quantize_int8_rows(x)
+    out = qk.dequantize_int8_rows(q, s, torch.bfloat16)
+    lib_out = torch.empty_like(out)
+    err = max(_bit_equal(f"dequant {name}", out, ref.dequantize_int8_rows(q, s, torch.bfloat16)),
+              _bit_equal(f"dequant {name} against torch.mul", out, torch.mul(q, s, out=lib_out)))
+    row = {"case": name, "shape": [rows, width], "dtype": "int8 -> bfloat16",
+           "max_abs_err_dequant": err, "bit_equal": True,
+           "ms": time_ms(lambda: qk.dequantize_int8_rows(q, s, torch.bfloat16), reps),
+           "plain_ms": time_ms(lambda: ref.dequantize_int8_rows(q, s, torch.bfloat16),
+                               max(2, reps // 4)),
+           "library_ms": time_ms(lambda: torch.mul(q, s, out=lib_out), reps),
+           **_quant_bound(rows, width, 1, 2, 2)}
+    log_row(row)
+    return row
+
+
+def phase_quant():
+    import torch
+
+    from repro_torch.core import compress
+    from repro_torch.kernels.quant import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def randn(rows, width, dtype):
+        return (3.0 * torch.randn((rows, width), generator=gen, device="cuda")).to(dtype)
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    gemma2_prefill = 21 * 2 * (4608 + NEW_TOKENS) * 8   # global stack, k or v
+    zamba2_prefill = 13 * 2 * (4096 + NEW_TOKENS) * 32  # shared-attention stack
+    cases = [
+        _quant_case("gemma2_global_prefill", randn(gemma2_prefill, 256, bf16), reps=20),
+        _quant_case("gemma2_global_prefill_fp32", randn(gemma2_prefill, 256, fp32)),
+        _quant_case("width128", randn(100_003, 128, bf16)),
+        _quant_case("zamba2_prefill_w112", randn(zamba2_prefill, 112, bf16), reps=20),
+        _quant_case("zamba2_w112_fp32", randn(100_001, 112, fp32)),
+        _quant_case("ragged_rows_w256", randn(1001, 256, bf16)),
+    ]
+    x, want = _edge_rows()
+    cases.append(_quant_case("edge_rows", x.cuda(), want_q=want))
+    cases.append(_quant_case("edge_rows_bf16", x.cuda().to(bf16), want_q=want))
+
+    # the flat API on a ragged payload: 100 rows, which the Pallas kernel rejects
+    flat = 3.0 * torch.randn((25_600,), generator=gen, device="cuda")
+    q, s, pad = ops.quantize_int8(flat)
+    pq, ps, ppad = compress.quantize_int8(flat)
+    check(pad == ppad == 0 and q.numel() == 25_600 and s.numel() == 100, "flat API shapes")
+    flat_errs = [_bit_equal("flat payload", q, pq), _bit_equal("flat scales", s, ps),
+                 _bit_equal("flat dequant", ops.dequantize_int8(q, s, pad, flat.shape, fp32),
+                            compress.dequantize_int8(q, s, pad, flat.shape, fp32))]
+    cases.append({"case": "flat_25600_ragged_100_rows", "max_abs_err_quant": max(flat_errs[:2]),
+                  "max_abs_err_dequant": flat_errs[2], "bit_equal": True})
+    log(json.dumps(cases[-1]))
+    RESULTS["quant_cases"] = cases
+    # one global layer's cache read per decode step: 2 x 4624 x 8 rows
+    RESULTS["dequant_cases"] = [
+        _dequant_timed("gemma2_global_decode_layer", 2 * (4608 + NEW_TOKENS) * 8, 256, 21, 20),
+        _dequant_timed("zamba2_decode_layer", 2 * (4096 + NEW_TOKENS) * 32, 112, 22, 20),
+    ]
+
+
+def _kv_bytes(tree) -> int:
+    """Bytes of every KV cache in a cache tree: payload and scales."""
+
+    import dataclasses
+
+    from repro_torch.models.attention import KVCache
+
+    if isinstance(tree, KVCache):
+        return sum(t.numel() * t.element_size()
+                   for t in (tree.k, tree.v, tree.k_scale, tree.v_scale) if t is not None)
+    if isinstance(tree, dict):
+        return sum(_kv_bytes(v) for v in tree.values())
+    if dataclasses.is_dataclass(tree):
+        return sum(_kv_bytes(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    return 0
+
+
+def _serve(arch, prompt_len, kv):
+    """(server, tokens, stats): the bf16 cache through the launcher; the
+    int8 cache through ``Server`` with ``kv_cache_dtype="int8"``, the
+    launcher's config, seed and prompts otherwise."""
+
+    import dataclasses
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    if kv == "bfloat16":
+        return serve.run(["--arch", arch, "--requests", "2", "--prompt-len", str(prompt_len),
+                          "--new-tokens", str(NEW_TOKENS)])
+    cfg = base.get_config(arch)
+    pcfg = dataclasses.replace(base.get_parallel(arch), kv_cache_dtype=kv)
+    server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS))
+    tokens, stats = server.generate(_prompts(cfg, prompt_len))
+    return server, tokens, stats
+
+
+def _prompts(cfg, prompt_len):
+    """The launcher's prompts, drawn again."""
+
+    import numpy as np
+
+    from repro_torch.runtime.server import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(tokens=rng.integers(1, cfg.vocab_size, size=(prompt_len,), dtype=np.int32))
+            for _ in range(2)]
+
+
+def phase_serve(arch, layers, d_model, prompt_len, kv, per_prefill, per_step):
+    """Serve ``arch`` at its full config with a ``kv`` cache; the kernels'
     counts are zeroed just before and read just after."""
 
     import numpy as np
     import torch
 
-    from repro_torch.launch import serve
-    from repro_torch.runtime.server import Request
-
-    argv = ["--arch", arch, "--requests", "2", "--prompt-len", str(prompt_len),
-            "--new-tokens", str(NEW_TOKENS)]
-    mods = _kernel_modules()
+    path = arch if kv == "bfloat16" else f"{arch}_{kv}"
     start_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():
-        m.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
-    server, tokens, stats = serve.run(argv)
+    server, tokens, stats = _serve(arch, prompt_len, kv)
     wall = time.perf_counter() - t0
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = server.cfg
     prefills = server.prefill_calls
-    log(f"served {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    steps = prefills * (NEW_TOKENS - 1)  # no stop token: every generate decodes in full
+    log(f"served {cfg.name} ({kv} KV cache): {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.param_count() / 1e9:.2f}B params; wall {wall:.1f}s (init included); "
         f"launches {launches}; peak {peak_gb:.2f} GB from {start_gb:.2f} GB allocated "
         f"before the serve")
     log("cold stats " + json.dumps(stats))
     check(cfg.num_layers == layers and cfg.d_model == d_model, f"not the full {arch} config")
-    check(prefills >= 1, f"{arch}: no prefill ran")
-    for name, per in per_prefill.items():
-        check(launches[name] == per * prefills,
-              f"{arch}: {name} launches {launches[name]} != {per} x {prefills} prefill calls")
+    check(server.pcfg.kv_cache_dtype == kv, f"{path}: cache {server.pcfg.kv_cache_dtype}")
+    check(prefills >= 1, f"{path}: no prefill ran")
+    for name, n in launches.items():
+        want = per_prefill.get(name, 0) * prefills + per_step.get(name, 0) * steps
+        check(n == want, f"{path}: {name} launches {n} != {per_prefill.get(name, 0)} x "
+                         f"{prefills} prefills + {per_step.get(name, 0)} x {steps} decode steps")
     check(tokens.shape == (2, NEW_TOKENS), f"tokens shape {tokens.shape}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token outside the vocab")
 
-    rng = np.random.default_rng(0)  # the launcher's prompts, drawn again
-    reqs = [Request(tokens=rng.integers(1, cfg.vocab_size, size=(prompt_len,), dtype=np.int32))
-            for _ in range(2)]
+    reqs = _prompts(cfg, prompt_len)
     params_gb = sum(t.numel() * t.element_size() for t in _tensors(server.params)) / 1e9
     torch.cuda.reset_peak_memory_stats()
     warm_tokens, warm = server.generate(reqs)
     warm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log("warm stats " + json.dumps(warm) + f"; params {params_gb:.2f} GB, "
         f"peak of the warm generate {warm_peak_gb:.2f} GB")
-    check(np.array_equal(warm_tokens, tokens), f"{arch}: warm generate changed the greedy tokens")
+    check(np.array_equal(warm_tokens, tokens), f"{path}: warm generate changed the greedy tokens")
     batch = {"tokens": torch.as_tensor(np.stack([r.tokens for r in reqs]), device="cuda")}
     with torch.inference_mode():
         logits, cache = server.bundle.prefill(server.params, batch, server.pcfg,
                                               extra_capacity=NEW_TOKENS)
-        check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits")
+        check(bool(torch.isfinite(logits).all()), f"{path}: non-finite prefill logits")
         tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1).to(torch.int32)[:, None]
+        step_logits, _ = server.bundle.decode(server.params, cache, tok, server.pcfg)
+        check(bool(torch.isfinite(step_logits).all()), f"{path}: non-finite decode logits")
         profiles = {
             "prefill": _profile(lambda: server.bundle.prefill(
                 server.params, batch, server.pcfg, extra_capacity=NEW_TOKENS)),
             "decode_x4": _profile(lambda: [server.bundle.decode(
                 server.params, cache, tok, server.pcfg) for _ in range(4)]),
         }
-    RESULTS.setdefault("serve", {})[arch] = {
-        "argv": argv, "cold": stats, "warm": warm, "prefill_calls": prefills,
-        "launches": launches, "params_gb": params_gb, "mem_gb_at_start": start_gb,
+    kv_bytes = _kv_bytes(cache)
+    row = {
+        "kv_cache_dtype": kv, "cold": stats, "warm": warm, "prefill_calls": prefills,
+        "decode_steps": steps, "launches": launches, "params_gb": params_gb,
+        "kv_cache_gb": kv_bytes / 1e9, "mem_gb_at_start": start_gb,
         "peak_mem_gb_serve": peak_gb, "peak_mem_gb_warm_generate": warm_peak_gb,
         "profiles": profiles,
     }
-    del server, logits, cache
+    seen = {"tokens": tokens, "prefill_logits": logits[:, -1].float().cpu(),
+            "step_logits": step_logits[:, -1].float().cpu(), "kv_bytes": kv_bytes}
+    if kv == "bfloat16":
+        BF16_SERVES[arch] = seen
+    else:
+        row.update(_against_bf16(path, cfg, seen, BF16_SERVES[arch]))
+    RESULTS.setdefault("serve", {})[path] = row
+    del server, logits, step_logits, cache
     torch.cuda.empty_cache()
-    return launches
+    return path, launches
+
+
+def _against_bf16(path, cfg, seen, bf16) -> dict:
+    """The int8 serve read against the bf16 serve of the same weights and
+    prompts: the first token must be the same (the cache's type does not
+    enter the prefill) and the KV cache 0.5 (1 + 4 / head_dim) of its bytes
+    (int8 payload plus one fp32 scale a row of head_dim)."""
+
+    import numpy as np
+
+    check(np.array_equal(seen["tokens"][:, 0], bf16["tokens"][:, 0]),
+          f"{path}: first token {seen['tokens'][:, 0]} != the bf16 serve's "
+          f"{bf16['tokens'][:, 0]}")
+    ratio = seen["kv_bytes"] / bf16["kv_bytes"]
+    want = 0.5 * (1 + 4 / cfg.head_dim)
+    check(abs(ratio - want) < 1e-12, f"{path}: KV cache bytes {ratio} of bf16's, want {want}")
+    out = {
+        "first_token_equal": True,
+        "later_tokens_agree": float((seen["tokens"][:, 1:] == bf16["tokens"][:, 1:]).mean()),
+        "prefill_logits_max_abs_diff": (seen["prefill_logits"] - bf16["prefill_logits"])
+        .abs().max().item(),
+        "first_decode_logits_max_abs_diff": (seen["step_logits"] - bf16["step_logits"])
+        .abs().max().item(),
+        "kv_bytes_ratio": ratio, "kv_bytes_ratio_want": want,
+        "kv_cache_gb_bf16": bf16["kv_bytes"] / 1e9,
+    }
+    log(f"{path} against the bf16 serve: " + json.dumps(out))
+    return out
 
 
 def _profile(fn, top: int = 6) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler,
-    device-side events only), and the device's busy share of the call's
-    wall time, timed once more without the profiler."""
+    device-side events only): the ``top`` kernels and every kernel of the
+    port; and the device's busy share of the call's wall time, timed once
+    more without the profiler."""
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -383,12 +688,13 @@ def _profile(fn, top: int = 6) -> dict:
     rows.sort(key=lambda r: -r["ms"])
     busy_ms = sum(r["ms"] for r in rows)
     result = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-              "busy_share": busy_ms / wall_ms if busy_ms else None, "top": rows[:top]}
+              "busy_share": busy_ms / wall_ms if busy_ms else None, "top": rows[:top],
+              "port_kernels": [r for r in rows if any(k in r["kernel"] for k in PORT_KERNELS)]}
     log("profile " + json.dumps(result))
     return result
 
 
-def phase_small_model(arch):
+def phase_small_model(arch, kv="bfloat16"):
     import dataclasses
 
     import numpy as np
@@ -398,7 +704,7 @@ def phase_small_model(arch):
     from repro_torch.runtime.server import Request, Server, ServerConfig
 
     cfg = dataclasses.replace(base.get_smoke_config(arch), dtype="float32")
-    pcfg = base.get_parallel(arch)
+    pcfg = dataclasses.replace(base.get_parallel(arch), kv_cache_dtype=kv)
     scfg = ServerConfig(max_batch=2, max_new_tokens=8)
     gpu = Server(cfg, pcfg, scfg, device="cuda")
     cpu = Server(cfg, pcfg, scfg, device="cpu")
@@ -408,9 +714,11 @@ def phase_small_model(arch):
             for _ in range(2)]
     t_gpu, _ = gpu.generate(reqs)
     t_cpu, _ = cpu.generate(reqs)
-    log(f"{arch} smoke model fp32, card vs CPU path: tokens {t_gpu.tolist()} vs {t_cpu.tolist()}")
-    check(np.array_equal(t_gpu, t_cpu), f"{arch}: card and CPU path generate different tokens")
-    RESULTS.setdefault("small_model", {})[arch] = {"tokens_equal": True, "tokens": t_gpu.tolist()}
+    path = arch if kv == "bfloat16" else f"{arch}_{kv}"
+    log(f"{path} smoke model fp32, card vs CPU path: tokens {t_gpu.tolist()} vs "
+        f"{t_cpu.tolist()}")
+    check(np.array_equal(t_gpu, t_cpu), f"{path}: card and CPU path generate different tokens")
+    RESULTS.setdefault("small_model", {})[path] = {"tokens_equal": True, "tokens": t_gpu.tolist()}
     del gpu
     torch.cuda.empty_cache()
 
@@ -429,15 +737,15 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def _kernel_line(name, source, replaces, cases, main_case, launches):
+def _kernel_line(name, source, replaces, max_abs_err, main_case, launches):
     return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": sum(by_path[name] for by_path in launches.values()),
-        "launches_by_path": {arch: by_path[name] for arch, by_path in launches.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in cases),
+        "launches_by_path": {path: by_path[name] for path, by_path in launches.items()},
+        "max_abs_err": max_abs_err,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
@@ -455,18 +763,30 @@ def main() -> int:
     phase_build()
     phase_kernels()
     phase_ssd()
-    launches = {arch: phase_serve(arch, *spec) for arch, *spec in SERVES}
-    for arch, *_ in SERVES:
+    phase_quant()
+    launches = dict(phase_serve(*spec) for spec in SERVES)
+    for arch in ("gemma2_9b", "mamba2_2_7b", "zamba2_7b"):
         phase_small_model(arch)
+    for arch in ("gemma2_9b", "zamba2_7b"):
+        phase_small_model(arch, "int8")
 
+    flash, ssd = RESULTS["kernel_cases"], RESULTS["ssd_cases"]
+    quant, dequant = RESULTS["quant_cases"], RESULTS["dequant_cases"]
     kernels = [
         _kernel_line("flash_attention_fwd",
                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:37",
-                     RESULTS["kernel_cases"], RESULTS["kernel_cases"][0], launches),
+                     max(r["max_abs_err"] for r in flash), flash[0], launches),
         _kernel_line("ssd_scan_fwd", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_fwd.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:29",
-                     RESULTS["ssd_cases"], RESULTS["ssd_cases"][0], launches),
+                     max(r["max_abs_err"] for r in ssd), ssd[0], launches),
+        _kernel_line(QUANT, "src/repro_torch/kernels/quant/csrc/quant_int8.cu",
+                     "src/repro/kernels/quant/kernel.py:20",
+                     max(r["max_abs_err_quant"] for r in quant), quant[0], launches),
+        _kernel_line(DEQUANT, "src/repro_torch/kernels/quant/csrc/quant_int8.cu",
+                     "src/repro/kernels/quant/kernel.py:56",
+                     max(r["max_abs_err_dequant"] for r in quant + dequant), dequant[0],
+                     launches),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on the main paths")

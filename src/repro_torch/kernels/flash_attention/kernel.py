@@ -39,7 +39,7 @@ ARGTYPES = (
 )
 
 #: The shared library and its C entry point, built at first use.
-LIBRARY = nvcc.Library(SOURCE, "flash_attention", "flash_attention_fwd", ARGTYPES)
+LIBRARY = nvcc.Library(SOURCE, "flash_attention", {"flash_attention_fwd": ARGTYPES})
 #: Kernel launches since the last :func:`reset_launches`.
 LAUNCHES = 0
 
@@ -123,7 +123,7 @@ def flash_attention_fwd(
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    entry = LIBRARY.entry()
+    entry = LIBRARY.entry("flash_attention_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = entry(

@@ -1,10 +1,11 @@
 """Builds a kernel's CUDA source with ``nvcc`` and loads it with ``ctypes``.
 
-Each kernel of the port is one ``.cu`` file with a plain C entry point.  At
+Each kernel of the port is one ``.cu`` file with plain C entry points.  At
 first use it is compiled for ``sm_90a`` into a shared library under
 ``build/<name>/<hash>`` at the repository root, keyed by a hash of the
-source, and loaded with ``ctypes``.  Nothing is built when a module is
-imported.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+source and of :data:`NVCC_FLAGS`, and loaded with ``ctypes``.  Nothing is
+built when a module is imported.  :func:`build_all` starts one ``nvcc`` per
+source, all at once.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ from pathlib import Path
 from repro_torch.core import errors
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+# nvcc's default floating point: IEEE division and square root, denormals
+# kept.  The quant kernel's bit-exactness against its plain version rests on
+# that: no --use_fast_math, -prec-div=false or -ftz=true here.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,28 +45,35 @@ def _nvcc() -> str:
 
 
 class Library:
-    """The shared library built from one source, and its C entry point
-    ``symbol`` declared with ``argtypes`` and an ``int`` (cudaError_t)
-    result."""
+    """The shared library built from one source, and its C entry points:
+    ``entries`` maps each symbol to its ``argtypes``; every entry returns an
+    ``int`` (cudaError_t)."""
 
-    def __init__(self, source: Path, name: str, symbol: str, argtypes):
-        self.source, self.name, self.symbol = source, name, symbol
-        self.argtypes = list(argtypes)
+    def __init__(self, source: Path, name: str, entries: dict[str, list]):
+        self.source, self.name = source, name
+        self.entries = {symbol: list(argtypes) for symbol, argtypes in entries.items()}
         #: ``nvcc``'s output of the build this process made (``-Xptxas -v``).
         self.log = ""
-        self._fn = None
+        self._fns: dict = {}
+
+    def out_dir(self) -> Path:
+        """``build/<name>/<hash>``: the hash covers the source and the flags,
+        so a change of either builds anew."""
+
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update("\0".join(NVCC_FLAGS).encode())
+        return BUILD_ROOT / self.name / h.hexdigest()[:16]
 
     def build(self) -> Path:
         """Compile unless this source's build exists; returns the library's
         path."""
 
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        out_dir = BUILD_ROOT / self.name / digest
-        lib = out_dir / f"lib{self.symbol}.so"
+        out_dir = self.out_dir()
+        lib = out_dir / f"lib{self.name}.so"
         if lib.exists():
             return lib
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".lib{self.symbol}.{os.getpid()}.so"
+        tmp = out_dir / f".lib{self.name}.{os.getpid()}.so"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         self.log = proc.stdout + proc.stderr
@@ -74,15 +85,16 @@ class Library:
         os.replace(tmp, lib)  # atomic: another process never loads half a file
         return lib
 
-    def entry(self):
-        """The C entry point, built and loaded at the first call."""
+    def entry(self, symbol: str):
+        """The C entry point ``symbol``, built and loaded at the first call."""
 
-        if self._fn is None:
-            fn = getattr(ctypes.CDLL(str(self.build())), self.symbol)
-            fn.argtypes = self.argtypes
+        fn = self._fns.get(symbol)
+        if fn is None:
+            fn = getattr(ctypes.CDLL(str(self.build())), symbol)
+            fn.argtypes = self.entries[symbol]
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[symbol] = fn
+        return fn
 
 
 def build_all(libraries) -> None:

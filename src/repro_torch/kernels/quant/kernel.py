@@ -1,0 +1,117 @@
+"""Loader and wrappers of the CUDA int8 row quantize / dequantize kernels
+(``csrc/quant_int8.cu``), the Hopper port of the TPU kernels
+``repro/kernels/quant/kernel.py:_quant_kernel`` and ``_dequant_kernel``.
+
+The source is compiled with ``nvcc`` for ``sm_90a`` at first use, under
+``build/quant/<hash>`` at the repository root, and loaded with ``ctypes``
+(:mod:`repro_torch.kernels.nvcc`).  Nothing is built when this module is
+imported.
+
+The wrappers take CUDA tensors only, any row count and a row width up to
+256 (the Pallas kernel takes width 256 only, and row counts that are a
+multiple of its 64-row tile: ROADMAP C2).  They launch on the current stream, read nothing back to the
+host and count their launches in :data:`LAUNCHES`, by entry point; a build
+or launch failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.core import errors
+from repro_torch.kernels import nvcc
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "quant_int8.cu"
+MAX_WIDTH = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: ctypes declarations of the two C entry points, which take the same list:
+#: the three tensors; dtype, rows, width, the input's row stride; stream.
+_ROW_ARGTYPES = [ctypes.c_void_p] * 3 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+ARGTYPES = {"quantize_int8_rows": _ROW_ARGTYPES, "dequantize_int8_rows": _ROW_ARGTYPES}
+
+#: The shared library and its two C entry points, built at first use.
+LIBRARY = nvcc.Library(SOURCE, "quant", ARGTYPES)
+#: Kernel launches by entry point since the last :func:`reset_launches`.
+LAUNCHES = dict.fromkeys(ARGTYPES, 0)
+
+
+def reset_launches() -> None:
+    for symbol in LAUNCHES:
+        LAUNCHES[symbol] = 0
+
+
+def _check_rows(what: str, t: torch.Tensor, dtypes) -> None:
+    errors.check(
+        t.is_cuda,
+        errors.ErrorClass.ERR_ARG,
+        f"quant kernel: {what} must be a CUDA tensor, got {t.device}",
+    )
+    errors.check(
+        t.dtype in dtypes,
+        errors.ErrorClass.ERR_TYPE,
+        f"quant kernel: {what} must be one of {list(dtypes)}, got {t.dtype}",
+    )
+    errors.check(
+        t.dim() == 2 and t.shape[0] >= 1 and 1 <= t.shape[1] <= MAX_WIDTH
+        and (t.stride(1) == 1 or t.shape[1] == 1) and t.stride(0) >= t.shape[1],
+        errors.ErrorClass.ERR_DIMS,
+        f"quant kernel: {what} must be a non-empty (rows, width <= {MAX_WIDTH}) tensor "
+        f"with unit column stride, got shape {tuple(t.shape)} strides {t.stride()}",
+    )
+
+
+def _launch(symbol: str, args: tuple, device: torch.device, what: str) -> None:
+    entry = LIBRARY.entry(symbol)
+    with torch.cuda.device(device):
+        rc = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        errors.fail(errors.ErrorClass.ERR_OTHER,
+                    f"{symbol} launch failed: cudaError {rc} ({what})")
+    LAUNCHES[symbol] += 1
+
+
+def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (rows, width) fp32 or bf16 → (int8 (rows, width), fp32 scales
+    (rows, 1)), one launch."""
+
+    _check_rows("x", x, _DTYPE_CODES)
+    rows, width = x.shape
+    q = torch.empty((rows, width), dtype=torch.int8, device=x.device)
+    s = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    _launch("quantize_int8_rows",
+            (x.data_ptr(), q.data_ptr(), s.data_ptr(), _DTYPE_CODES[x.dtype],
+             rows, width, x.stride(0)),
+            x.device, f"x {tuple(x.shape)} {x.dtype}")
+    return q, s
+
+
+def dequantize_int8_rows(
+    q: torch.Tensor, s: torch.Tensor, out_dtype=torch.float32
+) -> torch.Tensor:
+    """(int8 (rows, width), fp32 (rows, 1)) → ``q·s`` in ``out_dtype`` (fp32
+    or bf16), one launch."""
+
+    _check_rows("q", q, (torch.int8,))
+    errors.check(
+        s.is_cuda and s.device == q.device and s.dtype == torch.float32
+        and tuple(s.shape) == (q.shape[0], 1) and s.is_contiguous(),
+        errors.ErrorClass.ERR_ARG,
+        f"quant kernel: scales must be a contiguous float32 ({q.shape[0]}, 1) tensor on "
+        f"{q.device}, got {tuple(s.shape)} {s.dtype} on {s.device}",
+    )
+    errors.check(
+        out_dtype in _DTYPE_CODES,
+        errors.ErrorClass.ERR_TYPE,
+        f"quant kernel: out_dtype must be one of {list(_DTYPE_CODES)}, got {out_dtype}",
+    )
+    rows, width = q.shape
+    out = torch.empty((rows, width), dtype=out_dtype, device=q.device)
+    _launch("dequantize_int8_rows",
+            (q.data_ptr(), s.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype],
+             rows, width, q.stride(0)),
+            q.device, f"q {tuple(q.shape)} → {out_dtype}")
+    return out

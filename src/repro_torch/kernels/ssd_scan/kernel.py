@@ -36,7 +36,7 @@ ARGTYPES = (
 )
 
 #: The shared library and its C entry point, built at first use.
-LIBRARY = nvcc.Library(SOURCE, "ssd_scan", "ssd_scan_fwd", ARGTYPES)
+LIBRARY = nvcc.Library(SOURCE, "ssd_scan", {"ssd_scan_fwd": ARGTYPES})
 #: Kernel launches since the last :func:`reset_launches`.
 LAUNCHES = 0
 
@@ -117,7 +117,7 @@ def ssd_scan_fwd(
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
     state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
              if return_state else None)
-    entry = LIBRARY.entry()
+    entry = LIBRARY.entry("ssd_scan_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = entry(

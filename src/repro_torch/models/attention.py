@@ -1,8 +1,10 @@
-"""Attention: GQA/MQA (+ RoPE, sliding window, softcap) and the bf16 KV
-cache (linear or ring-buffer), the serving path of
+"""Attention: GQA/MQA (+ RoPE, sliding window, softcap) and the KV cache
+(bf16 or int8, linear or ring-buffer), the serving path of
 :mod:`repro.models.attention` for the dense family and the hybrid's shared
-block.  Not ported yet: the int8 cache, per-row
-decode positions, MLA, ring attention and the sequence-sharded decode."""
+block.  The int8 cache quantizes and dequantizes through
+:mod:`repro_torch.kernels.quant` (the CUDA kernels on the card).  Not ported
+yet: per-row decode positions, MLA, ring attention and the
+sequence-sharded decode."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from repro_torch.core import errors
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.quant import ops as quant_ops
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
 
@@ -25,10 +28,11 @@ from repro_torch.models.common import dense_init
 
 @dataclasses.dataclass
 class KVCache:
-    """Per-model stacked KV cache.  ``k``/``v``: (L, B, S, Hk, Dh).
-    ``pos``: () int32 tensor, the global position count; sliding-window
-    layers use S == window with ring addressing.  ``k_scale``/``v_scale``
-    belong to the int8 cache, not ported yet, and stay ``None``."""
+    """Per-model stacked KV cache.  ``k``/``v``: (L, B, S, Hk, Dh) in
+    ``dtype`` (int8 with per-(token, head) fp32 ``*_scale`` (L, B, S, Hk, 1)
+    when quantised, else ``None``).  ``pos``: () int32 tensor, the global
+    position count; sliding-window layers use S == window with ring
+    addressing."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -48,32 +52,44 @@ class KVCache:
         quantized: bool = False,
         device=None,
     ) -> "KVCache":
-        _no_int8(quantized)
         shape = (num_layers, batch, length, kv_heads, head_dim)
+        pos = torch.zeros((), dtype=torch.int32, device=device)
+        if quantized:
+            return KVCache(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                k_scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+                v_scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+                pos=pos,
+            )
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
             k_scale=None,
             v_scale=None,
-            pos=torch.zeros((), dtype=torch.int32, device=device),
+            pos=pos,
         )
 
 
-def _no_int8(quantized: bool) -> None:
-    errors.check(
-        not quantized,
-        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        "the int8 KV cache is not ported yet (kv_cache_dtype='bfloat16' only)",
-    )
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8: x (..., Dh) → (int8, fp32 scale
+    (..., 1)), one quantize call over all rows."""
+
+    q, s = quant_ops.quantize_int8_rows(x.reshape(-1, x.shape[-1]))
+    return q.reshape(x.shape), s.reshape(x.shape[:-1] + (1,))
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    x = quant_ops.dequantize_int8_rows(q.reshape(-1, q.shape[-1]), scale.reshape(-1, 1), dtype)
+    return x.reshape(q.shape)
 
 
 def cache_layer_update(k_layer, v_layer, k_scale_l, v_scale_l, k_new, v_new, pos, *, ring: bool):
     """Write k_new/v_new (B, T, Hk, Dh) at the scalar ``pos`` (ring: pos %
-    capacity).  The write is in place (``index_copy_``): it stands in for
-    the reference's donated cache buffers, so decode allocates no new
-    cache."""
+    capacity), quantized with their scales into an int8 cache.  The write is
+    in place (``index_copy_``): it stands in for the reference's donated
+    cache buffers, so decode allocates no new cache."""
 
-    _no_int8(k_layer.dtype == torch.int8)
     errors.check(
         pos.dim() == 0,
         errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
@@ -82,13 +98,23 @@ def cache_layer_update(k_layer, v_layer, k_scale_l, v_scale_l, k_new, v_new, pos
     capacity = k_layer.shape[1]
     write_pos = (pos % capacity) if ring else pos
     idx = write_pos.long() + torch.arange(k_new.shape[1], device=k_layer.device)
-    k_layer.index_copy_(1, idx, k_new.to(k_layer.dtype))
-    v_layer.index_copy_(1, idx, v_new.to(v_layer.dtype))
+    if k_layer.dtype == torch.int8:
+        kq, ks = _quantize_kv(k_new)
+        vq, vs = _quantize_kv(v_new)
+        k_layer.index_copy_(1, idx, kq)
+        v_layer.index_copy_(1, idx, vq)
+        k_scale_l.index_copy_(1, idx, ks)
+        v_scale_l.index_copy_(1, idx, vs)
+    else:
+        k_layer.index_copy_(1, idx, k_new.to(k_layer.dtype))
+        v_layer.index_copy_(1, idx, v_new.to(v_layer.dtype))
     return k_layer, v_layer, k_scale_l, v_scale_l
 
 
 def cache_layer_read(k_layer, v_layer, k_scale_l, v_scale_l, dtype):
-    _no_int8(k_layer.dtype == torch.int8)
+    if k_layer.dtype == torch.int8:
+        return (_dequantize_kv(k_layer, k_scale_l, dtype),
+                _dequantize_kv(v_layer, v_scale_l, dtype))
     return k_layer.to(dtype), v_layer.to(dtype)
 
 

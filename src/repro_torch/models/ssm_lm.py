@@ -253,11 +253,12 @@ def hybrid_lm_decode(params, cache: HybridCache, token, cfg, pcfg, mesh=None):
     pos = cache.pos
     sp = params["shared_attn"]
     grouped, tail = _ssm_units(params, cfg)
+    kv = cache.attn
     for g, units in enumerate(grouped):
         h = common.rms_norm(x, sp["ln_attn"], cfg.norm_eps)
+        slices = tuple(None if a is None else a[g] for a in (kv.k, kv.v, kv.k_scale, kv.v_scale))
         a, _ = attn.attention_decode(
-            sp["attn"], h, cache.attn.k[g], cache.attn.v[g], None, None, pos, cfg, pcfg,
-            sliding_window=None, mesh=mesh,
+            sp["attn"], h, *slices, pos, cfg, pcfg, sliding_window=None, mesh=mesh,
         )
         x = x + a
         h = common.rms_norm(x, sp["ln_mlp"], cfg.norm_eps)

@@ -278,16 +278,21 @@ def _pad_seq(arr, extra: int):
 
 
 def _entry_to_cache(entry, cfg, pcfg, *, stack: bool, extra: int = 0):
-    attn._no_int8(pcfg.kv_cache_dtype == "int8")
+    """Stacked (L, B, S, Hk, Dh) entries → cache.  The int8 cache pads, then
+    quantizes, as the reference does: the headroom's zero rows carry scale
+    1.0, and each of k and v is one quantize call over all layers."""
+
     dtype = common.dtype_of(cfg)
+    pos = torch.zeros((), dtype=torch.int32, device=entry[0].device)
     k, v = entry
     if stack:
         k, v = k[None], v[None]
     k, v = _pad_seq(k, extra), _pad_seq(v, extra)
-    return KVCache(
-        k=k.to(dtype), v=v.to(dtype), k_scale=None, v_scale=None,
-        pos=torch.zeros((), dtype=torch.int32, device=k.device),
-    )
+    if pcfg.kv_cache_dtype == "int8":
+        kq, ksc = attn._quantize_kv(k)
+        vq, vsc = attn._quantize_kv(v)
+        return KVCache(k=kq, v=vq, k_scale=ksc, v_scale=vsc, pos=pos)
+    return KVCache(k=k.to(dtype), v=v.to(dtype), k_scale=None, v_scale=None, pos=pos)
 
 
 def lm_decode(params, caches: dict, token: torch.Tensor, cfg, pcfg, mesh=None):
@@ -302,7 +307,7 @@ def lm_decode(params, caches: dict, token: torch.Tensor, cfg, pcfg, mesh=None):
         unit_params = _unit(params["layers"], u)
         for name, kind, window in plan:
             c = caches[name]
-            slices = (c.k[u], c.v[u], None, None)
+            slices = tuple(None if a is None else a[u] for a in (c.k, c.v, c.k_scale, c.v_scale))
             x, _ = _block_decode(
                 unit_params[name], x, slices, pos, cfg, pcfg,
                 kind=kind, sliding_window=window, mesh=mesh,

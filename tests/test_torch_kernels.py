@@ -23,6 +23,7 @@ from repro_torch.core import errors
 from repro_torch.kernels.flash_attention import kernel as tfk
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.flash_attention import ref as tref
+from repro_torch.kernels.quant import kernel as tqk
 from repro_torch.kernels.ssd_scan import kernel as tsk
 
 torch.set_num_threads(1)
@@ -171,18 +172,19 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_kernel_argtypes_match_the_c_signature():
-    """The ctypes declaration of each kernel (flash attention, SSD scan)
-    covers every parameter of its C entry point, so no pointer or stride is
-    cut to 32 bits."""
+    """The ctypes declaration of each kernel's C entry points (flash
+    attention, SSD scan, int8 quantize and dequantize) covers every
+    parameter, so no pointer or stride is cut to 32 bits."""
 
     want = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
             "long long": ctypes.c_longlong, "float": ctypes.c_float}
-    for mod in (tfk, tsk):
-        symbol = mod.LIBRARY.symbol
-        src = mod.SOURCE.read_text()
-        sig = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*\{{', src, re.S).group(1)
-        params = [p.strip() for p in sig.split(",")]
-        assert len(params) == len(mod.ARGTYPES) == len(mod.LIBRARY.argtypes), symbol
-        for decl, ctype in zip(params, mod.ARGTYPES):
-            base = decl.rsplit(" ", 1)[0].replace("const ", "").strip()
-            assert ctype is want[base], (symbol, decl, ctype)
+    for lib in (tfk.LIBRARY, tsk.LIBRARY, tqk.LIBRARY):
+        src = lib.source.read_text()
+        assert lib.entries, lib.name
+        for symbol, argtypes in lib.entries.items():
+            sig = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*\{{', src, re.S).group(1)
+            params = [p.strip() for p in sig.split(",")]
+            assert len(params) == len(argtypes), symbol
+            for decl, ctype in zip(params, argtypes):
+                base = decl.rsplit(" ", 1)[0].replace("const ", "").strip()
+                assert ctype is want[base], (symbol, decl, ctype)

@@ -82,28 +82,33 @@ def _leaves(cache, prefix=""):
 
 
 def _same_cache(tcache, jcache):
+    """Every leaf: same shape and dtype; an int8 payload within one step
+    (JAX quantizes inside a compiled step, where XLA multiplies by the
+    reciprocal of 127, and the two frameworks' fp32 K/V differ in the last
+    bits), every other leaf within ``TOL``; ``pos`` exactly."""
+
     t, j = _leaves(tcache), _leaves(jcache)
     assert t.keys() == j.keys()
     for key in t:
         if j[key] is None:
             assert t[key] is None, key
+            continue
+        assert tuple(t[key].shape) == tuple(j[key].shape), key
+        assert str(t[key].dtype).removeprefix("torch.") == str(j[key].dtype), key
+        if t[key].dtype == torch.int8:
+            diff = np.abs(t[key].numpy().astype(np.int32) - np.asarray(j[key], np.int32))
+            assert diff.max() <= 1, key
+        elif key.endswith("pos"):
+            assert int(t[key]) == int(j[key]), key
         else:
-            assert tuple(t[key].shape) == tuple(j[key].shape), key
             _close(t[key], j[key])
 
 
-@pytest.mark.parametrize("arch,seq", [
-    ("gemma2_9b", 12), ("phi4_mini_3_8b", 10), ("mamba2_2_7b", 12), ("zamba2_7b", 12),
-])
-def test_prefill_and_decode_match(arch, seq):
-    """gemma2's smoke window is 8, so a 12-token prompt fills the ring
-    buffer of its local layers and decode wraps it.  The SSM caches
-    (``SSMCache``, and ``HybridCache.attn`` / ``.ssm``) are held leaf by
-    leaf: conv window, fp32 state, KV and ``pos``."""
-
+def _prefill_and_decode_match(arch, seq, kv_cache_dtype="bfloat16"):
     jcfg, jb, jparams, tcfg, tb, tparams = _models(arch)
     toks = np.random.default_rng(1).integers(1, jcfg.vocab_size, size=(2, seq), dtype=np.int32)
-    jpc, tpc = jbase.ParallelConfig(), tbase.ParallelConfig()
+    jpc = dataclasses.replace(jbase.ParallelConfig(), kv_cache_dtype=kv_cache_dtype)
+    tpc = dataclasses.replace(tbase.ParallelConfig(), kv_cache_dtype=kv_cache_dtype)
     jl, jc = jb.prefill(jparams, {"tokens": jnp.asarray(toks)}, jpc, extra_capacity=3)
     with torch.inference_mode():
         tl, tc = tb.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tpc, extra_capacity=3)
@@ -116,6 +121,43 @@ def test_prefill_and_decode_match(arch, seq):
             tl, tc = tb.decode(tparams, tc, torch.from_numpy(tok), tpc)
         _close(tl, jl)
         _same_cache(tc, jc)
+
+
+@pytest.mark.parametrize("arch,seq", [
+    ("gemma2_9b", 12), ("phi4_mini_3_8b", 10), ("mamba2_2_7b", 12), ("zamba2_7b", 12),
+])
+def test_prefill_and_decode_match(arch, seq):
+    """gemma2's smoke window is 8, so a 12-token prompt fills the ring
+    buffer of its local layers and decode wraps it.  The SSM caches
+    (``SSMCache``, and ``HybridCache.attn`` / ``.ssm``) are held leaf by
+    leaf: conv window, fp32 state, KV and ``pos``."""
+
+    _prefill_and_decode_match(arch, seq)
+
+
+@pytest.mark.parametrize("arch,seq", [
+    ("gemma2_9b", 12), ("phi4_mini_3_8b", 10), ("zamba2_7b", 12),
+])
+def test_int8_cache_prefill_and_decode_match(arch, seq):
+    """``kv_cache_dtype="int8"``: gemma2's ring buffer wrapped, phi4-mini
+    with no window, zamba2's stacked shared-attention cache.  The int8
+    payload and its fp32 scales, the padded headroom's included (scale 1.0),
+    are held leaf by leaf after the prefill and each decode step."""
+
+    _prefill_and_decode_match(arch, seq, "int8")
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_kv_cache_init_matches_reference(quantized):
+    """``KVCache.init``: the reference's leaves, shapes, dtypes and zeros."""
+
+    from repro.models.attention import KVCache as JKV
+    from repro_torch.models.attention import KVCache as TKV
+
+    jc = JKV.init(3, 2, 7, 2, 16, dtype=jnp.float32, quantized=quantized)
+    tc = TKV.init(3, 2, 7, 2, 16, dtype=torch.float32, quantized=quantized)
+    _same_cache(tc, jc)
+    assert not any(t.any() for t in _leaves(tc).values() if t is not None)
 
 
 def test_loss_matches():

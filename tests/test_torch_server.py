@@ -134,6 +134,29 @@ def test_ssm_tokens_identical_to_reference_server(arch):
     np.testing.assert_array_equal(ttok, jtok)
 
 
+@pytest.mark.parametrize("arch,prompt_len", [
+    ("gemma2_9b", 16), ("phi4_mini_3_8b", 16), ("zamba2_7b", 24),
+])
+def test_int8_cache_tokens_identical_to_reference_server(arch, prompt_len):
+    """``kv_cache_dtype="int8"`` on both sides, through the library's entry
+    point (the serve CLI has no flag for it, in the reference either): the
+    fp32 smoke models with the reference's weights give the same greedy
+    tokens.  gemma2's 16-token prompts wrap its ring buffer."""
+
+    scfg = dict(max_batch=2, max_new_tokens=4, temperature=0.0)
+    jcfg = dataclasses.replace(jbase.get_smoke_config(arch), dtype="float32")
+    jpcfg = dataclasses.replace(jbase.get_parallel(arch), kv_cache_dtype="int8")
+    js = jserver.Server(jcfg, jpcfg, jserver.ServerConfig(**scfg), j_comm())
+    tcfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype="float32")
+    tpcfg = dataclasses.replace(tbase.get_parallel(arch), kv_cache_dtype="int8")
+    ts = tserver.Server(tcfg, tpcfg, tserver.ServerConfig(**scfg), device="cpu")
+    ts.params = params_from_jax(jax.tree_util.tree_map(np.asarray, js.params), "cpu")
+    prompts = _prompts(length=prompt_len, seed=7)
+    jtok, _ = js.generate([jserver.Request(tokens=p) for p in prompts])
+    ttok, _ = ts.generate([tserver.Request(tokens=p) for p in prompts])
+    np.testing.assert_array_equal(ttok, jtok)
+
+
 @pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_7b"])
 def test_ssm_serve_cli_on_cpu(arch, capsys):
     assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",

@@ -9,15 +9,20 @@ any failure.  In order:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles every kernel of the serving paths from the sources in
    this checkout, one ``nvcc`` per source (flash attention, SSD scan, int8
-   quantize/dequantize), all started together, and prints each one's
-   ptxas usage;
-3. flash attention against its plain version on the card, at gemma2-9b
+   quantize/dequantize, the ring-attention step), all started together,
+   and prints each one's ptxas usage;
+3. NCCL: the default process group as a world of one over a ``file://``
+   store under ``build/`` (NCCL for CUDA tensors, gloo for CPU ones);
+   ``allreduce``, ``allgather``, ``broadcast``, ``shift`` and a cart's
+   ``shift_exchange`` on the ring of one, through the port's communicator,
+   must each return its input;
+4. flash attention against its plain version on the card, at gemma2-9b
    width (b 2, h 16, hk 8, d 256, softcap 50, bf16; one fp32 case) and at
    zamba2-7b's (b 2, s 4096, h = hk = 32, d 112, bf16; one fp32 case):
    error, the kernel's median time, the plain version's, the bound, and
    ``library_ms`` — ``F.scaled_dot_product_attention`` at the same shapes
    without the softcap and window, a yardstick the port never calls;
-4. the SSD scan against ``ref.ssd_chunked`` on the card, y and the final
+5. the SSD scan against ``ref.ssd_chunked`` on the card, y and the final
    state, at mamba2-2.7b width (b 2, l 4096, h 80, p 64, n 128, bf16, and
    the same in fp32) and zamba2-7b's (h 112, n 64), grouped, a 48-token
    chunk, and fp32 with a 64-token chunk; x, B and C are views of one
@@ -25,7 +30,7 @@ any failure.  In order:
    timed.  No single PyTorch call computes the scan, so its ``library_ms``
    is null.  Every output element of both kernels is held within the
    limits stated at ``BF16_RTOL``;
-5. the int8 quantize and dequantize kernels against their plain versions
+6. the int8 quantize and dequantize kernels against their plain versions
    (``core/compress.py``) on the card, **bit for bit** (``torch.equal`` on
    the payload, the scales and the dequantized output): gemma2-9b's
    global-layer prefill call (1,553,664 rows of 256, bf16, and the same in
@@ -38,7 +43,21 @@ any failure.  In order:
    single PyTorch call computes the quantize (it needs the row's absmax
    first), so its ``library_ms`` is null; the dequantize's is
    ``torch.mul(q, s, out=bf16)``, held equal to the kernel as well;
-6. serve: ``repro_torch.launch.serve`` on the full gemma2-9b config (42
+7. the ring-attention step against its plain twin (``ref.ring_step_ref``)
+   on the card: a 4-rank ring emulated in one process (each rank's 4
+   steps, the carry chained) at phi4-mini width (h 24, hk 8, d 128) and at
+   zamba2's shared attention (h = hk = 32, d 112), bf16 and fp32, causal
+   and not, 3,950 tokens in 4 shards of 1,000 (a ragged tail): the
+   normalised output within the stated limits of the twin's and of
+   ``flash_attention.ref.mha`` on the full sequence; one step from a
+   finite mid-schedule carry, every carry element; the two skip invariants
+   (a shard wholly in the causal future, and one with no valid row, leave
+   the carry exactly as it was, from a mid-schedule and from the initial
+   carry); and the ring of one at phi4-mini's serve (b 2, s 8192), held
+   against the twin one Q chunk at a time and timed, with the bound, the
+   twin's time (the sum over its chunks) and ``library_ms``:
+   ``F.scaled_dot_product_attention`` (causal, GQA), a yardstick;
+8. serve: ``repro_torch.launch.serve`` on the full gemma2-9b config (42
    layers, 2 requests of 4608 tokens, over the 4096 window), the full
    mamba2-2.7b (64 layers, 2 x 4096) and the full zamba2-7b (81 layers,
    2 x 4096), random weights from a seed, 16 new tokens each; then
@@ -51,12 +70,18 @@ any failure.  In order:
    and four decode steps are profiled.  An int8 serve must give the bf16
    serve's first token and hold its KV cache in 0.5 (1 + 4 / head_dim) of
    the bf16 cache's bytes; the prefill and first-decode logits' max |Δ| and
-   the share of later tokens that agree are logged;
-7. small inputs: the gemma2, mamba2 and zamba2 smoke models in fp32 (and
-   gemma2 and zamba2 with the int8 cache) generate the same tokens on the
-   card as on the CPU path (held against the JAX reference by the CPU
-   tests);
-8. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+   the share of later tokens that agree are logged.  Last, phi4-mini in
+   full (32 layers, 2 x 8192) through ``Server(cfg, replace(pcfg,
+   ring_attention=True), scfg, comm)`` on the NCCL communicator: 32 ring
+   launches per prefill, none per decode step and no flash; the same
+   weights through the flash path must give the same first token (the
+   prefill logits' max |Δ| is logged);
+9. small inputs: the gemma2, mamba2 and zamba2 smoke models in fp32 (and
+   gemma2 and zamba2 with the int8 cache, phi4-mini with the ring, whose
+   kernel must launch once per layer) generate the same tokens on the card
+   as on the CPU path (held against the JAX reference by the CPU tests);
+10. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+    last.
 
 Also writes everything it prints as JSON to ``artifacts/chip_smoke.json``.
 """
@@ -87,24 +112,31 @@ FLASH_FP32_TOL = 1e-4  # flash: atol, rtol 0
 SSD_FP32_TOL = 5e-5    # SSD: atol and rtol, as tests/test_kernels.py
 NEW_TOKENS = 16
 QUANT, DEQUANT = "quantize_int8_rows", "dequantize_int8_rows"
-# arch, layers, d_model, prompt length, KV cache dtype, kernel launches per
-# prefill and per decode step (a kernel not named launches none): gemma2
-# quantizes k and v of its local and global stacks once each per prefill,
-# and k_new, v_new and reads the cache in each of 42 layers per step;
-# zamba2 does the same for its one stack of 13 shared-attention layers
+RING = "ring_step_fwd"
+# the ring step's carry is fp32 state, held at fp32 limits where it is
+# compared element by element (sums taken in another order)
+RING_CARRY_RTOL = 1e-5
+# arch, layers, d_model, prompt length, KV cache dtype, ring attention,
+# kernel launches per prefill and per decode step (a kernel not named
+# launches none): gemma2 quantizes k and v of its local and global stacks
+# once each per prefill, and k_new, v_new and reads the cache in each of 42
+# layers per step; zamba2 does the same for its one stack of 13
+# shared-attention layers; phi4-mini's ring of one launches the ring step
+# once in each of its 32 layers and decodes with no kernel
 SERVES = [
-    ("gemma2_9b", 42, 3584, 4608, "bfloat16", {"flash_attention_fwd": 42}, {}),
-    ("mamba2_2_7b", 64, 2560, 4096, "bfloat16", {"ssd_scan_fwd": 64}, {}),
-    ("zamba2_7b", 81, 3584, 4096, "bfloat16", {"flash_attention_fwd": 13, "ssd_scan_fwd": 81},
-     {}),
-    ("gemma2_9b", 42, 3584, 4608, "int8", {"flash_attention_fwd": 42, QUANT: 4},
+    ("gemma2_9b", 42, 3584, 4608, "bfloat16", False, {"flash_attention_fwd": 42}, {}),
+    ("mamba2_2_7b", 64, 2560, 4096, "bfloat16", False, {"ssd_scan_fwd": 64}, {}),
+    ("zamba2_7b", 81, 3584, 4096, "bfloat16", False,
+     {"flash_attention_fwd": 13, "ssd_scan_fwd": 81}, {}),
+    ("gemma2_9b", 42, 3584, 4608, "int8", False, {"flash_attention_fwd": 42, QUANT: 4},
      {QUANT: 84, DEQUANT: 84}),
-    ("zamba2_7b", 81, 3584, 4096, "int8",
+    ("zamba2_7b", 81, 3584, 4096, "int8", False,
      {"flash_attention_fwd": 13, "ssd_scan_fwd": 81, QUANT: 2}, {QUANT: 26, DEQUANT: 26}),
+    ("phi4_mini_3_8b", 32, 3072, 8192, "bfloat16", True, {RING: 32}, {}),
 ]
 
 # the port's kernel bodies, as the profiler names them
-PORT_KERNELS = ("fwd_kernel<", "ssd_kernel<", "quant_kernel<")
+PORT_KERNELS = ("fwd_kernel<", "ssd_kernel<", "quant_kernel<", "step_kernel<")
 
 RESULTS: dict = {}
 # the bf16 serves' tokens, logits and KV bytes, which the int8 serves are read against
@@ -163,9 +195,10 @@ def phase_device():
 def _kernel_modules() -> list:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quant import kernel as qk
+    from repro_torch.kernels.ring_attention import kernel as rk
     from repro_torch.kernels.ssd_scan import kernel as sk
 
-    return [fk, sk, qk]
+    return [fk, sk, qk, rk]
 
 
 def _reset_launches() -> None:
@@ -176,8 +209,9 @@ def _reset_launches() -> None:
 def _launches() -> dict:
     """Launches of every kernel entry point since the last reset."""
 
-    fk, sk, qk = _kernel_modules()
-    return {"flash_attention_fwd": fk.LAUNCHES, "ssd_scan_fwd": sk.LAUNCHES, **qk.LAUNCHES}
+    fk, sk, qk, rk = _kernel_modules()
+    return {"flash_attention_fwd": fk.LAUNCHES, "ssd_scan_fwd": sk.LAUNCHES, **qk.LAUNCHES,
+            RING: rk.LAUNCHES}
 
 
 def phase_build():
@@ -509,6 +543,251 @@ def phase_quant():
     ]
 
 
+def phase_nccl():
+    """The default process group on the card: a world of one over a
+    ``file://`` store under ``build/``, NCCL for CUDA tensors (gloo beside
+    it for CPU tensors).  ``allreduce``, ``allgather``, ``broadcast`` and
+    ``shift`` on the ring of one, and a cart's ``shift_exchange``, through
+    the port's communicator: each result equals its input."""
+
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import topology
+    from repro_torch.core.communicator import world
+
+    store = ROOT / "build" / "nccl_world_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    comm = world(device_type="cuda")
+    check(comm.size() == 1 and comm.device == torch.device("cuda", 0),
+          f"world of one on cuda:0, got {comm} on {comm.device}")
+    check("nccl" in str(dist.get_backend()), f"backend {dist.get_backend()}")
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    x = torch.randn((4096,), generator=gen, device="cuda")
+    cart = topology.cart_create(comm, (1,), (True,), tag="nccl-ring-of-one")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        results = {"allreduce": comm.allreduce(x), "allgather": comm.allgather(x),
+                   "broadcast": comm.broadcast(x, root=0), "shift": comm.shift(x),
+                   "cart_shift_exchange": cart.shift_exchange(x, 0, 1).get()}
+        torch.cuda.synchronize()
+    for name, out in results.items():
+        check(out.is_cuda and torch.equal(out, x), f"NCCL world of one: {name} changed its input")
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA})
+    RESULTS["nccl"] = {"backend": str(dist.get_backend()), "equal": sorted(results),
+                       "device_kernels": kernels}
+    log("NCCL world of one: " + json.dumps(RESULTS["nccl"]))
+
+
+def _ring_tol(dtype) -> float:
+    return BF16_RTOL if dtype == "bfloat16" else 0.0
+
+
+def _fresh_carry(b, h, s, d):
+    import torch
+
+    from repro_torch.kernels.ring_attention import ref
+
+    return (torch.full((b, h, s, 1), ref.NEG_INF, device="cuda"),
+            torch.zeros((b, h, s, 1), device="cuda"), torch.zeros((b, h, s, d), device="cuda"))
+
+
+def _ring_schedule_case(name, seed, *, n, shard, global_len, b, h, hk, d, dtype, causal):
+    """A ring of ``n`` ranks emulated in one process: for each rank, its
+    ``n`` steps over the shard of source ``(rank - step) mod n``, the carry
+    chained, kernel and plain twin side by side (the same bf16 or fp32
+    values, the twin in fp32).  The normalised output of the whole schedule
+    is held against the twin's, and against ``flash_attention.ref.mha`` on
+    the full sequence."""
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ring_attention import kernel as rk
+    from repro_torch.kernels.ring_attention import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    s = n * shard
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dt)
+    for t in (q, k, v):
+        t[:, global_len:] = 0  # the padded tail, as the model pads it
+    lens = [max(0, min(shard, global_len - r * shard)) for r in range(n)]
+    scale = d ** -0.5
+    outs, plains = [], []
+    for r in range(n):
+        qt = q[:, r * shard:(r + 1) * shard].transpose(1, 2)
+        carry, pcarry = _fresh_carry(b, h, shard, d), _fresh_carry(b, h, shard, d)
+        for step in range(n):
+            src = (r - step) % n
+            kt = k[:, src * shard:(src + 1) * shard].transpose(1, 2)
+            vt = v[:, src * shard:(src + 1) * shard].transpose(1, 2)
+            offs = dict(q_offset=r * shard, k_offset=src * shard, kv_len=lens[src])
+            info = torch.tensor(list(offs.values()), dtype=torch.int32, device="cuda")
+            carry = rk.ring_step_fwd(qt, kt, vt, *carry, info=info, scale=scale, causal=causal)
+            pcarry = ref.ring_step_ref(qt.float(), kt.float(), vt.float(), *pcarry, scale=scale,
+                                       causal=causal, **offs)
+        outs.append(carry[2] / carry[1].clamp_min(1e-30))
+        plains.append(pcarry[2] / pcarry[1].clamp_min(1e-30))
+    out = torch.cat(outs, dim=2)[:, :, :global_len].transpose(1, 2)
+    plain = torch.cat(plains, dim=2)[:, :, :global_len].transpose(1, 2)
+    torch.cuda.synchronize()
+    row = {"case": name, "ranks": n, "shard": shard, "global_len": global_len,
+           "shape": [b, h, hk, d], "dtype": dtype, "causal": causal, "launches": n * n}
+    row.update(_held(f"ring {name}", out, plain, FLASH_FP32_TOL, _ring_tol(dtype)))
+    mha = fref.mha(q[:, :global_len].float(), k[:, :global_len].float(),
+                   v[:, :global_len].float(), causal=causal, scale=scale)
+    held = _held(f"ring {name} against mha", out, mha, FLASH_FP32_TOL, _ring_tol(dtype))
+    row.update({f"{k_}_mha": v_ for k_, v_ in held.items()})
+    log_row(row)
+    del q, k, v, outs, plains, out, plain, mha
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ring_carry_cases(seed, *, b=2, s=1000, h=24, hk=8, d=128):
+    """One step from a finite mid-schedule carry (m above -1e30, l and acc
+    nonzero), every carry element held against the twin; and the two skip
+    invariants, exactly: a shard wholly in the causal future and one with
+    no valid row leave the carry as it was."""
+
+    import torch
+
+    from repro_torch.kernels.ring_attention import kernel as rk
+    from repro_torch.kernels.ring_attention import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, hk, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, hk, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    m = 0.5 * torch.randn((b, h, s, 1), generator=gen, device="cuda")
+    l = 1.0 + torch.rand((b, h, s, 1), generator=gen, device="cuda")
+    acc = torch.randn((b, h, s, d), generator=gen, device="cuda")
+    scale = d ** -0.5
+    rows = []
+    offs = dict(q_offset=1000, k_offset=500, kv_len=900)
+    info = torch.tensor(list(offs.values()), dtype=torch.int32, device="cuda")
+    got = rk.ring_step_fwd(q, k, v, m.clone(), l.clone(), acc.clone(), info=info, scale=scale,
+                           causal=True)
+    want = ref.ring_step_ref(q.float(), k.float(), v.float(), m, l, acc, scale=scale,
+                             causal=True, **offs)
+    torch.cuda.synchronize()
+    row = {"case": "mid_schedule_carry", "shape": [b, h, hk, s, d], **offs}
+    for part, g, w in zip(("m", "l", "acc"), got, want):
+        held = _held(f"ring carry {part}", g, w, FLASH_FP32_TOL, RING_CARRY_RTOL)
+        row.update({f"{k_}_{part}": v_ for k_, v_ in held.items()})
+    row["max_abs_err"] = max(row[f"max_abs_err_{p_}"] for p_ in ("m", "l", "acc"))
+    log_row(row)
+    rows.append(row)
+    for name, kw in (("future_shard", dict(q_offset=0, k_offset=4 * s, kv_len=s, causal=True)),
+                     ("empty_shard", dict(q_offset=0, k_offset=0, kv_len=0, causal=False))):
+        for start, carry in (("mid_schedule", (m, l, acc)), ("initial", _fresh_carry(b, h, s, d))):
+            before = [t.clone() for t in carry]
+            after = rk.ring_step_fwd(q, k, v, *[t.clone() for t in carry], scale=scale, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b_) for a, b_ in zip(after, before)),
+                  f"ring {name} from the {start} carry changed the carry")
+        rows.append({"case": name, "carry_unchanged": True, **kw})
+        log_row(rows[-1])
+    return rows
+
+
+def _ring_of_one(name, seed, *, b, s, h, hk, d, dtype, reps, chunk=1024):
+    """The ring of one at the serve's shape, as ``ops`` lays it out (q a
+    head-major view, k and v stacked contiguous): one launch from the
+    initial carry, held against the twin run one Q chunk at a time (its
+    scores would be a (b, h, s, s) fp32 tensor); timed, with the twin's
+    time as the sum over its chunks, the bound and ``library_ms``:
+    ``F.scaled_dot_product_attention`` (causal, GQA) on the same tensors,
+    a yardstick that normalises and takes no carry."""
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ring_attention import kernel as rk
+    from repro_torch.kernels.ring_attention import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dt)
+    qt = q.transpose(1, 2)
+    kv = torch.stack([k, v]).transpose(2, 3).contiguous()
+    scale = d ** -0.5
+    info = torch.tensor([0, 0, s], dtype=torch.int32, device="cuda")
+    carry = rk.ring_step_fwd(qt, kv[0], kv[1], *_fresh_carry(b, h, s, d), info=info,
+                             scale=scale, causal=True)
+    out = carry[2] / carry[1].clamp_min(1e-30)
+
+    def plain_chunks():
+        parts = []
+        for c0 in range(0, s, chunk):
+            pc = _fresh_carry(b, h, min(chunk, s - c0), d)
+            _, pl, pacc = ref.ring_step_ref(qt[:, :, c0:c0 + chunk], kv[0], kv[1], *pc,
+                                            q_offset=c0, k_offset=0, kv_len=s, scale=scale,
+                                            causal=True)
+            parts.append(pacc / pl.clamp_min(1e-30))
+        return torch.cat(parts, dim=2)
+
+    plain = plain_chunks()
+    torch.cuda.synchronize()
+    row = {"case": name, "shape": [b, s, h, hk, d], "dtype": dtype, "causal": True}
+    row.update(_held(f"ring {name}", out, plain, FLASH_FP32_TOL, _ring_tol(dtype)))
+    del plain, out
+    pairs = b * h * s * (s + 1) // 2
+    flops = 4 * d * pairs
+    carry_bytes = 2 * sum(t.numel() * 4 for t in carry)  # read and written once
+    nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() + carry_bytes
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    row.update(
+        ms=time_ms(lambda: rk.ring_step_fwd(qt, kv[0], kv[1], *carry, info=info, scale=scale,
+                                            causal=True), reps),
+        plain_ms=time_ms(plain_chunks, 2),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kv[0], kv[1], is_causal=True, scale=scale, enable_gqa=True), reps),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, bytes=nbytes, pairs=pairs,
+    )
+    log_row(row)
+    del q, k, v, qt, kv, carry
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ring():
+    """The ring-step kernel against its plain twin on the card."""
+
+    phi4 = dict(b=2, h=24, hk=8, d=128)
+    zamba2 = dict(b=2, h=32, hk=32, d=112)
+    ragged = dict(n=4, shard=1000, global_len=3950)
+    RESULTS["ring_cases"] = [
+        _ring_schedule_case("phi4_4x1000_bf16_causal", 40, dtype="bfloat16", causal=True,
+                            **ragged, **phi4),
+        _ring_schedule_case("phi4_4x1000_bf16_full", 41, dtype="bfloat16", causal=False,
+                            **ragged, **phi4),
+        _ring_schedule_case("phi4_4x1000_fp32_causal", 42, dtype="float32", causal=True,
+                            **ragged, **phi4),
+        _ring_schedule_case("zamba2_4x1000_bf16_causal", 43, dtype="bfloat16", causal=True,
+                            **ragged, **zamba2),
+        _ring_schedule_case("zamba2_4x1000_fp32_full", 44, dtype="float32", causal=False,
+                            **ragged, **zamba2),
+        *_ring_carry_cases(45),
+    ]
+    RESULTS["ring_of_one"] = _ring_of_one("phi4_ring_of_one_8192", 46, s=8192,
+                                          dtype="bfloat16", reps=10, **phi4)
+
+
 def _kv_bytes(tree) -> int:
     """Bytes of every KV cache in a cache tree: payload and scales."""
 
@@ -526,23 +805,28 @@ def _kv_bytes(tree) -> int:
     return 0
 
 
-def _serve(arch, prompt_len, kv):
+def _serve(arch, prompt_len, kv, ring):
     """(server, tokens, stats): the bf16 cache through the launcher; the
-    int8 cache through ``Server`` with ``kv_cache_dtype="int8"``, the
-    launcher's config, seed and prompts otherwise."""
+    int8 cache through ``Server`` with ``kv_cache_dtype="int8"``, and ring
+    attention through ``Server(cfg, replace(pcfg, ring_attention=True),
+    scfg, comm)`` on the NCCL world's communicator (the CLI has a flag for
+    neither, in the reference either); the launcher's config, seed and
+    prompts otherwise."""
 
     import dataclasses
 
     from repro_torch.configs import base
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_communicator
     from repro_torch.runtime.server import Server, ServerConfig
 
-    if kv == "bfloat16":
+    if kv == "bfloat16" and not ring:
         return serve.run(["--arch", arch, "--requests", "2", "--prompt-len", str(prompt_len),
                           "--new-tokens", str(NEW_TOKENS)])
     cfg = base.get_config(arch)
-    pcfg = dataclasses.replace(base.get_parallel(arch), kv_cache_dtype=kv)
-    server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS))
+    pcfg = dataclasses.replace(base.get_parallel(arch), kv_cache_dtype=kv, ring_attention=ring)
+    server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS),
+                    make_host_communicator(device="cuda"))
     tokens, stats = server.generate(_prompts(cfg, prompt_len))
     return server, tokens, stats
 
@@ -559,19 +843,20 @@ def _prompts(cfg, prompt_len):
             for _ in range(2)]
 
 
-def phase_serve(arch, layers, d_model, prompt_len, kv, per_prefill, per_step):
-    """Serve ``arch`` at its full config with a ``kv`` cache; the kernels'
-    counts are zeroed just before and read just after."""
+def phase_serve(arch, layers, d_model, prompt_len, kv, ring, per_prefill, per_step):
+    """Serve ``arch`` at its full config with a ``kv`` cache, with or
+    without ring attention; the kernels' counts are zeroed just before and
+    read just after."""
 
     import numpy as np
     import torch
 
-    path = arch if kv == "bfloat16" else f"{arch}_{kv}"
+    path = arch + ("" if kv == "bfloat16" else f"_{kv}") + ("_ring" if ring else "")
     start_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    server, tokens, stats = _serve(arch, prompt_len, kv)
+    server, tokens, stats = _serve(arch, prompt_len, kv, ring)
     wall = time.perf_counter() - t0
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -585,6 +870,7 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, per_prefill, per_step):
     log("cold stats " + json.dumps(stats))
     check(cfg.num_layers == layers and cfg.d_model == d_model, f"not the full {arch} config")
     check(server.pcfg.kv_cache_dtype == kv, f"{path}: cache {server.pcfg.kv_cache_dtype}")
+    check(server.pcfg.ring_attention == ring, f"{path}: ring {server.pcfg.ring_attention}")
     check(prefills >= 1, f"{path}: no prefill ran")
     for name, n in launches.items():
         want = per_prefill.get(name, 0) * prefills + per_step.get(name, 0) * steps
@@ -602,8 +888,10 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, per_prefill, per_step):
         f"peak of the warm generate {warm_peak_gb:.2f} GB")
     check(np.array_equal(warm_tokens, tokens), f"{path}: warm generate changed the greedy tokens")
     batch = {"tokens": torch.as_tensor(np.stack([r.tokens for r in reqs]), device="cuda")}
+    # the prefill sees the communicator when the ring is on, as the server's does
+    mesh = server.comm if ring else None
     with torch.inference_mode():
-        logits, cache = server.bundle.prefill(server.params, batch, server.pcfg,
+        logits, cache = server.bundle.prefill(server.params, batch, server.pcfg, mesh,
                                               extra_capacity=NEW_TOKENS)
         check(bool(torch.isfinite(logits).all()), f"{path}: non-finite prefill logits")
         tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1).to(torch.int32)[:, None]
@@ -611,7 +899,7 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, per_prefill, per_step):
         check(bool(torch.isfinite(step_logits).all()), f"{path}: non-finite decode logits")
         profiles = {
             "prefill": _profile(lambda: server.bundle.prefill(
-                server.params, batch, server.pcfg, extra_capacity=NEW_TOKENS)),
+                server.params, batch, server.pcfg, mesh, extra_capacity=NEW_TOKENS)),
             "decode_x4": _profile(lambda: [server.bundle.decode(
                 server.params, cache, tok, server.pcfg) for _ in range(4)]),
         }
@@ -625,7 +913,9 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, per_prefill, per_step):
     }
     seen = {"tokens": tokens, "prefill_logits": logits[:, -1].float().cpu(),
             "step_logits": step_logits[:, -1].float().cpu(), "kv_bytes": kv_bytes}
-    if kv == "bfloat16":
+    if ring:
+        row.update(_against_flash(path, server, batch, seen))
+    elif kv == "bfloat16":
         BF16_SERVES[arch] = seen
     else:
         row.update(_against_bf16(path, cfg, seen, BF16_SERVES[arch]))
@@ -633,6 +923,30 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, per_prefill, per_step):
     del server, logits, step_logits, cache
     torch.cuda.empty_cache()
     return path, launches
+
+
+def _against_flash(path, server, batch, seen) -> dict:
+    """The ring serve read against the same weights without the ring: the
+    flash path's prefill must give the same first token; the prefill
+    logits' max |Δ| is logged."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    flash_pcfg = dataclasses.replace(server.pcfg, ring_attention=False)
+    with torch.inference_mode():
+        logits, _ = server.bundle.prefill(server.params, batch, flash_pcfg, None,
+                                          extra_capacity=NEW_TOKENS)
+    first = torch.argmax(logits[:, -1, : server.cfg.vocab_size], dim=-1).cpu().numpy()
+    check(np.array_equal(first, seen["tokens"][:, 0]),
+          f"{path}: first token {seen['tokens'][:, 0]} != the flash path's {first}")
+    out = {"first_token_equal_flash": True,
+           "prefill_logits_max_abs_diff_flash": (seen["prefill_logits"]
+                                                 - logits[:, -1].float().cpu()).abs().max().item()}
+    log(f"{path} against the flash path: " + json.dumps(out))
+    return out
 
 
 def _against_bf16(path, cfg, seen, bf16) -> dict:
@@ -694,7 +1008,7 @@ def _profile(fn, top: int = 6) -> dict:
     return result
 
 
-def phase_small_model(arch, kv="bfloat16"):
+def phase_small_model(arch, kv="bfloat16", ring=False):
     import dataclasses
 
     import numpy as np
@@ -704,7 +1018,7 @@ def phase_small_model(arch, kv="bfloat16"):
     from repro_torch.runtime.server import Request, Server, ServerConfig
 
     cfg = dataclasses.replace(base.get_smoke_config(arch), dtype="float32")
-    pcfg = dataclasses.replace(base.get_parallel(arch), kv_cache_dtype=kv)
+    pcfg = dataclasses.replace(base.get_parallel(arch), kv_cache_dtype=kv, ring_attention=ring)
     scfg = ServerConfig(max_batch=2, max_new_tokens=8)
     gpu = Server(cfg, pcfg, scfg, device="cuda")
     cpu = Server(cfg, pcfg, scfg, device="cpu")
@@ -712,9 +1026,14 @@ def phase_small_model(arch, kv="bfloat16"):
     rng = np.random.default_rng(1)
     reqs = [Request(tokens=rng.integers(1, cfg.vocab_size, size=(24,), dtype=np.int32))
             for _ in range(2)]
+    _reset_launches()
     t_gpu, _ = gpu.generate(reqs)
+    if ring:
+        check(_launches()[RING] == cfg.num_layers,
+              f"{arch} ring smoke model: {_launches()[RING]} ring launches on the card, want "
+              f"{cfg.num_layers}")
     t_cpu, _ = cpu.generate(reqs)
-    path = arch if kv == "bfloat16" else f"{arch}_{kv}"
+    path = arch + ("" if kv == "bfloat16" else f"_{kv}") + ("_ring" if ring else "")
     log(f"{path} smoke model fp32, card vs CPU path: tokens {t_gpu.tolist()} vs "
         f"{t_cpu.tolist()}")
     check(np.array_equal(t_gpu, t_cpu), f"{path}: card and CPU path generate different tokens")
@@ -761,17 +1080,21 @@ def main() -> int:
 
     phase_device()
     phase_build()
+    phase_nccl()
     phase_kernels()
     phase_ssd()
     phase_quant()
+    phase_ring()
     launches = dict(phase_serve(*spec) for spec in SERVES)
     for arch in ("gemma2_9b", "mamba2_2_7b", "zamba2_7b"):
         phase_small_model(arch)
     for arch in ("gemma2_9b", "zamba2_7b"):
         phase_small_model(arch, "int8")
+    phase_small_model("phi4_mini_3_8b", ring=True)
 
     flash, ssd = RESULTS["kernel_cases"], RESULTS["ssd_cases"]
     quant, dequant = RESULTS["quant_cases"], RESULTS["dequant_cases"]
+    ring = RESULTS["ring_cases"] + [RESULTS["ring_of_one"]]
     kernels = [
         _kernel_line("flash_attention_fwd",
                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
@@ -787,6 +1110,10 @@ def main() -> int:
                      "src/repro/kernels/quant/kernel.py:56",
                      max(r["max_abs_err_dequant"] for r in quant + dequant), dequant[0],
                      launches),
+        _kernel_line(RING, "src/repro_torch/kernels/ring_attention/csrc/ring_step_fwd.cu",
+                     "src/repro/kernels/ring_attention/kernel.py:51",
+                     max(r["max_abs_err"] for r in ring if "max_abs_err" in r),
+                     RESULTS["ring_of_one"], launches),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on the main paths")
@@ -795,6 +1122,9 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}), flush=True)

@@ -1,3 +1,5 @@
 """repro_torch.core — the interface layer of the port: typed errors, the
-MPI_T-style pvar/cvar registry, sessions and groups, the single-process
-communicator and persistent requests."""
+MPI_T-style pvar/cvar registry, sessions and groups over the process world,
+communicators with their collectives, Cartesian topologies and requests."""
+
+from repro_torch.core import _methods  # noqa: F401  (binds the method facade)

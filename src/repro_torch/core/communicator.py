@@ -1,13 +1,18 @@
-"""Communicators (paper §II, C1/C4 — and MPI 4.0 §11 Sessions), single
-process.
+"""Communicators (paper §II, C1/C4 — and MPI 4.0 §11 Sessions) over the
+ranks of a process world.
 
 The reference's communicator is a JAX mesh plus a subset of its named axes.
-The port's first slice runs in one process on one device type, so a
-communicator here is the group's devices folded onto a named grid
-(``shape`` / ``axis_names``) with no collective behind it yet.
+Here a communicator is a group's members (:class:`~repro_torch.core.session.
+RankDevice`, one process each) folded onto a named grid (``shape`` /
+``axis_names``, row-major rank order), with ``torch.distributed`` process
+groups behind it: one over the whole communicator and, for every axis, one
+per line of ranks along it.  Every rank of the process world creates the
+same groups in the same order at construction (``new_group`` is collective
+over the world), members or not; a line of one rank needs no group.
 :meth:`Communicator.from_group` stays the one canonical constructor
 (``MPI_Comm_create_from_group``); :func:`world` is a shim over the default
-session's ``repro://world`` pset.
+session's ``repro://world`` pset.  The collectives are bound as methods by
+:mod:`repro_torch.core._methods`.
 """
 
 from __future__ import annotations
@@ -15,10 +20,18 @@ from __future__ import annotations
 import math
 from typing import Any, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import errors
-from repro_torch.core.session import Group, default_session
+from repro_torch.core.session import (
+    GROUP_TIMEOUT,
+    UNDEFINED,
+    Group,
+    RankDevice,
+    default_session,
+)
 
 
 def _axis_name_from_tag(tag: str) -> str:
@@ -30,8 +43,48 @@ def _axis_name_from_tag(tag: str) -> str:
     return name or "ranks"
 
 
+# the default group → its subgroups by their global ranks, shared by every
+# communicator: all ranks construct the same communicators in the same
+# order, so the cache holds the same groups on every rank
+_PROCESS_GROUPS: dict[Any, dict[tuple[int, ...], Any]] = {}
+
+
+def _process_group(ranks: tuple[int, ...]):
+    """The process group over ``ranks`` (global ranks): the default group
+    when they are the whole world in order, ``None`` for a single rank
+    outside a world of one (nothing to talk to), else a new group — which
+    every rank of the world must ask for, in the same order."""
+
+    world = dist.get_world_size()
+    if ranks == tuple(range(world)):
+        return dist.group.WORLD
+    if len(ranks) == 1:
+        return None
+    if dist.group.WORLD not in _PROCESS_GROUPS:
+        _PROCESS_GROUPS.clear()  # a new default group: the old subgroups are gone
+        _PROCESS_GROUPS[dist.group.WORLD] = {}
+    groups = _PROCESS_GROUPS[dist.group.WORLD]
+    if ranks not in groups:
+        groups[ranks] = dist.new_group(list(ranks), timeout=GROUP_TIMEOUT)
+    return groups[ranks]
+
+
+def _lines(shape: tuple[int, ...], axis: int) -> list[list[int]]:
+    """The flat ranks of every line along ``axis``, in row-major order of
+    the other coordinates; each line in coordinate order."""
+
+    n = math.prod(shape)
+    grid = np.arange(n).reshape(shape)
+    moved = np.moveaxis(grid, axis, -1).reshape(-1, shape[axis])
+    return [[int(r) for r in line] for line in moved]
+
+
 class Communicator:
-    """A named-axis communicator over the devices of one group."""
+    """A named-axis communicator over the members of one group.
+
+    ``process_groups`` (``(whole, {axis: (group, global ranks of this
+    rank's line)})``) lets a derived communicator reuse its parent's groups;
+    by default they are created here."""
 
     def __init__(
         self,
@@ -41,12 +94,31 @@ class Communicator:
         *,
         managed: bool = False,
         tag: str = "",
+        process_groups: tuple | None = None,
     ):
         self._group = group
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         self.managed = managed
         self.tag = tag
+        if process_groups is None:
+            process_groups = self._create_process_groups()
+        self._pg, self._axis_groups = process_groups
+
+    def _create_process_groups(self) -> tuple:
+        ranks = self.global_ranks()
+        if ranks is None or not dist.is_initialized():
+            return None, {}  # members without a process behind them: one process
+        me = self.rank()
+        whole = _process_group(ranks)
+        axis_groups = {}
+        for axis, name in enumerate(self.axis_names):
+            for line in _lines(self.shape, axis):
+                line_ranks = tuple(ranks[i] for i in line)
+                pg = _process_group(line_ranks)
+                if me in line:
+                    axis_groups[name] = (pg, line_ranks)
+        return whole, axis_groups
 
     @classmethod
     def from_group(
@@ -59,7 +131,8 @@ class Communicator:
     ) -> "Communicator":
         """``MPI_Comm_create_from_group``: the canonical constructor.  By
         default one axis named after ``tag``; pass ``shape``/``axis_names``
-        to fold the group onto a multi-axis grid (row-major rank order)."""
+        to fold the group onto a multi-axis grid (row-major rank order).
+        Collective over the process world: every rank calls it alike."""
 
         errors.check(
             isinstance(group, Group),
@@ -120,11 +193,93 @@ class Communicator:
 
         return self._group
 
+    def rank(self) -> int:
+        """``MPI_Comm_rank``: this process's rank, or ``UNDEFINED`` if it
+        is not a member."""
+
+        return self._group.rank()
+
+    def coords(self) -> tuple[int, ...]:
+        """This rank's coordinates on the grid (row-major)."""
+
+        r = self._member_rank()
+        return tuple(int(c) for c in np.unravel_index(r, self.shape))
+
+    def global_ranks(self) -> tuple[int, ...] | None:
+        """The members' ranks in the process world, in this communicator's
+        rank order; ``None`` for members that are bare devices."""
+
+        members = self._group.devices
+        if not all(isinstance(m, RankDevice) for m in members):
+            return None
+        return tuple(m.rank for m in members)
+
+    def process_group(self):
+        """The ``torch.distributed`` group over every member (``None``
+        without a process world behind the members)."""
+
+        return self._pg
+
+    def axis_group(self, name: str):
+        """The process group of this rank's line along axis ``name``
+        (``None`` for a line of one rank outside a world of one)."""
+
+        self.axis_size(name)
+        return self._axis_groups[name][0] if name in self._axis_groups else None
+
+    def axis_ranks(self, name: str) -> tuple[int, ...]:
+        """Global ranks of this rank's line along axis ``name``, in
+        coordinate order."""
+
+        self.axis_size(name)
+        if name in self._axis_groups:
+            return self._axis_groups[name][1]
+        return (self._member_rank(),)
+
+    def split(self, *axis_names: str) -> "Communicator":
+        """``MPI_Comm_split`` along topology axes: the communicator over
+        this rank's line (one axis) or over all of this communicator's
+        axes, reusing the process groups that already exist."""
+
+        for name in axis_names:
+            self.axis_size(name)
+        if tuple(axis_names) == self.axis_names:
+            return Communicator(self._group, self.shape, self.axis_names, tag=self.tag,
+                                process_groups=(self._pg, dict(self._axis_groups)))
+        errors.check(
+            len(axis_names) == 1,
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            f"split over {axis_names} of {self.axis_names}: only one axis, or all of "
+            f"them, is ported",
+        )
+        (name,) = axis_names
+        axis = self.axis_names.index(name)
+        coords = list(self.coords())
+        flat = []
+        for i in range(self.shape[axis]):
+            coords[axis] = i
+            flat.append(int(np.ravel_multi_index(tuple(coords), self.shape)))
+        sub = self._group.incl(flat)
+        entry = self._axis_groups.get(name)
+        return Communicator(sub, (self.shape[axis],), (name,), tag=self.tag,
+                            process_groups=(entry[0] if entry else None,
+                                            {name: entry} if entry else {}))
+
+    def _member_rank(self) -> int:
+        r = self.rank()
+        errors.check(
+            r != UNDEFINED,
+            errors.ErrorClass.ERR_COMM,
+            f"this process is not a member of {self!r}",
+        )
+        return r
+
     @property
     def device(self) -> torch.device:
-        """The device of rank 0: where a single-device workload runs."""
+        """This rank's device: where its share of the work runs."""
 
-        return self._group.device(0)
+        member = self._group.device(self._member_rank())
+        return member.device if isinstance(member, RankDevice) else member
 
     def __repr__(self):
         kind = "managed" if self.managed else "unmanaged"
@@ -136,8 +291,9 @@ _WORLD: dict[str, Communicator] = {}
 
 
 def world(refresh: bool = False, device_type: str = "cuda") -> Communicator:
-    """The ``mpi::world_communicator`` analogue: one axis over all devices
-    of ``device_type``.  Managed singleton per device type."""
+    """The ``mpi::world_communicator`` analogue: one axis over all ranks of
+    the process world, on ``device_type``.  Managed singleton per device
+    type."""
 
     comm: Any = _WORLD.get(device_type)
     if comm is None or refresh:

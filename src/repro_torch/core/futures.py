@@ -4,7 +4,12 @@ eager PyTorch form.
 * :class:`Future` — host level.  CUDA work is queued asynchronously on the
   current stream, so a returned tensor is a request: ``get()`` =
   ``MPI_Wait`` (synchronises the tensors' devices and consumes the future),
-  ``test()`` = ``MPI_Test``, ``then()`` chains a continuation.
+  ``test()`` = ``MPI_Test``, ``then()`` chains a continuation.  A future
+  over pending ``torch.distributed`` work (``works``) waits on that work
+  instead: on NCCL the current stream waits for it, on gloo the host does.
+  These futures take the role of the reference's ``TraceFuture`` in eager
+  mode: a point-to-point exchange is issued, compute proceeds, and the join
+  (:func:`when_all`) waits.
 
 * :class:`PersistentRequest` — ``MPI_Send_init`` + ``MPI_Start``.  Eager
   PyTorch has no trace to amortise, so init binds the argument list (tree
@@ -16,7 +21,8 @@ eager PyTorch form.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import time
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -52,6 +58,28 @@ def flatten(tree: Any) -> tuple[list, Any]:
     return leaves, treedef
 
 
+def unflatten(treedef: Any, leaves: Sequence) -> Any:
+    """Inverse of :func:`flatten`: the nest ``treedef`` describes, with
+    ``leaves`` in its leaf positions."""
+
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if node == "*":
+            return next(it)
+        kind, names, children = node
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(names, children)}
+        if kind in ("list", "tuple"):
+            items = [build(c) for c in children]
+            return items if kind == "list" else tuple(items)
+        return kind(**{f: build(c) for f, c in zip(names, children)})
+
+    return build(treedef)
+
+
 def _sync(tree: Any) -> None:
     devices = {
         leaf.device for leaf in _leaves(tree)
@@ -62,11 +90,22 @@ def _sync(tree: Any) -> None:
 
 
 class Future:
-    """Host-level future over queued (asynchronous) results."""
+    """Host-level future over queued (asynchronous) results; with ``works``
+    (a sequence of ``torch.distributed`` work handles, possibly empty), a
+    request whose completion is that work's."""
 
-    def __init__(self, value: Any):
+    def __init__(self, value: Any, works: Sequence | None = None):
         self._value = value
+        self._works = None if works is None else list(works)
         self._valid = True
+
+    def _complete(self) -> None:
+        if self._works is None:
+            _sync(self._value)
+            return
+        for w in self._works:
+            w.wait()
+        self._works = []
 
     def valid(self) -> bool:
         return self._valid
@@ -76,20 +115,23 @@ class Future:
 
         errors.check(self._valid, errors.ErrorClass.ERR_REQUEST, "future already consumed")
         self._valid = False
-        _sync(self._value)
+        self._complete()
         return self._value
 
     def wait(self) -> "Future":
         """Block until complete (does not consume; ``get()`` does)."""
 
         errors.check(self._valid, errors.ErrorClass.ERR_REQUEST, "future already consumed")
-        _sync(self._value)
+        self._complete()
         return self
 
     def test(self) -> bool:
-        """Non-blocking completion probe (``MPI_Test``): the current streams
-        of the tensors' devices have drained."""
+        """Non-blocking completion probe (``MPI_Test``): the pending work has
+        completed, or else the current streams of the tensors' devices have
+        drained."""
 
+        if self._works is not None:
+            return all(w.is_completed() for w in self._works)
         devices = {
             leaf.device for leaf in _leaves(self._value)
             if isinstance(leaf, torch.Tensor) and leaf.is_cuda
@@ -105,10 +147,69 @@ class Future:
         result = fn(self)
         self._valid = False
         if result is self:
-            return Future(self._value)
+            return Future(self._value, self._works)
         if isinstance(result, Future):
             return result
         return Future(result)
+
+
+def when_all(futures: Sequence[Future]) -> Future:
+    """``MPI_Waitall`` join: a future over the tuple of results.
+
+    Like ``MPI_Waitall``, the joined requests are consumed: each input must
+    still be valid (``ERR_REQUEST`` otherwise, exactly as a double ``get()``
+    would raise) and is invalidated by the join.  The join waits on every
+    input's pending work; if any input is a plain host future, it also
+    synchronises the devices of the results."""
+
+    seen: set[int] = set()
+    for i, f in enumerate(futures):
+        errors.check(
+            f.valid() and id(f) not in seen,
+            errors.ErrorClass.ERR_REQUEST,
+            f"when_all: future {i} already consumed",
+        )
+        seen.add(id(f))
+    for f in futures:
+        f._valid = False
+    values = tuple(f._value for f in futures)
+    if any(f._works is None for f in futures):
+        return Future(values)
+    return Future(values, [w for f in futures for w in f._works])
+
+
+def when_any(
+    futures: Sequence[Future],
+    poll_interval_s: float = 1e-4,
+    timeout_s: float | None = None,
+) -> tuple[Future, int]:
+    """``MPI_Waitany`` join: first completed future and its index.
+
+    Inputs must be valid (unconsumed); the winner is returned still valid so
+    the caller retrieves its value with ``get()``.  With ``timeout_s`` set,
+    ``ERR_PENDING`` is raised if no input completes in time (instead of
+    busy-waiting forever on a never-ready future).
+    """
+
+    errors.check(len(futures) > 0, errors.ErrorClass.ERR_REQUEST, "when_any of no futures")
+    for i, f in enumerate(futures):
+        errors.check(
+            f.valid(),
+            errors.ErrorClass.ERR_REQUEST,
+            f"when_any: future {i} already consumed",
+        )
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    while True:
+        for i, f in enumerate(futures):
+            if f.test():
+                return f, i
+        if deadline is not None and time.monotonic() >= deadline:
+            errors.fail(
+                errors.ErrorClass.ERR_PENDING,
+                f"when_any: none of {len(futures)} futures completed "
+                f"within {timeout_s}s",
+            )
+        time.sleep(poll_interval_s)
 
 
 def _leaf_signature(leaf: Any) -> tuple:

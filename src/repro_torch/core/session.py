@@ -1,11 +1,17 @@
-"""The Sessions model (MPI 4.0 §11) over torch devices.
+"""The Sessions model (MPI 4.0 §11) over the ranks of a process world.
 
-A :class:`Session` enumerates the devices of one type (``cuda`` or ``cpu``)
-into named process sets — ``repro://world``, ``repro://self``,
-``repro://host/0`` and ``repro://platform/<type>`` — plus user-registered
-sets.  :class:`Group` is the immutable ordered device set with the full MPI
-group algebra, copied from :mod:`repro.core.session`.  The port runs in one
-process, so every enumerated device is local and lives on host 0.
+A :class:`Session` enumerates the ranks of the default
+``torch.distributed`` process group, one device per rank (``cuda:<local
+rank>``, or the CPU when ``device_type="cpu"``), into named process sets —
+``repro://world``, ``repro://self``, ``repro://host/<i>`` and
+``repro://platform/<type>`` — plus user-registered sets.  Each member is a
+:class:`RankDevice`.  If no process group exists, the session initialises
+one: from ``RANK`` / ``WORLD_SIZE`` (``env://``, as ``torchrun`` sets them)
+when they are set, otherwise a world of one.  The backend is NCCL for
+``cuda`` and gloo for ``cpu``; the card never falls back to gloo.
+
+:class:`Group` is the immutable ordered member set with the full MPI group
+algebra, copied from :mod:`repro.core.session`.
 
 A session over ``cuda`` on a machine with no CUDA device raises
 ``ERR_SESSION``: the port never falls back to the CPU on its own; the caller
@@ -14,10 +20,14 @@ asks for it with ``device_type="cpu"``.
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
 import enum
+import os
 from typing import Any, Iterable, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import errors
 
@@ -36,6 +46,28 @@ _BUILTIN_PREFIXES = (f"{_SCHEME}host/", f"{_SCHEME}platform/")
 
 #: Device types a session can enumerate.
 DEVICE_TYPES = ("cuda", "cpu")
+
+#: Process-group backend of each device type.  A process that computes on
+#: the card also keeps CPU tensors on gloo (a CPU-side communicator beside
+#: the card's, as the card-against-CPU checks use); CUDA tensors always go
+#: through NCCL.
+BACKENDS = {"cuda": "cpu:gloo,cuda:nccl", "cpu": "gloo"}
+
+#: Timeout of every process group the port creates: a rank that dies
+#: leaves its peers blocked in a collective for at most this long.
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+
+#: Session-registered Cartesian process sets: ``repro://cart/<dims>``.
+CART_PSET_PREFIX = _SCHEME + "cart/"
+
+
+@dataclasses.dataclass(frozen=True)
+class RankDevice:
+    """One member of the process world: a rank of the default process
+    group and the device it computes on."""
+
+    rank: int
+    device: torch.device
 
 
 def _is_builtin_pset(name: str) -> bool:
@@ -202,9 +234,53 @@ def platform_devices(device_type: str = "cuda") -> tuple[torch.device, ...]:
     return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
 
 
+#: The members this process is, one per device type it opened a session on.
+_LOCAL: dict[str, RankDevice] = {}
+
+
 def _local_devices_safe() -> tuple[Any, ...]:
-    # one process owns every device it can see
-    return platform_devices("cuda") + platform_devices("cpu")
+    # this process's own world members, then every device it can see
+    return tuple(_LOCAL.values()) + platform_devices("cuda") + platform_devices("cpu")
+
+
+def _local_world_size(world: int) -> int:
+    return int(os.environ.get("LOCAL_WORLD_SIZE", world))
+
+
+def _rank_device(device_type: str, rank: int, world: int) -> torch.device:
+    """The device of ``rank``: ranks fill each host's CUDA devices in order
+    (``cuda:<rank mod local world size>``); every rank's CPU is ``cpu``."""
+
+    if device_type == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", rank % _local_world_size(world))
+
+
+def process_world(device_type: str = "cuda") -> tuple[int, int]:
+    """(rank, world size) of the default process group, initialising it if
+    none exists: from ``RANK`` / ``WORLD_SIZE`` when set, otherwise a world
+    of one over an in-process store.  A world of more than one rank must
+    run ``device_type``'s wire (NCCL for ``cuda``, gloo for ``cpu``)."""
+
+    backend = BACKENDS[device_type]
+    wire = {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    if not dist.is_initialized():
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+            if device_type == "cuda":
+                torch.cuda.set_device(_rank_device("cuda", rank, world))
+            dist.init_process_group(backend, timeout=GROUP_TIMEOUT)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
+                                    timeout=GROUP_TIMEOUT)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    errors.check(
+        world == 1 or wire in str(dist.get_backend()).lower(),
+        errors.ErrorClass.ERR_SESSION,
+        f"a {device_type} session over {world} ranks needs the {wire} backend; the "
+        f"default process group runs {dist.get_backend()}",
+    )
+    return rank, world
 
 
 def _normalize(name: str) -> str:
@@ -226,13 +302,24 @@ class Session:
         info: Mapping | None = None,
         device_type: str = "cuda",
     ):
+        self._local: RankDevice | None = None
         if devices is None:
-            devices = platform_devices(device_type)
             errors.check(
-                len(devices) > 0,
+                len(platform_devices(device_type)) > 0,
                 errors.ErrorClass.ERR_SESSION,
                 f"no {device_type} device is visible; pass device='cpu' "
                 f"(--device cpu) to run on the CPU",
+            )
+            rank, world = process_world(device_type)
+            devices = tuple(RankDevice(r, _rank_device(device_type, r, world))
+                            for r in range(world))
+            self._local = _LOCAL[device_type] = devices[rank]
+            errors.check(
+                self._local.device.type == "cpu"
+                or self._local.device.index < torch.cuda.device_count(),
+                errors.ErrorClass.ERR_SESSION,
+                f"rank {rank} computes on {self._local.device}, but this process sees "
+                f"{torch.cuda.device_count()} CUDA devices",
             )
         self._devices = tuple(devices)
         errors.check(
@@ -261,11 +348,17 @@ class Session:
 
     def _enumerate(self) -> None:
         self._psets[WORLD_PSET] = self._devices
-        self._psets[SELF_PSET] = self._devices
-        self._psets[f"{_SCHEME}host/0"] = self._devices
+        self._psets[SELF_PSET] = (self._local,) if self._local else self._devices
+        local_world = _local_world_size(len(self._devices))
+        by_host: dict[int, list[Any]] = {}
         by_platform: dict[str, list[Any]] = {}
         for d in self._devices:
-            by_platform.setdefault(getattr(d, "type", "unknown"), []).append(d)
+            host = d.rank // local_world if isinstance(d, RankDevice) else 0
+            by_host.setdefault(host, []).append(d)
+            dev = d.device if isinstance(d, RankDevice) else d
+            by_platform.setdefault(getattr(dev, "type", "unknown"), []).append(d)
+        for host, devs in sorted(by_host.items()):
+            self._psets[f"{_SCHEME}host/{host}"] = tuple(devs)
         for platform, devs in sorted(by_platform.items()):
             self._psets[f"{_SCHEME}platform/{platform}"] = tuple(devs)
 

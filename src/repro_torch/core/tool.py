@@ -159,3 +159,4 @@ def pvar_info() -> dict[str, str]:
 # request-layer pvars (persistent operations, C3)
 pvar_register("persistent_init", "persistent requests initialised (argument list bound)")
 pvar_register("persistent_start", "MPI_Start analogues fired on persistent requests")
+pvar_register("cart_create", "Cartesian topologies constructed (MPI_Cart_create)")

@@ -239,12 +239,14 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(const Params p) {
     const int r = ty + 16 * i;
     const int qp = q0 + r;
     if (qp >= p.sq) continue;
-    const float inv = 1.f / fmaxf(sL[r], 1e-30f);
+    // a division per element, as the TPU kernel and the ring's finalize do:
+    // the ring of one then equals this kernel bit for bit
+    const float l = fmaxf(sL[r], 1e-30f);
     T* orow = o + ((static_cast<long long>(bi) * p.sq + qp) * p.h + hi) * p.d;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int col = tx + 16 * j;
-      if (col < p.d) orow[col] = from_float<T>(acc[i][j] * inv);
+      if (col < p.d) orow[col] = from_float<T>(acc[i][j] / l);
     }
   }
 }

@@ -2,9 +2,11 @@
 
 Construction is session-first, as in :mod:`repro.launch.mesh`: open (or take)
 a :class:`~repro_torch.core.session.Session`, pick a named process set, fold
-its leading ``data × model`` devices onto a ("data", "model") grid through
-``Communicator.from_group``.  ``device`` picks the session's device type;
-it defaults to ``cuda`` and a machine without one raises ``ERR_SESSION``.
+its leading ``data × model`` ranks of the process world onto a ("data",
+"model") grid through ``Communicator.from_group`` — the reference folds
+``jax.devices()`` the same way.  ``device`` picks the session's device
+type; it defaults to ``cuda`` and a machine without one raises
+``ERR_SESSION``.  Every rank calls it alike (it creates process groups).
 """
 
 from __future__ import annotations

@@ -6,10 +6,17 @@
 ``--arch`` takes the ported configs: the dense family (gemma2_9b,
 phi4_mini_3_8b, granite_3_8b, qwen1_5_32b), mamba2_2_7b and zamba2_7b.
 Runs on the CUDA device unless ``--device cpu`` is given; a machine with no
-CUDA device raises ``ERR_SESSION`` instead of falling back.  The other
+CUDA device raises ``ERR_SESSION`` instead of falling back.  ``--mesh DxM``
+folds the process world onto a (data, model) grid, e.g. on the CPU::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch gemma2_9b --smoke --device cpu --mesh 2x2
+
+As in the reference, the CLI has no ring flag: the ring is
+``replace(pcfg, ring_attention=True)`` handed to ``Server``.  The other
 serving modes of :mod:`repro.launch.serve` (``--disaggregate``,
-``--fanout``, ``--plan``, ``--mesh``, ``--continuous-batching``) are not
-ported yet and raise ``ERR_UNSUPPORTED_OPERATION``.
+``--fanout``, ``--plan``, ``--continuous-batching``) are not ported yet and
+raise ``ERR_UNSUPPORTED_OPERATION``.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import json
 
 import numpy as np
 
-_NOT_PORTED = ("disaggregate", "fanout", "plan", "mesh", "continuous_batching")
+_NOT_PORTED = ("disaggregate", "fanout", "plan", "continuous_batching")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -39,8 +46,9 @@ def _parser() -> argparse.ArgumentParser:
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="device type to serve on (default: the CUDA device)",
     )
+    ap.add_argument("--mesh", default="auto",
+                    help="DxM: fold the process world onto a (data, model) grid")
     # serving modes of the reference launcher that the port has not reached
-    ap.add_argument("--mesh", default=None, help="not ported yet")
     ap.add_argument("--disaggregate", action="store_true", help="not ported yet")
     ap.add_argument("--plan", default=None, help="not ported yet")
     ap.add_argument("--fanout", default=None, help="not ported yet")
@@ -73,7 +81,11 @@ def run(argv=None):
             f"arch {args.arch!r} is not ported yet ({e})",
         )
 
-    comm = make_host_communicator(pset=args.pset, device=args.device)
+    if args.mesh == "auto":
+        comm = make_host_communicator(pset=args.pset, device=args.device)
+    else:
+        d, m = (int(t) for t in args.mesh.split("x"))
+        comm = make_host_communicator(d, m, pset=args.pset, device=args.device)
     rng = np.random.default_rng(0)
     reqs = [
         Request(tokens=rng.integers(1, cfg.vocab_size, size=(args.prompt_len,), dtype=np.int32))

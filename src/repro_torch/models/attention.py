@@ -2,9 +2,12 @@
 (bf16 or int8, linear or ring-buffer), the serving path of
 :mod:`repro.models.attention` for the dense family and the hybrid's shared
 block.  The int8 cache quantizes and dequantizes through
-:mod:`repro_torch.kernels.quant` (the CUDA kernels on the card).  Not ported
-yet: per-row decode positions, MLA, ring attention and the
-sequence-sharded decode."""
+:mod:`repro_torch.kernels.quant` (the CUDA kernels on the card).  With
+``pcfg.ring_attention`` and a communicator (the reference's ``mesh``
+argument), layers with no softcap, window or prefix shard the sequence
+over the ring kernel (:mod:`repro_torch.kernels.ring_attention`).  Not
+ported yet: per-row decode positions, MLA and the sequence-sharded
+decode."""
 
 from __future__ import annotations
 
@@ -12,11 +15,14 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core import errors
+from repro_torch.core import collectives, errors, topology
+from repro_torch.core.descriptors import CollectiveSpec
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.quant import ops as quant_ops
+from repro_torch.kernels.ring_attention import ops as ring_ops
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
 
@@ -171,15 +177,10 @@ def _scale(cfg) -> float:
     return cfg.query_scale if cfg.query_scale is not None else 1.0 / math.sqrt(cfg.head_dim)
 
 
-def _no_ring(pcfg) -> None:
-    errors.check(
-        not pcfg.ring_attention,
-        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        "ring attention is not ported yet",
-    )
-
-
-def _attend(q, k, v, cfg, pcfg, sliding_window, prefix_len):
+def _attend(q, k, v, cfg, pcfg, sliding_window, prefix_len, mesh):
+    if pcfg.ring_attention and mesh is not None and not cfg.attn_logit_softcap and \
+            sliding_window is None and prefix_len is None:
+        return _ring_attention_sharded(q, k, v, pcfg, mesh, scale=_scale(cfg))
     return fa_ops.flash_attention(
         q,
         k,
@@ -209,20 +210,60 @@ def attention_full(
     prefix_len: int | None = None,
     mesh=None,
 ) -> torch.Tensor:
-    _no_ring(pcfg)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    return _out(_attend(q, k, v, cfg, pcfg, sliding_window, prefix_len), p["wo"])
+    return _out(_attend(q, k, v, cfg, pcfg, sliding_window, prefix_len, mesh), p["wo"])
+
+
+def _ring_attention_sharded(q, k, v, pcfg, comm, *, scale, causal=True):
+    """Sequence parallelism for long prefill: this rank takes its batch rows
+    by its coordinate on ``pcfg.data_axes`` and its sequence shard by its
+    ``pcfg.model_axis`` coordinate (the reference's ``P(data_axes, axis)``
+    spec), runs the fused ring (``kernels/ring_attention``) on a periodic
+    cart over the model axis, and all-gathers the output over both.  Global
+    lengths that do not divide the ring are padded here (the kernel masks
+    the tail) and sliced back."""
+
+    axis = pcfg.model_axis
+    n = comm.axis_size(axis)
+    cart = topology.CartComm(comm, (axis,), dims=(n,), periods=(True,), tag="ring-attn")
+    s = q.shape[1]
+    pad = (-s) % n
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    shard = (s + pad) // n
+    coords = dict(zip(comm.axis_names, comm.coords()))
+    data_axes = tuple(pcfg.data_axes)
+    data = math.prod(comm.axis_size(a) for a in data_axes)
+    b = q.shape[0]
+    errors.check(
+        b % data == 0,
+        errors.ErrorClass.ERR_COUNT,
+        f"ring attention splits the batch over {data_axes}: {b} rows over {data} ranks",
+    )
+    row = 0
+    for a in data_axes:
+        row = row * comm.axis_size(a) + coords[a]
+    rows = slice(row * (b // data), (row + 1) * (b // data))
+    seq = slice(coords[axis] * shard, (coords[axis] + 1) * shard)
+    out = ring_ops.ring_attention(
+        cart, q[rows, seq], k[rows, seq], v[rows, seq], causal=causal, scale=scale, global_len=s,
+    )
+    out = collectives.allgather(cart, out, spec=CollectiveSpec(axis=1))
+    for a in reversed(data_axes):
+        out = collectives.allgather(comm.split(a), out, spec=CollectiveSpec(axis=0))
+    return out[:, :s] if pad else out
 
 
 def attention_prefill(
     p, x, cfg, pcfg, *, positions, sliding_window, prefix_len=None, mesh=None
 ):
     """Full-sequence attention that also returns the layer's new KV entries
-    (B, S_cache, Hk, Dh) — S_cache is min(S, window) for windowed layers."""
+    (B, S_cache, Hk, Dh) — S_cache is min(S, window) for windowed layers.
+    The entries come from the whole, replicated ``k`` and ``v``, so decode
+    is the same with or without the ring."""
 
-    _no_ring(pcfg)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    y = _out(_attend(q, k, v, cfg, pcfg, sliding_window, prefix_len), p["wo"])
+    y = _out(_attend(q, k, v, cfg, pcfg, sliding_window, prefix_len, mesh), p["wo"])
     if sliding_window is not None and k.shape[1] > sliding_window:
         # ring-buffer layout: global position p lives in slot p % window
         s = k.shape[1]

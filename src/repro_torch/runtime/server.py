@@ -13,6 +13,13 @@ bound once per argument signature as a
 one per signature, when the request is built — the reference's "one trace
 per shape bucket" invariant, since eager mode has no tracing.
 
+**Ring attention**: with ``pcfg.ring_attention`` the prefill gets the
+communicator, as the reference's gets its mesh, and shards each eligible
+layer's sequence over the ring (``models/attention.py``).  Every rank builds
+the same weights from the same seed and runs ``generate`` on the same
+requests; decode runs replicated, with no communicator, and every rank
+returns the same tokens.
+
 The disaggregated server and the continuous-batching engine are not ported
 yet.
 """
@@ -70,7 +77,7 @@ def _synchronize(device: torch.device) -> None:
 
 
 class Server:
-    """``comm`` picks the device (rank 0 of its group); without one, a host
+    """``comm`` picks the device (this rank's); without one, a host
     communicator over ``device`` (``"cuda"`` unless ``"cpu"`` is asked)."""
 
     def __init__(
@@ -107,9 +114,12 @@ class Server:
             # referenced itself through its requests would hold its weights
             # after ``del`` until the cyclic garbage collector ran
             bundle, pcfg = self.bundle, self.pcfg
+            # ring attention shards the prompt sequence over the model axis;
+            # the prefill needs the communicator to fold the cart ring onto
+            comm = self.comm if pcfg.ring_attention else None
 
             def prefill_step(p, b):
-                return bundle.prefill(p, b, pcfg, None, extra_capacity=extra)
+                return bundle.prefill(p, b, pcfg, comm, extra_capacity=extra)
 
             req = PersistentRequest(prefill_step, (self.params, batch))
             self._prefill_reqs[key] = req

@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the reference package, and what it copied
-from the reference (error classes, the ported configs, the Group algebra)
-still equals the reference."""
+from the reference (error classes, the ported configs, the Group algebra,
+the collective facade's names and pvars) still equals the reference."""
 
 from __future__ import annotations
 
@@ -48,9 +48,16 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+_MULTI_RANK = ("core/topology.py", "core/collectives.py", "core/_methods.py", "core/overlap.py",
+               "kernels/ring_attention/ref.py", "kernels/ring_attention/kernel.py",
+               "kernels/ring_attention/ops.py")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
+    covered = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
+    assert set(_MULTI_RANK) <= covered
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -100,11 +107,32 @@ def test_group_algebra_equals_the_reference():
 
 
 def test_cpu_session_psets():
+    """The world of this process is one rank of the default process group
+    (initialised here as a world of one) computing on the CPU."""
+
     sess = tsession.Session(device_type="cpu")
-    cpu = (torch.device("cpu"),)
+    cpu = (tsession.RankDevice(0, torch.device("cpu")),)
     for name in ("repro://world", "mpi://self", "repro://host/0", "repro://platform/cpu"):
         assert sess.pset(name) == cpu
     sess.finalize()
     with pytest.raises(terrors.Error) as ei:
         sess.psets()
     assert ei.value.klass == terrors.ErrorClass.ERR_SESSION
+
+
+def test_collective_facade_equals_the_reference():
+    """The blocking and immediate methods the port binds onto its
+    communicator exist in the reference under the same names, with the same
+    pvars."""
+
+    from repro.core import _methods as jmethods  # noqa: F401  (binds the reference's)
+    from repro.core import tool as jtool
+    from repro.core.communicator import Communicator as JComm
+    from repro_torch.core import _methods as tmethods
+    from repro_torch.core import tool as ttool
+    from repro_torch.core.communicator import Communicator as TComm
+
+    names = tmethods._BLOCKING + tuple(f"immediate_{n}" for n in tmethods._IMMEDIATE)
+    for name in names:
+        assert callable(getattr(TComm, name)) and callable(getattr(JComm, name)), name
+        assert name in ttool.PVARS and ttool.PVARS[name] == jtool.PVARS[name], name

@@ -1,11 +1,14 @@
 """The port's Server against the reference Server, on CPU tensors: the same
-prompts through the same weights give identical tokens at temperature 0.
-Also the persistent-request bookkeeping, the CLI and the refusal to fall
-back to the CPU on a machine without a GPU."""
+prompts through the same weights give identical tokens at temperature 0 —
+in one process, and with ring attention across gloo ranks (one process
+each) against the reference on virtual devices.  Also the
+persistent-request bookkeeping, the CLI and the refusal to fall back to the
+CPU on a machine without a GPU."""
 
 from __future__ import annotations
 
 import dataclasses
+import textwrap
 
 import jax
 import numpy as np
@@ -22,6 +25,7 @@ from repro_torch.core import errors, tool
 from repro_torch.core.futures import PersistentRequest
 from repro_torch.launch import serve
 from repro_torch.runtime import server as tserver
+from torch_ranks import finish_jax, run_ranks, start_jax
 
 torch.set_num_threads(1)
 
@@ -200,3 +204,95 @@ def test_pvar_names_are_the_references():
     """Every pvar the port registers exists in the reference registry."""
 
     assert set(tool.PVARS) <= set(jtool.PVARS)
+
+
+# ---------------------------------------------------------------------------
+# ring attention across ranks
+# ---------------------------------------------------------------------------
+
+SERVER_RING_JAX = textwrap.dedent("""
+    import dataclasses, sys
+    import jax
+    import numpy as np
+    from repro.configs.base import ModelConfig, ParallelConfig
+    from repro.core._compat import make_mesh
+    from repro.runtime.server import Request, Server, ServerConfig
+
+    work = sys.argv[1]
+    inp = dict(np.load(work + "/inputs.npz"))
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=4, head_dim=16, d_ff=128, vocab_size=256, dtype="float32")
+    scfg = ServerConfig(max_batch=2, max_new_tokens=4)
+    prompts = [inp["prompt0"], inp["prompt1"]]
+    out = {}
+    for name, pcfg in (("base", ParallelConfig()),
+                       ("ring", dataclasses.replace(ParallelConfig(), ring_attention=True))):
+        server = Server(cfg, pcfg, scfg, mesh)
+        out[name], _ = server.generate([Request(tokens=p.copy()) for p in prompts])
+    for path, leaf in jax.tree_util.tree_flatten_with_path(server.params)[0]:
+        out["param/" + "/".join(str(k.key) for k in path)] = np.asarray(leaf)
+    np.savez(work + "/jax.npz", **out)
+    print("JAX_SERVER_RING_OK")
+""")
+
+
+@pytest.fixture(scope="module")
+def ring_servers(tmp_path_factory):
+    """The reference's ``SERVER_RING`` setup (``tests/test_ring_attention.py``)
+    on a (2, 2) mesh of virtual devices, and the port's on 2 x 2 gloo ranks
+    with the reference's weights; zamba2's smoke model on 1 x 2 ranks."""
+
+    work = tmp_path_factory.mktemp("server_ring")
+    np.savez(work / "inputs.npz", prompt0=np.arange(1, 33, dtype=np.int32),
+             prompt1=np.arange(5, 29, dtype=np.int32))
+    jax_proc = start_jax(SERVER_RING_JAX, work)
+    zwork = tmp_path_factory.mktemp("zamba2_ring")
+    zprompts = _prompts(length=24, seed=9)
+    np.savez(zwork / "inputs.npz", prompt0=zprompts[0], prompt1=zprompts[1])
+    zamba2 = run_ranks("zamba2_ring", 2, zwork)
+    finish_jax(jax_proc, "JAX_SERVER_RING_OK")
+    ref = dict(np.load(work / "jax.npz"))
+    np.savez(work / "inputs.npz", prompt0=np.arange(1, 33, dtype=np.int32),
+             prompt1=np.arange(5, 29, dtype=np.int32),
+             **{k: v for k, v in ref.items() if k.startswith("param/")})
+    ranks = run_ranks("server", 4, work)
+    return ref, ranks, zprompts, zamba2
+
+
+def test_ring_server_tokens_identical_to_reference(ring_servers):
+    """A 2 x 2 gloo ``Server`` with the ring gives the reference's greedy
+    tokens (ring and non-ring, which agree), on every rank."""
+
+    ref, ranks, _, _ = ring_servers
+    np.testing.assert_array_equal(ref["ring"], ref["base"])
+    assert sorted(tuple(r["coords"]) for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for r in ranks:
+        np.testing.assert_array_equal(r["ring"], ref["ring"])
+        np.testing.assert_array_equal(r["base"], ref["base"])
+
+
+def test_zamba2_ring_server_tokens_identical_to_single_process(ring_servers):
+    """zamba2's shared attention on a ring of 2 ranks gives the tokens of
+    the port's non-ring ``Server`` in one process, with the same seeded
+    weights (held against the reference above)."""
+
+    _, _, prompts, ranks = ring_servers
+    cfg = dataclasses.replace(tbase.get_smoke_config("zamba2_7b"), dtype="float32")
+    ts = tserver.Server(cfg, tbase.get_parallel("zamba2_7b"),
+                        tserver.ServerConfig(max_batch=2, max_new_tokens=4), device="cpu")
+    want, _ = ts.generate([tserver.Request(tokens=p) for p in prompts])
+    for r in ranks:
+        np.testing.assert_array_equal(r["ring"], want)
+
+
+def test_serve_cli_folds_the_world_with_mesh(capsys):
+    """``--mesh DxM`` folds the process world (a world of one here); a
+    grid larger than the world raises ``ERR_DIMS``."""
+
+    assert serve.main(["--arch", "phi4_mini_3_8b", "--smoke", "--device", "cpu", "--mesh", "1x1",
+                       "--requests", "2", "--prompt-len", "8", "--new-tokens", "2"]) == 0
+    assert "generated shape: (2, 2)" in capsys.readouterr().out
+    with pytest.raises(errors.Error) as ei:
+        serve.main(["--arch", "phi4_mini_3_8b", "--smoke", "--device", "cpu", "--mesh", "2x2"])
+    assert ei.value.klass == errors.ErrorClass.ERR_DIMS

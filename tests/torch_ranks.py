@@ -1,0 +1,283 @@
+"""Multi-rank programs of the port's tests, and the harness that runs them:
+one fresh Python process per rank, gloo over a ``file://`` store in the
+test's own directory (never a fixed port: the suite runs in parallel), each
+group with a 60 s timeout, and a hard wall-clock limit after which every
+rank still running is killed.  Beside them, :func:`start_jax` runs the
+reference's side in a fresh Python with virtual JAX devices.
+
+    python tests/torch_ranks.py <program> <rank> <world> <workdir>
+
+A program reads its inputs from ``<workdir>/inputs.npz`` (written by the
+test) and saves what it computed to ``<workdir>/rank<r>.npz``; the test
+compares.  This module imports torch and numpy only, so a rank starts
+quickly and never sees JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def run_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0) -> list[dict]:
+    """Run ``program`` on ``world`` ranks; the per-rank results, in rank
+    order.  Raises with every rank's output if one fails or the limit
+    passes."""
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(var, None)
+    logs = [open(workdir / f"rank{r}.log", "w+") for r in range(world)]
+    procs = [
+        subprocess.Popen([sys.executable, __file__, program, str(r), str(world), str(workdir)],
+                         stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        for r in range(world)
+    ]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outputs = []
+    for log in logs:
+        log.seek(0)
+        outputs.append(log.read())
+        log.close()
+    codes = [p.returncode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(
+            f"{program} on {world} ranks: exit codes {codes} (limit {timeout}s)\n"
+            + "\n".join(f"--- rank {r}\n{out[-3000:]}" for r, out in enumerate(outputs)))
+    return [dict(np.load(workdir / f"rank{r}.npz")) for r in range(world)]
+
+
+def start_jax(code: str, workdir, n: int = 4) -> subprocess.Popen:
+    """The reference's side in a fresh Python with ``n`` virtual CPU
+    devices (the ``subproc`` fixture's environment), started without
+    waiting."""
+
+    env = {**os.environ, "XLA_FLAGS": f"--xla_force_host_platform_device_count={n}",
+           "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.Popen([sys.executable, "-c", code, str(workdir)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+
+
+def finish_jax(proc: subprocess.Popen, marker: str, timeout: float = 300.0) -> None:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    assert proc.returncode == 0 and marker in out, f"rc={proc.returncode}\n{out}\n{err[-4000:]}"
+
+
+# ---------------------------------------------------------------------------
+# rank side
+# ---------------------------------------------------------------------------
+
+
+def _init(rank: int, world: int, workdir: Path) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+
+
+def _err(fn) -> str:
+    from repro_torch.core import errors
+
+    try:
+        fn()
+    except errors.Error as e:
+        return e.klass.name
+    return "none"
+
+
+def prog_collectives(rank: int, world: int, inputs: dict) -> dict:
+    """Every ported collective on this rank's slice of the inputs, the
+    typed errors of bad calls, and the shift exchanges of a 2 x 2 cart."""
+
+    import torch
+
+    from repro_torch.core import topology
+    from repro_torch.core.communicator import world as world_comm
+    from repro_torch.core.descriptors import CollectiveSpec, ReduceOp
+
+    comm = world_comm(device_type="cpu")
+    x = torch.from_numpy(inputs["x"][rank])
+    ints = torch.from_numpy(inputs["ints"][rank])
+    xv = torch.from_numpy(inputs["xv"][rank])
+    out = {
+        "allreduce_sum": comm.allreduce(x),
+        "allreduce_max": comm.allreduce(x, op=ReduceOp.MAX),
+        "allreduce_min": comm.allreduce(x, op=ReduceOp.MIN),
+        "allreduce_prod": comm.allreduce(x, op=ReduceOp.PROD),
+        "allreduce_land": comm.allreduce(ints, op=ReduceOp.LAND),
+        "allreduce_lor": comm.allreduce(ints, op=ReduceOp.LOR),
+        "allreduce_lxor": comm.allreduce(ints, op=ReduceOp.LXOR),
+        "allreduce_band": comm.allreduce(ints, op=ReduceOp.BAND),
+        "allreduce_bor": comm.allreduce(ints, op=ReduceOp.BOR),
+        "allreduce_bxor": comm.allreduce(ints, op=ReduceOp.BXOR),
+        "broadcast": comm.broadcast(x, root=2),
+        "reduce": comm.reduce(x, root=1),
+        "reduce_scatter": comm.reduce_scatter(x),
+        "allgather": comm.allgather(x),
+        "allgather_stacked": comm.allgather(x, spec=CollectiveSpec(tiled=False)),
+        "allgather_axis1": comm.allgather(x, spec=CollectiveSpec(axis=1)),
+        "gather": comm.gather(x, root=3),
+        "scatter": comm.scatter(x, root=1),
+        "alltoall": comm.alltoall(x),
+        "alltoall_0_1": comm.alltoall(x, split_axis=0, concat_axis=1),
+        "allgatherv": comm.allgatherv(xv, (3, 1, 4, 2)),
+        "alltoallv": comm.alltoallv(x, (2, 1, 2, 1))[0],
+        "scan_sum": comm.scan(x),
+        "scan_max": comm.scan(x, op=ReduceOp.MAX),
+        "scan_prod": comm.scan(x, op=ReduceOp.PROD),
+        "exscan_sum": comm.exscan(x),
+        "exscan_min": comm.exscan(x, op=ReduceOp.MIN),
+        "send_recv": comm.send_recv(x, [(0, 2), (2, 1), (1, 0)]),
+        "shift": comm.shift(x),
+        "shift_nowrap": comm.shift(x, offset=-1, wrap=False),
+        "immediate_allreduce": comm.immediate_allreduce(x).get(),
+        "immediate_shift": comm.immediate_shift(x, 2).get(),
+        "barrier": comm.barrier(),
+    }
+    tree = comm.allreduce({"a": x, "b": [ints, x[:2]]})
+    out["tree_a"], out["tree_b0"], out["tree_b1"] = tree["a"], tree["b"][0], tree["b"][1]
+    cart = topology.cart_create(comm, (2, 2), (True, False), axis_names=("row", "col"))
+    for dim in (0, 1):
+        for disp in (1, -1):
+            out[f"cart_shift_{dim}_{disp}"] = cart.shift_exchange(x, dim, disp).get()
+    errs = {
+        "bad_root": _err(lambda: comm.broadcast(x, root=4)),
+        "bad_reduce_root": _err(lambda: comm.reduce(x, root=-1)),
+        "bad_scatter": _err(lambda: comm.reduce_scatter(x[:, :1].T.contiguous())),
+        "bad_counts": _err(lambda: comm.allgatherv(xv, (1, 2, 3))),
+        "bad_padding": _err(lambda: comm.allgatherv(xv[:3], (3, 1, 4, 2))),
+    }
+    result = {k: v.numpy() for k, v in out.items()}
+    result.update({f"err_{k}": np.array(v) for k, v in errs.items()})
+    result["coords"] = np.array([cart.rank(), *cart.coords()])
+    return result
+
+
+def prog_ring(rank: int, world: int, inputs: dict) -> dict:
+    """The fused ring and the plain eager ring on this rank's shards, for
+    each case of the inputs."""
+
+    import torch
+
+    from repro_torch.core import overlap, topology
+    from repro_torch.core.communicator import world as world_comm
+    from repro_torch.kernels.ring_attention import ops as ring_ops
+
+    comm = world_comm(device_type="cpu")
+    cart = topology.cart_create(comm, (world,), (True,), axis_names=("ring",))
+    out = {}
+    for name in sorted({k.split(":")[0] for k in inputs}):
+        q, k, v = (torch.from_numpy(inputs[f"{name}:{t}"]) for t in "qkv")
+        s, causal = int(inputs[f"{name}:S"]), bool(inputs[f"{name}:causal"])
+        shard = q.shape[1] // world
+        rows = slice(rank * shard, (rank + 1) * shard)
+        out[f"{name}:fused"] = ring_ops.ring_attention(
+            cart, q[:, rows], k[:, rows], v[:, rows], causal=causal, global_len=s,
+            block_q=16, block_k=16).numpy()
+        if s == q.shape[1]:
+            out[f"{name}:plain"] = overlap.ring_attention(
+                cart, q[:, rows], k[:, rows], v[:, rows], causal=causal).numpy()
+    return out
+
+
+def _params(inputs: dict) -> dict:
+    """The reference's parameter tree, saved with '/'-joined key paths."""
+
+    from repro_torch.convert import params_from_jax
+
+    tree: dict = {}
+    for key, arr in inputs.items():
+        if not key.startswith("param/"):
+            continue
+        node = tree
+        *path, leaf = key.split("/")[1:]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return params_from_jax(tree, "cpu")
+
+
+def _serve(inputs: dict, cfg, pcfg, comm) -> np.ndarray:
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+
+    server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=4), comm)
+    if any(k.startswith("param/") for k in inputs):
+        server.params = _params(inputs)
+    prompts = [inputs["prompt0"], inputs["prompt1"]]
+    tokens, _ = server.generate([Request(tokens=p.copy()) for p in prompts])
+    return tokens
+
+
+def prog_server(rank: int, world: int, inputs: dict) -> dict:
+    """The reference's ``SERVER_RING`` model and prompts on a 2 x 2 grid,
+    with and without the ring, on the reference's weights."""
+
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.launch.mesh import make_host_communicator
+
+    comm = make_host_communicator(2, 2, device="cpu")
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=4, head_dim=16, d_ff=128, vocab_size=256, dtype="float32")
+    ring = _serve(inputs, cfg, dataclasses.replace(ParallelConfig(), ring_attention=True), comm)
+    base = _serve(inputs, cfg, ParallelConfig(), comm)
+    return {"ring": ring, "base": base, "coords": np.array(comm.coords())}
+
+
+def prog_zamba2_ring(rank: int, world: int, inputs: dict) -> dict:
+    """zamba2's smoke model in fp32 with the ring over a 1 x 2 grid: its
+    shared attention runs the ring."""
+
+    from repro_torch.configs import base
+    from repro_torch.launch.mesh import make_host_communicator
+
+    comm = make_host_communicator(1, 2, device="cpu")
+    cfg = dataclasses.replace(base.get_smoke_config("zamba2_7b"), dtype="float32")
+    pcfg = dataclasses.replace(base.get_parallel("zamba2_7b"), ring_attention=True)
+    return {"ring": _serve(inputs, cfg, pcfg, comm)}
+
+
+PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_server,
+            "zamba2_ring": prog_zamba2_ring}
+
+
+def main(argv: list[str]) -> int:
+    program, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
+    inputs = dict(np.load(workdir / "inputs.npz"))
+    _init(rank, world, workdir)
+    result = PROGRAMS[program](rank, world, inputs)
+    np.savez(workdir / f"rank{rank}.tmp.npz", **result)
+    os.replace(workdir / f"rank{rank}.tmp.npz", workdir / f"rank{rank}.npz")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

@@ -10,7 +10,10 @@ any failure.  In order:
 2. build: compiles every kernel of the serving paths from the sources in
    this checkout, one ``nvcc`` per source (flash attention, SSD scan, int8
    quantize/dequantize, the ring-attention step), all started together,
-   and prints each one's ptxas usage;
+   and prints each one's ptxas usage; for each instantiation of the two
+   attention kernels, its registers, spill bytes and ``HGMMA`` count
+   (``cuobjdump -sass``): the bf16 ones must run wgmma and spill nothing,
+   the fp32 ones must not run wgmma;
 3. NCCL: the default process group as a world of one over a ``file://``
    store under ``build/`` (NCCL for CUDA tensors, gloo for CPU ones);
    ``allreduce``, ``allgather``, ``broadcast``, ``shift`` and a cart's
@@ -18,7 +21,8 @@ any failure.  In order:
    must each return its input;
 4. flash attention against its plain version on the card, at gemma2-9b
    width (b 2, h 16, hk 8, d 256, softcap 50, bf16; one fp32 case) and at
-   zamba2-7b's (b 2, s 4096, h = hk = 32, d 112, bf16; one fp32 case):
+   zamba2-7b's (b 2, s 4096, h = hk = 32, d 112, bf16; one fp32 case),
+   bf16 cases within the limit that one bf16 pass of P adds (``P_BF16``):
    error, the kernel's median time, the plain version's, the bound, and
    ``library_ms`` — ``F.scaled_dot_product_attention`` at the same shapes
    without the softcap and window, a yardstick the port never calls;
@@ -50,10 +54,11 @@ any failure.  In order:
    and not, 3,950 tokens in 4 shards of 1,000 (a ragged tail): the
    normalised output within the stated limits of the twin's and of
    ``flash_attention.ref.mha`` on the full sequence; one step from a
-   finite mid-schedule carry, every carry element; the two skip invariants
-   (a shard wholly in the causal future, and one with no valid row, leave
-   the carry exactly as it was, from a mid-schedule and from the initial
-   carry); and the ring of one at phi4-mini's serve (b 2, s 8192), held
+   finite mid-schedule carry, every carry element (bf16 cases and the
+   carry's acc with the ``P_BF16`` term, m and l without); the two skip
+   invariants (a shard wholly in the causal future, and one with no valid
+   row, leave the carry exactly as it was, from a mid-schedule and from
+   the initial carry); and the ring of one at phi4-mini's serve (b 2, s 8192), held
    against the twin one Q chunk at a time and timed, with the bound, the
    twin's time (the sum over its chunks) and ``library_ms``:
    ``F.scaled_dot_product_attention`` (causal, GQA), a yardstick;
@@ -90,6 +95,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -108,6 +114,12 @@ HBM_BYTES_PER_S = 3.35e12
 # value rounded once, within half a bf16 ulp of it (2^-8 relative), so its
 # rtol adds 2^-8 to the fp32 limits.
 BF16_RTOL = 2.0 ** -8
+# bf16 attention rounds P to bf16 once for its second product (as production
+# flash kernels and SDPA do): each p moves by at most 2^-8 p, so an output
+# by at most 2^-8 (sum_k p_k |v_k|) / l, the plain version run on |v|.  The
+# bf16 attention cases add P_BF16 times that to their limit, and log their
+# worst share of the limit without it.
+P_BF16 = 2.0 ** -8
 FLASH_FP32_TOL = 1e-4  # flash: atol, rtol 0
 SSD_FP32_TOL = 5e-5    # SSD: atol and rtol, as tests/test_kernels.py
 NEW_TOKENS = 16
@@ -214,32 +226,104 @@ def _launches() -> dict:
             RING: rk.LAUNCHES}
 
 
-def phase_build():
+def _ptxas_usage(text: str) -> dict:
+    """Registers and spill bytes (stores + loads) of each function in
+    ``nvcc -Xptxas -v``'s report."""
+
+    usage, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$.]+)", line)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            usage[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
+
+
+def _hgmma_counts(lib_path) -> dict:
+    """``HGMMA`` (wgmma) instructions in each function of a built library,
+    from ``cuobjdump -sass``."""
+
     from repro_torch.kernels import nvcc
 
+    sass = subprocess.run([str(nvcc.toolkit_binary("cuobjdump")), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def phase_build():
+    """Build every library afresh (its ptxas report is read here); for each
+    attention kernel instantiation, registers, spills and HGMMA count: the
+    bf16 ones must run wgmma and spill nothing, the fp32 ones none."""
+
+    from repro_torch.kernels import nvcc
+
+    fk, _, _, rk = _kernel_modules()
     libs = [m.LIBRARY for m in _kernel_modules()]
     t0 = time.perf_counter()
-    nvcc.build_all(libs)
+    nvcc.build_all(libs, force=True)
     RESULTS["build_s"] = time.perf_counter() - t0
     log(f"built {', '.join(lib.name for lib in libs)} in {RESULTS['build_s']:.1f}s")
     for lib in libs:
         usage = [l.split("info    : ")[-1] for l in lib.log.splitlines()
                  if "registers" in l or "spill" in l]
         log(f"{lib.name} ptxas: " + " | ".join(usage))
+    RESULTS["attention_instantiations"] = {}
+    for lib, body in ((fk.LIBRARY, "fwd_kernel"), (rk.LIBRARY, "step_kernel")):
+        usage, hgmma = _ptxas_usage(lib.log), _hgmma_counts(lib.build())
+        rows = {fn: {**usage.get(fn, {}), "hgmma": n} for fn, n in hgmma.items() if body in fn}
+        log(f"{lib.name} instantiations: " + json.dumps(rows))
+        bf16 = [fn for fn in rows if "__nv_bfloat16" in fn]
+        check(len(bf16) == 3 and len(rows) == 7,
+              f"{lib.name}: {len(bf16)} bf16 of {len(rows)} instantiations, want 3 of 7")
+        for fn, row in rows.items():
+            check("spill_bytes" in row, f"{lib.name}: no ptxas report for {fn}")
+            if fn in bf16:
+                check(row["hgmma"] > 0 and row["spill_bytes"] == 0,
+                      f"{lib.name}: bf16 {fn} has {row['hgmma']} HGMMA and "
+                      f"{row['spill_bytes']} bytes of spills")
+            else:
+                check(row["hgmma"] == 0, f"{lib.name}: fp32 {fn} runs wgmma")
+        RESULTS["attention_instantiations"][lib.name] = rows
 
 
-def _held(name, out, plain, atol, rtol) -> dict:
+def _held(name, out, plain, atol, rtol, abs_v=None) -> dict:
     """Hold ``out`` elementwise within ``atol + rtol * |plain|`` of the fp32
-    ``plain``; the worst element's share of its limit, and mean |plain|, are
-    logged so the limit can be read against the values."""
+    ``plain``, plus ``P_BF16 * abs_v`` where ``abs_v`` (the plain version
+    run on |v|) is given; the worst element's share of its limit, and mean
+    |plain|, are logged so the limit can be read against the values, and
+    with ``abs_v`` also the worst share of the limit without the term and the
+    count of elements outside it."""
 
     diff = (out.float() - plain).abs()
-    ratio = (diff / (atol + rtol * plain.abs())).max().item()
+    old = atol + rtol * plain.abs()
+    limit = old if abs_v is None else old + P_BF16 * abs_v
+    ratio = (diff / limit).max().item()
     err = diff.max().item()
+    extra = "" if abs_v is None else f" + {P_BF16} |v|-attention"
     check(math.isfinite(err) and ratio <= 1.0,
-          f"{name}: max abs err {err}, worst element at {ratio} of atol {atol} + rtol {rtol}")
-    return {"max_abs_err": err, "atol": atol, "rtol": rtol, "worst_err_over_limit": ratio,
-            "mean_abs_plain": plain.abs().mean().item()}
+          f"{name}: max abs err {err}, worst element at {ratio} of atol {atol} + rtol {rtol}"
+          f"{extra}")
+    row = {"max_abs_err": err, "atol": atol, "rtol": rtol, "worst_err_over_limit": ratio,
+           "mean_abs_plain": plain.abs().mean().item()}
+    if abs_v is not None:
+        row.update(p_bf16=P_BF16, worst_err_over_old_limit=(diff / old).max().item(),
+                   n_outside_old_limit=int((diff > old).sum().item()))
+    return row
 
 
 def _attention_case(name, seed, *, b, s, h, hk, d, dtype, reps, **kw):
@@ -258,9 +342,10 @@ def _attention_case(name, seed, *, b, s, h, hk, d, dtype, reps, **kw):
     v = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dt)
     out = fk.flash_attention_fwd(q, k, v, **kw)
     plain = ref.mha(q.float(), k.float(), v.float(), **kw)
+    bf16 = dtype == "bfloat16"
+    abs_v = ref.mha(q.float(), k.float(), v.float().abs(), **kw) if bf16 else None
     torch.cuda.synchronize()
-    held = _held(f"flash {name}", out, plain, FLASH_FP32_TOL,
-                 BF16_RTOL if dtype == "bfloat16" else 0.0)
+    held = _held(f"flash {name}", out, plain, FLASH_FP32_TOL, BF16_RTOL if bf16 else 0.0, abs_v)
     row = {"case": name, "shape": [b, s, h, hk, d], "dtype": dtype, **held,
            **{k_: v_ for k_, v_ in kw.items() if k_ != "scale"}}
     if reps:
@@ -282,7 +367,7 @@ def _attention_case(name, seed, *, b, s, h, hk, d, dtype, reps, **kw):
             flops=flops, bytes=nbytes,
         )
     log_row(row)
-    del q, k, v, out, plain
+    del q, k, v, out, plain, abs_v
     torch.cuda.empty_cache()
     return row
 
@@ -302,6 +387,12 @@ def phase_kernels():
                         dtype="bfloat16", reps=10, causal=True),
         _attention_case("zamba2_fp32_1000_d112", 6, b=1, s=1000, h=32, hk=32, d=112,
                         dtype="float32", reps=0, causal=True),
+        # the 64-wide tile: one batch, one KV head, a ragged length; a
+        # padded d 32 without the causal mask
+        _attention_case("mqa_b1_333_d64", 7, b=1, s=333, h=4, hk=1, d=64, dtype="bfloat16",
+                        reps=0, causal=True),
+        _attention_case("full_200_d32", 8, b=1, s=200, h=2, hk=2, d=32, dtype="bfloat16",
+                        reps=0, causal=False),
     ]
     RESULTS["kernel_cases"] = rows
 
@@ -623,10 +714,12 @@ def _ring_schedule_case(name, seed, *, n, shard, global_len, b, h, hk, d, dtype,
         t[:, global_len:] = 0  # the padded tail, as the model pads it
     lens = [max(0, min(shard, global_len - r * shard)) for r in range(n)]
     scale = d ** -0.5
-    outs, plains = [], []
+    bf16 = dtype == "bfloat16"
+    outs, plains, abs_vs = [], [], []
     for r in range(n):
         qt = q[:, r * shard:(r + 1) * shard].transpose(1, 2)
         carry, pcarry = _fresh_carry(b, h, shard, d), _fresh_carry(b, h, shard, d)
+        acarry = _fresh_carry(b, h, shard, d)  # the twin on |v|, for the bf16 limit
         for step in range(n):
             src = (r - step) % n
             kt = k[:, src * shard:(src + 1) * shard].transpose(1, 2)
@@ -636,20 +729,30 @@ def _ring_schedule_case(name, seed, *, n, shard, global_len, b, h, hk, d, dtype,
             carry = rk.ring_step_fwd(qt, kt, vt, *carry, info=info, scale=scale, causal=causal)
             pcarry = ref.ring_step_ref(qt.float(), kt.float(), vt.float(), *pcarry, scale=scale,
                                        causal=causal, **offs)
+            if bf16:
+                acarry = ref.ring_step_ref(qt.float(), kt.float(), vt.float().abs(), *acarry,
+                                           scale=scale, causal=causal, **offs)
         outs.append(carry[2] / carry[1].clamp_min(1e-30))
         plains.append(pcarry[2] / pcarry[1].clamp_min(1e-30))
-    out = torch.cat(outs, dim=2)[:, :, :global_len].transpose(1, 2)
-    plain = torch.cat(plains, dim=2)[:, :, :global_len].transpose(1, 2)
+        abs_vs.append(acarry[2] / acarry[1].clamp_min(1e-30))
+
+    def joined(parts):
+        return torch.cat(parts, dim=2)[:, :, :global_len].transpose(1, 2)
+
+    out, plain = joined(outs), joined(plains)
+    abs_v = joined(abs_vs) if bf16 else None
     torch.cuda.synchronize()
     row = {"case": name, "ranks": n, "shard": shard, "global_len": global_len,
            "shape": [b, h, hk, d], "dtype": dtype, "causal": causal, "launches": n * n}
-    row.update(_held(f"ring {name}", out, plain, FLASH_FP32_TOL, _ring_tol(dtype)))
-    mha = fref.mha(q[:, :global_len].float(), k[:, :global_len].float(),
-                   v[:, :global_len].float(), causal=causal, scale=scale)
-    held = _held(f"ring {name} against mha", out, mha, FLASH_FP32_TOL, _ring_tol(dtype))
+    row.update(_held(f"ring {name}", out, plain, FLASH_FP32_TOL, _ring_tol(dtype), abs_v))
+    qg, kg, vg = (t[:, :global_len].float() for t in (q, k, v))
+    mha = fref.mha(qg, kg, vg, causal=causal, scale=scale)
+    mha_abs_v = fref.mha(qg, kg, vg.abs(), causal=causal, scale=scale) if bf16 else None
+    held = _held(f"ring {name} against mha", out, mha, FLASH_FP32_TOL, _ring_tol(dtype),
+                 mha_abs_v)
     row.update({f"{k_}_mha": v_ for k_, v_ in held.items()})
     log_row(row)
-    del q, k, v, outs, plains, out, plain, mha
+    del q, k, v, outs, plains, abs_vs, out, plain, abs_v, mha, mha_abs_v
     torch.cuda.empty_cache()
     return row
 
@@ -680,10 +783,14 @@ def _ring_carry_cases(seed, *, b=2, s=1000, h=24, hk=8, d=128):
                            causal=True)
     want = ref.ring_step_ref(q.float(), k.float(), v.float(), m, l, acc, scale=scale,
                              causal=True, **offs)
+    # the bf16 term of the unnormalised acc: this step's p |v| alone
+    abs_v = ref.ring_step_ref(q.float(), k.float(), v.float().abs(), m, l,
+                              torch.zeros_like(acc), scale=scale, causal=True, **offs)[2]
     torch.cuda.synchronize()
     row = {"case": "mid_schedule_carry", "shape": [b, h, hk, s, d], **offs}
     for part, g, w in zip(("m", "l", "acc"), got, want):
-        held = _held(f"ring carry {part}", g, w, FLASH_FP32_TOL, RING_CARRY_RTOL)
+        held = _held(f"ring carry {part}", g, w, FLASH_FP32_TOL, RING_CARRY_RTOL,
+                     abs_v if part == "acc" else None)
         row.update({f"{k_}_{part}": v_ for k_, v_ in held.items()})
     row["max_abs_err"] = max(row[f"max_abs_err_{p_}"] for p_ in ("m", "l", "acc"))
     log_row(row)
@@ -729,21 +836,22 @@ def _ring_of_one(name, seed, *, b, s, h, hk, d, dtype, reps, chunk=1024):
                              scale=scale, causal=True)
     out = carry[2] / carry[1].clamp_min(1e-30)
 
-    def plain_chunks():
+    def plain_chunks(vv):
         parts = []
         for c0 in range(0, s, chunk):
             pc = _fresh_carry(b, h, min(chunk, s - c0), d)
-            _, pl, pacc = ref.ring_step_ref(qt[:, :, c0:c0 + chunk], kv[0], kv[1], *pc,
+            _, pl, pacc = ref.ring_step_ref(qt[:, :, c0:c0 + chunk], kv[0], vv, *pc,
                                             q_offset=c0, k_offset=0, kv_len=s, scale=scale,
                                             causal=True)
             parts.append(pacc / pl.clamp_min(1e-30))
         return torch.cat(parts, dim=2)
 
-    plain = plain_chunks()
+    plain = plain_chunks(kv[1])
+    abs_v = plain_chunks(kv[1].abs()) if dtype == "bfloat16" else None
     torch.cuda.synchronize()
     row = {"case": name, "shape": [b, s, h, hk, d], "dtype": dtype, "causal": True}
-    row.update(_held(f"ring {name}", out, plain, FLASH_FP32_TOL, _ring_tol(dtype)))
-    del plain, out
+    row.update(_held(f"ring {name}", out, plain, FLASH_FP32_TOL, _ring_tol(dtype), abs_v))
+    del plain, out, abs_v
     pairs = b * h * s * (s + 1) // 2
     flops = 4 * d * pairs
     carry_bytes = 2 * sum(t.numel() * 4 for t in carry)  # read and written once
@@ -752,7 +860,7 @@ def _ring_of_one(name, seed, *, b, s, h, hk, d, dtype, reps, chunk=1024):
     row.update(
         ms=time_ms(lambda: rk.ring_step_fwd(qt, kv[0], kv[1], *carry, info=info, scale=scale,
                                             causal=True), reps),
-        plain_ms=time_ms(plain_chunks, 2),
+        plain_ms=time_ms(lambda: plain_chunks(kv[1]), 2),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kv[0], kv[1], is_causal=True, scale=scale, enable_gqa=True), reps),
         bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -782,6 +890,11 @@ def phase_ring():
                             **ragged, **zamba2),
         _ring_schedule_case("zamba2_4x1000_fp32_full", 44, dtype="float32", causal=False,
                             **ragged, **zamba2),
+        # the 64- and 256-wide tiles of the ring's bf16 path
+        _ring_schedule_case("mqa_2x300_d64_bf16_causal", 47, dtype="bfloat16", causal=True,
+                            n=2, shard=300, global_len=550, b=1, h=4, hk=1, d=64),
+        _ring_schedule_case("gqa_2x300_d256_bf16_full", 48, dtype="bfloat16", causal=False,
+                            n=2, shard=300, global_len=590, b=2, h=4, hk=2, d=256),
         *_ring_carry_cases(45),
     ]
     RESULTS["ring_of_one"] = _ring_of_one("phi4_ring_of_one_8192", 46, s=8192,

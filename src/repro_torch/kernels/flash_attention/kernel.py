@@ -9,7 +9,10 @@ Nothing is built when this module is imported.
 
 :func:`flash_attention_fwd` takes CUDA tensors only, launches on the current
 stream and counts its launches in :data:`LAUNCHES`; a build or launch
-failure raises.
+failure raises.  bf16 inputs run on the tensor cores, their tiles copied by
+TMA and 16-byte cp.async copies, so each of q, k and v must have contiguous
+rows on 16-byte boundaries (:func:`check_copyable`); fp32 inputs run on the
+CUDA cores in any strides.
 """
 
 from __future__ import annotations
@@ -49,6 +52,22 @@ def reset_launches() -> None:
     LAUNCHES = 0
 
 
+def check_copyable(kernel: str, name: str, t: torch.Tensor) -> None:
+    """A bf16 tensor whose tiles the tensor-core body copies by TMA and
+    16-byte cp.async copies: innermost stride 1, a 16-byte-aligned base, and
+    every other stride (of a dimension longer than 1) a multiple of 8
+    elements; else ERR_ARG."""
+
+    errors.check(
+        t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+        and all(st % 8 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1),
+        errors.ErrorClass.ERR_ARG,
+        f"{kernel}: bf16 {name} needs innermost stride 1, a 16-byte-aligned base and "
+        f"other strides in multiples of 8 elements, got strides {t.stride()} at "
+        f"{t.data_ptr() % 16} bytes past a 16-byte boundary",
+    )
+
+
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         errors.check(
@@ -85,6 +104,9 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         errors.ErrorClass.ERR_DIMS,
         f"flash kernel: head_dim must be a multiple of 8 up to {MAX_HEAD_DIM}, got {d}",
     )
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_copyable("flash kernel", name, t)
 
 
 def flash_attention_fwd(

@@ -3,7 +3,8 @@
 Each kernel of the port is one ``.cu`` file with plain C entry points.  At
 first use it is compiled for ``sm_90a`` into a shared library under
 ``build/<name>/<hash>`` at the repository root, keyed by a hash of the
-source and of :data:`NVCC_FLAGS`, and loaded with ``ctypes``.  Nothing is
+source, of every header it includes from the repository, and of
+:data:`NVCC_FLAGS`, and loaded with ``ctypes``.  Nothing is
 built when a module is imported.  :func:`build_all` starts one ``nvcc`` per
 source, all at once.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -30,6 +32,28 @@ NVCC_FLAGS = (
 )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def included_files(source: Path) -> list[Path]:
+    """``source`` and every file it ``#include "..."``s, directly or
+    through another, resolved beside the including file as ``nvcc`` does;
+    names that resolve to no file there are the toolkit's and are left out."""
+
+    found: list[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            inc = (path.parent / name).resolve()
+            if inc.is_file():
+                todo.append(inc)
+    return found
+
+
 def _nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -42,6 +66,12 @@ def _nvcc() -> str:
         "nvcc not found (set CUDA_HOME): the CUDA kernels are built from source "
         "at first use",
     )
+
+
+def toolkit_binary(name: str) -> Path:
+    """A program of the CUDA toolkit that ``nvcc`` belongs to (``cuobjdump``)."""
+
+    return Path(_nvcc()).parent / name
 
 
 class Library:
@@ -57,20 +87,23 @@ class Library:
         self._fns: dict = {}
 
     def out_dir(self) -> Path:
-        """``build/<name>/<hash>``: the hash covers the source and the flags,
-        so a change of either builds anew."""
+        """``build/<name>/<hash>``: the hash covers the source, the headers
+        it includes (:func:`included_files`) and the flags, so a change of
+        any of them builds anew."""
 
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in included_files(self.source):
+            h.update(path.read_bytes())
         h.update("\0".join(NVCC_FLAGS).encode())
         return BUILD_ROOT / self.name / h.hexdigest()[:16]
 
-    def build(self) -> Path:
-        """Compile unless this source's build exists; returns the library's
-        path."""
+    def build(self, force: bool = False) -> Path:
+        """Compile unless this source's build exists (or ``force``); returns
+        the library's path."""
 
         out_dir = self.out_dir()
         lib = out_dir / f"lib{self.name}.so"
-        if lib.exists():
+        if lib.exists() and not force:
             return lib
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f".lib{self.name}.{os.getpid()}.so"
@@ -97,10 +130,10 @@ class Library:
         return fn
 
 
-def build_all(libraries) -> None:
+def build_all(libraries, force: bool = False) -> None:
     """Build every library, one ``nvcc`` process each, all started together."""
 
     libraries = list(libraries)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
-        for future in [pool.submit(lib.build) for lib in libraries]:
+        for future in [pool.submit(lib.build, force) for lib in libraries]:
             future.result()

@@ -32,25 +32,31 @@
 // of one (b 2, S 8192, h 24, d 128, causal) that is 8.25e11 FLOPs against
 // ~0.5 GB: bound by operations (989 TFLOP/s on the tensor cores).
 //
-// What this first design does about it: the flash-attention body of this
-// port (64 x 64 tiles in shared memory, every loaded element reused across
-// a tile, the score matrix never written to device memory, skipped tiles
-// never loaded) on the fp32 CUDA cores, not on the tensor cores, so it runs
-// far from the bound: moving the two products onto wgmma is later work.
-//
-// Layout: one block of 256 threads per (64-row query tile, h, b).  Q, K and
-// V are read in place through their four strides; the carry must be
-// contiguous.  Shared memory holds the Q tile, one K and one V tile (fp32,
-// rows padded by one word) and the 64 x 64 score tile: ~110 KB at d = 128.
+// bf16 inputs run the flash-attention kernel's tensor-core tile body
+// (flash_attention/csrc/flash_tile.cuh): both products on wgmma, K/V tiles
+// copied by TMA two stages deep, one block of two warpgroups per
+// (128-row query tile, h, b), heads fastest (the query heads of one KV head
+// in neighbouring blocks, sharing K/V through L2), causal query tiles
+// heaviest first.  The body is the flash kernel's, so the ring of one does
+// its arithmetic in its order, and the two agree bit for bit.  fp32 inputs
+// keep the CUDA-core body below (64 x 64 fp32 tiles, 256 threads; ~110 KB
+// of shared memory at d = 128).  Both read Q, K and V in place: fp32
+// through any four strides, bf16 with contiguous rows on 16-byte
+// boundaries (the wrapper checks); the carry must be contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "../../flash_attention/csrc/flash_tile.cuh"
+
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // key rows per tile
-constexpr int THREADS = 256;  // 16 x 16 threads
+using flash_tile::bf16;
+
+constexpr int BQ = 64;        // fp32 body: query rows per block
+constexpr int BK = 64;        // fp32 body: key rows per tile
+constexpr int THREADS = 256;  // 16 x 16 threads (fp32), two warpgroups (bf16)
+static_assert(THREADS == flash_tile::THREADS, "one block size for both bodies");
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -67,40 +73,39 @@ struct Params {
   long long v_sb, v_sh, v_ss, v_sd;
   float scale;
   int causal;
+  // bf16: the TMA maps of K and V, filled by the launch
+  CUtensorMap tk, tv;
 };
 
 // -inf: the exp of a column past sk is exactly 0 whatever the running max
 __device__ __forceinline__ float no_column() { return __int_as_float(0xff800000); }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Shared memory of one block, in floats.
+// Shared memory of one fp32 block, in floats.
 constexpr int smem_floats(int hd) {
   return (BQ + 2 * BK) * (hd + 1) + BQ * (BK + 1) + 3 * BQ;
 }
 
 // Load rows [row0, row0 + rows) x [0, HD) of one head into a padded fp32
 // tile, zero-filling rows >= n and columns >= d.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int rows,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int rows,
                                           int n, int d, long long s_row, long long s_col) {
   constexpr int LD = HD + 1;
   for (int i = threadIdx.x; i < rows * HD; i += THREADS) {
     const int r = i / HD, c = i % HD;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < n && c < d) x = to_float(src[row * s_row + c * s_col]);
+    if (row < n && c < d) x = src[row * s_row + c * s_col];
     dst[r * LD + c] = x;
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) step_kernel(const Params p) {
+// The CUDA-core body, for fp32 inputs.
+template <int HD>
+__device__ __forceinline__ void fp32_body(const Params& p, float* smem) {
   constexpr int LD = HD + 1;    // padded row stride of the Q/K/V tiles
   constexpr int LDS = BK + 1;   // padded row stride of the score tile
   constexpr int CPT = HD / 16;  // carry columns per thread
-  extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * LD;
   float* sV = sK + BK * LD;
@@ -117,9 +122,9 @@ __global__ void __launch_bounds__(THREADS) step_kernel(const Params p) {
   const int tx = tid % 16, ty = tid / 16;
   const int q_off = p.info[0], k_off = p.info[1], kv_len = p.info[2];
 
-  const T* q = static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + bi * p.k_sb + kh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + bi * p.v_sb + kh * p.v_sh;
+  const float* q = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + bi * p.k_sb + kh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + bi * p.v_sb + kh * p.v_sh;
   // the carry rows of this (b, h): contiguous (sq, 1) and (sq, d)
   const long long row_base = (static_cast<long long>(bi) * p.h + hi) * p.sq;
   float* m = p.m + row_base;
@@ -150,12 +155,12 @@ __global__ void __launch_bounds__(THREADS) step_kernel(const Params p) {
                                             : 0.f;
     }
   }
-  load_tile<T, HD>(sQ, q, q0, BQ, p.sq, p.d, p.q_ss, p.q_sd);
+  load_tile<HD>(sQ, q, q0, BQ, p.sq, p.d, p.q_ss, p.q_sd);
 
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's reads of sK, sV, sS are done
-    load_tile<T, HD>(sK, k, k0, BK, p.sk, p.d, p.k_ss, p.k_sd);
-    load_tile<T, HD>(sV, v, k0, BK, p.sk, p.d, p.v_ss, p.v_sd);
+    load_tile<HD>(sK, k, k0, BK, p.sk, p.d, p.k_ss, p.k_sd);
+    load_tile<HD>(sV, v, k0, BK, p.sk, p.d, p.v_ss, p.v_sd);
     __syncthreads();
 
     // S = Q K^T on a 4 x 4 micro-tile per thread
@@ -261,23 +266,135 @@ __global__ void __launch_bounds__(THREADS) step_kernel(const Params p) {
   }
 }
 
+// The masks of one step, for the tensor-core body: q and k are the
+// shards' local indices.
+struct RingMask {
+  float scale;
+  int causal, q_off, k_off, kv_len, sk;
+
+  __device__ bool skip(int) const { return false; }
+  template <int N>
+  __device__ void values(float (&s)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] *= scale;
+  }
+  // masked columns of the shard are -1e30, as in the plain twin; columns
+  // past sk are no columns at all (-inf folds 0)
+  __device__ float masked(float x, int ql, int kl) const {
+    bool ok = kl < kv_len;
+    if (causal) ok = ok && (q_off + ql >= k_off + kl);
+    if (!ok) x = NEG_INF;
+    if (kl >= sk) x = no_column();
+    return x;
+  }
+  // rows [r0, r1] x keys [k0, k1) all admitted
+  __device__ bool full(int r0, int, int, int k1) const {
+    return k1 <= kv_len && k1 <= sk && (!causal || q_off + r0 >= k_off + k1 - 1);
+  }
+};
+
+// The tensor-core body, for bf16 inputs: one block per (128-row query tile,
+// h, b), heads fastest, query tiles last first.
+template <int HD>
+__device__ __forceinline__ void bf16_body(const Params& p, unsigned char* smem) {
+  namespace ft = flash_tile;
+  constexpr int BQ = ft::BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int hi = blockIdx.x;
+  const int bi = blockIdx.z;
+  const int kh = hi / (p.h / p.hk);
+  const int q_off = p.info[0], k_off = p.info[1], kv_len = p.info[2];
+
+  // K tiles at or beyond k_end lie wholly at or beyond kv_len, or (causal)
+  // wholly after this Q tile's last row; with none left, the carry stays
+  // as it was and is not touched
+  const int q_last = min(q0 + BQ, p.sq) - 1;
+  int k_end = min(p.sk, kv_len);
+  if (p.causal) k_end = min(k_end, q_off + q_last - k_off + 1);
+  if (k_end <= 0) return;
+
+  const bf16* q = static_cast<const bf16*>(p.q) + bi * p.q_sb + hi * p.q_sh;
+  const long long row_base = (static_cast<long long>(bi) * p.h + hi) * p.sq;
+  float* m = p.m + row_base;
+  float* l = p.l + row_base;
+  float* acc = p.acc + row_base * p.d;
+
+  ft::State<HD> st;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + ft::frag_row(h);
+    st.m[h] = row < p.sq ? m[row] : NEG_INF;
+    st.l[h] = row < p.sq ? l[row] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    const int row = q0 + ft::frag_row(ft::frag_half(i)), col = ft::frag_col(i);
+    st.o[i] = (row < p.sq && col < p.d) ? acc[static_cast<long long>(row) * p.d + col] : 0.f;
+  }
+  const RingMask mask{p.scale, p.causal, q_off, k_off, kv_len, p.sk};
+  ft::fold_tiles<HD>(smem, st, mask, q, p.q_ss, p.sq, p.d, &p.tk, &p.tv, kh, bi, q0, k_end);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + ft::frag_row(h);
+    if (row < p.sq && (threadIdx.x & 3) == 0) {
+      m[row] = st.m[h];
+      l[row] = st.l[h];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    const int row = q0 + ft::frag_row(ft::frag_half(i)), col = ft::frag_col(i);
+    if (row < p.sq && col < p.d) acc[static_cast<long long>(row) * p.d + col] = st.o[i];
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS, 1) step_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (sizeof(T) == 4) {
+    fp32_body<HD>(p, reinterpret_cast<float*>(smem));
+  } else {
+    bf16_body<HD>(p, smem);
+  }
+}
+
 template <typename T, int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int smem = smem_floats(HD) * static_cast<int>(sizeof(float));
+  Params pp = p;
+  int smem;
+  dim3 grid;
+  if constexpr (sizeof(T) == 2) {
+    constexpr int BK = flash_tile::Shape<HD>::BK;
+    if (!flash_tile::make_tile_map(&pp.tk, p.k, p.d, p.sk, p.hk, p.b, p.k_ss, p.k_sh, p.k_sb, BK) ||
+        !flash_tile::make_tile_map(&pp.tv, p.v, p.d, p.sk, p.hk, p.b, p.v_ss, p.v_sh, p.v_sb, BK)) {
+      return cudaErrorInvalidValue;
+    }
+    smem = flash_tile::Shape<HD>::SMEM_BYTES;
+    grid = dim3(p.h, (p.sq + flash_tile::BQ - 1) / flash_tile::BQ, p.b);
+  } else {
+    smem = smem_floats(HD) * static_cast<int>(sizeof(float));
+    grid = dim3((p.sq + BQ - 1) / BQ, p.h, p.b);
+  }
   cudaError_t err = cudaFuncSetAttribute(
       step_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.h, p.b);
-  step_kernel<T, HD><<<grid, THREADS, smem, stream>>>(p);
+  step_kernel<T, HD><<<grid, THREADS, smem, stream>>>(pp);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.d <= 32) return launch<T, 32>(p, stream);
-  if (p.d <= 64) return launch<T, 64>(p, stream);
-  if (p.d <= 128) return launch<T, 128>(p, stream);
-  if (p.d <= 256) return launch<T, 256>(p, stream);
+cudaError_t dispatch_fp32(const Params& p, cudaStream_t stream) {
+  if (p.d <= 32) return launch<float, 32>(p, stream);
+  if (p.d <= 64) return launch<float, 64>(p, stream);
+  if (p.d <= 128) return launch<float, 128>(p, stream);
+  if (p.d <= 256) return launch<float, 256>(p, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch_bf16(const Params& p, cudaStream_t stream) {
+  if (p.d <= 64) return launch<bf16, 64>(p, stream);
+  if (p.d <= 128) return launch<bf16, 128>(p, stream);
+  if (p.d <= 256) return launch<bf16, 256>(p, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -302,8 +419,8 @@ extern "C" int ring_step_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1 ? dispatch<__nv_bfloat16>(p, s)
-                  : dtype == 0 ? dispatch<float>(p, s)
+  cudaError_t err = dtype == 1 ? dispatch_bf16(p, s)
+                  : dtype == 0 ? dispatch_fp32(p, s)
                                : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -10,7 +10,11 @@ module is imported.
 :func:`ring_step_fwd` dispatches on where the tensors lie: a CPU tensor
 runs the plain twin (``ref.ring_step_ref``), a CUDA tensor launches the
 kernel — on the current stream, counted in :data:`LAUNCHES` — or raises.
-On the card the carry is updated in place and returned.
+On the card the carry is updated in place and returned.  The kernel shares
+the flash kernel's tile body: bf16 q, k and v run on the tensor cores and
+must have contiguous rows on 16-byte boundaries
+(``flash_attention.kernel.check_copyable``); fp32 ones run on the CUDA
+cores in any strides.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.core import errors
 from repro_torch.kernels import nvcc
+from repro_torch.kernels.flash_attention.kernel import check_copyable
 from repro_torch.kernels.ring_attention import ref as _ref
 
 NEG_INF = _ref.NEG_INF
@@ -89,6 +94,9 @@ def _check_inputs(q, k, v, m, l, acc, info) -> None:
         errors.ErrorClass.ERR_DIMS,
         f"ring step kernel: head_dim must be at most {MAX_HEAD_DIM}, got {d}",
     )
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_copyable("ring step kernel", name, t)
     for name, t, shape in (("m", m, (b, h, sq, 1)), ("l", l, (b, h, sq, 1)),
                            ("acc", acc, (b, h, sq, d))):
         errors.check(

@@ -188,3 +188,103 @@ def test_kernel_argtypes_match_the_c_signature():
             for decl, ctype in zip(params, argtypes):
                 base = decl.rsplit(" ", 1)[0].replace("const ", "").strip()
                 assert ctype is want[base], (symbol, decl, ctype)
+
+
+# ---------------------------------------------------------------------------
+# The limit of one bf16 pass of P.  On the card, bf16 inputs run the
+# tensor-core body: an fp32 online softmax over key tiles whose P is rounded
+# to bf16 once for the P V product (l is summed from the fp32 P).  Each p
+# moves by at most 2^-8 p, so an output by at most 2^-8 (sum_k p_k |v_k|) / l:
+# the plain version run on |v|.  chip_smoke.py holds the kernel within
+# atol + rtol |plain| + 2^-8 plain(|v|); here that arithmetic, emulated in
+# plain torch, is held within the same limit.
+# ---------------------------------------------------------------------------
+
+P_BF16 = 2.0 ** -8
+FLASH_ATOL, BF16_RTOL = 1e-4, 2.0 ** -8  # chip_smoke.py's limits of a bf16 case
+
+
+def _bf16_values(arrs):
+    """fp32 tensors holding bf16 values, as the kernel reads them."""
+
+    return [torch.from_numpy(a).to(torch.bfloat16).float() for a in arrs]
+
+
+def _flash_one_bf16_pass(q, k, v, *, block_k, causal=True, sliding_window=None,
+                         prefix_len=None, logit_softcap=None, scale=None):
+    """The tensor-core body's arithmetic: key tiles of ``block_k``, fp32
+    logits and online softmax, P rounded to bf16 for P V; the output
+    rounded to bf16."""
+
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    k, v = k.repeat_interleave(h // hk, dim=2), v.repeat_interleave(h // hk, dim=2)
+    mask = tref.attention_mask(sq, sk, causal=causal, sliding_window=sliding_window,
+                               prefix_len=prefix_len)
+    m = torch.full((b, h, sq, 1), tref.NEG_INF)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, sk, block_k):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k[:, k0:k0 + block_k]) * scale
+        if logit_softcap is not None:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        s = torch.where(mask[:, k0:k0 + block_k], s, tref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(),
+                                        v[:, k0:k0 + block_k])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).bfloat16().float()
+
+
+_P_CASES = {
+    # gemma2's features at a small size: softcap, window, prefix, GQA
+    "softcap_window_prefix_gqa": (dict(B=2, Sq=256, H=4, Hk=2, D=64), 64,
+                                  dict(causal=True, sliding_window=96, prefix_len=40,
+                                       logit_softcap=50.0)),
+    # not causal, a ragged last key tile, zamba2's head width on the 128 tile
+    "full_ragged_d112": (dict(B=1, Sq=200, H=2, Hk=2, D=112), 128, dict(causal=False)),
+}
+
+
+def _p_case(case):
+    """(|emulated - plain|, old limit, limit with the bf16-P term)."""
+
+    shape, block_k, kw = _P_CASES[case]
+    q, k, v = _bf16_values(_qkv(30 + sorted(_P_CASES).index(case), **shape))
+    got = _flash_one_bf16_pass(q, k, v, block_k=block_k, **kw)
+    plain = tref.mha(q, k, v, **kw)
+    abs_v = tref.mha(q, k, v.abs(), **kw)
+    old = FLASH_ATOL + BF16_RTOL * plain.abs()
+    return (got - plain).abs(), old, old + P_BF16 * abs_v
+
+
+@pytest.mark.parametrize("case", sorted(_P_CASES))
+def test_one_bf16_pass_of_p_within_the_derived_limit(case):
+    diff, _, limit = _p_case(case)
+    assert bool((diff <= limit).all()), (diff / limit).max().item()
+
+
+def test_one_bf16_pass_of_p_breaks_the_old_limit():
+    """Without the 2^-8 plain(|v|) term the limit does not hold: the term is
+    needed, not slack."""
+
+    assert any(bool((diff > old).any()) for diff, old, _ in map(_p_case, sorted(_P_CASES)))
+
+
+def test_bf16_copy_layout_check():
+    """The tensor-core body copies bf16 rows 16 bytes at a time: the
+    wrappers take innermost stride 1, a 16-byte-aligned base and other
+    strides in multiples of 8 elements (dimensions of length 1 aside), and
+    raise ERR_ARG on anything else."""
+
+    x = torch.zeros((2, 16, 4, 64), dtype=torch.bfloat16)
+    for ok in (x, x.transpose(1, 2), x[:, :, :1], x[..., :56], x[:1, :, 2:]):
+        tfk.check_copyable("flash kernel", "q", ok)
+    for bad in (x[..., 1:], x.transpose(2, 3), torch.zeros((2, 16, 4, 60), dtype=torch.bfloat16)):
+        with pytest.raises(errors.Error) as ei:
+            tfk.check_copyable("flash kernel", "q", bad)
+        assert ei.value.klass == errors.ErrorClass.ERR_ARG

@@ -215,3 +215,28 @@ def test_build_key_covers_the_flags(monkeypatch):
     assert tqk.LIBRARY.out_dir() != before
     assert tqk.LIBRARY.out_dir().parent == before.parent
 
+
+
+def test_build_key_covers_included_headers(tmp_path):
+    """A change of a header that a source includes from the repository
+    builds anew: the flash and ring sources share the tile body's header,
+    and both libraries' hashes move with it (on copies, laid out as in the
+    repository)."""
+
+    from repro_torch.kernels.flash_attention import kernel as tfk
+    from repro_torch.kernels.ring_attention import kernel as trk
+
+    header = tfk.SOURCE.parent / "flash_tile.cuh"
+    copies = {}
+    for src in (tfk.SOURCE, trk.SOURCE, header):
+        dst = tmp_path / src.relative_to(tfk.SOURCE.parents[2])
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(src.read_bytes())
+        copies[src.name] = dst
+    libs = [nvcc.Library(copies[src.name], name, {})
+            for src, name in ((tfk.SOURCE, "flash_attention"), (trk.SOURCE, "ring_attention"))]
+    assert all(copies["flash_tile.cuh"] in nvcc.included_files(lib.source) for lib in libs)
+    before = [lib.out_dir() for lib in libs]
+    copies["flash_tile.cuh"].write_text(copies["flash_tile.cuh"].read_text() + "\n// edit\n")
+    after = [lib.out_dir() for lib in libs]
+    assert all(a != b and a.parent == b.parent for a, b in zip(after, before))

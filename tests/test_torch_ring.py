@@ -239,3 +239,108 @@ def test_four_rank_ring_matches_reference_shard_map(rings, i):
     if f"case{i}:plain" in ranks[0]:
         plain = np.concatenate([r[f"case{i}:plain"] for r in ranks], axis=1)
         np.testing.assert_allclose(plain, got, atol=5e-5, rtol=5e-5)
+
+
+# ---------------------------------------------------------------------------
+# The limit of one bf16 pass of P.  On the card, bf16 inputs run the flash
+# kernel's tensor-core body: key tiles folded into an fp32 online softmax,
+# l summed from the fp32 P, P rounded to bf16 once for the P V product.  An
+# output then moves by at most 2^-8 (sum_k p_k |v_k|) / l, the plain twin run
+# on |v| (unnormalised for a carry: this step's p |v| alone).  chip_smoke.py
+# adds that term to its limit; here the arithmetic, emulated in plain torch,
+# is held within the same limit.
+# ---------------------------------------------------------------------------
+
+P_BF16 = 2.0 ** -8
+RING_ATOL, BF16_RTOL, CARRY_RTOL = 1e-4, 2.0 ** -8, 1e-5  # chip_smoke.py's limits
+
+
+def _step_one_bf16_pass(q, k, v, m, l, acc, *, q_offset, k_offset, kv_len, scale, causal,
+                        block_k=128):
+    """The tensor-core body's arithmetic for one step: ``ring_step_ref``'s,
+    folded over key tiles of ``block_k``, with P rounded to bf16 for P V."""
+
+    h, hk = q.shape[1], k.shape[1]
+    k, v = (t.repeat_interleave(h // hk, dim=1) for t in (k, v))
+    q_pos = q_offset + torch.arange(q.shape[2])[:, None]
+    for k0 in range(0, k.shape[2], block_k):
+        keys = slice(k0, k0 + block_k)
+        k_local = torch.arange(k.shape[2])[None, keys]
+        mask = k_local < kv_len
+        if causal:
+            mask = mask & (q_pos >= k_offset + k_local)
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, keys]) * scale
+        s = torch.where(mask, s, tref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), v[:, :, keys])
+        m = m_new
+    return m, l, acc
+
+
+def _bf16_values(*arrs):
+    return [torch.from_numpy(a).to(torch.bfloat16).float() for a in arrs]
+
+
+def _schedule(causal, n=4, shard=48, global_len=181, B=1, H=4, Hk=2, D=32):
+    """A ring of n emulated in one process, each rank's n steps chained, in
+    the one-bf16-pass arithmetic, beside the twin on v and on |v|:
+    (|emulated - plain|, old limit, limit with the term) over the valid
+    rows."""
+
+    q, k, v = _bf16_values(*_arrays(60 + causal, (B, H, n * shard, D),
+                                    (B, Hk, n * shard, D), (B, Hk, n * shard, D)))
+    lens = [max(0, min(shard, global_len - r * shard)) for r in range(n)]
+    outs = {"got": [], "plain": [], "abs_v": []}
+    for r in range(n):
+        qr = q[:, :, r * shard:(r + 1) * shard]
+        fresh = (torch.full((B, H, shard, 1), tref.NEG_INF), torch.zeros((B, H, shard, 1)),
+                 torch.zeros((B, H, shard, D)))
+        carries = dict.fromkeys(outs, fresh)
+        for step in range(n):
+            src = (r - step) % n
+            kv = dict(q_offset=r * shard, k_offset=src * shard, kv_len=lens[src], scale=0.5,
+                      causal=causal)
+            ks, vs = (t[:, :, src * shard:(src + 1) * shard] for t in (k, v))
+            carries = {"got": _step_one_bf16_pass(qr, ks, vs, *carries["got"], block_k=32,
+                                                  **kv),
+                       "plain": tref.ring_step_ref(qr, ks, vs, *carries["plain"], **kv),
+                       "abs_v": tref.ring_step_ref(qr, ks, vs.abs(), *carries["abs_v"], **kv)}
+        for name, (_, l, acc) in carries.items():
+            outs[name].append(acc / l.clamp_min(1e-30))
+    got, plain, abs_v = (torch.cat(outs[name], dim=2)[:, :, :global_len] for name in outs)
+    old = RING_ATOL + BF16_RTOL * plain.abs()
+    return (got - plain).abs(), old, old + P_BF16 * abs_v
+
+
+def _mid_schedule_carry():
+    """One step from a finite mid-schedule carry: the acc part."""
+
+    q, k, v, m, l, acc = (torch.from_numpy(a) for a in _step_inputs(62, 2, S=96, D=32))
+    q, k, v = (t.bfloat16().float() for t in (q, k, v))
+    kw = dict(q_offset=96, k_offset=40, kv_len=90, scale=0.5, causal=True)
+    got = _step_one_bf16_pass(q, k, v, m, l, acc, block_k=32, **kw)[2]
+    plain = tref.ring_step_ref(q, k, v, m, l, acc, **kw)[2]
+    abs_v = tref.ring_step_ref(q, k, v.abs(), m, l, torch.zeros_like(acc), **kw)[2]
+    old = RING_ATOL + CARRY_RTOL * plain.abs()
+    return (got - plain).abs(), old, old + P_BF16 * abs_v
+
+
+_P_CASES = {"schedule_4_causal": lambda: _schedule(True),
+            "schedule_4_full": lambda: _schedule(False),
+            "mid_schedule_carry": _mid_schedule_carry}
+
+
+@pytest.mark.parametrize("case", sorted(_P_CASES))
+def test_one_bf16_pass_of_p_within_the_derived_limit(case):
+    diff, _, limit = _P_CASES[case]()
+    assert bool((diff <= limit).all()), (diff / limit).max().item()
+
+
+def test_one_bf16_pass_of_p_breaks_the_old_limit():
+    """Without the 2^-8 twin(|v|) term the limit does not hold: the term is
+    needed, not slack."""
+
+    assert any(bool((diff > old).any()) for diff, old, _ in (f() for f in _P_CASES.values()))

@@ -11,9 +11,9 @@ any failure.  In order:
    this checkout, one ``nvcc`` per source (flash attention, SSD scan, int8
    quantize/dequantize, the ring-attention step), all started together,
    and prints each one's ptxas usage; for each instantiation of the two
-   attention kernels, its registers, spill bytes and ``HGMMA`` count
-   (``cuobjdump -sass``): the bf16 ones must run wgmma and spill nothing,
-   the fp32 ones must not run wgmma;
+   attention kernels and of the SSD scan, its registers, spill bytes and
+   ``HGMMA`` count (``cuobjdump -sass``): the bf16 ones must run wgmma and
+   spill nothing, the fp32 ones must not run wgmma;
 3. NCCL: the default process group as a world of one over a ``file://``
    store under ``build/`` (NCCL for CUDA tensors, gloo for CPU ones);
    ``allreduce``, ``allgather``, ``broadcast``, ``shift`` and a cart's
@@ -29,11 +29,15 @@ any failure.  In order:
 5. the SSD scan against ``ref.ssd_chunked`` on the card, y and the final
    state, at mamba2-2.7b width (b 2, l 4096, h 80, p 64, n 128, bf16, and
    the same in fp32) and zamba2-7b's (h 112, n 64), grouped, a 48-token
-   chunk, and fp32 with a 64-token chunk; x, B and C are views of one
-   tensor, as the model passes them.  The two bf16 full-width cases are
+   chunk, fp32 with a 64-token chunk, and two bf16 edges: a ragged last
+   tile with p 48 and n 96, and rows whose bytes are not a multiple of 16
+   (the kernel's element-by-element load path); x, B and C are views of
+   one tensor, as the model passes them.  Each case logs the launch shape
+   (p tile, blocks per SM, registers).  The two bf16 full-width cases are
    timed.  No single PyTorch call computes the scan, so its ``library_ms``
    is null.  Every output element of both kernels is held within the
-   limits stated at ``BF16_RTOL``;
+   limits stated at ``BF16_RTOL`` (a bf16 y with the derived term stated
+   under ``P_BF16``);
 6. the int8 quantize and dequantize kernels against their plain versions
    (``core/compress.py``) on the card, **bit for bit** (``torch.equal`` on
    the payload, the scales and the dequantized output): gemma2-9b's
@@ -80,7 +84,10 @@ any failure.  In order:
    ring_attention=True), scfg, comm)`` on the NCCL communicator: 32 ring
    launches per prefill, none per decode step and no flash; the same
    weights through the flash path must give the same first token (the
-   prefill logits' max |Δ| is logged);
+   prefill logits' max |Δ| is logged).  Then the full granite-3-8b (40
+   layers, 2 x 4096) and qwen1.5-32b (64 layers, 2 x 1024: its weights
+   take 70.4 GB), whose random init draws each stacked leaf one layer at
+   a time;
 9. small inputs: the gemma2, mamba2 and zamba2 smoke models in fp32 (and
    gemma2 and zamba2 with the int8 cache, phi4-mini with the ring, whose
    kernel must launch once per layer) generate the same tokens on the card
@@ -120,6 +127,12 @@ BF16_RTOL = 2.0 ** -8
 # bf16 attention cases add P_BF16 times that to their limit, and log their
 # worst share of the limit without it.
 P_BF16 = 2.0 ** -8
+# bf16 SSD likewise rounds two fp32 operands of y to bf16 once each, the
+# masked, decayed C B^T and the carried state for C H_in^T: every decay
+# factor is non-negative, so y moves by at most 2^-8 times the plain version
+# run on |x|, |B| and |C|.  Its y limit adds P_BF16 times that; its state,
+# which the kernel keeps to fp32 accuracy (X w split into two bf16 terms),
+# keeps the fp32 limits.
 FLASH_FP32_TOL = 1e-4  # flash: atol, rtol 0
 SSD_FP32_TOL = 5e-5    # SSD: atol and rtol, as tests/test_kernels.py
 NEW_TOKENS = 16
@@ -145,6 +158,12 @@ SERVES = [
     ("zamba2_7b", 81, 3584, 4096, "int8", False,
      {"flash_attention_fwd": 13, "ssd_scan_fwd": 81, QUANT: 2}, {QUANT: 26, DEQUANT: 26}),
     ("phi4_mini_3_8b", 32, 3072, 8192, "bfloat16", True, {RING: 32}, {}),
+    # the two dense archs served nowhere else; qwen1.5-32b's bf16 weights
+    # are 70.4 GB of the card's 80 and its cache 1.31 MB a token (64 layers,
+    # 40 KV heads of 128), so its prompts are 1024 tokens: with a profiled
+    # second prefill's cache beside the first, 78.6 GB at the peak
+    ("granite_3_8b", 40, 4096, 4096, "bfloat16", False, {"flash_attention_fwd": 40}, {}),
+    ("qwen1_5_32b", 64, 5120, 1024, "bfloat16", False, {"flash_attention_fwd": 64}, {}),
 ]
 
 # the port's kernel bodies, as the profiler names them
@@ -267,12 +286,13 @@ def _hgmma_counts(lib_path) -> dict:
 
 def phase_build():
     """Build every library afresh (its ptxas report is read here); for each
-    attention kernel instantiation, registers, spills and HGMMA count: the
-    bf16 ones must run wgmma and spill nothing, the fp32 ones none."""
+    instantiation of the attention and SSD kernels, registers, spills and
+    HGMMA count: the bf16 ones must run wgmma and spill nothing, the fp32
+    ones none."""
 
     from repro_torch.kernels import nvcc
 
-    fk, _, _, rk = _kernel_modules()
+    fk, sk, _, rk = _kernel_modules()
     libs = [m.LIBRARY for m in _kernel_modules()]
     t0 = time.perf_counter()
     nvcc.build_all(libs, force=True)
@@ -283,13 +303,19 @@ def phase_build():
                  if "registers" in l or "spill" in l]
         log(f"{lib.name} ptxas: " + " | ".join(usage))
     RESULTS["attention_instantiations"] = {}
-    for lib, body in ((fk.LIBRARY, "fwd_kernel"), (rk.LIBRARY, "step_kernel")):
+    # (library, kernel body, bf16 instantiations, all instantiations): the
+    # attention kernels have one per head width, the SSD kernel bf16 ones
+    # for n <= 64 and n <= 128 and one fp32
+    for lib, body, n_bf16, n_all in ((fk.LIBRARY, "fwd_kernel", 3, 7),
+                                     (rk.LIBRARY, "step_kernel", 3, 7),
+                                     (sk.LIBRARY, "ssd_kernel", 2, 3)):
         usage, hgmma = _ptxas_usage(lib.log), _hgmma_counts(lib.build())
         rows = {fn: {**usage.get(fn, {}), "hgmma": n} for fn, n in hgmma.items() if body in fn}
         log(f"{lib.name} instantiations: " + json.dumps(rows))
         bf16 = [fn for fn in rows if "__nv_bfloat16" in fn]
-        check(len(bf16) == 3 and len(rows) == 7,
-              f"{lib.name}: {len(bf16)} bf16 of {len(rows)} instantiations, want 3 of 7")
+        check(len(bf16) == n_bf16 and len(rows) == n_all,
+              f"{lib.name}: {len(bf16)} bf16 of {len(rows)} instantiations, "
+              f"want {n_bf16} of {n_all}")
         for fn, row in rows.items():
             check("spill_bytes" in row, f"{lib.name}: no ptxas report for {fn}")
             if fn in bf16:
@@ -298,7 +324,10 @@ def phase_build():
                       f"{row['spill_bytes']} bytes of spills")
             else:
                 check(row["hgmma"] == 0, f"{lib.name}: fp32 {fn} runs wgmma")
-        RESULTS["attention_instantiations"][lib.name] = rows
+        if lib is sk.LIBRARY:
+            RESULTS["ssd_instantiations"] = rows
+        else:
+            RESULTS["attention_instantiations"][lib.name] = rows
 
 
 def _held(name, out, plain, atol, rtol, abs_v=None) -> dict:
@@ -314,7 +343,7 @@ def _held(name, out, plain, atol, rtol, abs_v=None) -> dict:
     limit = old if abs_v is None else old + P_BF16 * abs_v
     ratio = (diff / limit).max().item()
     err = diff.max().item()
-    extra = "" if abs_v is None else f" + {P_BF16} |v|-attention"
+    extra = "" if abs_v is None else f" + {P_BF16} plain(|.|)"
     check(math.isfinite(err) and ratio <= 1.0,
           f"{name}: max abs err {err}, worst element at {ratio} of atol {atol} + rtol {rtol}"
           f"{extra}")
@@ -399,7 +428,11 @@ def phase_kernels():
 
 def _ssd_case(name, seed, *, b, l, h, p, n, g, dtype, chunk=128, reps=0):
     """SSD kernel vs ``ref.ssd_chunked`` on one shape, y and the final
-    state: errors and, with ``reps``, times and bound."""
+    state: errors, the instantiation's launch shape (registers, p tile,
+    blocks per SM) and, with ``reps``, times and bound.  x, B and C are
+    views of one (b, l, h p + 2 g n) tensor, as the model passes them; rows
+    whose bytes are not a multiple of 16 send a bf16 call down the kernel's
+    element-by-element load path."""
 
     import torch
     import torch.nn.functional as F
@@ -410,7 +443,6 @@ def _ssd_case(name, seed, *, b, l, h, p, n, g, dtype, chunk=128, reps=0):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dt_ = getattr(torch, dtype)
     di, gn = h * p, g * n
-    # x, B and C as views of one conv output, as mamba2_full hands them over
     xbc = torch.randn((b, l, di + 2 * gn), generator=gen, device="cuda").to(dt_)
     x = xbc[..., :di].unflatten(-1, (h, p))
     B = xbc[..., di:di + gn].unflatten(-1, (g, n))
@@ -419,13 +451,25 @@ def _ssd_case(name, seed, *, b, l, h, p, n, g, dtype, chunk=128, reps=0):
     A = -torch.exp(torch.randn((h,), generator=gen, device="cuda"))
     y, state = sk.ssd_scan_fwd(x, dts, A, B, C, chunk=chunk, return_state=True)
     py, pstate = ref.ssd_chunked(x.float(), dts, A, B.float(), C.float(), chunk=chunk)
+    bf16 = dtype == "bfloat16"
+    abs_y = (ref.ssd_chunked(x.float().abs(), dts, A, B.float().abs(), C.float().abs(),
+                             chunk=chunk)[0] if bf16 else None)
     torch.cuda.synchronize()
-    row = {"case": name, "shape": [b, l, h, p, n, g], "chunk": chunk, "dtype": dtype}
-    # the fp32 state is held at the fp32 limits in every case
-    y_rtol = SSD_FP32_TOL + (BF16_RTOL if dtype == "bfloat16" else 0.0)
-    for part, out, plain, rtol in (("y", y, py, y_rtol), ("state", state, pstate, SSD_FP32_TOL)):
-        held = _held(f"ssd {name} {part}", out, plain, SSD_FP32_TOL, rtol)
+    shape = sk.launch_shape(dt_, n)
+    inst = next((row for fn, row in RESULTS.get("ssd_instantiations", {}).items()
+                 if ("__nv_bfloat16" in fn) == bf16
+                 and (not bf16 or f"Li{64 if n <= 64 else 128}E" in fn)), {})
+    row = {"case": name, "shape": [b, l, h, p, n, g], "chunk": chunk, "dtype": dtype,
+           "row_stride": xbc.stride(1), **shape, "registers": inst.get("registers")}
+    # the fp32 state is held at the fp32 limits in every case; a bf16 y adds
+    # half a bf16 ulp to rtol and the derived term of its two bf16 operands
+    y_rtol = SSD_FP32_TOL + (BF16_RTOL if bf16 else 0.0)
+    for part, out, plain, rtol, abs_v in (("y", y, py, y_rtol, abs_y),
+                                          ("state", state, pstate, SSD_FP32_TOL, None)):
+        held = _held(f"ssd {name} {part}", out, plain, SSD_FP32_TOL, rtol, abs_v)
         row.update({f"{k_}_{part}": v_ for k_, v_ in held.items()})
+    if bf16:
+        row["derived_term_y"] = f"{P_BF16} ssd(|x|, dt, A, |B|, |C|)"
     row["max_abs_err"] = max(row["max_abs_err_y"], row["max_abs_err_state"])
     if reps:
         q, nc = chunk, l // chunk
@@ -445,7 +489,7 @@ def _ssd_case(name, seed, *, b, l, h, p, n, g, dtype, chunk=128, reps=0):
             flops=flops, bytes=nbytes,
         )
     log_row(row)
-    del xbc, x, B, C, y, state, py, pstate
+    del xbc, x, B, C, y, state, py, pstate, abs_y
     torch.cuda.empty_cache()
     return row
 
@@ -462,6 +506,15 @@ def phase_ssd():
         _ssd_case("fp32_1024", 14, b=1, l=1024, h=8, p=64, n=128, g=2, dtype="float32",
                   chunk=64),
         _ssd_case("mamba2_fp32_4096", 15, g=1, dtype="float32", **mamba2),
+        # the bf16 body's edges: a ragged last tile (l 1000 in 64-row tiles),
+        # three p tiles of 16, n 96 on the 128 template, grouped; then rows
+        # of 260 elements (520 bytes, not a multiple of 16), which take the
+        # element-by-element load path, with a last p tile of 8 columns and
+        # n 50 on the 64 template
+        _ssd_case("ragged_p48_n96_g2", 16, b=1, l=1000, h=6, p=48, n=96, g=2,
+                  dtype="bfloat16", chunk=40),
+        _ssd_case("unaligned_p40_n50", 17, b=2, l=200, h=4, p=40, n=50, g=1,
+                  dtype="bfloat16", chunk=40),
     ]
 
 

@@ -291,13 +291,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 // ---------------------------------------------------------------------------
 
 // The map of a bf16 tensor of (batch, heads, rows) x d elements, strides in
-// elements (columns contiguous): boxes of 64 columns x box_rows rows of one
-// head, 128-byte swizzled as the descriptors name it; reads past the last
-// row or column fill zeros.  The encoder comes from the driver at run time,
-// so nothing links against it.  False when the driver refuses the map.
+// elements (columns contiguous): boxes of box_cols columns x box_rows rows of
+// one head, 128-byte swizzled as the descriptors name it (or as `swizzle`
+// says); reads past the last row or column fill zeros.  The encoder is
+// fetched at run time (cudaGetDriverEntryPoint), so nothing links against
+// it.  False when the map is refused.
 inline bool make_tile_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
                           int batch, long long s_row, long long s_head, long long s_batch,
-                          int box_rows) {
+                          int box_rows, int box_cols = 64,
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -324,10 +326,11 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, int d, int rows, i
   }
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

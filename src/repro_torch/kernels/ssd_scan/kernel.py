@@ -35,8 +35,12 @@ ARGTYPES = (
     + [ctypes.c_void_p]
 )
 
-#: The shared library and its C entry point, built at first use.
-LIBRARY = nvcc.Library(SOURCE, "ssd_scan", {"ssd_scan_fwd": ARGTYPES})
+#: ctypes declaration of the launch-shape query: dtype code, n, int[4] out.
+SHAPE_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+#: The shared library and its C entry points, built at first use.
+LIBRARY = nvcc.Library(SOURCE, "ssd_scan",
+                       {"ssd_scan_fwd": ARGTYPES, "ssd_scan_occupancy": SHAPE_ARGTYPES})
 #: Kernel launches since the last :func:`reset_launches`.
 LAUNCHES = 0
 
@@ -135,3 +139,19 @@ def ssd_scan_fwd(
         )
     LAUNCHES += 1
     return (y, state) if return_state else y
+
+
+def launch_shape(dtype: torch.dtype, n: int) -> dict:
+    """How the kernel runs a call of ``dtype`` and state size ``n`` on the
+    current card: state rows per block (``p_tile``; the bf16 body splits
+    the state over p), threads and dynamic shared bytes per block, and the
+    blocks resident on one SM (the CUDA occupancy calculator)."""
+
+    errors.check(dtype in _DTYPE_CODES and 1 <= n <= MAX_STATE, errors.ErrorClass.ERR_ARG,
+                 f"ssd kernel: no instantiation for {dtype} and state size {n}")
+    out = (ctypes.c_int * 4)()
+    rc = LIBRARY.entry("ssd_scan_occupancy")(_DTYPE_CODES[dtype], n, ctypes.addressof(out))
+    if rc != 0:
+        errors.fail(errors.ErrorClass.ERR_OTHER,
+                    f"ssd kernel occupancy query failed: cudaError {rc}")
+    return dict(zip(("p_tile", "threads", "smem_bytes", "blocks_per_sm"), out))

@@ -134,10 +134,10 @@ def init_attention(gen, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Pa
 
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
-        "wq": dense_init(gen, d, stack + (d, h, dh), dtype),
-        "wk": dense_init(gen, d, stack + (d, hk, dh), dtype),
-        "wv": dense_init(gen, d, stack + (d, hk, dh), dtype),
-        "wo": dense_init(gen, h * dh, stack + (h, dh, d), dtype),
+        "wq": dense_init(gen, d, stack + (d, h, dh), dtype, stacked=bool(stack)),
+        "wk": dense_init(gen, d, stack + (d, hk, dh), dtype, stacked=bool(stack)),
+        "wv": dense_init(gen, d, stack + (d, hk, dh), dtype, stacked=bool(stack)),
+        "wo": dense_init(gen, h * dh, stack + (h, dh, d), dtype, stacked=bool(stack)),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros(stack + (h, dh), dtype=dtype, device=gen.device)

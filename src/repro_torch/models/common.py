@@ -30,10 +30,25 @@ def dtype_of(cfg) -> torch.dtype:
 # -- init ----------------------------------------------------------------------
 
 
-def _truncated_normal(gen: torch.Generator, shape, stddev: float, dtype) -> torch.Tensor:
+def _draw(gen: torch.Generator, shape, stddev: float) -> torch.Tensor:
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * stddev).to(dtype)
+    return x.mul_(stddev)
+
+
+def _truncated_normal(gen: torch.Generator, shape, stddev: float, dtype,
+                      stacked: bool = False) -> torch.Tensor:
+    """A truncated normal in ``dtype``.  A ``stacked`` leaf is drawn one unit
+    slice of its leading dim at a time, straight into its buffer, so the
+    fp32 draw never holds more than one layer: a whole stack in fp32 would
+    not fit the card beside the weights of the larger models."""
+
+    if not stacked:
+        return _draw(gen, shape, stddev).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for unit in out:
+        unit.copy_(_draw(gen, unit.shape, stddev))
+    return out
 
 
 def trunc_normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -41,8 +56,12 @@ def trunc_normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tens
     return _truncated_normal(gen, shape, stddev, dtype)
 
 
-def dense_init(gen: torch.Generator, in_dim: int, shape: tuple[int, ...], dtype) -> torch.Tensor:
-    return _truncated_normal(gen, shape, 1.0 / math.sqrt(in_dim), dtype)
+def dense_init(gen: torch.Generator, in_dim: int, shape: tuple[int, ...], dtype, *,
+               stacked: bool = False) -> torch.Tensor:
+    """``shape`` is the leaf's whole shape; ``stacked`` says that its leading
+    dim is a stack of units (layers), drawn one at a time."""
+
+    return _truncated_normal(gen, shape, 1.0 / math.sqrt(in_dim), dtype, stacked)
 
 
 # -- norms -----------------------------------------------------------------------

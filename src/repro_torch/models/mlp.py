@@ -13,9 +13,9 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype, *, stack: tuple[int, .
     """``stack`` prepends leading dims (the scanned unit stack)."""
 
     return {
-        "w_gate": dense_init(gen, d, stack + (d, f), dtype),
-        "w_up": dense_init(gen, d, stack + (d, f), dtype),
-        "w_down": dense_init(gen, f, stack + (f, d), dtype),
+        "w_gate": dense_init(gen, d, stack + (d, f), dtype, stacked=bool(stack)),
+        "w_up": dense_init(gen, d, stack + (d, f), dtype, stacked=bool(stack)),
+        "w_down": dense_init(gen, f, stack + (f, d), dtype, stacked=bool(stack)),
     }
 
 

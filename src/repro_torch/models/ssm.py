@@ -48,14 +48,16 @@ def init_mamba2(gen, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Param
     a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32, device=dev))
     return {
         # in_proj → [z (di), xBC (conv_dim), dt (nh)]
-        "w_in": dense_init(gen, d, stack + (d, 2 * di + 2 * g * n + nh), dtype),
-        "conv_w": dense_init(gen, cfg.ssm_conv, stack + (cfg.ssm_conv, conv_dim), dtype),
+        "w_in": dense_init(gen, d, stack + (d, 2 * di + 2 * g * n + nh), dtype,
+                           stacked=bool(stack)),
+        "conv_w": dense_init(gen, cfg.ssm_conv, stack + (cfg.ssm_conv, conv_dim), dtype,
+                             stacked=bool(stack)),
         "conv_b": torch.zeros(stack + (conv_dim,), dtype=dtype, device=dev),
         "a_log": a_log.expand(stack + (nh,)).clone(),  # A = -exp(a_log)
         "dt_bias": torch.zeros(stack + (nh,), dtype=torch.float32, device=dev),
         "d_skip": torch.ones(stack + (nh,), dtype=torch.float32, device=dev),
         "out_norm": torch.zeros(stack + (di,), dtype=dtype, device=dev),
-        "w_out": dense_init(gen, di, stack + (di, d), dtype),
+        "w_out": dense_init(gen, di, stack + (di, d), dtype, stacked=bool(stack)),
     }
 
 

@@ -22,7 +22,7 @@ from repro_torch.core import session as tsession
 
 torch.set_num_threads(1)
 
-ROOT = Path(__file__).resolve().parents[1]
+ROOT = Path(__file__).resolve().parents[2]
 _FORBIDDEN = ("jax", "jaxlib", "repro")
 _DENSE = ("gemma2_9b", "phi4_mini_3_8b", "granite_3_8b", "qwen1_5_32b", "mamba2_2_7b",
           "zamba2_7b")

@@ -164,3 +164,111 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tkernel.ssd_scan_fwd(*t, chunk=16)
     assert ei.value.klass == errors.ErrorClass.ERR_ARG
     assert tkernel.LAUNCHES == 0
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of the tensor-core body.  On the card, bf16 inputs run the
+# kernel's bf16 body: 64-row tiles in order from a zero state, the state split
+# into p tiles of 16 columns (each recomputes C B^T and the cumsum), the four
+# products on wgmma with fp32 sums.  y rounds two fp32 operands to bf16 once
+# each: M = (C B^T) exp(seg) dt_j and the carried state H_in for C H_in^T.
+# Every decay factor is non-negative, so y moves by at most 2^-8 times the
+# plain version run on |x|, |B| and |C|; chip_smoke.py adds that term to a
+# bf16 y's limit.  The state keeps the fp32 limits: X w enters its update as
+# two bf16 terms, hi = bf16(X w) and lo = bf16(X w - hi).  Here that
+# arithmetic, emulated in plain torch, is held within the same limits.
+# ---------------------------------------------------------------------------
+
+BF16_RTOL = TERM = 2.0 ** -8  # chip_smoke.py's bf16 rtol term and derived factor
+TC_TILE, TC_P_TILE = 64, 16
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def _tensor_core_emulation(x, dt, A, B, C, *, split_xw=True):
+    """(y rounded to bf16, fp32 final state) as the bf16 body computes them:
+    the state as two accumulators that decay alike, one summing B^T hi(X w),
+    the other B^T lo(X w), added where the state is read; with ``split_xw``
+    False, X w enters one accumulator rounded to bf16 once."""
+
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    pad = -l % TC_TILE  # zero rows with dt 0: the state and cum stand still
+    x, B, C = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+    dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    Bh, Ch = (t.repeat_interleave(h // g, dim=2) for t in (B, C))
+    below = torch.tril(torch.ones((TC_TILE, TC_TILE), dtype=torch.bool))
+    y = torch.zeros((b, l + pad, h, p))
+    state = torch.zeros((b, h, p, n))
+    for c0 in range(0, p, TC_P_TILE):
+        xs = x[..., c0:c0 + TC_P_TILE]
+        Hs = [torch.zeros((b, h, xs.shape[-1], n)) for _ in range(2 if split_xw else 1)]
+        for t0 in range(0, l + pad, TC_TILE):
+            rows = slice(t0, t0 + TC_TILE)
+            cum = torch.cumsum(dt[:, rows] * A, dim=1).transpose(1, 2)  # (b, h, q)
+            total = cum[..., -1]
+            cb = torch.einsum("bihn,bjhn->bhij", Ch[:, rows], Bh[:, rows])
+            seg = torch.where(below, cum[..., :, None] - cum[..., None, :], float("-inf"))
+            M = _bf16(cb * torch.exp(seg) * dt[:, rows].transpose(1, 2)[..., None, :])
+            y_in = torch.einsum("bihn,bhpn->bhip", Ch[:, rows], _bf16(sum(Hs)))
+            y_t = torch.exp(cum)[..., None] * y_in + torch.einsum("bhij,bjhp->bhip", M, xs[:, rows])
+            y[:, rows, :, c0:c0 + TC_P_TILE] = y_t.transpose(1, 2)
+            w = torch.exp(total[..., None] - cum) * dt[:, rows].transpose(1, 2)  # (b, h, q)
+            xw = xs[:, rows] * w.transpose(1, 2)[..., None]
+            parts = (_bf16(xw), _bf16(xw - _bf16(xw))) if split_xw else (_bf16(xw),)
+            Hs = [torch.exp(total)[..., None, None] * H
+                  + torch.einsum("bjhp,bjhn->bhpn", part, Bh[:, rows])
+                  for H, part in zip(Hs, parts)]
+        state[:, :, c0:c0 + TC_P_TILE] = sum(Hs)
+    return _bf16(y[:, :l]), state
+
+
+_TC_CASES = {
+    # (B, S, H, P, N, G, chunk): grouped B/C on the n 128 template
+    "grouped": (2, 256, 4, 32, 128, 2, 64),
+    # a ragged last tile (200 rows in 64-row tiles), a last p tile of 8
+    # columns, n 96 zero-padded to 128
+    "ragged_tail": (1, 200, 3, 40, 96, 1, 40),
+    # zamba2's state size, on the n 64 template
+    "zamba2_n64": (1, 256, 4, 64, 64, 1, 64),
+}
+
+
+def _tc_case(case, **kw):
+    """(|y - plain|, y's old limit, y's limit with the term, |state - plain|,
+    the state's limit) on bf16-valued x, B and C."""
+
+    B_, S, H, P, N, G, chunk = _TC_CASES[case]
+    x, dt, A, B, C = (torch.from_numpy(a) for a in _inputs(40 + sorted(_TC_CASES).index(case),
+                                                            B_, S, H, P, N, G))
+    x, B, C = _bf16(x), _bf16(B), _bf16(C)
+    y, state = _tensor_core_emulation(x, dt, A, B, C, **kw)
+    py, pstate = tref.ssd_chunked(x, dt, A, B, C, chunk=chunk)
+    abs_y = tref.ssd_chunked(x.abs(), dt, A, B.abs(), C.abs(), chunk=chunk)[0]
+    old = TOL + (TOL + BF16_RTOL) * py.abs()
+    return ((y - py).abs(), old, old + TERM * abs_y, (state - pstate).abs(),
+            TOL + TOL * pstate.abs())
+
+
+@pytest.mark.parametrize("case", sorted(_TC_CASES))
+def test_tensor_core_arithmetic_within_the_derived_limit(case):
+    dy, _, y_limit, dstate, state_limit = _tc_case(case)
+    assert bool((dy <= y_limit).all()), (dy / y_limit).max().item()
+    assert bool((dstate <= state_limit).all()), (dstate / state_limit).max().item()
+
+
+def test_tensor_core_arithmetic_breaks_the_old_y_limit():
+    """Without the 2^-8 plain(|x|, |B|, |C|) term y's limit does not hold:
+    the term is needed, not slack."""
+
+    assert any(bool((dy > old).any()) for dy, old, *_ in map(_tc_case, sorted(_TC_CASES)))
+
+
+def test_one_bf16_pass_of_xw_breaks_the_state_limit():
+    """Rounding X w to bf16 once, in place of the hi + lo split, would move
+    the state past its fp32 limits: the split is needed."""
+
+    assert any(bool((ds > lim).any())
+               for *_, ds, lim in (_tc_case(c, split_xw=False) for c in sorted(_TC_CASES)))

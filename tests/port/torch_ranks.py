@@ -5,7 +5,7 @@ group with a 60 s timeout, and a hard wall-clock limit after which every
 rank still running is killed.  Beside them, :func:`start_jax` runs the
 reference's side in a fresh Python with virtual JAX devices.
 
-    python tests/torch_ranks.py <program> <rank> <world> <workdir>
+    python tests/port/torch_ranks.py <program> <rank> <world> <workdir>
 
 A program reads its inputs from ``<workdir>/inputs.npz`` (written by the
 test) and saves what it computed to ``<workdir>/rank<r>.npz``; the test
@@ -25,7 +25,7 @@ from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[1]
+ROOT = Path(__file__).resolve().parents[2]
 
 
 def run_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0) -> list[dict]:

@@ -6,7 +6,13 @@
 Needs one CUDA device and ``nvcc``; exits non-zero, printing no result, on
 any failure.  In order:
 
-1. device: the card's name and power limit (``nvidia-smi``);
+1. device: the card's name and power limit (``nvidia-smi``); then the
+   clock's self-check: every time below is the device's time on a call's
+   launches alone (``time_device``: the stream is held before the first
+   event, L2 is flushed inside the hold, the median of the reps is kept),
+   with the host's time a call reported apart as ``host_us``; ``torch.add``
+   on a (16, 256) bf16 tensor must read at most 0.010 ms, and every timed
+   kernel at least 0.95 of its bound;
 2. build: compiles every kernel of the serving paths from the sources in
    this checkout, one ``nvcc`` per source (flash attention, SSD scan, int8
    quantize/dequantize, the ring-attention step), all started together,
@@ -22,19 +28,21 @@ any failure.  In order:
 4. flash attention against its plain version on the card, at gemma2-9b
    width (b 2, h 16, hk 8, d 256, softcap 50, bf16; one fp32 case) and at
    zamba2-7b's (b 2, s 4096, h = hk = 32, d 112, bf16; one fp32 case),
-   bf16 cases within the limit that one bf16 pass of P adds (``P_BF16``):
+   and at the shape phi4-mini's training step gives it (b 2, s 2048, h 24,
+   hk 8, d 128, bf16), bf16 cases within the limit that one bf16 pass of P adds (``P_BF16``):
    error, the kernel's median time, the plain version's, the bound, and
    ``library_ms`` — ``F.scaled_dot_product_attention`` at the same shapes
    without the softcap and window, a yardstick the port never calls;
 5. the SSD scan against ``ref.ssd_chunked`` on the card, y and the final
    state, at mamba2-2.7b width (b 2, l 4096, h 80, p 64, n 128, bf16, and
-   the same in fp32) and zamba2-7b's (h 112, n 64), grouped, a 48-token
+   the same in fp32; and l 2048, the shape of mamba2's training step) and
+   zamba2-7b's (h 112, n 64), grouped, a 48-token
    chunk, fp32 with a 64-token chunk, and two bf16 edges: a ragged last
    tile with p 48 and n 96, and rows whose bytes are not a multiple of 16
    (the kernel's element-by-element load path); x, B and C are views of
    one tensor, as the model passes them.  Each case logs the launch shape
-   (p tile, blocks per SM, registers).  The two bf16 full-width cases are
-   timed.  No single PyTorch call computes the scan, so its ``library_ms``
+   (p tile, blocks per SM, registers).  The three bf16 full-width cases
+   are timed.  No single PyTorch call computes the scan, so its ``library_ms``
    is null.  Every output element of both kernels is held within the
    limits stated at ``BF16_RTOL`` (a bf16 y with the derived term stated
    under ``P_BF16``);
@@ -92,7 +100,20 @@ any failure.  In order:
    gemma2 and zamba2 with the int8 cache, phi4-mini with the ring, whose
    kernel must launch once per layer) generate the same tokens on the card
    as on the CPU path (held against the JAX reference by the CPU tests);
-10. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+10. train: ``repro_torch.runtime.trainer.Trainer`` on the card.
+    ``train_small``: tests/test_trainer.py's tiny dense model and the mamba2
+    smoke model in fp32, 40 steps, every loss within 1e-4 relative of the
+    CPU run from the same init and batches, the loss down by more than 0.1;
+    ``train_checkpoint``: phi4-mini at full width and 2 layers (b 2 x 2048)
+    saves at steps 2 and 4 through the async manager under ``build/``, and a
+    fresh ``Trainer`` restored from step 2 takes steps 3 and 4 bit for bit
+    as the uninterrupted run did; then the full phi4-mini (32 layers) and
+    mamba2-2.7b (64 layers) train 4 steps at b 2 x 2048 (remat full, fp32
+    moments): finite losses and grad norms, every parameter leaf changed,
+    flash (phi4-mini) or SSD (mamba2) launched exactly twice per layer and
+    step (the forward and remat's recompute), step time, tokens/s and peak
+    memory logged beside the card, and one warm step profiled;
+11. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
 Also writes everything it prints as JSON to ``artifacts/chip_smoke.json``.
@@ -187,23 +208,113 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm call."""
+# The clock (``time_device``).  Each rep holds the stream with a spin kernel
+# (``torch.cuda._sleep``) before its first event, so that the flush, e0,
+# every launch of fn and e1 are all queued before the device reaches e0: the
+# events then bracket the device's time on fn's launches alone, not the host
+# work in the wrapper before each launch (which is reported apart, as
+# host_us).  Inside the held region, before e0, L2 is flushed: a write of
+# 2 x 50 MB evicts fn's inputs and the last rep's outputs, and a read of as
+# many clean bytes then evicts the write's dirty lines, whose write-back
+# would otherwise land inside the timed window.
+L2_FLUSH_BYTES = 128 * 2 ** 20
+# torch.cuda._sleep spins a number of cycles; the H100 SXM clocks at most
+# 1.98 GHz, so a hold of this many cycles a ms lasts at least that long
+CYCLES_PER_MS = 1_980_000
+# the least a hold lasts, and how much longer than one call's host time
+MIN_HOLD_MS = 1.0
+HOLD_OVER_HOST = 4.0
+# the clock's self-check: one small PyTorch launch must read at most this
+CLOCK_SELF_CHECK_MS = 0.010
+# no timed kernel may read below this share of its bound
+BOUND_FLOOR = 0.95
+_FLUSH: dict = {}
+
+
+def time_device(fn, reps: int) -> dict:
+    """Median over ``reps`` of the device time of ``fn``'s launches (ms),
+    and median host time of one call of ``fn`` (µs), after one warm call;
+    ``hold_ms`` is each rep's hold and ``held`` whether every call's host
+    time fit inside it (else the device may have idled between e0 and e1)."""
 
     import torch
 
+    if not _FLUSH:
+        n = L2_FLUSH_BYTES // 4
+        _FLUSH.update(w=torch.empty(n, device="cuda"), r=torch.zeros(n, device="cuda"),
+                      out=torch.empty((), device="cuda"))
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    t0 = time.perf_counter()
+    fn()
+    warm_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    hold_ms = max(MIN_HOLD_MS, HOLD_OVER_HOST * warm_host_ms)
+    times, host_s, held = [], [], []
+    # a rep whose queueing outlasted its hold (a host hiccup) is timed again,
+    # up to reps more times; ``held`` says whether every kept rep was held
+    for attempt in range(2 * reps):
+        if len(times) == reps:
+            break
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(hold_ms * CYCLES_PER_MS))
+        _FLUSH["w"].fill_(1.0)
+        torch.sum(_FLUSH["r"], dim=0, out=_FLUSH["out"])
         e0.record()
+        t1 = time.perf_counter()
         fn()
+        host_s.append(time.perf_counter() - t1)
         e1.record()
+        ok = (time.perf_counter() - t0) * 1e3 < hold_ms
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+        if ok or attempt >= reps:
+            times.append(e0.elapsed_time(e1))
+            held.append(ok)
+    return {"ms": statistics.median(times), "host_us": statistics.median(host_s) * 1e6,
+            "hold_ms": hold_ms, "held": all(held), "reps_retimed": len(host_s) - reps}
+
+
+def time_ms(fn, reps: int) -> float:
+    """The device time of ``fn``'s launches (``time_device``), in ms."""
+
+    return time_device(fn, reps)["ms"]
+
+
+def _kernel_timed(row: dict, fn, reps: int) -> dict:
+    """``ms`` and ``host_us`` of a kernel's wrapper into ``row``."""
+
+    t = time_device(fn, reps)
+    row.update(ms=t["ms"], host_us=t["host_us"], hold_ms=t["hold_ms"], held=t["held"],
+               reps_retimed=t["reps_retimed"])
+    return row
+
+
+def _bound_held(name: str, row: dict) -> None:
+    """A kernel that reads below ``BOUND_FLOOR`` of its bound is a fault of
+    the clock (or of the bound): the phase fails."""
+
+    check(row["ms"] >= BOUND_FLOOR * row["bound_ms"],
+          f"{name}: {row['ms']} ms reads below {BOUND_FLOOR} x its bound {row['bound_ms']} ms")
+    check(row["held"], f"{name}: the host did not queue the kernel within the {row['hold_ms']} "
+                       f"ms hold")
+
+
+def phase_clock():
+    """The clock's self-check: ``torch.add`` on a (16, 256) bf16 tensor, one
+    launch of a few µs on the device, must read at most
+    ``CLOCK_SELF_CHECK_MS``; its host time per call is logged beside it."""
+
+    import torch
+
+    x = torch.randn((16, 256), device="cuda").to(torch.bfloat16)
+    t = time_device(lambda: torch.add(x, x), 20)
+    RESULTS["clock_self_check"] = {"case": "torch.add (16, 256) bf16", **t,
+                                   "limit_ms": CLOCK_SELF_CHECK_MS}
+    log_row(RESULTS["clock_self_check"])
+    check(t["ms"] <= CLOCK_SELF_CHECK_MS,
+          f"clock self-check: torch.add (16, 256) reads {t['ms']} ms > {CLOCK_SELF_CHECK_MS}")
 
 
 def phase_device():
@@ -386,8 +497,8 @@ def _attention_case(name, seed, *, b, s, h, hk, d, dtype, reps, **kw):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        _kernel_timed(row, lambda: fk.flash_attention_fwd(q, k, v, **kw), reps)
         row.update(
-            ms=time_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), reps),
             plain_ms=time_ms(lambda: ref.mha(q, k, v, **kw), max(2, reps // 4)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, scale=kw.get("scale"), enable_gqa=True), reps),
@@ -395,6 +506,7 @@ def _attention_case(name, seed, *, b, s, h, hk, d, dtype, reps, **kw):
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             flops=flops, bytes=nbytes,
         )
+        _bound_held(f"flash {name}", row)
     log_row(row)
     del q, k, v, out, plain, abs_v
     torch.cuda.empty_cache()
@@ -422,6 +534,10 @@ def phase_kernels():
                         reps=0, causal=True),
         _attention_case("full_200_d32", 8, b=1, s=200, h=2, hk=2, d=32, dtype="bfloat16",
                         reps=0, causal=False),
+        # the shape phi4-mini's training step gives the kernel (the unpadded
+        # 128-wide tile, GQA 24/8, no softcap)
+        _attention_case("phi4_train_2048_d128", 9, b=2, s=2048, h=24, hk=8, d=128,
+                        dtype="bfloat16", reps=10, causal=True, scale=128.0 ** -0.5),
     ]
     RESULTS["kernel_cases"] = rows
 
@@ -478,9 +594,9 @@ def _ssd_case(name, seed, *, b, l, h, p, n, g, dtype, chunk=128, reps=0):
         nbytes = (2 * x.numel() + B.numel() + C.numel()) * es \
             + dts.numel() * 4 + state.numel() * 4
         t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+        _kernel_timed(row, lambda: sk.ssd_scan_fwd(x, dts, A, B, C, chunk=chunk,
+                                                   return_state=True), reps)
         row.update(
-            ms=time_ms(lambda: sk.ssd_scan_fwd(x, dts, A, B, C, chunk=chunk,
-                                               return_state=True), reps),
             plain_ms=time_ms(lambda: ref.ssd_chunked(x, dts, A, B, C, chunk=chunk),
                              max(2, reps // 4)),
             library_ms=None,
@@ -488,6 +604,7 @@ def _ssd_case(name, seed, *, b, l, h, p, n, g, dtype, chunk=128, reps=0):
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             flops=flops, bytes=nbytes,
         )
+        _bound_held(f"ssd {name}", row)
     log_row(row)
     del xbc, x, B, C, y, state, py, pstate, abs_y
     torch.cuda.empty_cache()
@@ -515,6 +632,9 @@ def phase_ssd():
                   dtype="bfloat16", chunk=40),
         _ssd_case("unaligned_p40_n50", 17, b=2, l=200, h=4, p=40, n=50, g=1,
                   dtype="bfloat16", chunk=40),
+        # the shape mamba2-2.7b's training step gives the kernel
+        _ssd_case("mamba2_train_2048", 18, g=1, dtype="bfloat16", reps=10,
+                  **{**mamba2, "l": 2048}),
     ]
 
 
@@ -572,12 +692,13 @@ def _quant_case(name, x, *, reps=0, want_q=None):
                                 ref.dequantize_int8_rows(q, s, dt)))
     row.update(max_abs_err_quant=max(errs), max_abs_err_dequant=max(derrs), bit_equal=True)
     if reps:
+        _kernel_timed(row, lambda: qk.quantize_int8_rows(x), reps)
         row.update(
-            ms=time_ms(lambda: qk.quantize_int8_rows(x), reps),
             plain_ms=time_ms(lambda: ref.quantize_int8_rows(x), max(2, reps // 4)),
             library_ms=None,
             **_quant_bound(rows, width, x.element_size(), 1, 6),
         )
+        _bound_held(f"quant {name}", row)
     log_row(row)
     del q, s, pq, ps
     torch.cuda.empty_cache()
@@ -632,12 +753,14 @@ def _dequant_timed(name, rows, width, seed, reps):
     err = max(_bit_equal(f"dequant {name}", out, ref.dequantize_int8_rows(q, s, torch.bfloat16)),
               _bit_equal(f"dequant {name} against torch.mul", out, torch.mul(q, s, out=lib_out)))
     row = {"case": name, "shape": [rows, width], "dtype": "int8 -> bfloat16",
-           "max_abs_err_dequant": err, "bit_equal": True,
-           "ms": time_ms(lambda: qk.dequantize_int8_rows(q, s, torch.bfloat16), reps),
-           "plain_ms": time_ms(lambda: ref.dequantize_int8_rows(q, s, torch.bfloat16),
-                               max(2, reps // 4)),
-           "library_ms": time_ms(lambda: torch.mul(q, s, out=lib_out), reps),
-           **_quant_bound(rows, width, 1, 2, 2)}
+           "max_abs_err_dequant": err, "bit_equal": True}
+    _kernel_timed(row, lambda: qk.dequantize_int8_rows(q, s, torch.bfloat16), reps)
+    row.update(plain_ms=time_ms(lambda: ref.dequantize_int8_rows(q, s, torch.bfloat16),
+                                max(2, reps // 4)),
+               library_ms=time_ms(lambda: torch.mul(q, s, out=lib_out), reps),
+               **_quant_bound(rows, width, 1, 2, 2))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    _bound_held(f"dequant {name}", row)
     log_row(row)
     return row
 
@@ -910,9 +1033,9 @@ def _ring_of_one(name, seed, *, b, s, h, hk, d, dtype, reps, chunk=1024):
     carry_bytes = 2 * sum(t.numel() * 4 for t in carry)  # read and written once
     nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() + carry_bytes
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    _kernel_timed(row, lambda: rk.ring_step_fwd(qt, kv[0], kv[1], *carry, info=info,
+                                                scale=scale, causal=True), reps)
     row.update(
-        ms=time_ms(lambda: rk.ring_step_fwd(qt, kv[0], kv[1], *carry, info=info, scale=scale,
-                                            causal=True), reps),
         plain_ms=time_ms(lambda: plain_chunks(kv[1]), 2),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kv[0], kv[1], is_causal=True, scale=scale, enable_gqa=True), reps),
@@ -920,6 +1043,7 @@ def _ring_of_one(name, seed, *, b, s, h, hk, d, dtype, reps, chunk=1024):
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         flops=flops, bytes=nbytes, pairs=pairs,
     )
+    _bound_held(f"ring {name}", row)
     log_row(row)
     del q, k, v, qt, kv, carry
     torch.cuda.empty_cache()
@@ -1208,6 +1332,261 @@ def phase_small_model(arch, kv="bfloat16", ring=False):
     torch.cuda.empty_cache()
 
 
+# -- training ------------------------------------------------------------------
+
+# phase train_small: (name, config source, seq, batch, lr).  The tiny dense
+# config and lr are tests/test_trainer.py's; mamba2's smoke model learns
+# the stream more slowly, and at lr 1e-3 gains less than the 0.1 asked in 40
+# steps, so it trains at 1e-2
+TRAIN_SMALL = (("tiny", None, 64, 4, 1e-3), ("mamba2_smoke", "mamba2_2_7b", 64, 4, 1e-2))
+TRAIN_SMALL_STEPS = 40
+TRAIN_SMALL_RTOL = 1e-4
+# the full training paths: arch, layers, d_model, the kernel and its launches
+# per layer and step (the forward and remat's recompute; the backward
+# recomputes through the plain version)
+TRAIN_FULL = (("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd"),
+              ("mamba2_2_7b", 64, 2560, "ssd_scan_fwd"))
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 2, 4
+
+
+def _tiny_cfg():
+    """tests/test_trainer.py's tiny dense model."""
+
+    from repro_torch.configs.base import ModelConfig
+
+    return ModelConfig(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
+                       num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128)
+
+
+def _trainer(cfg, pcfg, device, *, steps, seq, batch, lr=3e-4, **tcfg):
+    """A ``Trainer`` that logs every step.  Its straggler deadline is
+    infinite: the phases time the steps, and a slow first step is no sick
+    worker here (the straggler policy is held by the CPU tests)."""
+
+    from repro_torch.runtime.faults import StragglerPolicy
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    return Trainer(cfg, pcfg, TrainerConfig(steps=steps, lr=lr, log_every=1, **tcfg),
+                   device=device, seq_len=seq, global_batch=batch,
+                   straggler=StragglerPolicy(deadline_factor=math.inf))
+
+
+def _free() -> None:
+    """Release a phase's trainers: a trainer whose ``init_state`` is
+    wrapped (``_capture_init``) sits in a reference cycle, which only the
+    collector breaks."""
+
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _capture_init(trainer) -> dict:
+    """Wrap ``trainer.init_state`` to keep, before any step updates them in
+    place, a CPU copy of the initial parameters (``cpu_params``) and of
+    each leaf's first 64 values (``head``)."""
+
+    from repro_torch.core.futures import flatten, unflatten
+
+    seen, init = {}, trainer.init_state
+
+    def wrapped():
+        params, opt_state = init()
+        leaves, treedef = flatten(params)
+        seen["cpu_params"] = unflatten(treedef, [p.detach().to("cpu", copy=True) for p in leaves])
+        seen["head"] = [p.detach().reshape(-1)[:64].clone() for p in leaves]
+        return params, opt_state
+
+    trainer.init_state = wrapped
+    return seen
+
+
+def _changed_leaves(seen, params) -> int:
+    """How many leaves of ``params`` differ from the init in their first
+    64 values."""
+
+    import torch
+
+    from repro_torch.core.futures import flatten
+
+    return sum(not torch.equal(h, p.detach().reshape(-1)[:64])
+               for h, p in zip(seen["head"], flatten(params)[0]))
+
+
+def phase_train_small(name, arch, seq, batch, lr):
+    """``Trainer`` on the card and on the CPU from the same init (the card's,
+    copied) and batches, fp32, remat full: every step's loss within
+    ``TRAIN_SMALL_RTOL`` relative, the kernel launched twice per layer and
+    step, and the loss down by more than 0.1 over the run."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = _tiny_cfg() if arch is None else base.get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    pcfg = dataclasses.replace(base.ParallelConfig() if arch is None else base.get_parallel(arch),
+                               remat="full")
+    kernel = "ssd_scan_fwd" if cfg.family == "ssm" else "flash_attention_fwd"
+    kw = dict(steps=TRAIN_SMALL_STEPS, seq=seq, batch=batch, lr=lr)
+    card = _trainer(cfg, pcfg, "cuda", **kw)
+    seen = _capture_init(card)
+    _reset_launches()
+    card_losses = [m["loss"] for m in card.run()["metrics"]]
+    launches = _launches()
+    cpu = _trainer(cfg, pcfg, "cpu", **kw)
+    cpu_params = Trainer._trainable(seen["cpu_params"])
+    cpu.init_state = lambda: (cpu_params, cpu.opt.init(cpu_params))
+    cpu_losses = [m["loss"] for m in cpu.run()["metrics"]]
+    rel = np.abs(np.array(card_losses) - cpu_losses) / np.abs(cpu_losses)
+    row = {"config": name, "steps": TRAIN_SMALL_STEPS, "seq": seq, "batch": batch, "lr": lr,
+           "first_loss": card_losses[0], "last_loss": card_losses[-1],
+           "max_rel_diff_card_cpu": float(rel.max()), "rtol": TRAIN_SMALL_RTOL,
+           "launches": launches, "device": RESULTS["device"]["nvidia_smi"]}
+    log_row(row)
+    want = 2 * cfg.num_layers * TRAIN_SMALL_STEPS
+    check(launches[kernel] == want, f"train_small {name}: {kernel} launches {launches[kernel]}, "
+                                    f"want {want}")
+    check(np.all(np.isfinite(card_losses)) and rel.max() <= TRAIN_SMALL_RTOL,
+          f"train_small {name}: card and CPU losses {rel.max()} apart (relative)")
+    check(card_losses[-1] < card_losses[0] - 0.1,
+          f"train_small {name}: loss {card_losses[0]} -> {card_losses[-1]}")
+    RESULTS.setdefault("train_small", {})[name] = {**row, "card_losses": card_losses,
+                                                   "cpu_losses": cpu_losses}
+    del card, cpu, seen, cpu_params
+    _free()
+
+
+def phase_train_checkpoint():
+    """phi4-mini at full width and 2 layers, b 2 x 2048: four steps with an
+    async save at step 2 (overlapping steps 3 and 4) and at step 4, under
+    ``build/``; a fresh ``Trainer`` restores step 2 and takes steps 3 and
+    4, which must equal the uninterrupted run's bit for bit (losses, grad
+    norms, parameters and optimizer state).  The checkpoint is deleted
+    after."""
+
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.core.futures import flatten
+
+    cfg = dataclasses.replace(base.get_config("phi4_mini_3_8b"), num_layers=2)
+    pcfg = base.get_parallel("phi4_mini_3_8b")
+    ckpt_dir = ROOT / "build" / "train_checkpoint"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(steps=4, seq=TRAIN_SEQ, batch=TRAIN_BATCH, checkpoint_dir=str(ckpt_dir),
+              checkpoint_every=2)
+    # bit for bit needs the deterministic kernels where PyTorch has a choice
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        whole = _trainer(cfg, pcfg, "cuda", **kw)
+        result = whole.run()
+        whole_s = time.perf_counter() - t0
+        check(result["ckpt_failures"] == 0 and whole.ckpt.steps() == [2, 4],
+              f"train_checkpoint: saves {whole.ckpt.steps()}, {result['ckpt_failures']} failed")
+        # no periodic saves: the fresh run only restores and steps
+        fresh = _trainer(cfg, pcfg, "cuda", **{**kw, "checkpoint_every": 0})
+        t0 = time.perf_counter()
+        params, opt_state = fresh.init_state()
+        tree, step = fresh.ckpt.restore({"params": params, "opt": opt_state}, step=2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(step == 2 and fresh.ckpt.extra(2) == {"step": 2}, f"restored step {step}")
+        params = fresh._trainable(tree["params"])
+        fresh.compile(params, tree["opt"])
+        params, opt_state, step = fresh._run_span(params, tree["opt"], 2, 4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = [(m["loss"], m["grad_norm"]) for m in result["metrics"][2:]]
+    got = [(m["loss"], m["grad_norm"]) for m in fresh.metrics_history]
+    check(got == want, f"train_checkpoint: resumed steps 3-4 {got} != {want}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        flatten((params, opt_state))[0], flatten((whole.params, whole.opt_state))[0]))
+    check(same, "train_checkpoint: resumed state differs from the uninterrupted run's")
+    ckpt_bytes = sum(f.stat().st_size for f in (ckpt_dir / "step_00000002").iterdir())
+    row = {"config": "phi4_mini_3_8b 2 layers", "d_model": cfg.d_model, "seq": TRAIN_SEQ,
+           "batch": TRAIN_BATCH, "losses": [m["loss"] for m in result["metrics"]],
+           "resumed_equal_bitwise": True, "checkpoint_gb": ckpt_bytes / 1e9,
+           "uninterrupted_run_s": whole_s, "restore_s": restore_s,
+           "step_s": [m["duration_s"] for m in result["metrics"]],
+           "device": RESULTS["device"]["nvidia_smi"]}
+    log_row(row)
+    RESULTS["train_checkpoint"] = row
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del whole, fresh, params, opt_state, tree
+    _free()
+
+
+def phase_train(arch, layers, d_model, kernel):
+    """``arch`` at its full config trains ``TRAIN_STEPS`` steps at b
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` through ``Trainer`` (remat full, fp32
+    moments): finite losses and grad norms, parameters changed, the kernel
+    launched exactly twice per layer and step; step time, tokens/s and peak
+    memory are logged beside the card, and one warm step is profiled."""
+
+    import math
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.core.futures import flatten
+
+    cfg, pcfg = base.get_config(arch), base.get_parallel(arch)
+    check(cfg.num_layers == layers and cfg.d_model == d_model, f"not the full {arch} config")
+    path = f"train_{arch}"
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _trainer(cfg, pcfg, "cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+    seen = _capture_init(trainer)
+    _reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.run()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics = result["metrics"]
+    for name, n in launches.items():
+        want = 2 * cfg.num_layers * TRAIN_STEPS if name == kernel else 0
+        check(n == want, f"{path}: {name} launches {n}, want {want}")
+    check(len(metrics) == TRAIN_STEPS and all(math.isfinite(m["loss"])
+                                              and math.isfinite(m["grad_norm"])
+                                              for m in metrics), f"{path}: {metrics}")
+    n_leaves = len(flatten(trainer.params)[0])
+    changed = _changed_leaves(seen, trainer.params)
+    check(changed == n_leaves, f"{path}: {n_leaves - changed} of {n_leaves} parameter leaves "
+                               f"unchanged after {TRAIN_STEPS} steps")
+    warm_s = [m["duration_s"] for m in metrics[1:]]
+    step_s = sorted(warm_s)[len(warm_s) // 2]
+    row = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params_b": cfg.param_count() / 1e9, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
+           "step_s": [m["duration_s"] for m in metrics], "warm_step_s": step_s,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_mem_gb": peak_gb,
+           "wall_s_init_included": wall, "launches": launches,
+           f"{kernel}_per_step": launches[kernel] / TRAIN_STEPS, "leaves_changed": changed,
+           "device": RESULTS["device"]["nvidia_smi"]}
+    log_row(row)
+    check(peak_gb < 80, f"{path}: peak {peak_gb} GB")
+    check(trainer.opt_state.step.item() == TRAIN_STEPS, f"{path}: optimizer step count")
+    batch = trainer._batch(TRAIN_STEPS)
+    row["profile_step"] = _profile(lambda: trainer._compiled(trainer.params, trainer.opt_state,
+                                                             batch))
+    RESULTS.setdefault("train", {})[path] = row
+    del trainer, seen, batch
+    _free()
+    return path, launches
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1232,6 +1611,8 @@ def _kernel_line(name, source, replaces, max_abs_err, main_case, launches):
         "launches_by_path": {path: by_path[name] for path, by_path in launches.items()},
         "max_abs_err": max_abs_err,
         "ms": main_case["ms"],
+        # host time of one wrapper call, apart from ms (device time)
+        "host_us": main_case["host_us"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
@@ -1245,6 +1626,7 @@ def main() -> int:
     import repro_torch.kernels.flash_attention.kernel  # noqa: F401  (the port is here)
 
     phase_device()
+    phase_clock()
     phase_build()
     phase_nccl()
     phase_kernels()
@@ -1257,6 +1639,10 @@ def main() -> int:
     for arch in ("gemma2_9b", "zamba2_7b"):
         phase_small_model(arch, "int8")
     phase_small_model("phi4_mini_3_8b", ring=True)
+    for spec in TRAIN_SMALL:
+        phase_train_small(*spec)
+    phase_train_checkpoint()
+    launches.update(phase_train(*spec) for spec in TRAIN_FULL)
 
     flash, ssd = RESULTS["kernel_cases"], RESULTS["ssd_cases"]
     quant, dequant = RESULTS["quant_cases"], RESULTS["dequant_cases"]

@@ -1,10 +1,11 @@
-"""Weights from the reference into the port.
+"""Weights and optimizer state from the reference into the port.
 
 :func:`params_from_jax` maps the reference's parameter tree, given as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``), 1:1 onto the port's
 tree: the same nesting, names, shapes and dtypes, so both packages compute
 the same function.  bf16 arrays (``ml_dtypes.bfloat16``) are carried over
-bit for bit.
+bit for bit.  :func:`opt_state_from_jax` does the same for the AdamW state
+(``step``, ``mu``, ``nu``), so the trainer's whole state carries across.
 """
 
 from __future__ import annotations
@@ -31,3 +32,15 @@ def params_from_jax(tree: Any, device: str | torch.device = "cuda") -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return _tensor(tree, device)
+
+
+def opt_state_from_jax(state: Any, device: str | torch.device = "cuda"):
+    """The reference's ``AdamWState`` with numpy leaves → the port's
+    :class:`~repro_torch.optim.AdamWState` on ``device`` (fp32 or bf16
+    moments; the int8 ``_Q8`` moments wait for ROADMAP A13)."""
+
+    from repro_torch.optim import AdamWState
+
+    return AdamWState(step=_tensor(state.step, device),
+                      mu=params_from_jax(state.mu, device),
+                      nu=params_from_jax(state.nu, device))

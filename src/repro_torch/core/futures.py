@@ -11,6 +11,12 @@ eager PyTorch form.
   mode: a point-to-point exchange is issued, compute proceeds, and the join
   (:func:`when_all`) waits.
 
+* :class:`DeferredFuture` — host level, off the dispatch path: a future
+  whose value a *resolver* produces at completion (background file I/O,
+  :class:`repro_torch.core.io.IORequest`, and joins over such requests).
+  ``then()`` chains lazily, and resolver errors propagate through
+  ``get()``/``wait()``.
+
 * :class:`PersistentRequest` — ``MPI_Send_init`` + ``MPI_Start``.  Eager
   PyTorch has no trace to amortise, so init binds the argument list (tree
   structure and each leaf's shape and dtype) and every start validates
@@ -115,6 +121,12 @@ class Future:
 
         errors.check(self._valid, errors.ErrorClass.ERR_REQUEST, "future already consumed")
         self._valid = False
+        return self._wait_value()
+
+    def _wait_value(self) -> Any:
+        """Block until the value is complete and return it (no validity
+        bookkeeping — ``get``/``wait`` own that)."""
+
         self._complete()
         return self._value
 
@@ -153,6 +165,68 @@ class Future:
         return Future(result)
 
 
+class DeferredFuture(Future):
+    """Host future whose value is produced by a *resolver* at completion
+    time — the host-level request behind operations that finish off the
+    device's queue (background file I/O, joins over such requests).
+
+    ``get()``/``wait()`` run the resolver exactly once; an error raised
+    there (e.g. ``ERR_IO`` from a failed background write) propagates to the
+    caller — a failed operation can never read as success.  ``test()`` uses
+    the optional ``probe`` (e.g. a thread-completion event); without one it
+    reports completion only after resolution.
+
+    ``then()`` on a deferred request is itself deferred: the continuation
+    runs when the *chained* request is waited, not at chain time, so a chain
+    built over in-flight I/O does not block the issuing thread.
+    """
+
+    def __init__(self, resolver: Callable[[], Any], probe: Callable[[], bool] | None = None):
+        super().__init__(None)
+        self._resolver = resolver
+        self._probe = probe
+        self._resolved = False
+
+    def _complete(self) -> None:
+        if not self._resolved:
+            self._value = self._resolver()
+            self._resolved = True
+        _sync(self._value)
+
+    def test(self) -> bool:
+        if self._resolved:
+            return True
+        if self._probe is not None:
+            return bool(self._probe())
+        return False
+
+    def then(self, fn: Callable[["Future"], Any]) -> "DeferredFuture":
+        errors.check(
+            self._valid, errors.ErrorClass.ERR_REQUEST, "then() on a consumed future"
+        )
+        self._valid = False
+        parent = self
+
+        def resolver():
+            # the chain owns the parent request now: re-validate it for the
+            # continuation's own get()/wait(), as the eager form hands fn a
+            # still-valid future
+            parent._valid = True
+            try:
+                result = fn(parent)
+            finally:
+                parent._valid = False
+            if result is parent:
+                return parent._wait_value()
+            if isinstance(result, Future):
+                return result._wait_value()
+            return result
+
+        # no probe: the continuation only runs at wait, so completion is not
+        # observable earlier
+        return DeferredFuture(resolver)
+
+
 def when_all(futures: Sequence[Future]) -> Future:
     """``MPI_Waitall`` join: a future over the tuple of results.
 
@@ -172,6 +246,15 @@ def when_all(futures: Sequence[Future]) -> Future:
         seen.add(id(f))
     for f in futures:
         f._valid = False
+    if any(isinstance(f, DeferredFuture) for f in futures):
+        # a join over in-flight host I/O stays lazy: waiting the join waits
+        # every input (in order) and surfaces the first failure (ERR_IO from
+        # a background write propagates, MPI_Waitall-style)
+        inputs = tuple(futures)
+        return DeferredFuture(
+            lambda: tuple(f._wait_value() for f in inputs),
+            probe=lambda: all(f.test() for f in inputs),
+        )
     values = tuple(f._value for f in futures)
     if any(f._works is None for f in futures):
         return Future(values)

@@ -1,0 +1,145 @@
+"""Training launcher: the port's Trainer (checkpoint/restart, straggler
+guard, fault injection) with the data-only plan.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi4_mini_3_8b \\
+        --steps 4 --batch 2 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi4_mini_3_8b \\
+        --smoke --device cpu --steps 4
+
+Runs on the CUDA device unless ``--device cpu`` is given; a machine with no
+CUDA device raises ``ERR_SESSION`` instead of falling back.  ``--smoke``
+selects the reduced same-family config.  ``--mesh DxM`` folds the process
+world onto a (data, model) grid; the data plan averages over all of it.
+Several CPU ranks run under ``torchrun`` (gloo), as the serve launcher's do.
+
+Not ported yet, each raising ``ERR_UNSUPPORTED_OPERATION``: ``--plan auto``
+(the tuner, ROADMAP A15) and any plan that re-forms the fabric
+(``--pipeline-stages``, ``--ring-attention``; A14), and the elastic drills
+``--evict-at`` / ``--admit-at`` (A15).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+
+def resolve_plan(args, devices):
+    """The ``--plan`` spec, or ``None`` (pure data plan) without one.  The
+    deprecated ``--pipeline-stages``/``--ring-attention`` flags go to
+    :class:`TrainerConfig`'s int knobs as they are, where values above 1
+    raise."""
+
+    from repro_torch.configs import base
+    from repro_torch.core import errors
+
+    if not args.plan:
+        return None
+    errors.check(
+        args.plan != "auto",
+        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+        "--plan auto (the parallelism tuner) is not ported yet: it waits for ROADMAP A15",
+    )
+    return base.parse_plan(args.plan, devices=devices)
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="reduced same-family config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--mesh", default="auto", help="DxM, e.g. 2x1 (auto: all ranks x 1)")
+    ap.add_argument("--pset", default="repro://world",
+                    help="session process set the trainer owns (e.g. repro://host/0)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="device type to train on (default: the CUDA device)")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--async-checkpoint", action=argparse.BooleanOptionalAction, default=True,
+                    help="checkpoint writes overlap the next steps "
+                         "(--no-async-checkpoint joins each save)")
+    ap.add_argument("--plan", default=None,
+                    help="the parallelism plan; the port runs data plans only")
+    ap.add_argument("--pipeline-stages", type=int, default=0, help="not ported yet")
+    ap.add_argument("--pipeline-microbatches", type=int, default=2)
+    ap.add_argument("--ring-attention", type=int, default=0, help="not ported yet")
+    ap.add_argument("--inject-failure-at", type=int, default=None)
+    ap.add_argument("--evict-at", default=None, metavar="STEP:RANK", help="not ported yet")
+    ap.add_argument("--admit-at", default=None, metavar="STEP[:COUNT]", help="not ported yet")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--out", default=None, help="write metrics history JSON here")
+    return ap
+
+
+def run(argv=None):
+    """Build the trainer from the flags and run it; returns (trainer,
+    result)."""
+
+    args = _parser().parse_args(argv)
+
+    from repro_torch.configs import base
+    from repro_torch.core import errors
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.faults import FaultInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    for flag in ("evict_at", "admit_at"):
+        errors.check(
+            getattr(args, flag) is None,
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            f"--{flag.replace('_', '-')} (elastic epochs) is not ported yet: it waits for "
+            f"ROADMAP A15",
+        )
+    try:
+        cfg = base.get_smoke_config(args.arch) if args.smoke else base.get_config(args.arch)
+        pcfg = base.get_parallel(args.arch)
+    except ModuleNotFoundError as e:
+        errors.fail(errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                    f"arch {args.arch!r} is not ported yet ({e})")
+    if args.mesh == "auto":
+        comm = make_host_communicator(pset=args.pset, device=args.device)
+    else:
+        d, m = (int(t) for t in args.mesh.split("x"))
+        comm = make_host_communicator(d, m, pset=args.pset, device=args.device)
+
+    plan = resolve_plan(args, comm.group().size())
+    tcfg = TrainerConfig(
+        steps=args.steps,
+        lr=args.lr,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every or max(1, args.steps // 2),
+        async_checkpoint=args.async_checkpoint,
+        log_every=args.log_every,
+        plan=plan,
+        pipeline_stages=args.pipeline_stages,
+        pipeline_microbatches=args.pipeline_microbatches,
+        ring_attention=args.ring_attention,
+    )
+    injector = None
+    if args.inject_failure_at is not None:
+        injector = FaultInjector(fail_at_steps=(args.inject_failure_at,))
+    trainer = Trainer(cfg, pcfg, tcfg, comm, seq_len=args.seq, global_batch=args.batch,
+                      injector=injector)
+    return trainer, trainer.run()
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
+    args = _parser().parse_args(argv)
+    _, result = run(argv)
+    print(json.dumps({k: v for k, v in result.items() if k != "metrics"}, indent=1))
+    if result["metrics"]:
+        first, last = result["metrics"][0], result["metrics"][-1]
+        print(f"loss: {first['loss']:.4f} -> {last['loss']:.4f}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,7 +6,8 @@ The parameter tree is the reference's: ``layers`` stacks every leaf over
 attn_every, …)``, ``ssm_tail`` ``(rest, …)`` and ``shared_attn`` is not
 stacked.  Python loops stand in for the reference's nested ``scan``\\ s.
 Decode updates the cache tensors in place, as the reference's donated
-buffers are; ``pos`` advances.  Not ported yet: remat.
+buffers are; ``pos`` advances.  The loss paths remat each layer (and each
+shared-attention group) as the reference does (``transformer._maybe_remat``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp, ssm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SSMCache
-from repro_torch.models.transformer import _entry_to_cache, _unit
+from repro_torch.models.transformer import _entry_to_cache, _maybe_remat, _unit, _units
 
 
 # ---------------------------------------------------------------------------
@@ -79,8 +80,13 @@ def _ssm_cache(convs, states, pos, cfg) -> SSMCache:
 def ssm_lm_loss(params, batch, cfg, pcfg, mesh=None):
     tokens = batch["tokens"]
     x = params["embed"][tokens]
-    for i in range(cfg.num_layers):
-        x, _ = _ssm_layer_full(_unit(params["layers"], i), x, cfg, pcfg)
+
+    def unit(x, lp):
+        return _ssm_layer_full(lp, x, cfg, pcfg)[0]
+
+    unit = _maybe_remat(unit, pcfg)
+    for lp in _units(params["layers"]):
+        x = unit(x, lp)
     logits = _logits(params, x, cfg)
     loss = common.cross_entropy(logits[:, :-1], tokens[:, 1:])
     return loss, {"loss": loss}
@@ -153,11 +159,10 @@ def _ssm_units(params, cfg):
 
     groups, rest = _hybrid_split(cfg)
     per = cfg.attn_every
-    grouped = [
-        [(g * per + j, _unit(_unit(params["ssm_layers"], g), j)) for j in range(per)]
-        for g in range(groups)
-    ]
-    tail = [(groups * per + t, _unit(params["ssm_tail"], t)) for t in range(rest)]
+    grouped = [[(g * per + j, lp) for j, lp in enumerate(_units(group))]
+               for g, group in enumerate(_units(params["ssm_layers"]))]
+    tail = [(groups * per + t, lp)
+            for t, lp in enumerate(_units(params["ssm_tail"]) if rest else [])]
     return grouped, tail
 
 
@@ -182,13 +187,22 @@ def hybrid_lm_loss(params, batch, cfg, pcfg, mesh=None):
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
     grouped, tail = _ssm_units(params, cfg)
-    for units in grouped:
+
+    def group_unit(x, units):
         x, _ = _shared_attn_full(params["shared_attn"], x, cfg, pcfg, positions=positions,
                                  mesh=mesh, collect_cache=False)
         for _, lp in units:
             x, _ = _ssm_layer_full(lp, x, cfg, pcfg)
+        return x
+
+    def inner_tail(x, lp):
+        return _ssm_layer_full(lp, x, cfg, pcfg)[0]
+
+    group_unit, inner_tail = _maybe_remat(group_unit, pcfg), _maybe_remat(inner_tail, pcfg)
+    for units in grouped:
+        x = group_unit(x, units)
     for _, lp in tail:
-        x, _ = _ssm_layer_full(lp, x, cfg, pcfg)
+        x = inner_tail(x, lp)
     logits = _logits(params, x, cfg)
     loss = common.cross_entropy(logits[:, :-1], tokens[:, 1:])
     return loss, {"loss": loss}

@@ -4,18 +4,21 @@ decode entry points — the dense path of :mod:`repro.models.transformer`.
 
 The parameter tree is the reference's: ``params["layers"][name]`` stacks
 every leaf of one sub-layer along a leading unit dimension.  The reference
-``scan``\\ s over that dimension; eager PyTorch loops over it.  Not ported
-yet: MoE, MLA, the VLM prefix, ``first_dense_layers``, remat and the
-pipeline decomposition.
+``scan``\\ s over that dimension; eager PyTorch loops over it.  Remat
+(``pcfg.remat``) wraps each unit of the loss path in
+``torch.utils.checkpoint`` (:func:`_maybe_remat`).  Not ported yet: MoE,
+MLA, the VLM prefix, ``first_dense_layers`` and the pipeline decomposition.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import errors
 from repro_torch.models import attention as attn
@@ -137,6 +140,52 @@ def _unit(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _units(tree: Any) -> list:
+    """Every unit of a stacked parameter tree (views, no copy), by one
+    ``torch.unbind`` per leaf.  Under autograd its backward stacks the
+    units' gradients once; taking the units one by one (:func:`_unit`)
+    would give each its own zero-filled gradient of the whole stack, summed
+    unit by unit — a stack's worth of memory traffic per layer."""
+
+    if isinstance(tree, dict):
+        parts = {k: _units(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products without batch dimensions (the
+    weight projections, which reach ``aten.mm`` / ``aten.addmm``); recompute
+    everything else — the reference's ``dots_with_no_batch_dims_saveable``."""
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, pcfg):
+    """``pcfg.remat`` on one unit: ``"none"`` runs ``fn`` as it is;
+    ``"full"`` keeps only the unit's inputs and recomputes its forward in
+    the backward (``torch.utils.checkpoint``); ``"dots"`` also keeps the
+    outputs of its weight products (a selective checkpoint).  Without grad
+    (serving) the unit runs plainly."""
+
+    if pcfg.remat == "none":
+        return fn
+    kw = {}
+    if pcfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
 def init_lm(gen: torch.Generator, cfg) -> common.Params:
     """Random parameters on ``gen.device``, drawn from ``gen``."""
 
@@ -192,13 +241,22 @@ def lm_forward(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor,
 
     _check_dense(cfg)
     x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
-    for u in range(_num_units(cfg)):
-        unit_params = _unit(params["layers"], u)
-        for name, kind, window in _unit_plan(cfg):
+    plan = _unit_plan(cfg)
+
+    def unit(x, unit_params):
+        for name, kind, window in plan:
             x, _, _ = _block_full(
                 unit_params[name], x, cfg, pcfg, kind=kind, sliding_window=window,
                 positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=False,
             )
+        return x
+
+    unit = _maybe_remat(unit, pcfg)
+    units = _units(params["layers"])
+    errors.check(len(units) == _num_units(cfg), errors.ErrorClass.ERR_DIMS,
+                 f"{len(units)} stacked units, the config folds {_num_units(cfg)}")
+    for unit_params in units:
+        x = unit(x, unit_params)
     logits = _head(params, x, cfg, pcfg)
     aux = {"load_balance_loss": 0.0, "router_z_loss": 0.0, "dropped_fraction": 0.0}
     return logits, aux

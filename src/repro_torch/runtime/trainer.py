@@ -1,0 +1,476 @@
+"""The Trainer — :class:`repro.runtime.trainer.Trainer` in eager PyTorch,
+with the data-only plan: checkpoint/restart, failure recovery and straggler
+handling.
+
+The train step is assembled from the port's layers, as the reference's is:
+
+* model loss from ``repro_torch.models.api`` (dense, ssm and hybrid);
+* AdamW from ``repro_torch.optim``;
+* data from ``repro_torch.data`` (deterministic, stateless resume);
+* checkpoints from ``repro_torch.checkpoint`` (async, atomic, the
+  reference's on-disk format).
+
+**The data plan.**  Every rank holds the whole parameter and optimizer
+state (made from the same seed), takes its block of the global batch and
+averages its gradients over the communicator with one ``allreduce`` per
+dtype group of the gradient tree (the reflected datatype of
+``core/datatypes.py``: one message, not one per leaf) — what GSPMD's data
+plan computes in the reference.  On the card this is a world of one over
+NCCL, which needs no exchange; on the CPU any number of gloo ranks.
+
+**Persistent execution engine** (the only one): the step is built *once* as a
+:class:`~repro_torch.core.futures.PersistentRequest` bound to the
+signature of its arguments (``ERR_REQUEST`` on drift); ``trace:train_step``
+counts one build, and every step is a ``persistent_start``.  The step stays
+eager: capturing it as a CUDA graph is ROADMAP A8.  The step updates the
+parameters and the optimizer state in place — the reference's donated
+buffers — so, as there, a straggler cannot be re-dispatched
+(``retry_safe=False``) and goes straight to the failure path (restore from
+the last checkpoint).
+
+**Async checkpointing** (default): ``ckpt.save`` copies the state to the
+host synchronously and runs the file writes as I/O requests overlapping the
+next steps; the single manifest commit is the durability point.  A failed
+save surfaces as ``ERR_IO`` at the next join, is counted
+(``ckpt_failures``, the ``ckpt_save_failed`` pvar) and logged, and training
+goes on from device state.  One deviation: the run's final save is skipped
+when the periodic save just covered the same step (the reference writes it
+twice).
+
+**Not ported, each raising ``ERR_UNSUPPORTED_OPERATION``:** the elastic
+shrink and grow (``core/epoch.py``, ROADMAP A15: the trainer holds its
+communicator where the reference holds a ``CommEpoch``); plans that
+re-form the fabric or shard the model — pipeline stages, the ring, tensor
+and expert parallelism (ROADMAP A14), and the reference's deprecated
+``pipeline_stages``/``ring_attention`` knobs that build them; checkpoints
+across several ranks, which wait for sharded state (ROADMAP A14 item 4);
+int8 moments (A13).  ``persistent=False`` and ``donate=False`` raise too:
+the step is always the persistent, in-place one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.base import ModelConfig, ParallelConfig, ParallelPlan
+from repro_torch.core import datatypes, errors, tool
+from repro_torch.core.communicator import Communicator
+from repro_torch.core.futures import PersistentRequest, flatten, unflatten
+from repro_torch.data import TokenPipeline
+from repro_torch.launch.mesh import make_host_communicator
+from repro_torch.models import api as model_api
+from repro_torch.optim import AdamW, clip_by_global_norm, cosine_warmup
+from repro_torch.runtime.faults import (
+    FaultInjector,
+    RankEvicted,
+    StepGuard,
+    StragglerPolicy,
+    WorkerFailure,
+)
+
+log = logging.getLogger("repro_torch.trainer")
+
+tool.pvar_register("trace:train_step", "train-step requests built (want exactly 1 per run)")
+# registered as the reference registers it; the legacy knobs it counts raise
+# here (see TrainerConfig), so nothing counts it
+tool.pvar_register(
+    "config:deprecated_knob",
+    "TrainerConfig layouts built through the deprecated "
+    "pipeline_stages/ring_attention int knobs instead of a ParallelPlan",
+)
+
+
+def _not_ported(what: str, item: str) -> None:
+    errors.fail(errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                f"{what} is not ported yet: it waits for ROADMAP {item}")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    lr: float = 3e-4
+    warmup_steps: int = 10
+    clip_norm: float = 1.0
+    weight_decay: float = 0.1
+    seed: int = 0
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    log_every: int = 10
+    max_restarts: int = 3
+    # persistent execution engine: bind the step once, MPI_Start it every
+    # iteration; the step always updates its state in place (donate).  The
+    # port runs only this engine: persistent=False raises
+    persistent: bool = True
+    donate: bool = True
+    # checkpoint writes ride the I/O request engine and overlap the next
+    # step; False joins each save before the next step starts
+    async_checkpoint: bool = True
+    # the unified layout; None = a pure data plan
+    plan: ParallelPlan | None = None
+    # the reference's deprecated pipeline/ring int knobs: the plans they
+    # build are not ported, so values above 1 raise
+    pipeline_stages: int = 0
+    pipeline_microbatches: int = 2
+    ring_attention: int = 0
+
+
+def _average(comm: Communicator | None, tree):
+    """The data plan's gradient (or loss) average over ``comm``: one
+    allreduce per dtype group of the tree; nothing to do on one rank."""
+
+    if comm is None or comm.size() == 1:
+        return tree
+    n = comm.size()
+    return datatypes.apply_packed(lambda buf: comm.allreduce(buf) / n, tree)
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    pcfg: ParallelConfig,
+    tcfg: TrainerConfig,
+    opt: AdamW,
+    mesh=None,
+    comm: Communicator | None = None,
+):
+    """Build the train-step function (params, opt_state, batch) ->
+    (params, opt_state, metrics), which updates ``params`` and
+    ``opt_state`` in place.  ``mesh`` is forwarded to the model loss, as in
+    the reference; ``comm`` averages the gradients over the data plan's
+    ranks."""
+
+    bundle = model_api.build(cfg)
+
+    def train_step(params, opt_state, batch):
+        leaves, treedef = flatten(params)
+        loss, metrics = bundle.loss(params, batch, pcfg, mesh)
+        grads = unflatten(treedef, torch.autograd.grad(loss, leaves))
+        del leaves
+        grads = _average(comm, grads)
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
+        metrics["loss"] = _average(comm, metrics["loss"])
+        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+        params, opt_state = opt.update(grads, opt_state, params)
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Trainer:
+    """``comm`` picks the device (this rank's) and the data plan's ranks;
+    without one, a host communicator over ``device`` (``"cuda"`` unless
+    ``"cpu"`` is asked).  After :meth:`run`, ``params`` and ``opt_state``
+    hold the final state."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        pcfg: ParallelConfig,
+        tcfg: TrainerConfig,
+        comm: Communicator | None = None,
+        *,
+        seq_len: int = 512,
+        global_batch: int = 8,
+        injector: FaultInjector | None = None,
+        straggler: StragglerPolicy | None = None,
+        clock: Callable[[], float] | None = None,
+        device: str | None = None,
+    ):
+        self.cfg, self.pcfg, self.tcfg = cfg, pcfg, tcfg
+        self.injector = injector
+        # the reference holds a CommEpoch (the elastic fabric); the port holds
+        # its communicator directly until core/epoch.py lands (ROADMAP A15)
+        self._comm = comm if comm is not None else make_host_communicator(device=device)
+        self._reform_topology()
+        self.device = self._comm.device
+        errors.check(
+            tcfg.donate,
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            "the port's step always updates params and optimizer state in place "
+            "(TrainerConfig.donate=True)",
+        )
+        errors.check(
+            tcfg.persistent,
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            "the port's step is always a persistent request (TrainerConfig.persistent=True)",
+        )
+        if tcfg.checkpoint_dir and self._comm.size() > 1:
+            _not_ported("checkpointing from several ranks (sharded state)", "A14 item 4")
+        self.seq_len, self.global_batch = seq_len, global_batch
+        self.bundle = model_api.build(cfg)
+        self.opt = AdamW(
+            lr=cosine_warmup(tcfg.lr, tcfg.warmup_steps, tcfg.steps),
+            weight_decay=tcfg.weight_decay,
+            moment_dtype=self.pcfg.moment_dtype,
+        )
+        self.guard = StepGuard(
+            straggler or StragglerPolicy(), injector,
+            clock if clock is not None else time.perf_counter,
+        )
+        self.ckpt = (
+            CheckpointManager(
+                tcfg.checkpoint_dir,
+                keep=tcfg.keep_checkpoints,
+                async_save=tcfg.async_checkpoint,
+                injector=injector,
+            )
+            if tcfg.checkpoint_dir
+            else None
+        )
+        self.ckpt_failures = 0
+        self._saved_step: int | None = None
+        self.pipeline = TokenPipeline(
+            vocab_size=cfg.vocab_size,
+            seq_len=seq_len,
+            global_batch=global_batch,
+            seed=tcfg.seed,
+            modality={"encdec": "audio", "vlm": "vlm"}.get(cfg.family, "lm"),
+            frame_dim=cfg.d_model,
+            frame_len=max(8, seq_len // 8),
+            image_tokens=cfg.num_image_tokens,
+            image_dim=1152,
+        )
+        self._compiled = None
+        self.metrics_history: list[dict] = []
+        self.restarts = 0
+        self.evictions = 0
+        self.joins = 0
+
+    # -- the fabric ------------------------------------------------------------
+
+    @property
+    def comm(self) -> Communicator:
+        return self._comm
+
+    def _reform_topology(self) -> None:
+        """Resolve the plan: the port runs the pure data plan (the
+        communicator's own shape); a plan that re-forms the fabric or
+        shards the model raises."""
+
+        if self.tcfg.pipeline_stages > 1:
+            _not_ported("the pipeline plan (TrainerConfig.pipeline_stages > 1)", "A14 item 5")
+        if self.tcfg.ring_attention > 1:
+            _not_ported("training with ring attention (TrainerConfig.ring_attention > 1)",
+                        "A14 item 5")
+        self.plan = plan = self.tcfg.plan or ParallelPlan()
+        if plan.remat is not None:
+            self.pcfg = dataclasses.replace(self.pcfg, remat=plan.remat)
+        if plan.stage > 1:
+            _not_ported("the pipeline plan (stage > 1)", "A14 item 5")
+        if plan.ring > 1 or self.pcfg.ring_attention:
+            _not_ported("training with ring attention (the ring's gradient)", "A14 item 5")
+        if plan.tensor > 1 or plan.expert > 1:
+            _not_ported("tensor and expert parallel plans (sharded parameters)", "A14 item 4")
+
+    def _batch(self, step: int) -> dict:
+        """This rank's block of the global batch for ``step``."""
+
+        return self.pipeline.device_batch(step, self.device, self._comm.rank(),
+                                          self._comm.size())
+
+    # -- assembly -------------------------------------------------------------
+
+    def init_state(self):
+        """Parameters from the seed (the same on every rank) and a fresh
+        optimizer state, on this rank's device."""
+
+        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        with torch.no_grad():
+            params = self.bundle.init(gen)
+        return self._trainable(params), self.opt.init(params)
+
+    @staticmethod
+    def _trainable(params):
+        for leaf in flatten(params)[0]:
+            leaf.requires_grad_(True)
+        return params
+
+    def compile(self, params, opt_state):
+        """The persistent step request, built lazily exactly once:
+        ``trace:train_step`` is 1 per run."""
+
+        if self._compiled is None:
+            self._compiled = self._build_step(params, opt_state)
+        return self._compiled
+
+    def _build_step(self, params, opt_state):
+        tool.pvar_count("trace:train_step")
+        # no mesh for the loss: the ring, its one user, is not ported for training
+        base_step = make_train_step(self.cfg, self.pcfg, self.tcfg, self.opt, comm=self._comm)
+        return PersistentRequest(base_step, (params, opt_state, self._batch(0)))
+
+    # -- the loop --------------------------------------------------------------
+
+    def run(self, steps: int | None = None) -> dict:
+        steps = steps if steps is not None else self.tcfg.steps
+        params, opt_state = self.init_state()
+        start = 0
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            params, opt_state, start = self._restore(params, opt_state)
+        self.compile(params, opt_state)
+
+        step = start
+        while step < steps:
+            try:
+                params, opt_state, step = self._run_span(params, opt_state, step, steps)
+            except RankEvicted as e:
+                self.evictions += 1
+                if self.evictions + self.restarts > self.tcfg.max_restarts:
+                    raise
+                log.warning("rank %d evicted at step %d; shrinking", e.rank, e.step)
+                params, opt_state, step = self._shrink(e)
+            except WorkerFailure as e:
+                self.restarts += 1
+                if self.restarts > self.tcfg.max_restarts:
+                    raise
+                log.warning("worker failure at step %d (%s); restarting", step, e)
+                params, opt_state, step = self._recover()
+        if self.ckpt is not None:
+            self._checkpoint(step, params, opt_state, join=True)
+        self.params, self.opt_state = params, opt_state
+        return {
+            "final_step": step,
+            "restarts": self.restarts,
+            "evictions": self.evictions,
+            "joins": self.joins,
+            "epoch": 0,
+            "world_size": self._comm.size(),
+            "ckpt_failures": self.ckpt_failures,
+            "metrics": self.metrics_history,
+        }
+
+    def _checkpoint(self, step, params, opt_state, *, join: bool = False) -> None:
+        """Issue the (async) checkpoint save; ``join=True`` additionally
+        waits for durability.  A failed save — surfaced as ``ERR_IO`` from
+        the request join — is counted and logged, never silently dropped."""
+
+        try:
+            # collect the previous save's outcome first, so its failure is
+            # reported without skipping this step's save
+            self.ckpt.wait()
+        except errors.IoError as e:
+            self._note_ckpt_failure(step, e)
+            self._saved_step = None
+        if join and self._saved_step == step:
+            return  # this step's periodic save is durable: joined just above
+        try:
+            self.ckpt.save(
+                step,
+                {"params": params, "opt": opt_state},
+                extra={"step": step},
+                meta={"epoch": 0, "world_size": self._comm.size()},
+            )
+            self._saved_step = step
+            if join:
+                self.ckpt.wait()
+        except errors.IoError as e:
+            self._note_ckpt_failure(step, e)
+            self._saved_step = None
+
+    def _note_ckpt_failure(self, step: int, e: Exception) -> None:
+        self.ckpt_failures += 1
+        tool.pvar_count("ckpt_save_failed")
+        log.warning("checkpoint save failed at step %d: %s", step, e)
+
+    def _run_span(self, params, opt_state, step, steps):
+        # the step updates its state in place (donated buffers): a straggler
+        # cannot be re-dispatched and takes the failure path
+        retry_safe = False
+        while step < steps:
+            if self.injector is not None:
+                joiners = self.injector.take_admissions(step)
+                if joiners:
+                    params, opt_state = self._grow(joiners, params, opt_state)
+            step_fn = self._compiled
+            batch = self._batch(step)
+
+            def do_step():
+                new_p, new_o, metrics = step_fn(params, opt_state, batch)
+                _synchronize(self.device)
+                return new_p, new_o, metrics
+
+            (params, opt_state, metrics), info = self.guard.run(
+                step,
+                do_step,
+                retry_safe=retry_safe,
+                # a step sharing the host with an in-flight checkpoint save
+                # is slow from known interference, not worker sickness
+                exempt=self.ckpt is not None and self.ckpt.pending(),
+            )
+            step += 1
+            if step % self.tcfg.log_every == 0 or step == steps:
+                pvars = tool.pvar_read()
+                rec = {
+                    "step": step,
+                    "loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    **{k: float(v) for k, v in info.items() if k != "straggled"},
+                    "persistent_start": pvars.get("persistent_start", 0),
+                    "partition_ready": pvars.get("partition_ready", 0),
+                }
+                self.metrics_history.append(rec)
+                log.info(
+                    "step %(step)d loss %(loss).4f "
+                    "persistent_start %(persistent_start)d "
+                    "partition_ready %(partition_ready)d", rec,
+                )
+            if (
+                self.ckpt is not None
+                and self.tcfg.checkpoint_every
+                and step % self.tcfg.checkpoint_every == 0
+            ):
+                # the save's file I/O overlaps the following steps; the next
+                # save (or run-end/exit) joins it and surfaces any failure
+                self._checkpoint(step, params, opt_state)
+        return params, opt_state, step
+
+    # -- recovery ---------------------------------------------------------------
+
+    def _shrink(self, evt: RankEvicted):
+        """The ULFM shrink of the reference (revoke → shrink the group →
+        rebuild → restore) needs ``core/epoch.py``."""
+
+        _not_ported(f"the elastic shrink (rank {evt.rank} evicted at step {evt.step})", "A15")
+
+    def _grow(self, count: int, params, opt_state):
+        """The reference's hot-join of spare ranks needs ``core/epoch.py``."""
+
+        _not_ported(f"the elastic grow ({count} rank(s) offered)", "A15")
+
+    def _recover(self):
+        """Restart protocol: restore the newest complete checkpoint and
+        resume from its step (data is stateless)."""
+
+        if self.ckpt is not None:
+            # join the in-flight save first (tolerantly), so that a save
+            # mid-commit is seen by latest_step()
+            try:
+                self.ckpt.wait()
+            except errors.IoError as e:
+                self._note_ckpt_failure(-1, e)
+        params, opt_state = self.init_state()
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return params, opt_state, 0
+        return self._restore(params, opt_state)
+
+    def _restore(self, params, opt_state):
+        try:
+            self.ckpt.wait()
+        except errors.IoError as e:
+            self._note_ckpt_failure(-1, e)
+        tree, step = self.ckpt.restore({"params": params, "opt": opt_state})
+        extra_step = self.ckpt.extra(step).get("step", step)
+        return self._trainable(tree["params"]), tree["opt"], int(extra_step)

@@ -1,7 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the reference package, and what it copied
 from the reference (error classes, the ported configs, the Group algebra,
-the collective facade's names and pvars) still equals the reference."""
+the collective facade's names and pvars, the fault policies, the token
+pipeline's host batches, the trainer's and optimizer's configuration, the
+I/O and checkpoint pvars) still equals the reference."""
 
 from __future__ import annotations
 
@@ -53,11 +55,16 @@ _MULTI_RANK = ("core/topology.py", "core/collectives.py", "core/_methods.py", "c
                "kernels/ring_attention/ops.py")
 
 
+_TRAINING = ("optim/adamw.py", "optim/clip.py", "optim/schedules.py", "data/pipeline.py",
+             "core/datatypes.py", "core/io.py", "checkpoint/manager.py", "runtime/faults.py",
+             "runtime/trainer.py", "launch/train.py")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
     covered = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
-    assert set(_MULTI_RANK) <= covered
+    assert set(_MULTI_RANK) <= covered and set(_TRAINING) <= covered
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -136,3 +143,51 @@ def test_collective_facade_equals_the_reference():
     for name in names:
         assert callable(getattr(TComm, name)) and callable(getattr(JComm, name)), name
         assert name in ttool.PVARS and ttool.PVARS[name] == jtool.PVARS[name], name
+
+
+def test_fault_policies_are_the_reference_copied():
+    """``runtime/faults.py`` is pure Python over the tool layer: the
+    reference's file with its one import renamed."""
+
+    ref = (ROOT / "src" / "repro" / "runtime" / "faults.py").read_text()
+    port = (ROOT / "src" / "repro_torch" / "runtime" / "faults.py").read_text()
+    assert port == ref.replace("from repro.core import tool", "from repro_torch.core import tool")
+
+
+def test_host_batch_is_the_reference_copied():
+    import inspect
+
+    from repro.data import pipeline as jpipe
+    from repro_torch.data import pipeline as tpipe
+
+    for name in ("host_batch", "_rng", "__iter__"):
+        assert inspect.getsource(getattr(tpipe.TokenPipeline, name)) == \
+            inspect.getsource(getattr(jpipe.TokenPipeline, name)), name
+    assert _plain(tpipe.TokenPipeline(10, 4, 2)) == _plain(jpipe.TokenPipeline(10, 4, 2))
+
+
+def _fields(cls) -> list:
+    return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+
+def test_trainer_and_optimizer_configs_equal_the_reference():
+    from repro.optim import AdamW as JAdamW
+    from repro.runtime.trainer import TrainerConfig as JTrainerConfig
+    from repro_torch.optim import AdamW as TAdamW
+    from repro_torch.runtime.trainer import TrainerConfig as TTrainerConfig
+
+    assert _fields(TTrainerConfig) == _fields(JTrainerConfig)
+    assert _fields(TAdamW) == _fields(JAdamW)
+
+
+def test_io_checkpoint_and_trainer_pvars_equal_the_reference():
+    from repro.core import tool as jtool
+    from repro.runtime import trainer as _jtrainer  # noqa: F401  (registers its pvars)
+    from repro_torch.core import tool as ttool
+    from repro_torch.runtime import trainer as _ttrainer  # noqa: F401
+
+    names = [n for n in ttool.PVARS if n.startswith(("io_", "ckpt_", "elastic:evictions",
+                                                      "elastic:joins", "config:"))]
+    assert len(names) == 16  # 9 io, 4 ckpt, 2 elastic, 1 config
+    for name in names:
+        assert ttool.PVARS[name] == jtool.PVARS[name], name

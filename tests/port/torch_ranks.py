@@ -262,8 +262,37 @@ def prog_zamba2_ring(rank: int, world: int, inputs: dict) -> dict:
     return {"ring": _serve(inputs, cfg, pcfg, comm)}
 
 
+def prog_trainer(rank: int, world: int, inputs: dict) -> dict:
+    """The port's Trainer on the data plan over every rank: the tiny dense
+    model in fp32 at the global batch the test gives, its losses per step
+    and its parameters after the last."""
+
+    import torch
+
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = ModelConfig(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128, dtype="float32")
+    steps = int(inputs["steps"])
+    trainer = Trainer(cfg, ParallelConfig(), TrainerConfig(steps=steps, lr=1e-3, log_every=1),
+                      make_host_communicator(device="cpu"), seq_len=int(inputs["seq"]),
+                      global_batch=int(inputs["batch"]), clock=lambda: 0.0)
+    result = trainer.run()
+    flat = torch.cat([p.detach().reshape(-1) for p in _leaves(trainer.params)])
+    return {"losses": np.array([m["loss"] for m in result["metrics"]]),
+            "params": flat.numpy(), "world": np.array(result["world_size"])}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
 PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_server,
-            "zamba2_ring": prog_zamba2_ring}
+            "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer}
 
 
 def main(argv: list[str]) -> int:

@@ -19,7 +19,9 @@ any failure.  In order:
    and prints each one's ptxas usage; for each instantiation of the two
    attention kernels and of the SSD scan, its registers, spill bytes and
    ``HGMMA`` count (``cuobjdump -sass``): the bf16 ones must run wgmma and
-   spill nothing, the fp32 ones must not run wgmma;
+   spill nothing, the fp32 ones must not run wgmma; and the quant vector
+   body's 13 instantiations, none spilling, with the opcodes a warp runs
+   for its row tile;
 3. NCCL: the default process group as a world of one over a ``file://``
    store under ``build/`` (NCCL for CUDA tensors, gloo for CPU ones);
    ``allreduce``, ``allgather``, ``broadcast``, ``shift`` and a cart's
@@ -50,12 +52,26 @@ any failure.  In order:
    (``core/compress.py``) on the card, **bit for bit** (``torch.equal`` on
    the payload, the scales and the dequantized output): gemma2-9b's
    global-layer prefill call (1,553,664 rows of 256, bf16, and the same in
-   fp32), width 128, zamba2's width 112 (bf16 and fp32), the flat API on a
+   fp32), width 128, zamba2's width 112 (bf16 and fp32; rows 128 apart;
+   a view one element in), width 100 and 16, the flat API on a
    ragged 25,600-element payload (100 rows, which the Pallas kernel
    rejects), rows of zeros, rows whose x / scale lands on exact halves,
    ±absmax rows, and rows holding a NaN or an inf (NaN where the plain
-   version has NaN).  The quantize of gemma2's prefill call and the
-   dequantize of one global decode layer (73,984 rows) are timed.  No
+   version has NaN), at width 256 and again at 112 with those elements in
+   the row's last 16-byte chunk, and the vector body's other widths (bf16
+   8, 32, 64; fp32 4 to 64 and 200).  Each case logs the quantize body
+   that ``kernel.quant_body`` chose and must have chosen (the vector body
+   for rows of whole 16-byte chunks, the warp body otherwise); the warp
+   body runs on every case and the vector body wherever it was chosen,
+   through the C entry and uncounted, each bit for bit; both must have been
+   chosen, every vector-body instantiation must have run, and the C entry
+   must refuse the vector body on a view it cannot load.  The quantize of
+   both prefill calls and of a decode step's call at zamba2's and gemma2's
+   shapes (64 x 112, 16 x 256) is timed in both bodies, with its host time
+   and the vector body's SASS instructions per element by pipe and the
+   issue time they imply (``SASS_PIPES``);
+   the dequantize of one global decode layer (73,984 rows) and of a
+   zamba2 layer.  No
    single PyTorch call computes the quantize (it needs the row's absmax
    first), so its ``library_ms`` is null; the dequantize's is
    ``torch.mul(q, s, out=bf16)``, held equal to the kernel as well;
@@ -188,7 +204,24 @@ SERVES = [
 ]
 
 # the port's kernel bodies, as the profiler names them
-PORT_KERNELS = ("fwd_kernel<", "ssd_kernel<", "quant_kernel<", "step_kernel<")
+PORT_KERNELS = ("fwd_kernel<", "ssd_kernel<", "quant_kernel<", "quant_vec_kernel<",
+                "step_kernel<")
+# Hopper's pipes in lanes a clock per SM (CUDA C++ Programming Guide, the
+# arithmetic instruction throughput table, compute capability 9.0) and the
+# SASS opcodes each runs: the quant vector body's instructions are counted
+# by pipe, and the time they take to issue at these rates is logged beside
+# its bound; an opcode named here under no pipe is counted as "other"
+SASS_PIPES = {
+    "fp32": (128, ("FFMA", "FMUL", "FADD")),
+    "integer": (64, ("IMAD", "IADD3", "LOP3", "SHF", "IMNMX", "VIMNMX", "ISETP", "FSETP",
+                     "FMNMX", "SEL", "FSEL", "PRMT", "LEA", "MOV", "PLOP3", "IABS")),
+    "conversion": (16, ("F2I", "I2F", "F2F", "FRND", "MUFU", "I2I")),
+    "shuffle": (32, ("SHFL",)),
+}
+# warp instructions an SM issues a clock (four schedulers), and the H100
+# SXM's boost clock: a lower clock under load makes every issue time longer
+SASS_ISSUE_PER_CLOCK = 4
+SM_CLOCK_HZ = 1.98e9
 
 RESULTS: dict = {}
 # the bf16 serves' tokens, logits and KV bytes, which the int8 serves are read against
@@ -376,22 +409,61 @@ def _ptxas_usage(text: str) -> dict:
     return usage
 
 
-def _hgmma_counts(lib_path) -> dict:
-    """``HGMMA`` (wgmma) instructions in each function of a built library,
-    from ``cuobjdump -sass``."""
+def _sass_functions(lib_path) -> dict:
+    """Each function of a built library (``cuobjdump -sass``) → its
+    instructions as ``(address, text)`` under ``code``, and its branch
+    labels (``.L_x_N``) → the address they mark, under ``labels``."""
 
     from repro_torch.kernels import nvcc
 
     sass = subprocess.run([str(nvcc.toolkit_binary("cuobjdump")), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
+    funcs, fn, pending = {}, None, []
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1)
-            counts[fn] = 0
-        elif fn and "HGMMA" in line:
-            counts[fn] += 1
+            fn, pending = m.group(1), []
+            funcs[fn] = {"code": [], "labels": {}}
+            continue
+        if fn is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            funcs[fn]["labels"].update(dict.fromkeys(pending, addr))
+            pending = []
+            funcs[fn]["code"].append((addr, m.group(2)))
+    return funcs
+
+
+def _hgmma_counts(lib_path) -> dict:
+    """``HGMMA`` (wgmma) instructions in each function of a built library."""
+
+    return {fn: sum("HGMMA" in text for _, text in f["code"])
+            for fn, f in _sass_functions(lib_path).items()}
+
+
+_SASS_OPCODE = re.compile(r"(?:@!?U?P[T\d]+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def _tile_opcodes(func: dict) -> dict:
+    """Opcode counts from a function's entry to its first unpredicated
+    EXIT: the path one warp of the quant vector body runs for its row tile
+    (the call sites of its out-of-line blocks included), without those
+    blocks, which nvcc lays out after the EXIT (the slow division,
+    ``store_exact``, the divergent shuffles' fallbacks)."""
+
+    counts: dict = {}
+    for _, text in func["code"]:
+        op = _SASS_OPCODE.match(text).group(1)
+        counts[op] = counts.get(op, 0) + 1
+        if text == "EXIT":
+            return counts
+    check(False, "quant vector body: no unpredicated EXIT in its SASS")
     return counts
 
 
@@ -399,11 +471,12 @@ def phase_build():
     """Build every library afresh (its ptxas report is read here); for each
     instantiation of the attention and SSD kernels, registers, spills and
     HGMMA count: the bf16 ones must run wgmma and spill nothing, the fp32
-    ones none."""
+    ones none; the quant vector body's instantiations, none spilling, and
+    the opcodes of the path each one's warps run for a row tile."""
 
     from repro_torch.kernels import nvcc
 
-    fk, sk, _, rk = _kernel_modules()
+    fk, sk, qk, rk = _kernel_modules()
     libs = [m.LIBRARY for m in _kernel_modules()]
     t0 = time.perf_counter()
     nvcc.build_all(libs, force=True)
@@ -439,6 +512,23 @@ def phase_build():
             RESULTS["ssd_instantiations"] = rows
         else:
             RESULTS["attention_instantiations"][lib.name] = rows
+    # the quant vector body: one instantiation per (dtype, lanes a row,
+    # chunks a lane), none spilling; the opcodes a warp runs for its row
+    # tile are kept for the timed cases' issue times
+    usage, vec = _ptxas_usage(qk.LIBRARY.log), {}
+    for fn, func in _sass_functions(qk.LIBRARY.build()).items():
+        m = re.search(r"quant_vec_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)E", fn)
+        if m:
+            dtype = "float32" if m.group(1) == "f" else "bfloat16"
+            r, log_g, k = (int(g) for g in m.groups()[1:])
+            vec[f"{dtype} R{r} G{2 ** log_g} K{k}"] = {
+                "dtype": dtype, "rows_in_flight": r, "log_g": log_g, "k": k,
+                **usage.get(fn, {}), "tile_opcodes": _tile_opcodes(func)}
+    log("quant vector-body instantiations: " + json.dumps(
+        {name: {k: v for k, v in row.items() if k != "tile_opcodes"} for name, row in vec.items()}))
+    check(len(vec) == 13 and all(r.get("spill_bytes") == 0 for r in vec.values()),
+          f"quant: {len(vec)} vector-body instantiations (want 13), or one spills")
+    RESULTS["quant_vec_instantiations"] = vec
 
 
 def _held(name, out, plain, atol, rtol, abs_v=None) -> dict:
@@ -666,26 +756,102 @@ def _quant_bound(rows, width, in_bytes, out_bytes, ops_per_element):
             "flops": flops, "bytes": nbytes}
 
 
-def _quant_case(name, x, *, reps=0, want_q=None):
-    """Quantize ``x`` (rows, width) with the kernel and with the plain
-    version on the card, then dequantize the kernel's payload into bf16 and
-    fp32 with both: every output equal.  With ``reps``, times the quantize
-    and its bound (|x|, max, divide, round and the two-sided clip: 6
-    operations an element)."""
+def _vec_instantiation(x) -> str:
+    """The name (``phase_build``'s) of the vector body's instantiation that
+    quantizes ``x``: lanes a row and chunks a lane by the row's chunks."""
+
+    chunks = x.shape[1] * x.element_size() // 16
+    log_g, k = (5, 2) if chunks > 32 else ((chunks - 1).bit_length(), 1)
+    dtype = str(x.dtype).removeprefix("torch.")
+    return next(n for n, r in RESULTS["quant_vec_instantiations"].items()
+                if (r["dtype"], r["log_g"], r["k"]) == (dtype, log_g, k))
+
+
+def _vec_issue(x) -> dict:
+    """The vector body's path for a row tile on ``x`` (rows, width), from
+    its SASS: instructions per element by pipe (every lane of a warp
+    counted, idle ones too) and the time issuing them takes at each pipe's
+    rate, and at four warp instructions a clock, over the card's SMs
+    (``SASS_PIPES``); each warp runs one tile."""
+
+    import torch
+
+    rows, width = x.shape
+    name = _vec_instantiation(x)
+    inst = RESULTS["quant_vec_instantiations"][name]
+    tile_rows = inst["rows_in_flight"] * (32 >> inst["log_g"])
+    tiles = -(-rows // tile_rows)
+    lanes_a_second = torch.cuda.get_device_properties(0).multi_processor_count * SM_CLOCK_HZ
+    ops = inst["tile_opcodes"]
+    piped = {pipe: sum(n for op, n in ops.items() if op in names)
+             for pipe, (_, names) in SASS_PIPES.items()}
+    total = sum(ops.values())
+    issue_ms = {pipe: tiles * n * 32 / (SASS_PIPES[pipe][0] * lanes_a_second) * 1e3
+                for pipe, n in piped.items()}
+    issue_ms["all_instructions"] = tiles * total / (SASS_ISSUE_PER_CLOCK * lanes_a_second) * 1e3
+    per_element = 32 / (tile_rows * width)
+    return {"sass_instantiation": name, "sass_tile_instructions": total,
+            "sass_per_element": {**{p_: n * per_element for p_, n in piped.items()},
+                                 "all": total * per_element},
+            "sass_other": {op: n for op, n in ops.items()
+                           if not any(op in names for _, names in SASS_PIPES.values())},
+            "sass_issue_ms": issue_ms}
+
+
+def _quantize_with(x, body, library=None):
+    """``x`` quantized by ``body`` through the C entry point of ``library``
+    (the kernel's, by default), as the wrapper launches it but uncounted:
+    a launch to compare or time one body → (cudaError, q, s)."""
+
+    import torch
+
+    from repro_torch.kernels.quant import kernel as qk
+
+    rows, width = x.shape
+    q = torch.empty((rows, width), dtype=torch.int8, device=x.device)
+    s = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    entry = (library or qk.LIBRARY).entry("quantize_int8_rows")
+    rc = entry(x.data_ptr(), q.data_ptr(), s.data_ptr(), qk._DTYPE_CODES[x.dtype], rows, width,
+               x.stride(0), body, torch.cuda.current_stream().cuda_stream)
+    return rc, q, s
+
+
+def _quant_case(name, x, *, reps=0, want_q=None, body=None):
+    """Quantize ``x`` (rows, width) with the wrapper, with each body the
+    shape allows (the warp body always, the vector body where the wrapper
+    chose it; ``_quantize_with``) and with the plain version on the card,
+    then dequantize the wrapper's payload into bf16 and fp32 with both:
+    every output equal.  ``body`` is the body the wrapper must choose for
+    ``x`` (``kernel.quant_body``).  With ``reps``, times the wrapper and
+    its bound (|x|, max, divide, round and the two-sided clip: 6 operations
+    an element), the warp body too where the vector body was chosen, and
+    the vector body's SASS issue times."""
 
     import torch
 
     from repro_torch.kernels.quant import kernel as qk
     from repro_torch.kernels.quant import ref
 
+    rows, width = x.shape
+    chosen = qk.quant_body(width, x.element_size(), x.stride(0), x.data_ptr())
+    check(body is None or chosen == body, f"quant {name}: body {chosen}, want {body}")
     q, s = qk.quantize_int8_rows(x)
     pq, ps = ref.quantize_int8_rows(x)
     torch.cuda.synchronize()
-    rows, width = x.shape
-    row = {"case": name, "shape": [rows, width], "dtype": str(x.dtype).removeprefix("torch.")}
+    row = {"case": name, "shape": [rows, width], "dtype": str(x.dtype).removeprefix("torch."),
+           "row_stride": x.stride(0), "body": chosen}
     errs = [_bit_equal(f"quant {name} payload", q, pq), _bit_equal(f"quant {name} scales", s, ps)]
     if want_q is not None:
         check(torch.equal(q.cpu(), want_q), f"quant {name}: payload differs from the expected")
+    bodies = sorted({qk.WARP_BODY, chosen})
+    for b in bodies:
+        rc, bq, bs = _quantize_with(x, b)
+        check(rc == 0, f"quant {name}: body {b} launch failed: cudaError {rc}")
+        errs += [_bit_equal(f"quant {name} body {b} payload", bq, pq),
+                 _bit_equal(f"quant {name} body {b} scales", bs, ps)]
+        del bq, bs
+    if qk.VECTOR_BODY in bodies:
+        row["vector_instantiation"] = _vec_instantiation(x)
     derrs = []
     for dt in (torch.bfloat16, torch.float32):
         derrs.append(_bit_equal(f"dequant {name} -> {dt}", qk.dequantize_int8_rows(q, s, dt),
@@ -699,6 +865,16 @@ def _quant_case(name, x, *, reps=0, want_q=None):
             **_quant_bound(rows, width, x.element_size(), 1, 6),
         )
         _bound_held(f"quant {name}", row)
+        for b in bodies:
+            if b != chosen:
+                t = time_device(lambda b=b: _quantize_with(x, b), reps)
+                other = "vector" if b == qk.VECTOR_BODY else "warp"
+                row.update({f"{other}_body_ms": t["ms"], f"{other}_body_host_us": t["host_us"]})
+                check(t["ms"] >= BOUND_FLOOR * row["bound_ms"] and t["held"],
+                      f"quant {name}: {other} body {t['ms']} ms against bound {row['bound_ms']}")
+        if qk.VECTOR_BODY in bodies:
+            row.update(_vec_issue(x))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
     log_row(row)
     del q, s, pq, ps
     torch.cuda.empty_cache()
@@ -730,6 +906,56 @@ def _edge_rows():
     want[4, 0], want[4, 1:] = -127, 42
     want[5, 0], want[5, 2] = 1, -3
     want[7, 1:4] = torch.tensor([-127, 4, 1])
+    return x, want
+
+
+def _scaled_rows(rows, width, gen):
+    """fp32 rows at scales 2^-135 to 2^120, so that the vector body divides
+    some with the reciprocal of the scale and some (scales under 2^-100,
+    denormal rows) with ``/``: even rows hold j + 1/2 (j from -width/2) and
+    127 times a row factor, whose quotients by the scale land on or next to
+    halves; odd rows normal draws times the factor."""
+
+    import torch
+
+    e = torch.randint(-135, 121, (rows, 1), generator=gen, device="cuda").double()
+    factor = (1 + torch.rand((rows, 1), generator=gen, device="cuda").double()) * 2.0 ** e
+    halves = torch.arange(width, device="cuda").double() - width // 2 + 0.5
+    halves[-1] = 127.0
+    x = torch.randn((rows, width), generator=gen, device="cuda").double()
+    x[0::2] = halves
+    return (x * factor).float()
+
+
+def _edge_rows_at_end(width):
+    """The edge rows of ``_edge_rows`` with their special elements in the
+    row's last 16-byte chunk (its last 4 columns are in it in fp32 and in
+    bf16), for rows of ``width`` < 256 → (x, expected payload): zeros; 111
+    exact halves and the absmax at scale 1 and 2; ±absmax; tiny values with
+    the largest last; a NaN, an inf, and a NaN with -inf (-127) in the last
+    4 columns; a ninth row like the eighth, alone in the vector body's last
+    row tile."""
+
+    import torch
+
+    n = width - 1
+    halves = torch.arange(-63, 64, dtype=torch.float32)[-n:] + 0.5
+    x = torch.zeros((9, width))
+    x[1, :n], x[1, n] = halves, 127.0
+    x[2, :n], x[2, n] = 2 * halves, 254.0
+    x[3, 0::2], x[3, 1::2] = 5.5, -5.5
+    x[4, :n], x[4, n] = 1.0e-3, -3.0e-3
+    x[5, :-4], x[5, -4:] = 0.25, torch.tensor([1.0, math.nan, -3.0, 0.5])
+    x[6, :-4], x[6, -4:] = 1.0, torch.tensor([2.0, math.inf, -1.0, 0.0])
+    x[7, :-4], x[7, -4:] = 0.25, torch.tensor([math.nan, -math.inf, 4.0, 1.0])
+    x[8] = x[7]
+    want = torch.zeros((9, width), dtype=torch.int8)
+    want[1, :n] = want[2, :n] = torch.round(halves).to(torch.int8)
+    want[1, n] = want[2, n] = 127
+    want[3, 0::2], want[3, 1::2] = 127, -127
+    want[4, :n], want[4, n] = 42, -127
+    want[5, -4:] = torch.tensor([1, 0, -3, 0], dtype=torch.int8)
+    want[7, -4:] = want[8, -4:] = torch.tensor([0, -127, 4, 1], dtype=torch.int8)
     return x, want
 
 
@@ -769,6 +995,7 @@ def phase_quant():
     import torch
 
     from repro_torch.core import compress
+    from repro_torch.kernels.quant import kernel as qk
     from repro_torch.kernels.quant import ops
 
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -779,17 +1006,54 @@ def phase_quant():
     bf16, fp32 = torch.bfloat16, torch.float32
     gemma2_prefill = 21 * 2 * (4608 + NEW_TOKENS) * 8   # global stack, k or v
     zamba2_prefill = 13 * 2 * (4096 + NEW_TOKENS) * 32  # shared-attention stack
+    vec, warp = qk.VECTOR_BODY, qk.WARP_BODY
     cases = [
-        _quant_case("gemma2_global_prefill", randn(gemma2_prefill, 256, bf16), reps=20),
-        _quant_case("gemma2_global_prefill_fp32", randn(gemma2_prefill, 256, fp32)),
-        _quant_case("width128", randn(100_003, 128, bf16)),
-        _quant_case("zamba2_prefill_w112", randn(zamba2_prefill, 112, bf16), reps=20),
-        _quant_case("zamba2_w112_fp32", randn(100_001, 112, fp32)),
-        _quant_case("ragged_rows_w256", randn(1001, 256, bf16)),
+        _quant_case("gemma2_global_prefill", randn(gemma2_prefill, 256, bf16), reps=20, body=vec),
+        _quant_case("gemma2_global_prefill_fp32", randn(gemma2_prefill, 256, fp32), body=vec),
+        _quant_case("width128", randn(100_003, 128, bf16), body=vec),
+        _quant_case("zamba2_prefill_w112", randn(zamba2_prefill, 112, bf16), reps=20, body=vec),
+        _quant_case("zamba2_w112_fp32", randn(100_001, 112, fp32), body=vec),
+        _quant_case("ragged_rows_w256", randn(1001, 256, bf16), body=vec),
+        # rows 128 apart, of which 112 are read: the vector body
+        _quant_case("w112_row_stride_128", randn(100_001, 128, bf16)[:, :112], body=vec),
+        # a view one element in: neither its address nor its stride is 16-byte aligned
+        _quant_case("w112_view_offset_1", randn(100_001, 113, bf16)[:, 1:], body=warp),
+        # 200-byte rows are not whole 16-byte chunks
+        _quant_case("w100_bf16", randn(100_001, 100, bf16), body=warp),
+        _quant_case("w16_bf16", randn(100_001, 16, bf16), body=vec),
+        # a decode step's k_new (or v_new): zamba2 (b 2, 32 KV heads of 112) and
+        # gemma2 (b 2, 8 of 256), 26 and 84 of these a step
+        _quant_case("zamba2_decode_k_new", randn(2 * 32, 112, bf16), reps=20, body=vec),
+        _quant_case("gemma2_decode_k_new", randn(2 * 8, 256, bf16), reps=20, body=vec),
     ]
+    # every other instantiation of the vector body (lanes a row 1 to 8 in
+    # bf16, 1 to 16 in fp32; fp32 200: two chunks a lane, the second absent
+    # on 14 of 32 lanes)
+    for width, dtype in ((8, bf16), (32, bf16), (64, bf16), (4, fp32), (8, fp32), (16, fp32),
+                         (32, fp32), (64, fp32), (200, fp32)):
+        name = f"w{width}_{str(dtype).removeprefix('torch.')}"
+        cases.append(_quant_case(name, randn(3001, width, dtype), body=vec))
     x, want = _edge_rows()
-    cases.append(_quant_case("edge_rows", x.cuda(), want_q=want))
-    cases.append(_quant_case("edge_rows_bf16", x.cuda().to(bf16), want_q=want))
+    cases.append(_quant_case("edge_rows", x.cuda(), want_q=want, body=vec))
+    cases.append(_quant_case("edge_rows_bf16", x.cuda().to(bf16), want_q=want, body=vec))
+    # the same at zamba2's width, with the NaN, inf and halves in the last
+    # chunk; 9 rows, so two share a warp and the ninth is alone in its tile
+    x, want = _edge_rows_at_end(112)
+    cases.append(_quant_case("edge_rows_w112", x.cuda(), want_q=want, body=vec))
+    cases.append(_quant_case("edge_rows_w112_bf16", x.cuda().to(bf16), want_q=want, body=vec))
+    # the division at every scale: the reciprocal's rows and the others
+    for width in (112, 256):
+        x = _scaled_rows(100_000, width, gen)
+        cases.append(_quant_case(f"w{width}_scales_2^-135_to_2^120", x, body=vec))
+        cases.append(_quant_case(f"w{width}_scales_2^-135_to_2^120_bf16", x.to(bf16), body=vec))
+    ran = {c["body"] for c in cases}
+    check(ran == {vec, warp}, f"quant: the wrapper ran bodies {sorted(ran)}, want both")
+    held = {c["vector_instantiation"] for c in cases if "vector_instantiation" in c}
+    built = set(RESULTS["quant_vec_instantiations"])
+    check(held == built, f"quant: vector-body instantiations never run: {sorted(built - held)}")
+    # the C entry refuses the vector body on a shape that does not allow it
+    rc, _, _ = _quantize_with(randn(64, 113, bf16)[:, 1:], vec)
+    check(rc != 0, "quant: the vector body ran on a view one element in")
 
     # the flat API on a ragged payload: 100 rows, which the Pallas kernel rejects
     flat = 3.0 * torch.randn((25_600,), generator=gen, device="cuda")

@@ -12,6 +12,21 @@ The wrappers take CUDA tensors only, any row count and a row width up to
 multiple of its 64-row tile: ROADMAP C2).  They launch on the current stream, read nothing back to the
 host and count their launches in :data:`LAUNCHES`, by entry point; a build
 or launch failure raises.
+
+The quantize has two bodies, and :func:`quant_body` picks one from the
+input's shape, stride and address.  Both are bound by bytes on the card
+(reading x, writing the int8 payload), with the conversion pipes near: an
+element takes a division and a float-to-int conversion, and nvcc's
+division alone is a MUFU.RCP, five FFMAs and a range check.  The **vector
+body** takes rows made of whole 16-byte chunks (width · itemsize and the
+row stride in bytes multiples of 16, the data 16-byte aligned), at any row
+count: a group of lanes a row, one 16-byte load a lane, two rows in flight
+a group, the division's reciprocal once a row, one rounding an element,
+one 8- or 4-byte store a lane (``csrc/quant_int8.cu`` gives its SASS count
+and its launch's reasons).  The **warp body** takes every other shape
+(200-byte rows, views offset by an element): one warp a row, one element a
+lane per load.  The entry point checks the choice and refuses a vector body
+the shape does not allow.  Both are bit for bit the plain version.
 """
 
 from __future__ import annotations
@@ -27,11 +42,16 @@ from repro_torch.kernels import nvcc
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quant_int8.cu"
 MAX_WIDTH = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: ctypes declarations of the two C entry points, which take the same list:
-#: the three tensors; dtype, rows, width, the input's row stride; stream.
+#: The quantize's bodies, as its C entry point numbers them.
+WARP_BODY, VECTOR_BODY = 0, 1
+#: Bytes a lane of the vector body loads at once.
+CHUNK_BYTES = 16
+#: ctypes declarations of the two C entry points: the three tensors; dtype,
+#: rows, width, the input's row stride; the quantize's body; stream.
 _ROW_ARGTYPES = [ctypes.c_void_p] * 3 + [
-    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-ARGTYPES = {"quantize_int8_rows": _ROW_ARGTYPES, "dequantize_int8_rows": _ROW_ARGTYPES}
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+ARGTYPES = {"quantize_int8_rows": _ROW_ARGTYPES + [ctypes.c_int, ctypes.c_void_p],
+            "dequantize_int8_rows": _ROW_ARGTYPES + [ctypes.c_void_p]}
 
 #: The shared library and its two C entry points, built at first use.
 LIBRARY = nvcc.Library(SOURCE, "quant", ARGTYPES)
@@ -42,6 +62,17 @@ LAUNCHES = dict.fromkeys(ARGTYPES, 0)
 def reset_launches() -> None:
     for symbol in LAUNCHES:
         LAUNCHES[symbol] = 0
+
+
+def quant_body(width: int, itemsize: int, row_stride: int, data_ptr: int) -> int:
+    """The quantize body for rows of ``width`` elements of ``itemsize``
+    bytes, ``row_stride`` elements apart, from address ``data_ptr``:
+    :data:`VECTOR_BODY` where every 16-byte chunk lies in one row (the row's
+    bytes, the stride's bytes and the address multiples of 16), else
+    :data:`WARP_BODY`.  The C entry refuses the vector body otherwise."""
+
+    aligned = (width * itemsize, row_stride * itemsize, data_ptr)
+    return VECTOR_BODY if all(n % CHUNK_BYTES == 0 for n in aligned) else WARP_BODY
 
 
 def _check_rows(what: str, t: torch.Tensor, dtypes) -> None:
@@ -76,16 +107,17 @@ def _launch(symbol: str, args: tuple, device: torch.device, what: str) -> None:
 
 def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (rows, width) fp32 or bf16 → (int8 (rows, width), fp32 scales
-    (rows, 1)), one launch."""
+    (rows, 1)), one launch of :func:`quant_body`'s choice."""
 
     _check_rows("x", x, _DTYPE_CODES)
     rows, width = x.shape
     q = torch.empty((rows, width), dtype=torch.int8, device=x.device)
     s = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    body = quant_body(width, x.element_size(), x.stride(0), x.data_ptr())
     _launch("quantize_int8_rows",
             (x.data_ptr(), q.data_ptr(), s.data_ptr(), _DTYPE_CODES[x.dtype],
-             rows, width, x.stride(0)),
-            x.device, f"x {tuple(x.shape)} {x.dtype}")
+             rows, width, x.stride(0), body),
+            x.device, f"x {tuple(x.shape)} {x.dtype} body {body}")
     return q, s
 
 

@@ -31,7 +31,10 @@ _DENSE = ("gemma2_9b", "phi4_mini_3_8b", "granite_3_8b", "qwen1_5_32b", "mamba2_
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The port's package, ``chip_smoke.py`` and the on-card tools."""
+
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -63,7 +66,9 @@ _TRAINING = ("optim/adamw.py", "optim/clip.py", "optim/schedules.py", "data/pipe
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
-    covered = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
+    package = ROOT / "src" / "repro_torch"
+    covered = {str(f.relative_to(package)) for f in files if f.is_relative_to(package)}
+    assert ROOT / "tools" / "quant_variants.py" in files
     assert set(_MULTI_RANK) <= covered and set(_TRAINING) <= covered
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}

@@ -12,6 +12,7 @@ XLA does under ``jit``, so its scales are held within one fp32 ulp
 
 from __future__ import annotations
 
+import ctypes
 import re
 
 import jax.numpy as jnp
@@ -152,29 +153,143 @@ def test_edge_rows():
     _equal(tqr.dequantize_int8_rows(tq, ts), jattn._dequantize_kv(jq, js, jnp.float32))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_non_finite_rows_follow_the_reference(dtype):
-    """A NaN makes the row's absmax NaN, which is not > 0: scale 1, and the
-    NaN quantizes to 0.  An inf makes the scale inf, every element 0, and
-    the dequantized row NaN.  The CUDA kernel is held to the same on the
-    card by ``chip_smoke.py``."""
+def _edge_rows_at_end(width: int) -> tuple[np.ndarray, np.ndarray]:
+    """``_edge_rows`` at a width under 256 with the special elements in the
+    row's last 16-byte chunk (its last 4 columns lie in it in fp32 and
+    bf16), as ``chip_smoke.py`` builds them for the vector body: zeros;
+    width - 1 halves and the absmax at scale 1 and 2; ±absmax; tiny values
+    with the largest last; a NaN, an inf, and a NaN with -inf (-127) in the
+    last 4 columns, and that last row again.  → (x, expected q)."""
 
-    x = np.full((3, 16), 0.25, np.float32)
-    x[0, :4] = [1.0, np.nan, -3.0, 0.5]
-    x[1, :4] = [2.0, np.inf, -1.0, 0.0]
-    x[2, :4] = [np.nan, -np.inf, 4.0, 1.0]
+    n = width - 1
+    halves = (np.arange(-63, 64, dtype=np.float32) + 0.5)[-n:]
+    x = np.zeros((9, width), np.float32)
+    x[1, :n], x[1, n] = halves, 127.0
+    x[2, :n], x[2, n] = 2 * halves, 254.0
+    x[3, ::2], x[3, 1::2] = 5.5, -5.5
+    x[4, :n], x[4, n] = 1.0e-3, -3.0e-3
+    x[5, :-4], x[5, -4:] = 0.25, [1.0, np.nan, -3.0, 0.5]
+    x[6, :-4], x[6, -4:] = 1.0, [2.0, np.inf, -1.0, 0.0]
+    x[7, :-4], x[7, -4:] = 0.25, [np.nan, -np.inf, 4.0, 1.0]
+    x[8] = x[7]
+    want = np.zeros((9, width), np.int8)
+    want[1, :n] = want[2, :n] = np.rint(halves)
+    want[1, n] = want[2, n] = 127
+    want[3, ::2], want[3, 1::2] = 127, -127
+    want[4, :n], want[4, n] = 42, -127
+    want[5, -4:] = [1, 0, -3, 0]
+    want[7, -4:] = want[8, -4:] = [0, -127, 4, 1]
+    return x, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_edge_rows_in_the_last_chunk(dtype):
+    """The edge rows at zamba2's width 112, their NaN, inf and exact halves
+    in the row's last 8 columns, where the vector body's last lane of a row
+    holds them: the expected payload, and equal to the reference."""
+
+    x, want = _edge_rows_at_end(112)
+    jx, tx = _both(x, dtype)
+    tq, ts = tqr.quantize_int8_rows(tx)
+    np.testing.assert_array_equal(tq.numpy(), want)
+    np.testing.assert_array_equal(ts[[0, 1, 2, 5, 6, 7, 8], 0].numpy(),
+                                  [1.0, 1.0, 2.0, 1.0, np.inf, 1.0, 1.0])
+    jq, js = jattn._quantize_kv(jx)
+    _equal(tq, jq)
+    _equal(ts, js)
+    _equal(tqr.dequantize_int8_rows(tq, ts), jattn._dequantize_kv(jq, js, jnp.float32))
+
+
+def _non_finite_rows(width: int, cols: slice) -> np.ndarray:
+    """Rows of 0.25 with a NaN, an inf, and a NaN beside -inf in ``cols``
+    (four columns)."""
+
+    x = np.full((3, width), 0.25, np.float32)
+    x[0, cols] = [1.0, np.nan, -3.0, 0.5]
+    x[1, cols] = [2.0, np.inf, -1.0, 0.0]
+    x[2, cols] = [np.nan, -np.inf, 4.0, 1.0]
+    return x
+
+
+def _check_non_finite(x: np.ndarray, cols: slice, dtype: str) -> None:
     jx, tx = _both(x, dtype)
     tq, ts = tqr.quantize_int8_rows(tx)
     jq, js = jattn._quantize_kv(jx)
     _equal(tq, jq)
     _equal(ts, js)
     np.testing.assert_array_equal(ts[:, 0].numpy(), [1.0, np.inf, 1.0])
-    np.testing.assert_array_equal(tq[0, :4].numpy(), [1, 0, -3, 0])
+    np.testing.assert_array_equal(tq[0, cols].numpy(), [1, 0, -3, 0])
+    np.testing.assert_array_equal(tq[2, cols].numpy(), [0, -127, 4, 1])
     for name in ("float32", "bfloat16"):
         jd, td = _DTYPES[name]
         out = tqr.dequantize_int8_rows(tq, ts, td)
         _equal(out, jattn._dequantize_kv(jq, js, jd))
         assert not out[0].isnan().any() and out[1].isnan().all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_non_finite_rows_follow_the_reference(dtype):
+    """A NaN makes the row's absmax NaN, which is not > 0: scale 1, and the
+    NaN quantizes to 0; -inf beside it clips to -127.  An inf makes the
+    scale inf, every element 0, and the dequantized row NaN.  The CUDA
+    kernel is held to the same on the card by ``chip_smoke.py``."""
+
+    _check_non_finite(_non_finite_rows(16, slice(0, 4)), slice(0, 4), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_non_finite_rows_in_the_last_chunk(dtype):
+    """The same at zamba2's width 112, the non-finite elements in the row's
+    last 4 columns: the vector body's last chunk of the row (8 columns in
+    bf16, 4 in fp32)."""
+
+    cols = slice(108, 112)
+    _check_non_finite(_non_finite_rows(112, cols), cols, dtype)
+
+
+# (width, itemsize, row stride in elements, address) → the quantize body
+_BODIES = {
+    "bf16_16": (16, 2, 16, 0, tqk.VECTOR_BODY),             # 2 chunks, 2 lanes a row
+    "bf16_100": (100, 2, 100, 0, tqk.WARP_BODY),            # 200-byte rows
+    "bf16_112": (112, 2, 112, 0, tqk.VECTOR_BODY),          # 14 chunks, 16 lanes
+    "bf16_112_stride_128": (112, 2, 128, 0, tqk.VECTOR_BODY),
+    "bf16_112_stride_116": (112, 2, 116, 0, tqk.WARP_BODY),  # 232-byte stride
+    "bf16_112_view_offset_1": (112, 2, 113, 2, tqk.WARP_BODY),
+    "bf16_112_address_8": (112, 2, 112, 8, tqk.WARP_BODY),
+    "bf16_128": (128, 2, 128, 0, tqk.VECTOR_BODY),
+    "bf16_256": (256, 2, 256, 256, tqk.VECTOR_BODY),        # 32 chunks, the warp
+    "fp32_100": (100, 4, 100, 0, tqk.VECTOR_BODY),          # 400 bytes: 25 chunks
+    "fp32_112": (112, 4, 112, 0, tqk.VECTOR_BODY),          # 28 chunks, 32 lanes
+    "fp32_256": (256, 4, 256, 0, tqk.VECTOR_BODY),          # 64 chunks, 2 a lane
+    "fp32_256_address_4": (256, 4, 256, 4, tqk.WARP_BODY),
+    "fp32_1": (1, 4, 1, 0, tqk.WARP_BODY),
+}
+
+
+@pytest.mark.parametrize("case", list(_BODIES))
+def test_quant_body_by_shape(case):
+    width, itemsize, stride, ptr, want = _BODIES[case]
+    assert tqk.quant_body(width, itemsize, stride, 1 << 20 | ptr) == want
+
+
+def test_quantize_wrapper_passes_the_chosen_body(monkeypatch):
+    """The wrapper hands the C entry ``quant_body``'s choice for the tensor
+    it was given, whatever its row count: the vector body for aligned rows
+    (a decode step's few as a prefill's many), the warp body for a view one
+    element in; the CUDA launch itself is recorded, not made."""
+
+    calls = []
+    monkeypatch.setattr(tqk, "_check_rows", lambda *a: None)
+    monkeypatch.setattr(tqk, "_launch", lambda symbol, args, *a: calls.append((symbol, args)))
+    base = torch.zeros((4096, 128), dtype=torch.bfloat16)
+    for x in (base[:, :112], base[:64, :112], base[:, 1:113]):
+        tqk.quantize_int8_rows(x)
+    want = [tqk.quant_body(112, 2, 128, base.data_ptr())] * 2 + [tqk.WARP_BODY]
+    assert want[0] == tqk.VECTOR_BODY
+    assert [args[7] for _, args in calls] == want
+    assert [args[6] for _, args in calls] == [128] * 3
+    assert [args[4] for _, args in calls] == [4096, 64, 4096]
+    assert {symbol for symbol, _ in calls} == {"quantize_int8_rows"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -194,6 +309,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_kernel_declares_both_c_entry_points():
     src = tqk.SOURCE.read_text()
     assert set(re.findall(r'extern "C" int (\w+)\(', src)) == set(tqk.LIBRARY.entries)
+
+
+def test_argtypes_match_the_c_entry_points():
+    """Each entry's ctypes declaration follows its C parameter list, the
+    quantize's ``int body`` (after the row stride, before the stream)
+    included: ctypes would pass an undeclared argument as a 32-bit int."""
+
+    ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong}
+    src = tqk.SOURCE.read_text()
+    params = {}
+    for symbol, argtypes in tqk.ARGTYPES.items():
+        decl = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1)
+        params[symbol] = [re.sub(r"\s+", " ", p.strip()).rsplit(" ", 1) for p in decl.split(",")]
+        assert argtypes == [ctype[t] for t, _ in params[symbol]], symbol
+    assert params["quantize_int8_rows"][7] == ["int", "body"]
 
 
 def test_nvcc_flags_keep_ieee_arithmetic():

@@ -26,7 +26,8 @@ any failure.  In order:
    store under ``build/`` (NCCL for CUDA tensors, gloo for CPU ones);
    ``allreduce``, ``allgather``, ``broadcast``, ``shift`` and a cart's
    ``shift_exchange`` on the ring of one, through the port's communicator,
-   must each return its input;
+   must each return its input; so must the persistent ``allreduce_init`` on
+   a bf16 tensor and on an aggregate of three dtype buckets, started twice;
 4. flash attention against its plain version on the card, at gemma2-9b
    width (b 2, h 16, hk 8, d 256, softcap 50, bf16; one fp32 case) and at
    zamba2-7b's (b 2, s 4096, h = hk = 32, d 112, bf16; one fp32 case),
@@ -99,8 +100,15 @@ any failure.  In order:
    with the same weights and prompts.  Launch counts are zeroed just before
    each serve and read just after; every kernel of the path must have
    launched exactly its expected number of times per prefill and per decode
-   step.  A second, warm ``generate`` must repeat the tokens; one prefill
-   and four decode steps are profiled.  An int8 serve must give the bf16
+   step; the decode step is the server's persistent request, which runs
+   eagerly once, then captures a CUDA graph and replays it, so the counts
+   run through replays.  A second, warm ``generate`` (which captures again)
+   must repeat the tokens, and an eager greedy loop of ``bundle.decode`` on
+   a fresh prefill of the same prompts must give them too (its tokens/s
+   beside the warm generate's); one prefill and four decode steps are
+   profiled, eager and as four replays of the server's request captured on
+   that cache (the capturing start timed apart, the replays' launches
+   exact).  An int8 serve must give the bf16
    serve's first token and hold its KV cache in 0.5 (1 + 4 / head_dim) of
    the bf16 cache's bytes; the prefill and first-decode logits' max |Δ| and
    the share of later tokens that agree are logged.  Last, phi4-mini in
@@ -120,15 +128,23 @@ any failure.  In order:
     ``train_small``: tests/test_trainer.py's tiny dense model and the mamba2
     smoke model in fp32, 40 steps, every loss within 1e-4 relative of the
     CPU run from the same init and batches, the loss down by more than 0.1;
+    then the same run on the card with saves every 10 steps under
+    ``build/`` and a worker failure injected at step 26: the trainer drops
+    the step's graph, restores step 20, captures again (2 captures) and
+    ends bit for bit where the uninterrupted run did;
     ``train_checkpoint``: phi4-mini at full width and 2 layers (b 2 x 2048)
     saves at steps 2 and 4 through the async manager under ``build/``, and a
     fresh ``Trainer`` restored from step 2 takes steps 3 and 4 bit for bit
     as the uninterrupted run did; then the full phi4-mini (32 layers) and
     mamba2-2.7b (64 layers) train 4 steps at b 2 x 2048 (remat full, fp32
-    moments): finite losses and grad norms, every parameter leaf changed,
+    moments), after the same steps run eagerly through ``make_train_step``
+    from the same seed: the trainer's steps (step 1 eager, then one graph
+    captured and replayed) must give the eager steps' losses and grad norms
+    bit for bit; finite losses and grad norms, every parameter leaf changed,
     flash (phi4-mini) or SSD (mamba2) launched exactly twice per layer and
     step (the forward and remat's recompute), step time, tokens/s and peak
-    memory logged beside the card, and one warm step profiled;
+    memory of both runs logged beside the card, and one warm step (a
+    replay) profiled;
 11. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
@@ -1113,8 +1129,37 @@ def phase_nccl():
     kernels = sorted({e.key for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA})
     RESULTS["nccl"] = {"backend": str(dist.get_backend()), "equal": sorted(results),
-                       "device_kernels": kernels}
+                       "device_kernels": kernels,
+                       "allreduce_init": _persistent_allreduce(comm, gen)}
     log("NCCL world of one: " + json.dumps(RESULTS["nccl"]))
+
+
+def _persistent_allreduce(comm, gen) -> dict:
+    """``allreduce_init`` on the world of one: a bf16 tensor, and an
+    aggregate of fp32, int32 and bf16 leaves (three dtype buckets), each
+    started twice on new values; every result must equal its input."""
+
+    import torch
+
+    def aggregate():
+        return {"w": torch.randn((64, 3), generator=gen, device="cuda"),
+                "n": torch.randint(-9, 9, (5,), generator=gen, device="cuda", dtype=torch.int32),
+                "h": torch.randn((7,), generator=gen, device="cuda").to(torch.bfloat16)}
+
+    single = comm.allreduce_init(torch.zeros((4096,), device="cuda", dtype=torch.bfloat16))
+    tree = comm.allreduce_init(aggregate())
+    for _ in range(2):
+        x = torch.randn((4096,), generator=gen, device="cuda").to(torch.bfloat16)
+        check(torch.equal(single.start(x).get(), x), "allreduce_init on the world of one changed x")
+        value = aggregate()
+        out = tree.start(value).get()
+        check(all(out[k].is_cuda and torch.equal(out[k], v) for k, v in value.items()),
+              "allreduce_init of an aggregate on the world of one changed it")
+    row = {"buckets": len(tree.requests), "starts": [single.starts, tree.starts], "equal": True,
+           "captures": any(r.captures for r in tree.requests + single.requests)}
+    check(row["buckets"] == 3 and row["starts"] == [2, 2] and not row["captures"],
+          f"allreduce_init: {row}")
+    return row
 
 
 def _ring_tol(dtype) -> float:
@@ -1400,7 +1445,9 @@ def _prompts(cfg, prompt_len):
 def phase_serve(arch, layers, d_model, prompt_len, kv, ring, per_prefill, per_step):
     """Serve ``arch`` at its full config with a ``kv`` cache, with or
     without ring attention; the kernels' counts are zeroed just before and
-    read just after."""
+    read just after.  The graph decode's tokens are held against an eager
+    ``bundle.decode`` loop's, and four replays are profiled beside four
+    eager steps."""
 
     import numpy as np
     import torch
@@ -1448,23 +1495,44 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, ring, per_prefill, per_st
         logits, cache = server.bundle.prefill(server.params, batch, server.pcfg, mesh,
                                               extra_capacity=NEW_TOKENS)
         check(bool(torch.isfinite(logits).all()), f"{path}: non-finite prefill logits")
+        # the eager greedy loop: bundle.decode on the same prefill, timed as
+        # Server.generate times its decode loop
         tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1).to(torch.int32)[:, None]
-        step_logits, _ = server.bundle.decode(server.params, cache, tok, server.pcfg)
+        eager, t0 = [tok], time.perf_counter()
+        for _ in range(NEW_TOKENS - 1):
+            out_logits, cache = server.bundle.decode(server.params, cache, tok, server.pcfg)
+            if len(eager) == 1:
+                step_logits = out_logits
+            tok = torch.argmax(out_logits[:, -1, : cfg.vocab_size], dim=-1).to(torch.int32)[:, None]
+            eager.append(tok)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        del out_logits
+        eager_tokens = torch.cat(eager, dim=1).cpu().numpy()
         check(bool(torch.isfinite(step_logits).all()), f"{path}: non-finite decode logits")
+        check(np.array_equal(tokens, eager_tokens),
+              f"{path}: graph decode tokens {tokens.tolist()} != eager bundle.decode's "
+              f"{eager_tokens.tolist()}")
         profiles = {
             "prefill": _profile(lambda: server.bundle.prefill(
                 server.params, batch, server.pcfg, mesh, extra_capacity=NEW_TOKENS)),
             "decode_x4": _profile(lambda: [server.bundle.decode(
                 server.params, cache, tok, server.pcfg) for _ in range(4)]),
         }
+        graph = _graph_decode(path, server, cache, tok, per_step)
+        profiles["decode_x4_graph"] = graph.pop("profile")
     kv_bytes = _kv_bytes(cache)
     row = {
         "kv_cache_dtype": kv, "cold": stats, "warm": warm, "prefill_calls": prefills,
         "decode_steps": steps, "launches": launches, "params_gb": params_gb,
         "kv_cache_gb": kv_bytes / 1e9, "mem_gb_at_start": start_gb,
         "peak_mem_gb_serve": peak_gb, "peak_mem_gb_warm_generate": warm_peak_gb,
-        "profiles": profiles,
+        "graph_tokens_equal_eager": True,
+        "eager_tokens_per_s": 2 * NEW_TOKENS / eager_s, "graph_tokens_per_s": warm["tokens_per_s"],
+        "graph_decode": graph, "profiles": profiles,
     }
+    log(f"{path} decode, graph against eager: " + json.dumps(
+        {k: row[k] for k in ("eager_tokens_per_s", "graph_tokens_per_s")} | graph))
     seen = {"tokens": tokens, "prefill_logits": logits[:, -1].float().cpu(),
             "step_logits": step_logits[:, -1].float().cpu(), "kv_bytes": kv_bytes}
     if ring:
@@ -1477,6 +1545,37 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, ring, per_prefill, per_st
     del server, logits, step_logits, cache
     torch.cuda.empty_cache()
     return path, launches
+
+
+def _graph_decode(path, server, cache, tok, per_step) -> dict:
+    """The server's decode request (its graph released at the end of the
+    last ``generate``) started on ``cache``: the capturing start timed
+    alone, then four replays profiled, whose launches must be exactly
+    ``per_step`` a replay; the graph is released after."""
+
+    import torch
+
+    req = server._decode_request(cache, tok)
+    check(req.captures and req.starts > 0 and req.settled is False,
+          f"{path}: the decode request does not capture (captures {req.captures}, "
+          f"starts {req.starts})")
+    captured = req.captured
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    req(server.params, cache, tok)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    check(req.captured == captured + 1, f"{path}: the start did not capture")
+    _reset_launches()
+    profile = _profile(lambda: [req(server.params, cache, tok) for _ in range(4)])
+    launches = _launches()
+    req.release()
+    # _profile runs its function twice: 8 replays
+    for name, n in launches.items():
+        want = 8 * per_step.get(name, 0)
+        check(n == want, f"{path}: {name} launches {n} over 8 graph replays, want {want}")
+    return {"capture_and_replay_ms": capture_ms, "launches_8_replays": launches,
+            "captures_this_server": req.captured, "profile": profile}
 
 
 def _against_flash(path, server, batch, seen) -> dict:
@@ -1622,7 +1721,7 @@ def _tiny_cfg():
                        num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128)
 
 
-def _trainer(cfg, pcfg, device, *, steps, seq, batch, lr=3e-4, **tcfg):
+def _trainer(cfg, pcfg, device, *, steps, seq, batch, lr=3e-4, injector=None, **tcfg):
     """A ``Trainer`` that logs every step.  Its straggler deadline is
     infinite: the phases time the steps, and a slow first step is no sick
     worker here (the straggler policy is held by the CPU tests)."""
@@ -1631,7 +1730,7 @@ def _trainer(cfg, pcfg, device, *, steps, seq, batch, lr=3e-4, **tcfg):
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     return Trainer(cfg, pcfg, TrainerConfig(steps=steps, lr=lr, log_every=1, **tcfg),
-                   device=device, seq_len=seq, global_batch=batch,
+                   device=device, seq_len=seq, global_batch=batch, injector=injector,
                    straggler=StragglerPolicy(deadline_factor=math.inf))
 
 
@@ -1722,10 +1821,57 @@ def phase_train_small(name, arch, seq, batch, lr):
           f"train_small {name}: card and CPU losses {rel.max()} apart (relative)")
     check(card_losses[-1] < card_losses[0] - 0.1,
           f"train_small {name}: loss {card_losses[0]} -> {card_losses[-1]}")
+    row["restore"] = _failure_and_restore(name, card, cfg, pcfg, kw)
     RESULTS.setdefault("train_small", {})[name] = {**row, "card_losses": card_losses,
                                                    "cpu_losses": cpu_losses}
     del card, cpu, seen, cpu_params
     _free()
+
+
+# the forced failure of train_small: checkpoints every TRAIN_SMALL_SAVE
+# steps, a failure injected before step TRAIN_SMALL_FAIL + 1 (restoring step 20)
+TRAIN_SMALL_SAVE, TRAIN_SMALL_FAIL = 10, 25
+
+
+def _failure_and_restore(name, card, cfg, pcfg, kw) -> dict:
+    """The run of ``card`` again from the same seed, with saves under
+    ``build/`` and a worker failure injected: the trainer drops the step's
+    graph, restores the last checkpoint, captures again, and must end where
+    ``card`` did, bit for bit (the resumed steps' losses and grad norms, the
+    final parameters and optimizer state)."""
+
+    import shutil
+
+    import torch
+
+    from repro_torch.core.futures import flatten
+    from repro_torch.runtime.faults import FaultInjector
+
+    ckpt_dir = ROOT / "build" / f"train_small_{name}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    failed = _trainer(cfg, pcfg, "cuda", **kw, checkpoint_dir=str(ckpt_dir),
+                      checkpoint_every=TRAIN_SMALL_SAVE,
+                      injector=FaultInjector(fail_at_steps=(TRAIN_SMALL_FAIL,)))
+    result = failed.run()
+    resumed_from = TRAIN_SMALL_FAIL // TRAIN_SMALL_SAVE * TRAIN_SMALL_SAVE
+    resumed = [(m["step"], m["loss"], m["grad_norm"]) for m in result["metrics"]][
+        TRAIN_SMALL_FAIL:]
+    want = [(m["step"], m["loss"], m["grad_norm"]) for m in card.metrics_history][resumed_from:]
+    same = all(torch.equal(a, b) for a, b in zip(
+        flatten((failed.params, failed.opt_state))[0], flatten((card.params, card.opt_state))[0]))
+    out = {"restarts": result["restarts"], "graph_captures": failed._request.captured,
+           "resumed_from_step": resumed_from, "resumed_steps": len(resumed),
+           "resumed_equal_bitwise": resumed == want and same}
+    log(f"train_small {name} forced failure at step {TRAIN_SMALL_FAIL + 1}: " + json.dumps(out))
+    check(result["restarts"] == 1 and result["final_step"] == TRAIN_SMALL_STEPS,
+          f"train_small {name}: restarts {result['restarts']}, final step {result['final_step']}")
+    check(failed._request.captured == 2, f"train_small {name}: {failed._request.captured} "
+                                         f"captures, want 2 (the restored state captured again)")
+    check(resumed == want, f"train_small {name}: resumed steps {resumed} != {want}")
+    check(same, f"train_small {name}: the restored run's state differs from the uninterrupted's")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del failed
+    return out
 
 
 def phase_train_checkpoint():
@@ -1795,9 +1941,11 @@ def phase_train_checkpoint():
 def phase_train(arch, layers, d_model, kernel):
     """``arch`` at its full config trains ``TRAIN_STEPS`` steps at b
     ``TRAIN_BATCH`` x ``TRAIN_SEQ`` through ``Trainer`` (remat full, fp32
-    moments): finite losses and grad norms, parameters changed, the kernel
-    launched exactly twice per layer and step; step time, tokens/s and peak
-    memory are logged beside the card, and one warm step is profiled."""
+    moments), its steps replaying one CUDA graph from step 2: losses and
+    grad norms equal to the eager steps' (``_eager_train``) bit for bit,
+    parameters changed, the kernel launched exactly twice per layer and
+    step; step time, tokens/s and peak memory of both runs are logged
+    beside the card, and one warm step is profiled."""
 
     import math
 
@@ -1809,6 +1957,7 @@ def phase_train(arch, layers, d_model, kernel):
     cfg, pcfg = base.get_config(arch), base.get_parallel(arch)
     check(cfg.num_layers == layers and cfg.d_model == d_model, f"not the full {arch} config")
     path = f"train_{arch}"
+    eager = _eager_train(cfg, pcfg)
     torch.cuda.reset_peak_memory_stats()
     trainer = _trainer(cfg, pcfg, "cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
     seen = _capture_init(trainer)
@@ -1831,6 +1980,7 @@ def phase_train(arch, layers, d_model, kernel):
                                f"unchanged after {TRAIN_STEPS} steps")
     warm_s = [m["duration_s"] for m in metrics[1:]]
     step_s = sorted(warm_s)[len(warm_s) // 2]
+    losses = [(m["loss"], m["grad_norm"]) for m in metrics]
     row = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "params_b": cfg.param_count() / 1e9, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
            "losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
@@ -1838,8 +1988,13 @@ def phase_train(arch, layers, d_model, kernel):
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_mem_gb": peak_gb,
            "wall_s_init_included": wall, "launches": launches,
            f"{kernel}_per_step": launches[kernel] / TRAIN_STEPS, "leaves_changed": changed,
+           "graph_captures": trainer._request.captured,
+           "losses_equal_eager_bitwise": losses == eager["losses"], "eager": eager,
            "device": RESULTS["device"]["nvidia_smi"]}
     log_row(row)
+    check(trainer._request.captured == 1, f"{path}: {trainer._request.captured} graph captures")
+    check(losses == eager["losses"], f"{path}: graph steps' (loss, grad norm) {losses} != the "
+                                     f"eager steps' {eager['losses']}")
     check(peak_gb < 80, f"{path}: peak {peak_gb} GB")
     check(trainer.opt_state.step.item() == TRAIN_STEPS, f"{path}: optimizer step count")
     batch = trainer._batch(TRAIN_STEPS)
@@ -1849,6 +2004,38 @@ def phase_train(arch, layers, d_model, kernel):
     del trainer, seen, batch
     _free()
     return path, launches
+
+
+def _eager_train(cfg, pcfg) -> dict:
+    """The reference for ``phase_train``'s graph steps: the same trainer's
+    init and batches through ``make_train_step`` called eagerly,
+    ``TRAIN_STEPS`` steps; (loss, grad norm) a step, each step's time and
+    the peak memory.  Its state is freed before the graph run starts."""
+
+    import torch
+
+    from repro_torch.runtime.trainer import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _trainer(cfg, pcfg, "cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+    params, opt_state = trainer.init_state()
+    step = make_train_step(trainer.cfg, trainer.pcfg, trainer.tcfg, trainer.opt,
+                           comm=trainer.comm)
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        batch = trainer._batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    row = {"losses": losses, "step_s": step_s,
+           "warm_step_s": sorted(step_s[1:])[(len(step_s) - 1) // 2],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del trainer, params, opt_state, metrics, step, batch
+    _free()
+    return row
 
 
 def _tensors(tree):

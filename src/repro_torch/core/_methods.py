@@ -9,15 +9,25 @@ Counters for the MPI_T pvar interface are incremented at this layer, under
 the reference's names.  The immediate forms of ``send_recv`` and ``shift``
 return a future over the pending point-to-point work; the other immediate
 collectives run when issued (on the card they are queued on the stream) and
-their future's ``get()`` waits for the device.  Persistent and partitioned
-collectives come with the training slice.
+their future's ``get()`` waits for the device.  ``comm.persistent`` and the
+persistent collectives (``allreduce_init`` and friends) bind
+persistent requests (:class:`~repro_torch.core.futures.PersistentRequest`);
+the partitioned forms are not ported yet (ROADMAP A14).
 """
 
 from __future__ import annotations
 
-from repro_torch.core import collectives, tool
+import numpy as np
+import torch
+
+from repro_torch.core import collectives, datatypes, tool
 from repro_torch.core.communicator import Communicator
-from repro_torch.core.futures import Future
+from repro_torch.core.futures import (
+    Future,
+    PersistentCollective,
+    PersistentRequest,
+    argument_signature,
+)
 
 _BLOCKING = (
     "broadcast",
@@ -76,6 +86,63 @@ def _bind() -> None:
         imethod.__name__ = f"immediate_{name}"
         imethod.__doc__ = f"Nonblocking {name}: returns a Future (MPI_I{name.capitalize()})."
         setattr(Communicator, f"immediate_{name}", imethod)
+
+    # persistent operations (MPI_*_init / MPI_Start)
+    def persistent(self, fn, *example_args, donate_argnums=(), warm_start=False):
+        return PersistentRequest(fn, example_args, donate_argnums=tuple(donate_argnums),
+                                 warm_start=warm_start)
+
+    persistent.__doc__ = (
+        "Persistent operation over this communicator (``MPI_Send_init`` "
+        "analogue): bind ``fn`` — this rank's step, which may call the "
+        "communicator's collectives — to the example argument list and return "
+        "a :class:`PersistentRequest`; on the card a donating request replays "
+        "one CUDA graph from its second start."
+    )
+    Communicator.persistent = persistent
+
+    for name, unpackable in (("allreduce", True), ("alltoall", True),
+                             # shape-changing: raw per-dtype buckets for aggregates
+                             ("reduce_scatter", False), ("allgather", False)):
+        _bind_init(name, unpackable)
+
+
+_LEAF_OPERANDS = (torch.Tensor, np.ndarray, np.generic, bool, int, float, complex)
+
+
+def _persistent_collective(comm, name, example, *, unpackable=True, **opkw):
+    """One request per dtype bucket of ``example``'s datatype (MPI 4.0
+    §6.12); a single array binds one request on its own shape."""
+
+    fn = getattr(collectives, name)
+
+    def step(buf):
+        return fn(comm, buf, **opkw)
+
+    if isinstance(example, _LEAF_OPERANDS):
+        return PersistentCollective(name, None, [PersistentRequest(step, (example,))])
+    dt = datatypes.datatype_of(example)
+    requests = [PersistentRequest(step, (buf,)) for buf in dt.pack(example)]
+    return PersistentCollective(name, dt, requests, unpackable=unpackable,
+                                signature=argument_signature(example))
+
+
+def _bind_init(name: str, unpackable: bool) -> None:
+    tool.pvar_register(
+        f"{name}_init",
+        f"persistent {name} constructors (MPI_{name.capitalize()}_init)",
+    )
+
+    def init_method(self, example, _name=name, _u=unpackable, **k):
+        tool.pvar_count(f"{_name}_init")
+        return _persistent_collective(self, _name, example, unpackable=_u, **k)
+
+    init_method.__name__ = f"{name}_init"
+    init_method.__doc__ = (
+        f"Persistent {name} (``MPI_{name.capitalize()}_init``): bind one {name} "
+        f"per dtype bucket of ``example``'s datatype; ``start(value)`` re-fires them."
+    )
+    setattr(Communicator, f"{name}_init", init_method)
 
 
 _bind()

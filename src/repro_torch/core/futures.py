@@ -17,17 +17,23 @@ eager PyTorch form.
   ``then()`` chains lazily, and resolver errors propagate through
   ``get()``/``wait()``.
 
-* :class:`PersistentRequest` — ``MPI_Send_init`` + ``MPI_Start``.  Eager
-  PyTorch has no trace to amortise, so init binds the argument list (tree
-  structure and each leaf's shape and dtype) and every start validates
-  against it: drift raises ``ERR_REQUEST``.  Capturing the bound step as a
-  CUDA graph (init = capture, start = replay) is the next step of the port.
+* :class:`PersistentRequest` — ``MPI_Send_init`` + ``MPI_Start``.  Init
+  binds the argument list (tree structure and each leaf's shape and dtype)
+  and every start validates against it: drift raises ``ERR_REQUEST``.  A
+  request whose arguments live on the card and that donates some of them
+  runs its steady state as one CUDA graph replay: the first start runs
+  eagerly (the warm-up), the second captures the step and replays it, every
+  later start replays.  Other requests run the step eagerly at each start.
+
+* :class:`PersistentCollective` — ``MPI_Allreduce_init`` and friends: one
+  persistent request per dtype bucket of the example's reflected datatype.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable, Sequence
 
 import torch
@@ -45,45 +51,48 @@ def flatten(tree: Any) -> tuple[list, Any]:
     object a leaf.  The treedef is hashable."""
 
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, len(node), tuple(walk(x) for x in node))
-        if dataclasses.is_dataclass(node) and not isinstance(node, type):
-            fields = tuple(f.name for f in dataclasses.fields(node))
-            return (type(node), fields, tuple(walk(getattr(node, f)) for f in fields))
-        leaves.append(node)
-        return "*"
 
-    treedef = walk(tree)
-    return leaves, treedef
+# _walk and _build recurse at module level: a nested function that calls
+# itself sits in a reference cycle with its closure, which would hold the
+# leaves (a model's whole KV cache) until the cyclic garbage collector ran
+
+
+def _walk(node: Any, leaves: list) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys), tuple(_walk(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, len(node), tuple(_walk(x, leaves) for x in node))
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        fields = tuple(f.name for f in dataclasses.fields(node))
+        return (type(node), fields, tuple(_walk(getattr(node, f), leaves) for f in fields))
+    leaves.append(node)
+    return "*"
 
 
 def unflatten(treedef: Any, leaves: Sequence) -> Any:
     """Inverse of :func:`flatten`: the nest ``treedef`` describes, with
     ``leaves`` in its leaf positions."""
 
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if node == "*":
-            return next(it)
-        kind, names, children = node
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(names, children)}
-        if kind in ("list", "tuple"):
-            items = [build(c) for c in children]
-            return items if kind == "list" else tuple(items)
-        return kind(**{f: build(c) for f, c in zip(names, children)})
 
-    return build(treedef)
+def _build(node: Any, it) -> Any:
+    if node is None:
+        return None
+    if node == "*":
+        return next(it)
+    kind, names, children = node
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(names, children)}
+    if kind in ("list", "tuple"):
+        items = [_build(c, it) for c in children]
+        return items if kind == "list" else tuple(items)
+    return kind(**{f: _build(c, it) for f, c in zip(names, children)})
 
 
 def _sync(tree: Any) -> None:
@@ -310,26 +319,150 @@ def argument_signature(tree: Any) -> tuple:
     return treedef, tuple(_leaf_signature(l) for l in leaves)
 
 
+def _donated_leaves(args: tuple, donate_argnums: tuple[int, ...]) -> list[bool]:
+    """Per leaf of the argument list ``args``: whether it lies in a donated
+    argument."""
+
+    mask: list[bool] = []
+    for i, arg in enumerate(args):
+        mask += [i in donate_argnums] * len(_leaves(arg))
+    return mask
+
+
+def _same_buffer(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` views exactly the elements of ``b``, which is alive (so its
+    memory cannot have been handed to another tensor)."""
+
+    return (a.data_ptr() == b.data_ptr() and a.device == b.device and a.dtype == b.dtype
+            and a.shape == b.shape and a.stride() == b.stride())
+
+
+def _capturable(leaf: Any) -> bool:
+    """A leaf a CUDA graph can read at each replay: a tensor on the card
+    (a Python scalar would be baked into the graph)."""
+
+    return isinstance(leaf, torch.Tensor) and leaf.is_cuda
+
+
+def _graph_capture(fn: Callable, args: tuple) -> tuple[Any, Any]:
+    """Capture ``fn(*args)`` as a ``torch.cuda.CUDAGraph`` (its kernels
+    are recorded, not run): (the graph, the outputs, which are the graph's
+    static output buffers)."""
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    return graph, out
+
+
 class PersistentRequest:
     """Persistent operation: a step function bound to its argument list.
 
     * **validation** — every start checks tree structure and leaf
       shapes/dtypes against the init-time argument list; any mismatch raises
       ``ERR_REQUEST`` (a persistent request is *bound* to its arguments).
+    * **donation** — ``donate_argnums`` names the arguments whose buffers
+      the step reuses, as the reference's donated inputs are aliased into
+      its outputs: at each start the caller gives them up and goes on with
+      the step's outputs.
+    * **CUDA graphs** — a request that donates, and whose arguments are
+      all tensors on the card, runs its steady state as one graph replay:
+
+      - start 1 runs the step eagerly on the caller's arguments.  It is
+        the warm-up (it builds the kernels, loads the libraries' handles
+        and settles the allocator) and a real step: no warm-up runs on
+        state the caller owns, which an in-place step would advance;
+      - start 2 captures the step on its own arguments as a
+        ``torch.cuda.CUDAGraph`` and replays it;
+      - every later start copies each input leaf whose buffer is not the
+        one the graph reads into that buffer, then replays.
+
+      The graph reads in place the donated leaves and the leaves that were
+      the same buffers at the two starts before the capture (the weights);
+      the others (a new token, a batch) it reads from copies it owns.  If
+      an in-place leaf that is not donated comes in another buffer, the
+      step is captured again.  The outputs are the graph's static
+      buffers, so the next start overwrites them, as it reuses a donating
+      step's buffers: read them first.  The kernel launches recorded during
+      the capture are added to the wrappers' counts at each replay
+      (:func:`repro_torch.core.tool.recording_launches`).  A capture or
+      replay that fails raises (``ERR_NO_MEM`` when memory ran out,
+      ``ERR_OTHER`` otherwise); it never falls back to the eager step.
+      :meth:`release` drops the graph; the next start captures anew.
+    * **eager** — a request that donates nothing runs its step eagerly at
+      every start: the reference's outputs are fresh buffers at every
+      start, which a graph's private memory pool gives only through a copy,
+      and each such request (a prefill per prompt-length bucket, each
+      persistent collective) would pin a pool of its own.  On the CPU every
+      request is eager.
+    * **warm start** — ``warm_start=True`` fires the step once at init on
+      zeros the request owns in place of its tensor arguments (safe under
+      donation), so that kernel builds and allocator growth happen before
+      the first real start; on the card, start 1 still runs eagerly.
     * **continuations** — ``then(fn)`` registers a continuation applied to
       every start's host future.
     """
 
-    def __init__(self, fn: Callable, example_args: tuple):
+    def __init__(
+        self,
+        fn: Callable,
+        example_args: tuple,
+        *,
+        donate_argnums: tuple[int, ...] = (),
+        warm_start: bool = False,
+    ):
         tool.pvar_count("persistent_init")
         self._fn = fn
+        self.donate_argnums = tuple(donate_argnums)
+        errors.check(
+            all(0 <= i < len(example_args) for i in self.donate_argnums),
+            errors.ErrorClass.ERR_ARG,
+            f"donate_argnums {self.donate_argnums} out of range for "
+            f"{len(example_args)} arguments",
+        )
         self._signature = argument_signature(example_args)
+        self._donated = _donated_leaves(example_args, self.donate_argnums)
         self._continuations: list[Callable[[Future], Any]] = []
         self._started = 0
+        leaves = _leaves(example_args)
+        #: whether the steady state is a CUDA graph replay
+        self.captures = bool(self.donate_argnums and leaves) and all(map(_capturable, leaves))
+        #: graphs captured so far (a release and a new buffer capture again)
+        self.captured = 0
+        self._graph: Any = None       # the torch.cuda.CUDAGraph, once captured
+        self._bound: list = []       # per leaf: the buffer the graph reads
+        self._in_place: list = []    # per leaf: the graph reads the caller's own buffer
+        self._out: Any = None
+        self._launches: dict[str, int] = {}
+        self._previous: list = []    # weak references to the last start's leaves
+        if warm_start:
+            self._warm_start(leaves)
+
+    def _warm_start(self, leaves: list) -> None:
+        """Prefetch: fire once on zero buffers the request owns."""
+
+        zeros = [torch.zeros_like(leaf) if isinstance(leaf, torch.Tensor) else leaf
+                 for leaf in leaves]
+        _sync(self._fn(*unflatten(self._signature[0], zeros)))
 
     @property
     def starts(self) -> int:
         return self._started
+
+    @property
+    def settled(self) -> bool:
+        """The next start runs the steady state: no warm-up or capture is
+        due (always, for an eager request)."""
+
+        return not self.captures or self._graph is not None
+
+    def release(self) -> None:
+        """Drop the captured graph, its memory pool and its hold on the
+        bound buffers.  The last outputs stay valid while the caller holds
+        them; the next start captures again on its own arguments."""
+
+        self._graph, self._out = None, None
+        self._bound, self._in_place, self._launches = [], [], {}
 
     def _validate(self, args: tuple) -> None:
         treedef, sigs = argument_signature(args)
@@ -354,9 +487,84 @@ class PersistentRequest:
 
         if errors.error_checking_enabled():
             self._validate(args)
-        out = self._fn(*args)
+        if self.captures and self._started:
+            out = self._replay(args)
+        else:
+            out = self._fn(*args)
+        if self.captures:
+            self._previous = [weakref.ref(leaf) for leaf in _leaves(args)]
         tool.pvar_count("persistent_start")
         self._started += 1
+        return out
+
+    def _replay(self, args: tuple) -> Any:
+        leaves, treedef = flatten(args)
+        if self._graph is not None and not self._rebind(leaves):
+            self.release()
+        if self._graph is None:
+            return self._capture(leaves, treedef)
+        try:
+            self._graph.replay()
+        except RuntimeError as e:
+            raise errors.exception(errors.ErrorClass.ERR_OTHER,
+                                   f"persistent start: CUDA graph replay failed: {e}") from e
+        tool.add_launches(self._launches)
+        return self._out
+
+    def _rebind(self, leaves: list) -> bool:
+        """Copy each leaf into the buffer the graph reads for it, unless it
+        is that buffer; False (nothing copied) if an in-place leaf that is
+        not donated comes in another buffer, which needs a new capture."""
+
+        copies = []
+        for i, (leaf, bound) in enumerate(zip(leaves, self._bound)):
+            if not _same_buffer(leaf, bound):
+                # checked whether or not error checking is on: a graph reads
+                # fixed buffers, and a copy would broadcast a drifted shape
+                if leaf.shape != bound.shape or leaf.dtype != bound.dtype:
+                    raise errors.exception(
+                        errors.ErrorClass.ERR_REQUEST,
+                        f"persistent start: argument leaf {i} is {tuple(leaf.shape)} "
+                        f"{leaf.dtype}; the captured step reads {tuple(bound.shape)} "
+                        f"{bound.dtype}")
+                if self._in_place[i] and not self._donated[i]:
+                    return False
+                copies.append((bound, leaf))
+        with torch.no_grad():
+            for bound, leaf in copies:
+                bound.copy_(leaf)
+        return True
+
+    def _capture(self, leaves: list, treedef: Any) -> Any:
+        """Capture the step on ``leaves`` (the graph reads them, or copies
+        of those that are neither donated nor the previous start's buffers)
+        and replay it once."""
+
+        bound, in_place = [], []
+        for leaf, donated, ref in zip(leaves, self._donated, self._previous):
+            prev = ref()
+            keep = donated or (prev is not None and _same_buffer(leaf, prev))
+            if not keep:
+                leaf = leaf.detach().clone()
+            bound.append(leaf)
+            in_place.append(keep)
+        try:
+            with tool.recording_launches() as launches:
+                graph, out = _graph_capture(self._fn, unflatten(treedef, bound))
+            graph.replay()
+        except torch.OutOfMemoryError as e:
+            raise errors.exception(
+                errors.ErrorClass.ERR_NO_MEM,
+                f"persistent start: capturing the step as a CUDA graph ran out of device "
+                f"memory: {e}") from e
+        except RuntimeError as e:
+            raise errors.exception(
+                errors.ErrorClass.ERR_OTHER,
+                f"persistent start: capturing the step as a CUDA graph failed: {e}") from e
+        self._graph, self._bound, self._in_place, self._out = graph, bound, in_place, out
+        self._launches = dict(launches)
+        self.captured += 1
+        tool.add_launches(self._launches)
         return out
 
     def start(self, *args: Any) -> Future:
@@ -373,3 +581,54 @@ class PersistentRequest:
 
         self._continuations.append(fn)
         return self
+
+
+class PersistentCollective:
+    """A persistent collective over a *datatype* (``MPI_Allreduce_init``).
+
+    Built by ``comm.<op>_init(example)``: a single tensor gets one request
+    on its own shape; an aggregate's datatype is derived (C2) and one
+    :class:`PersistentRequest` is bound per dtype bucket.  ``start(value)``
+    packs the new value (same datatype enforced), fires every bucket's
+    request, and returns a host :class:`Future` over the reassembled
+    aggregate (or the raw bucket list for shape-changing collectives,
+    mirroring the blocking forms).  The requests donate nothing: a
+    collective's result is a fresh buffer at every start, so they run
+    eagerly.
+    """
+
+    def __init__(self, name: str, datatype, requests: list[PersistentRequest],
+                 *, unpackable: bool = True, signature: tuple | None = None):
+        self.name = name
+        self.datatype = datatype          # None => single-array fast path
+        self._requests = requests
+        self._unpackable = unpackable
+        self._signature = signature       # init-time aggregate signature
+
+    @property
+    def requests(self) -> list[PersistentRequest]:
+        return self._requests
+
+    @property
+    def starts(self) -> int:
+        """``MPI_Start`` events fired so far (max over the dtype-bucket
+        requests — one logical start fires every bucket once)."""
+
+        return max((r.starts for r in self._requests), default=0)
+
+    def start(self, value: Any) -> Future:
+        if self.datatype is None:
+            return Future(self._requests[0](value))
+        if self._signature is not None and errors.error_checking_enabled():
+            # bind the aggregate too: pack() would silently cast drifted leaf
+            # dtypes to the init-time layout, so check the signature first
+            errors.check(
+                argument_signature(value) == self._signature,
+                errors.ErrorClass.ERR_REQUEST,
+                f"persistent {self.name} start: aggregate does not match the "
+                f"init-time datatype (shape/dtype/structure drift)",
+            )
+        outs = [req(b) for req, b in zip(self._requests, self.datatype.pack(value))]
+        if self._unpackable:
+            return Future(self.datatype.unpack(outs))
+        return Future(outs)

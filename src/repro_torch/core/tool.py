@@ -8,15 +8,19 @@ the port.
   writes to unregistered names.
 * **cvars** are a typed runtime configuration registry (error checking).
 
-Kernel launch counts are not pvars: each kernel wrapper keeps a plain integer.
+Kernel launch counts are not pvars: each kernel wrapper keeps a plain
+integer, fed through the launch-counter registry below, so that a CUDA graph
+replay (which launches kernels without calling their wrappers) can add back
+the launches its capture recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from collections import defaultdict
-from typing import Any, Callable
+from collections import Counter, defaultdict
+from typing import Any, Callable, Iterator
 
 from repro_torch.core import errors
 
@@ -160,3 +164,54 @@ def pvar_info() -> dict[str, str]:
 pvar_register("persistent_init", "persistent requests initialised (argument list bound)")
 pvar_register("persistent_start", "MPI_Start analogues fired on persistent requests")
 pvar_register("cart_create", "Cartesian topologies constructed (MPI_Cart_create)")
+
+
+# --------------------------------------------------------------------------
+# kernel launch counters
+# --------------------------------------------------------------------------
+
+#: C entry point of each hand-written kernel → the function that adds to its
+#: wrapper's launch count (``kernels/*/kernel.py`` register at import).
+_LAUNCH_COUNTERS: dict[str, Callable[[int], None]] = {}
+#: Open :func:`recording_launches` blocks, innermost last.
+_LAUNCH_RECORDINGS: list[Counter] = []
+
+
+def launch_counter(symbol: str, add: Callable[[int], None]) -> Callable[[], None]:
+    """Register the launch count of the kernel entry ``symbol``; ``add(n)``
+    adds ``n`` to it.  Returns the function its wrapper calls once a launch:
+    it counts the launch, or, inside :func:`recording_launches`, records it
+    there instead (the launch was captured into a CUDA graph, not run)."""
+
+    _LAUNCH_COUNTERS[symbol] = add
+
+    def count() -> None:
+        if _LAUNCH_RECORDINGS:
+            _LAUNCH_RECORDINGS[-1][symbol] += 1
+        else:
+            add(1)
+
+    return count
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Counter]:
+    """Divert the wrappers' launch counts into the yielded counter for the
+    block's duration — a CUDA graph capture, which records kernels without
+    running them.  Launches from every thread are diverted: the capture's
+    backward runs in autograd's device thread."""
+
+    recorded: Counter = Counter()
+    _LAUNCH_RECORDINGS.append(recorded)
+    try:
+        yield recorded
+    finally:
+        _LAUNCH_RECORDINGS.remove(recorded)
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (a recording) to the wrappers' launch counts: what a
+    replay of the recorded graph launched."""
+
+    for symbol, n in counts.items():
+        _LAUNCH_COUNTERS[symbol](n)

@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core import errors
+from repro_torch.core import errors, tool
 from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
@@ -43,13 +43,22 @@ ARGTYPES = (
 
 #: The shared library and its C entry point, built at first use.
 LIBRARY = nvcc.Library(SOURCE, "flash_attention", {"flash_attention_fwd": ARGTYPES})
-#: Kernel launches since the last :func:`reset_launches`.
+#: Kernel launches since the last :func:`reset_launches`, a CUDA graph's
+#: replays included (``core.tool.launch_counter``).
 LAUNCHES = 0
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def _add_launches(n: int) -> None:
+    global LAUNCHES
+    LAUNCHES += n
+
+
+_count_launch = tool.launch_counter("flash_attention_fwd", _add_launches)
 
 
 def check_copyable(kernel: str, name: str, t: torch.Tensor) -> None:
@@ -123,7 +132,6 @@ def flash_attention_fwd(
     """q: (b, sq, h, d); k/v: (b, sk, hk, d), h % hk == 0, any strides.
     → contiguous (b, sq, h, d) in q's dtype (bf16 or fp32)."""
 
-    global LAUNCHES
     _check_inputs(q, k, v)
     errors.check(
         sliding_window is None or sliding_window >= 1,
@@ -165,5 +173,5 @@ def flash_attention_fwd(
             f"flash kernel launch failed: cudaError {rc} "
             f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})",
         )
-    LAUNCHES += 1
+    _count_launch()
     return out

@@ -36,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core import errors
+from repro_torch.core import errors, tool
 from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quant_int8.cu"
@@ -55,13 +55,25 @@ ARGTYPES = {"quantize_int8_rows": _ROW_ARGTYPES + [ctypes.c_int, ctypes.c_void_p
 
 #: The shared library and its two C entry points, built at first use.
 LIBRARY = nvcc.Library(SOURCE, "quant", ARGTYPES)
-#: Kernel launches by entry point since the last :func:`reset_launches`.
+#: Kernel launches by entry point since the last :func:`reset_launches`, a
+#: CUDA graph's replays included (``core.tool.launch_counter``).
 LAUNCHES = dict.fromkeys(ARGTYPES, 0)
 
 
 def reset_launches() -> None:
     for symbol in LAUNCHES:
         LAUNCHES[symbol] = 0
+
+
+def _launch_adder(symbol: str):
+    def add(n: int) -> None:
+        LAUNCHES[symbol] += n
+
+    return add
+
+
+_COUNT_LAUNCH = {symbol: tool.launch_counter(symbol, _launch_adder(symbol))
+                 for symbol in ARGTYPES}
 
 
 def quant_body(width: int, itemsize: int, row_stride: int, data_ptr: int) -> int:
@@ -102,7 +114,7 @@ def _launch(symbol: str, args: tuple, device: torch.device, what: str) -> None:
     if rc != 0:
         errors.fail(errors.ErrorClass.ERR_OTHER,
                     f"{symbol} launch failed: cudaError {rc} ({what})")
-    LAUNCHES[symbol] += 1
+    _COUNT_LAUNCH[symbol]()
 
 
 def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

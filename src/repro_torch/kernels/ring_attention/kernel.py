@@ -25,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core import errors
+from repro_torch.core import errors, tool
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.flash_attention.kernel import check_copyable
 from repro_torch.kernels.ring_attention import ref as _ref
@@ -53,13 +53,22 @@ ARGTYPES = (
 
 #: The shared library and its C entry point, built at first use.
 LIBRARY = nvcc.Library(SOURCE, "ring_attention", {"ring_step_fwd": ARGTYPES})
-#: Kernel launches since the last :func:`reset_launches`.
+#: Kernel launches since the last :func:`reset_launches`, a CUDA graph's
+#: replays included (``core.tool.launch_counter``).
 LAUNCHES = 0
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def _add_launches(n: int) -> None:
+    global LAUNCHES
+    LAUNCHES += n
+
+
+_count_launch = tool.launch_counter("ring_step_fwd", _add_launches)
 
 
 def _check_inputs(q, k, v, m, l, acc, info) -> None:
@@ -114,7 +123,6 @@ def _check_inputs(q, k, v, m, l, acc, info) -> None:
 
 
 def _launch(q, k, v, m, l, acc, info, scale: float, causal: bool) -> None:
-    global LAUNCHES
     _check_inputs(q, k, v, m, l, acc, info)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -134,7 +142,7 @@ def _launch(q, k, v, m, l, acc, info, scale: float, causal: bool) -> None:
             f"ring step kernel launch failed: cudaError {rc} "
             f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})",
         )
-    LAUNCHES += 1
+    _count_launch()
 
 
 def ring_step_fwd(

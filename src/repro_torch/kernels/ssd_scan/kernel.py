@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core import errors
+from repro_torch.core import errors, tool
 from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_fwd.cu"
@@ -41,13 +41,22 @@ SHAPE_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 #: The shared library and its C entry points, built at first use.
 LIBRARY = nvcc.Library(SOURCE, "ssd_scan",
                        {"ssd_scan_fwd": ARGTYPES, "ssd_scan_occupancy": SHAPE_ARGTYPES})
-#: Kernel launches since the last :func:`reset_launches`.
+#: Kernel launches since the last :func:`reset_launches`, a CUDA graph's
+#: replays included (``core.tool.launch_counter``).
 LAUNCHES = 0
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def _add_launches(n: int) -> None:
+    global LAUNCHES
+    LAUNCHES += n
+
+
+_count_launch = tool.launch_counter("ssd_scan_fwd", _add_launches)
 
 
 def _check_inputs(x, dt, A, B, C) -> None:
@@ -108,7 +117,6 @@ def ssd_scan_fwd(
     the reference's contract (``l % chunk == 0``); the kernel's own tile is
     64 rows, which gives the same result."""
 
-    global LAUNCHES
     _check_inputs(x, dt, A, B, C)
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -137,7 +145,7 @@ def ssd_scan_fwd(
             f"ssd kernel launch failed: cudaError {rc} "
             f"(x {tuple(x.shape)} {x.dtype}, B {tuple(B.shape)})",
         )
-    LAUNCHES += 1
+    _count_launch()
     return (y, state) if return_state else y
 
 

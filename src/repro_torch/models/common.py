@@ -110,7 +110,9 @@ def rope(
     rd = rope_dim or d
     half = rd // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    # a fill kernel, not a host-to-device copy, which CUDA graph capture refuses
+    base = torch.full((), theta, dtype=torch.float32, device=x.device)
+    freqs = torch.pow(base, exponent)
     angles = positions[..., None].float() * freqs  # (..., seq, half)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

@@ -181,7 +181,10 @@ def _maybe_remat(fn, pcfg):
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+        # the units draw no random numbers, so the recompute needs no saved
+        # RNG state: exact, and reading the CUDA RNG state is a host sync that
+        # CUDA graph capture refuses
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return run
 
@@ -212,7 +215,9 @@ def init_lm(gen: torch.Generator, cfg) -> common.Params:
 def _embed(params, tokens, cfg):
     x = params["embed"][tokens]
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        # a fill kernel (capturable in a CUDA graph), rounded to x's dtype as
+        # the reference's constant is
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
 
 

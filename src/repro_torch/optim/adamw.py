@@ -96,7 +96,7 @@ class AdamW:
     def _lr_at(self, step):
         if callable(self.lr):
             return self.lr(step)
-        return torch.as_tensor(self.lr, dtype=torch.float32, device=step.device)
+        return torch.full((), self.lr, dtype=torch.float32, device=step.device)
 
     @torch.no_grad()
     def update(self, grads: Params, state: AdamWState, params: Params
@@ -104,8 +104,9 @@ class AdamW:
         step = state.step + 1
         lr = self._lr_at(step)
         stepf = step.float()
-        b1 = torch.tensor(self.b1, dtype=torch.float32, device=step.device)
-        b2 = torch.tensor(self.b2, dtype=torch.float32, device=step.device)
+        # fills, not host-to-device copies: the step is captured as a CUDA graph
+        b1 = torch.full((), self.b1, dtype=torch.float32, device=step.device)
+        b2 = torch.full((), self.b2, dtype=torch.float32, device=step.device)
         bc1 = 1 - b1 ** stepf
         bc2 = 1 - b2 ** stepf
         flat_p, treedef = flatten(params)

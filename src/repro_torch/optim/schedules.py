@@ -10,8 +10,12 @@ import torch
 
 
 def _f32(x, like=None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
     device = like.device if isinstance(like, torch.Tensor) else None
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    # a fill, not a host-to-device copy: a schedule runs inside the train
+    # step, which is captured as a CUDA graph on the card
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def constant(lr: float):

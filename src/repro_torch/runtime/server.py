@@ -11,7 +11,21 @@ bound once per argument signature as a
 :class:`~repro_torch.core.futures.PersistentRequest` and re-fired
 ``MPI_Start``-style; ``trace:prefill_step`` / ``trace:decode_step`` count
 one per signature, when the request is built — the reference's "one trace
-per shape bucket" invariant, since eager mode has no tracing.
+per shape bucket" invariant (the reference counts while tracing; the port
+counts the builds).  The decode step donates its cache, as the reference's
+does, so on the card it is a CUDA graph: the first decode step of a
+server's first ``generate`` runs eagerly, the second captures the step and
+every later step replays it.  The prefill donates nothing and stays eager:
+it keeps the card busy nearly all its wall time already (``PERF.md`` §5),
+and a graph per prompt-length bucket would pin a whole prefill's working
+memory.
+
+**One decode graph a generate**: the graph reads the cache it was captured
+on in place.  At the end of each ``generate`` the server releases it, and
+the next ``generate`` captures again on its own prefill's cache (one
+capture, with no eager warm-up, a call).  Keeping the graph would instead
+copy each new cache into the captured one, and keep the old cache alive
+through the next prefill beside the new one.
 
 **Ring attention**: with ``pcfg.ring_attention`` the prefill gets the
 communicator, as the reference's gets its mesh, and shards each eligible
@@ -78,7 +92,14 @@ def _synchronize(device: torch.device) -> None:
 
 class Server:
     """``comm`` picks the device (this rank's); without one, a host
-    communicator over ``device`` (``"cuda"`` unless ``"cpu"`` is asked)."""
+    communicator over ``device`` (``"cuda"`` unless ``"cpu"`` is asked).
+
+    On the card each ``generate`` decodes through a CUDA graph of the decode
+    step captured on that call's cache and released at its end (see the
+    module docstring): it costs one capture a call.  Copying every new cache
+    into one kept graph's instead would hold two caches at the next
+    prefill, which qwen1.5-32b's peak beside its weights does not leave
+    room for (``PERF.md`` §5)."""
 
     def __init__(
         self,
@@ -135,7 +156,9 @@ class Server:
             def decode_step(p, c, t):
                 return bundle.decode(p, c, t, pcfg, None)
 
-            req = PersistentRequest(decode_step, (self.params, cache, tok))
+            # the cache is updated in place and handed on: donated, as in
+            # the reference, so on the card the step replays a CUDA graph
+            req = PersistentRequest(decode_step, (self.params, cache, tok), donate_argnums=(1,))
             self._decode_reqs[key] = req
         return req
 
@@ -192,7 +215,8 @@ class Server:
         return gen
 
     def _decode_loop(self, cache, tok, gen) -> list[torch.Tensor]:
-        """``max_new_tokens - 1`` re-fires of the persistent decode step."""
+        """``max_new_tokens - 1`` re-fires of the persistent decode step;
+        its graph, which reads this call's cache, is released after."""
 
         outs = [tok]
         decode = self._decode_request(cache, tok[:, None])
@@ -201,6 +225,7 @@ class Server:
             tok = self._sample(logits, gen)
             outs.append(tok)
         _synchronize(self.device)
+        decode.release()
         return outs
 
     @torch.inference_mode()

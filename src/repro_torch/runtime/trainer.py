@@ -21,12 +21,17 @@ NCCL, which needs no exchange; on the CPU any number of gloo ranks.
 **Persistent execution engine** (the only one): the step is built *once* as a
 :class:`~repro_torch.core.futures.PersistentRequest` bound to the
 signature of its arguments (``ERR_REQUEST`` on drift); ``trace:train_step``
-counts one build, and every step is a ``persistent_start``.  The step stays
-eager: capturing it as a CUDA graph is ROADMAP A8.  The step updates the
-parameters and the optimizer state in place — the reference's donated
-buffers — so, as there, a straggler cannot be re-dispatched
-(``retry_safe=False``) and goes straight to the failure path (restore from
-the last checkpoint).
+counts one build, and every step is a ``persistent_start``.  The step updates
+the parameters and the optimizer state in place and donates them
+(``donate_argnums=(0, 1)``, as in the reference), so on the card it is a
+CUDA graph: step 1 runs eagerly, step 2 captures the step (forward,
+backward and AdamW) and replays it, later steps replay it, each with its
+batch copied into the graph's own batch buffer.  A step that captures is
+exempt from the straggler deadline (known one-time work).  Since the state
+is updated in place, a straggler cannot be re-dispatched
+(``retry_safe=False``) and goes straight to the failure path, which drops
+the failed state and the graph before the restore builds the next state
+(so the state is never held twice) and captures again on the restored one.
 
 **Async checkpointing** (default): ``ckpt.save`` copies the state to the
 host synchronously and runs the file writes as I/O requests overlapping the
@@ -244,6 +249,7 @@ class Trainer:
             image_dim=1152,
         )
         self._compiled = None
+        self._request: PersistentRequest | None = None
         self.metrics_history: list[dict] = []
         self.restarts = 0
         self.evictions = 0
@@ -310,7 +316,9 @@ class Trainer:
         tool.pvar_count("trace:train_step")
         # no mesh for the loss: the ring, its one user, is not ported for training
         base_step = make_train_step(self.cfg, self.pcfg, self.tcfg, self.opt, comm=self._comm)
-        return PersistentRequest(base_step, (params, opt_state, self._batch(0)))
+        self._request = PersistentRequest(base_step, (params, opt_state, self._batch(0)),
+                                          donate_argnums=(0, 1))
+        return self._request
 
     # -- the loop --------------------------------------------------------------
 
@@ -326,18 +334,24 @@ class Trainer:
         while step < steps:
             try:
                 params, opt_state, step = self._run_span(params, opt_state, step, steps)
+                continue
             except RankEvicted as e:
                 self.evictions += 1
                 if self.evictions + self.restarts > self.tcfg.max_restarts:
                     raise
                 log.warning("rank %d evicted at step %d; shrinking", e.rank, e.step)
                 params, opt_state, step = self._shrink(e)
+                continue
             except WorkerFailure as e:
                 self.restarts += 1
                 if self.restarts > self.tcfg.max_restarts:
                     raise
                 log.warning("worker failure at step %d (%s); restarting", step, e)
-                params, opt_state, step = self._recover()
+            # outside the handler, whose traceback holds the failed span's
+            # frames: the failed state is dropped before the restore builds
+            # the next one
+            params = opt_state = None
+            params, opt_state, step = self._recover()
         if self.ckpt is not None:
             self._checkpoint(step, params, opt_state, join=True)
         self.params, self.opt_state = params, opt_state
@@ -406,9 +420,11 @@ class Trainer:
                 step,
                 do_step,
                 retry_safe=retry_safe,
-                # a step sharing the host with an in-flight checkpoint save
-                # is slow from known interference, not worker sickness
-                exempt=self.ckpt is not None and self.ckpt.pending(),
+                # a step sharing the host with an in-flight checkpoint save,
+                # or capturing the CUDA graph, is slow from known work, not
+                # from worker sickness
+                exempt=(self.ckpt is not None and self.ckpt.pending())
+                or not self._request.settled,
             )
             step += 1
             if step % self.tcfg.log_every == 0 or step == steps:
@@ -452,8 +468,11 @@ class Trainer:
 
     def _recover(self):
         """Restart protocol: restore the newest complete checkpoint and
-        resume from its step (data is stateless)."""
+        resume from its step (data is stateless).  The step's graph, which
+        holds the failed state, is dropped first; the next step captures
+        again on the restored state."""
 
+        self._request.release()
         if self.ckpt is not None:
             # join the in-flight save first (tolerantly), so that a save
             # mid-commit is seen by latest_step()

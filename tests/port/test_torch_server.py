@@ -2,8 +2,10 @@
 prompts through the same weights give identical tokens at temperature 0 —
 in one process, and with ring attention across gloo ranks (one process
 each) against the reference on virtual devices.  Also the
-persistent-request bookkeeping, the CLI and the refusal to fall back to the
-CPU on a machine without a GPU."""
+persistent-request bookkeeping (the decode request donates the cache; its
+CUDA graph path, stood in for on the CPU by ``graph_stub``, gives the eager
+tokens), the CLI and the refusal to fall back to the CPU on a machine
+without a GPU."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import graph_stub
 from repro.configs import base as jbase
 from repro.core import tool as jtool
 from repro.launch.mesh import make_host_communicator as j_comm
@@ -22,7 +25,7 @@ from repro.runtime import server as jserver
 from repro_torch.configs import base as tbase
 from repro_torch.convert import params_from_jax
 from repro_torch.core import errors, tool
-from repro_torch.core.futures import PersistentRequest
+from repro_torch.core.futures import PersistentRequest, flatten
 from repro_torch.launch import serve
 from repro_torch.runtime import server as tserver
 from torch_ranks import finish_jax, run_ranks, start_jax
@@ -81,6 +84,73 @@ def test_one_request_per_signature(servers):
     assert final["trace:prefill_step"] == after["trace:prefill_step"] + 1
     assert final["trace:decode_step"] == after["trace:decode_step"] + 1
     assert len(ts._decode_reqs) == len(ts._prefill_reqs)
+
+
+def test_decode_request_donates_the_cache(servers):
+    """The reference's ``_decode_request`` donates the cache (argument 1);
+    the prefill donates nothing and stays an eager request."""
+
+    _, ts = servers
+    ts.generate([tserver.Request(tokens=p) for p in _prompts()])
+    assert ts._decode_reqs and all(r.donate_argnums == (1,) for r in ts._decode_reqs.values())
+    assert all(r.donate_argnums == () for r in ts._prefill_reqs.values())
+    assert not any(r.captures for r in ts._prefill_reqs.values())
+
+
+@pytest.mark.parametrize("arch,kv", [("gemma2_9b", "bfloat16"), ("mamba2_2_7b", "bfloat16"),
+                                     ("zamba2_7b", "int8")])
+def test_graph_decode_gives_the_eager_tokens(monkeypatch, arch, kv):
+    """The decode step through the graph path (capture and replay stood in
+    for by ``graph_stub``): two generates give an eager server's tokens; the
+    first decode step runs eagerly, each generate captures once and releases
+    its graph at the end."""
+
+    cfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype="float32")
+    pcfg = dataclasses.replace(tbase.get_parallel(arch), kv_cache_dtype=kv)
+    scfg = tserver.ServerConfig(max_batch=2, max_new_tokens=6)
+    batches = [[tserver.Request(tokens=p) for p in _prompts(length=24, seed=s)] for s in (8, 9)]
+    eager = tserver.Server(cfg, pcfg, scfg, device="cpu")
+    want = [eager.generate(b)[0] for b in batches]
+    graph_stub.install(monkeypatch)
+    ts = tserver.Server(cfg, pcfg, scfg, device="cpu")
+    for b, w in zip(batches, want):
+        np.testing.assert_array_equal(ts.generate(b)[0], w)
+    (req,) = ts._decode_reqs.values()
+    assert req.captures and req.captured == 2 and req.starts == 2 * 5
+    assert req._graph is None and req._bound == []   # released after each generate
+
+
+@pytest.mark.parametrize("graph", [False, True])
+def test_generate_frees_its_cache_at_once(monkeypatch, graph):
+    """The prefill's cache is freed when ``generate`` returns, without the
+    cyclic garbage collector: a cache kept to the next call's prefill would
+    be a second cache beside the new one (and, on the graph path, the
+    released graph holds none of it)."""
+
+    import gc
+    import weakref
+
+    if graph:
+        graph_stub.install(monkeypatch)
+    cfg = dataclasses.replace(tbase.get_smoke_config("gemma2_9b"), dtype="float32")
+    ts = tserver.Server(cfg, tbase.get_parallel("gemma2_9b"),
+                        tserver.ServerConfig(max_batch=2, max_new_tokens=4), device="cpu")
+    refs = []
+    prefill = ts.bundle.prefill
+
+    def recording_prefill(*a, **k):
+        logits, cache = prefill(*a, **k)
+        refs.extend(weakref.ref(t) for t in flatten(cache)[0])
+        return logits, cache
+
+    ts.bundle = dataclasses.replace(ts.bundle, prefill=recording_prefill)
+    gc.disable()
+    try:
+        ts.generate([tserver.Request(tokens=p) for p in _prompts(length=16)])
+        assert refs and all(r() is None for r in refs)
+    finally:
+        gc.enable()
+    assert all(r.captures == graph for r in ts._decode_reqs.values())
 
 
 def test_deleted_server_frees_its_weights_at_once():

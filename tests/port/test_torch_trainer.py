@@ -22,6 +22,10 @@
   restart resumes, an injected failure recovers, too many give up, a failed
   save is counted and training goes on, async saves overlap the steps with
   one step request; the straggler guard's cases.
+* The step donates the parameters and the optimizer state; through its
+  CUDA graph path (capture and replay stood in for on the CPU by
+  ``graph_stub``) it gives the eager run's losses and parameters bit for
+  bit, and after a restore it captures again and resumes bit for bit.
 * What is not ported raises ``ERR_UNSUPPORTED_OPERATION``; the launcher
   runs here with ``--device cpu`` and, on a machine with no card, raises
   ``ERR_SESSION`` without it.
@@ -58,6 +62,7 @@ from repro_torch.runtime.faults import (
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+import graph_stub  # noqa: E402
 from torch_ranks import run_ranks  # noqa: E402
 
 torch.set_num_threads(1)
@@ -254,6 +259,72 @@ def test_async_checkpoint_overlaps_persistent_steps(tmp_path):
     assert after["trace:train_step"] == before["trace:train_step"] + 1
     assert after["persistent_start"] == before["persistent_start"] + 12
     assert t.ckpt.steps() == [10, 12] and not t.ckpt.pending()
+
+
+def test_train_step_donates_params_and_optimizer_state():
+    t = _trainer(steps=2)
+    t.run()
+    assert t._compiled is t._request and t._request.donate_argnums == (0, 1)
+    assert not t._request.captures   # CPU tensors: eager
+
+
+def _final(t):
+    return [p.detach().clone() for p in flatten((t.params, t.opt_state))[0]]
+
+
+def test_graph_step_gives_the_eager_run_bit_for_bit(monkeypatch):
+    eager = _trainer(steps=12)
+    want = [m["loss"] for m in eager.run()["metrics"]]
+    graph_stub.install(monkeypatch)
+    t = _trainer(steps=12)
+    got = [m["loss"] for m in t.run()["metrics"]]
+    assert got == want and t._request.captured == 1 and t._request.settled
+    assert all(torch.equal(a, b) for a, b in zip(_final(t), _final(eager)))
+
+
+def test_graph_step_captures_again_after_a_restore(monkeypatch, tmp_path):
+    """A failure at step 13 drops the graph and restores step 10; the next
+    step captures on the restored state, and the run ends where an
+    uninterrupted one does, bit for bit."""
+
+    graph_stub.install(monkeypatch)
+    whole = _trainer(tmp_path / "whole", steps=15)
+    whole.run()
+    t = _trainer(tmp_path / "failed", steps=15, injector=FaultInjector(fail_at_steps=(13,)))
+    result = t.run()
+    assert result["restarts"] == 1 and result["final_step"] == 15
+    assert t._request.captured == 2
+    want = [(m["step"], m["loss"]) for m in whole.metrics_history]
+    assert [(m["step"], m["loss"]) for m in result["metrics"] if m["step"] == 15] == want[-1:]
+    assert all(torch.equal(a, b) for a, b in zip(_final(t), _final(whole)))
+
+
+def test_capturing_steps_are_exempt_from_the_straggler_deadline(monkeypatch, tmp_path):
+    """A start that warms up or captures is slow from known work: the
+    capture after a restore (here 100x a replay) does not take the failure
+    path again."""
+
+    graph_stub.install(monkeypatch)
+    clock = FakeClock()
+    t = _trainer(tmp_path, steps=14, injector=FaultInjector(fail_at_steps=(12,)),
+                 straggler=StragglerPolicy(deadline_factor=3.0, min_samples=3))
+    t.guard.clock = clock
+    real = t.compile
+
+    def compile_timed(params, opt_state):
+        step = real(params, opt_state)
+
+        def timed_step(*args):
+            clock.advance(0.01 if step.settled else 1.0)
+            return step(*args)
+
+        t._compiled = timed_step
+        return timed_step
+
+    t.compile = compile_timed
+    result = t.run()
+    assert result["restarts"] == 1 and result["final_step"] == 14
+    assert t._request.captured == 2
 
 
 def test_trainer_tolerates_failed_checkpoint_save(tmp_path):

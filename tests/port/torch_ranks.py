@@ -291,8 +291,53 @@ def _leaves(tree):
     return [tree]
 
 
+@dataclasses.dataclass
+class Grads:
+    """The aggregate of the persistent collectives' test: two float32
+    leaves and an int32 one, so two dtype buckets."""
+
+    w: object
+    b: object
+    n: object
+
+
+def prog_requests(rank: int, world: int, inputs: dict) -> dict:
+    """The persistent collectives on this rank's slice of the inputs: each
+    started twice (the second time on other values) on one array and on a
+    mixed-dtype aggregate; the shape-changing ones return raw buckets."""
+
+    import torch
+
+    from repro_torch.core.communicator import world as world_comm
+
+    comm = world_comm(device_type="cpu")
+
+    def grads(i):
+        return Grads(*(torch.from_numpy(inputs[k][i, rank]) for k in ("w", "b", "n")))
+
+    x = torch.from_numpy(inputs["x"][:, rank])
+    out = {}
+    single = comm.allreduce_init(x[0])
+    for i in range(2):
+        out[f"allreduce_single_{i}"] = single.start(x[i]).get()
+    for name in ("allreduce", "reduce_scatter", "allgather"):
+        req = getattr(comm, f"{name}_init")(grads(0))
+        out[f"{name}_buckets"] = torch.tensor(len(req.requests))
+        for i in range(2):
+            got = req.start(grads(i)).get()
+            leaves = [got.w, got.b, got.n] if name == "allreduce" else got
+            for j, leaf in enumerate(leaves):
+                out[f"{name}_{i}_{j}"] = leaf
+        g = grads(0)
+        out[f"{name}_drift"] = torch.tensor(
+            _err(lambda: req.start(Grads(g.w, g.b, g.n.float()))) == "ERR_REQUEST")
+    out["starts"] = torch.tensor(single.starts)
+    return {k: v.numpy() for k, v in out.items()}
+
+
 PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_server,
-            "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer}
+            "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer,
+            "requests": prog_requests}
 
 
 def main(argv: list[str]) -> int:

@@ -72,7 +72,12 @@ any failure.  In order:
    and the vector body's SASS instructions per element by pipe and the
    issue time they imply (``SASS_PIPES``);
    the dequantize of one global decode layer (73,984 rows) and of a
-   zamba2 layer.  No
+   zamba2 layer.  Rows over 256 take the wide body (a block a row): every
+   width the int8 moments quantize along (``WIDE_MOMENTS``, a piece's rows
+   in fp32, the quantize and the dequantize into fp32 timed), bf16 rows,
+   rows that do not start on a 16-byte boundary, and the edge rows and the
+   scaled rows at 4,096 and 152,064; all three bodies must be chosen, and
+   the C entry must refuse a body on rows of the other kind.  No
    single PyTorch call computes the quantize (it needs the row's absmax
    first), so its ``library_ms`` is null; the dequantize's is
    ``torch.mul(q, s, out=bf16)``, held equal to the kernel as well;
@@ -144,8 +149,19 @@ any failure.  In order:
     flash (phi4-mini) or SSD (mamba2) launched exactly twice per layer and
     step (the forward and remat's recompute), step time, tokens/s and peak
     memory of both runs logged beside the card, and one warm step (a
-    replay) profiled;
-11. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+    replay) profiled.  With int8 moments (``TRAIN_FULL``): phi4-mini again,
+    its step time and peak beside the fp32 run's, and granite-3-8b (40
+    layers, whose fp32 moments do not fit), the quantize and the
+    dequantize launched exactly twice a moment piece and step; and
+    ``train_small``'s tiny model with int8 moments, held to the CPU run for
+    its first ``TRAIN_SMALL_INT8_HELD`` steps (the reference's int8 moments
+    diverge, ROADMAP C10), then finite and bit for bit through the restore;
+11. grad sync: ``PartitionedGradSync`` with int8 error feedback on the NCCL
+    world of one over phi4-mini's gradient tree at full width (2 layers),
+    bit for bit the same call with the plain row functions, the residual m
+    - C(m), one quantize and one dequantize a leaf, two ``pready`` orders
+    bit-equal; the call and its error-feedback share timed;
+12. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
 Also writes everything it prints as JSON to ``artifacts/chip_smoke.json``.
@@ -221,7 +237,7 @@ SERVES = [
 
 # the port's kernel bodies, as the profiler names them
 PORT_KERNELS = ("fwd_kernel<", "ssd_kernel<", "quant_kernel<", "quant_vec_kernel<",
-                "step_kernel<")
+                "quant_wide_kernel<", "step_kernel<")
 # Hopper's pipes in lanes a clock per SM (CUDA C++ Programming Guide, the
 # arithmetic instruction throughput table, compute capability 9.0) and the
 # SASS opcodes each runs: the quant vector body's instructions are counted
@@ -832,16 +848,17 @@ def _quantize_with(x, body, library=None):
     return rc, q, s
 
 
-def _quant_case(name, x, *, reps=0, want_q=None, body=None):
+def _quant_case(name, x, *, reps=0, want_q=None, body=None, dequant_reps=0):
     """Quantize ``x`` (rows, width) with the wrapper, with each body the
-    shape allows (the warp body always, the vector body where the wrapper
-    chose it; ``_quantize_with``) and with the plain version on the card,
+    shape allows (the warp body at widths up to 256, the one the wrapper
+    chose; ``_quantize_with``) and with the plain version on the card,
     then dequantize the wrapper's payload into bf16 and fp32 with both:
     every output equal.  ``body`` is the body the wrapper must choose for
     ``x`` (``kernel.quant_body``).  With ``reps``, times the wrapper and
     its bound (|x|, max, divide, round and the two-sided clip: 6 operations
     an element), the warp body too where the vector body was chosen, and
-    the vector body's SASS issue times."""
+    the vector body's SASS issue times; with ``dequant_reps``, the
+    dequantize into fp32 (the optimizer's moments) and its bound."""
 
     import torch
 
@@ -855,11 +872,12 @@ def _quant_case(name, x, *, reps=0, want_q=None, body=None):
     pq, ps = ref.quantize_int8_rows(x)
     torch.cuda.synchronize()
     row = {"case": name, "shape": [rows, width], "dtype": str(x.dtype).removeprefix("torch."),
-           "row_stride": x.stride(0), "body": chosen}
+           "row_stride": x.stride(0), "body": chosen, "body_name": _BODY_NAMES[chosen]}
+    log(f"quant {name}: {_BODY_NAMES[chosen]} body")
     errs = [_bit_equal(f"quant {name} payload", q, pq), _bit_equal(f"quant {name} scales", s, ps)]
     if want_q is not None:
         check(torch.equal(q.cpu(), want_q), f"quant {name}: payload differs from the expected")
-    bodies = sorted({qk.WARP_BODY, chosen})
+    bodies = sorted({chosen} | ({qk.WARP_BODY} if width <= qk.MAX_WIDTH else set()))
     for b in bodies:
         rc, bq, bs = _quantize_with(x, b)
         check(rc == 0, f"quant {name}: body {b} launch failed: cudaError {rc}")
@@ -884,17 +902,30 @@ def _quant_case(name, x, *, reps=0, want_q=None, body=None):
         for b in bodies:
             if b != chosen:
                 t = time_device(lambda b=b: _quantize_with(x, b), reps)
-                other = "vector" if b == qk.VECTOR_BODY else "warp"
+                other = _BODY_NAMES[b]
                 row.update({f"{other}_body_ms": t["ms"], f"{other}_body_host_us": t["host_us"]})
                 check(t["ms"] >= BOUND_FLOOR * row["bound_ms"] and t["held"],
                       f"quant {name}: {other} body {t['ms']} ms against bound {row['bound_ms']}")
         if qk.VECTOR_BODY in bodies:
             row.update(_vec_issue(x))
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    if dequant_reps:
+        t = time_device(lambda: qk.dequantize_int8_rows(q, s, torch.float32), dequant_reps)
+        bound = _quant_bound(rows, width, 1, 4, 2)
+        row["dequant_fp32"] = {
+            "ms": t["ms"], "host_us": t["host_us"], "hold_ms": t["hold_ms"], "held": t["held"],
+            "plain_ms": time_ms(lambda: ref.dequantize_int8_rows(q, s, torch.float32),
+                                max(2, dequant_reps // 4)),
+            "library_ms": time_ms(lambda: torch.mul(q, s), dequant_reps),
+            **bound, "share_of_bound": bound["bound_ms"] / t["ms"]}
+        _bound_held(f"dequant {name}", row["dequant_fp32"])
     log_row(row)
     del q, s, pq, ps
     torch.cuda.empty_cache()
     return row
+
+
+_BODY_NAMES = {0: "warp", 1: "vector", 2: "wide"}
 
 
 def _edge_rows():
@@ -973,6 +1004,61 @@ def _edge_rows_at_end(width):
     want[5, -4:] = torch.tensor([1, 0, -3, 0], dtype=torch.int8)
     want[7, -4:] = want[8, -4:] = torch.tensor([0, -127, 4, 1], dtype=torch.int8)
     return x, want
+
+
+def _edge_rows_wide(width):
+    """``_edge_rows_at_end(128)`` in the last 128 columns of zero rows of
+    ``width`` > 256 → (x, expected payload): the NaN, the inf and the
+    exact halves in the row's last 16-byte chunk, the zeros quantizing to 0
+    under every row's scale."""
+
+    import torch
+
+    x128, want128 = _edge_rows_at_end(128)
+    x = torch.zeros((x128.shape[0], width))
+    want = torch.zeros((x128.shape[0], width), dtype=torch.int8)
+    x[:, -128:], want[:, -128:] = x128, want128
+    return x, want
+
+
+# the int8 moments' rows (optimizer step, fp32): each width the train paths
+# quantize along, at the rows of one piece (optim.clip.PIECE elements)
+WIDE_MOMENTS = (("phi4_mini_d_model", 3072), ("phi4_mini_d_ff", 8192),
+                ("granite_d_model", 4096), ("granite_kv", 1024), ("granite_d_ff", 12800),
+                ("qwen_d_ff", 27392), ("qwen_lm_head", 152064))
+
+
+def _wide_cases(randn, gen) -> list:
+    """The wide body and the wide dequantize: every width of ``WIDE_MOMENTS``
+    at its piece's rows in fp32, timed (the dequantize into fp32 too); bf16
+    and unaligned rows; the edge rows and the rows at scales 2^-135 to
+    2^120 at 4,096 and 152,064."""
+
+    import torch
+
+    from repro_torch.kernels.quant import kernel as qk
+    from repro_torch.optim.clip import PIECE
+
+    wide, fp32, bf16 = qk.WIDE_BODY, torch.float32, torch.bfloat16
+    cases = [_quant_case(f"moments_{name}", randn(PIECE // width, width, fp32), reps=10,
+                         dequant_reps=10, body=wide) for name, width in WIDE_MOMENTS]
+    cases += [
+        _quant_case("w4096_bf16", randn(16_384, 4096, bf16), body=wide),
+        # 2,002-byte rows: whole chunks in rows that start on one, the rest one by one
+        _quant_case("w1001_bf16", randn(3001, 1001, bf16), body=wide),
+        # a view one element in: a quarter of its rows start on a 16-byte boundary
+        _quant_case("w4096_view_offset_1", randn(2049, 4097, fp32)[:, 1:], body=wide),
+        _quant_case("w257_fp32", randn(3001, 257, fp32), body=wide),
+    ]
+    for width in (4096, 152_064):
+        x, want = _edge_rows_wide(width)
+        cases.append(_quant_case(f"edge_rows_w{width}", x.cuda(), want_q=want, body=wide))
+        cases.append(_quant_case(f"edge_rows_w{width}_bf16", x.cuda().to(bf16), want_q=want,
+                                 body=wide))
+        x = _scaled_rows(PIECE // width, width, gen)
+        cases.append(_quant_case(f"w{width}_scales_2^-135_to_2^120", x, body=wide))
+        del x
+    return cases
 
 
 def _dequant_timed(name, rows, width, seed, reps):
@@ -1062,14 +1148,21 @@ def phase_quant():
         x = _scaled_rows(100_000, width, gen)
         cases.append(_quant_case(f"w{width}_scales_2^-135_to_2^120", x, body=vec))
         cases.append(_quant_case(f"w{width}_scales_2^-135_to_2^120_bf16", x.to(bf16), body=vec))
+    cases += _wide_cases(randn, gen)
     ran = {c["body"] for c in cases}
-    check(ran == {vec, warp}, f"quant: the wrapper ran bodies {sorted(ran)}, want both")
+    check(ran == {vec, warp, qk.WIDE_BODY},
+          f"quant: the wrapper ran bodies {sorted(ran)}, want all three")
     held = {c["vector_instantiation"] for c in cases if "vector_instantiation" in c}
     built = set(RESULTS["quant_vec_instantiations"])
     check(held == built, f"quant: vector-body instantiations never run: {sorted(built - held)}")
     # the C entry refuses the vector body on a shape that does not allow it
     rc, _, _ = _quantize_with(randn(64, 113, bf16)[:, 1:], vec)
     check(rc != 0, "quant: the vector body ran on a view one element in")
+    # and the wide body only the rows the other two cannot take, and they none of those
+    for x, b in ((randn(64, 256, fp32), qk.WIDE_BODY), (randn(64, 257, fp32), warp),
+                 (randn(64, 264, bf16), vec)):
+        rc, _, _ = _quantize_with(x, b)
+        check(rc != 0, f"quant: body {b} ran on rows of {x.shape[1]}")
 
     # the flat API on a ragged payload: 100 rows, which the Pallas kernel rejects
     flat = 3.0 * torch.randn((25_600,), generator=gen, device="cuda")
@@ -1701,14 +1794,29 @@ def phase_small_model(arch, kv="bfloat16", ring=False):
 # config and lr are tests/test_trainer.py's; mamba2's smoke model learns
 # the stream more slowly, and at lr 1e-3 gains less than the 0.1 asked in 40
 # steps, so it trains at 1e-2
-TRAIN_SMALL = (("tiny", None, 64, 4, 1e-3), ("mamba2_smoke", "mamba2_2_7b", 64, 4, 1e-2))
+# the third spec is the tiny model with int8 moments (the reference's _Q8):
+# its updates are discontinuous in the gradient, and elements whose nu
+# stores 0 step by lr mu_hat / eps, so the reference itself diverges on it
+# (ROADMAP C10) and the card's run parts from the CPU's once a stored
+# moment differs; the card is held to the CPU run for TRAIN_SMALL_INT8_HELD
+# steps (step 1's update reads no stored moment), finite after, and bit for
+# bit through the forced failure and restore
+TRAIN_SMALL = (("tiny", None, 64, 4, 1e-3, "float32"),
+               ("mamba2_smoke", "mamba2_2_7b", 64, 4, 1e-2, "float32"),
+               ("tiny_int8", None, 64, 4, 1e-3, "int8"))
 TRAIN_SMALL_STEPS = 40
 TRAIN_SMALL_RTOL = 1e-4
+TRAIN_SMALL_INT8_HELD = 2
 # the full training paths: arch, layers, d_model, the kernel and its launches
 # per layer and step (the forward and remat's recompute; the backward
-# recomputes through the plain version)
-TRAIN_FULL = (("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd"),
-              ("mamba2_2_7b", 64, 2560, "ssd_scan_fwd"))
+# recomputes through the plain version), the moments' dtype; with int8
+# moments the quant kernels run in every step (one dequantize and one
+# quantize a moment and piece of whole rows).  granite-3-8b's fp32 moments
+# (65.4 GB) do not fit beside its weights and grads: it trains with int8 only
+TRAIN_FULL = (("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd", "float32"),
+              ("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd", "int8"),
+              ("mamba2_2_7b", 64, 2560, "ssd_scan_fwd", "float32"),
+              ("granite_3_8b", 40, 4096, "flash_attention_fwd", "int8"))
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 2, 4
 
 
@@ -1779,11 +1887,14 @@ def _changed_leaves(seen, params) -> int:
                for h, p in zip(seen["head"], flatten(params)[0]))
 
 
-def phase_train_small(name, arch, seq, batch, lr):
+def phase_train_small(name, arch, seq, batch, lr, moments):
     """``Trainer`` on the card and on the CPU from the same init (the card's,
-    copied) and batches, fp32, remat full: every step's loss within
-    ``TRAIN_SMALL_RTOL`` relative, the kernel launched twice per layer and
-    step, and the loss down by more than 0.1 over the run."""
+    copied) and batches, fp32, remat full, ``moments`` the moments' dtype:
+    every step's loss within ``TRAIN_SMALL_RTOL`` relative, the kernel
+    launched twice per layer and step, and the loss down by more than 0.1
+    over the run; with int8 moments, the first ``TRAIN_SMALL_INT8_HELD``
+    steps' losses within ``TRAIN_SMALL_RTOL``, every loss finite, and the
+    quant kernels launched twice a moment piece and step."""
 
     import dataclasses
 
@@ -1796,7 +1907,7 @@ def phase_train_small(name, arch, seq, batch, lr):
     cfg = _tiny_cfg() if arch is None else base.get_smoke_config(arch)
     cfg = dataclasses.replace(cfg, dtype="float32")
     pcfg = dataclasses.replace(base.ParallelConfig() if arch is None else base.get_parallel(arch),
-                               remat="full")
+                               remat="full", moment_dtype=moments)
     kernel = "ssd_scan_fwd" if cfg.family == "ssm" else "flash_attention_fwd"
     kw = dict(steps=TRAIN_SMALL_STEPS, seq=seq, batch=batch, lr=lr)
     card = _trainer(cfg, pcfg, "cuda", **kw)
@@ -1809,18 +1920,26 @@ def phase_train_small(name, arch, seq, batch, lr):
     cpu.init_state = lambda: (cpu_params, cpu.opt.init(cpu_params))
     cpu_losses = [m["loss"] for m in cpu.run()["metrics"]]
     rel = np.abs(np.array(card_losses) - cpu_losses) / np.abs(cpu_losses)
-    row = {"config": name, "steps": TRAIN_SMALL_STEPS, "seq": seq, "batch": batch, "lr": lr,
-           "first_loss": card_losses[0], "last_loss": card_losses[-1],
-           "max_rel_diff_card_cpu": float(rel.max()), "rtol": TRAIN_SMALL_RTOL,
+    held = TRAIN_SMALL_INT8_HELD if moments == "int8" else TRAIN_SMALL_STEPS
+    row = {"config": name, "moments": moments, "steps": TRAIN_SMALL_STEPS, "seq": seq,
+           "batch": batch, "lr": lr, "first_loss": card_losses[0], "last_loss": card_losses[-1],
+           "max_rel_diff_card_cpu": float(rel.max()), "steps_held": held,
+           "max_rel_diff_held_steps": float(rel[:held].max()), "rtol": TRAIN_SMALL_RTOL,
            "launches": launches, "device": RESULTS["device"]["nvidia_smi"]}
     log_row(row)
-    want = 2 * cfg.num_layers * TRAIN_SMALL_STEPS
-    check(launches[kernel] == want, f"train_small {name}: {kernel} launches {launches[kernel]}, "
-                                    f"want {want}")
-    check(np.all(np.isfinite(card_losses)) and rel.max() <= TRAIN_SMALL_RTOL,
-          f"train_small {name}: card and CPU losses {rel.max()} apart (relative)")
-    check(card_losses[-1] < card_losses[0] - 0.1,
-          f"train_small {name}: loss {card_losses[0]} -> {card_losses[-1]}")
+    for k, n in launches.items():
+        want = {kernel: 2 * cfg.num_layers}.get(k, 0)
+        if moments == "int8" and k in (QUANT, DEQUANT):
+            want = 2 * _moment_pieces(card.params)
+        check(n == want * TRAIN_SMALL_STEPS,
+              f"train_small {name}: {k} launches {n}, want {want * TRAIN_SMALL_STEPS}")
+    check(np.all(np.isfinite(card_losses)) and np.all(np.isfinite(cpu_losses))
+          and rel[:held].max() <= TRAIN_SMALL_RTOL,
+          f"train_small {name}: card and CPU losses {rel[:held].max()} apart (relative) "
+          f"over the first {held} steps")
+    if moments != "int8":
+        check(card_losses[-1] < card_losses[0] - 0.1,
+              f"train_small {name}: loss {card_losses[0]} -> {card_losses[-1]}")
     row["restore"] = _failure_and_restore(name, card, cfg, pcfg, kw)
     RESULTS.setdefault("train_small", {})[name] = {**row, "card_losses": card_losses,
                                                    "cpu_losses": cpu_losses}
@@ -1938,15 +2057,36 @@ def phase_train_checkpoint():
     _free()
 
 
-def phase_train(arch, layers, d_model, kernel):
-    """``arch`` at its full config trains ``TRAIN_STEPS`` steps at b
-    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` through ``Trainer`` (remat full, fp32
-    moments), its steps replaying one CUDA graph from step 2: losses and
-    grad norms equal to the eager steps' (``_eager_train``) bit for bit,
-    parameters changed, the kernel launched exactly twice per layer and
-    step; step time, tokens/s and peak memory of both runs are logged
-    beside the card, and one warm step is profiled."""
+def _moment_pieces(params) -> int:
+    """The int8 moments' pieces of whole rows in one AdamW update of
+    ``params`` (``optim.adamw``: at most ``PIECE`` elements, at least one
+    row a piece; a 0-d leaf has none): each takes one dequantize and one
+    quantize a moment."""
 
+    from repro_torch.core.futures import flatten
+    from repro_torch.optim.clip import PIECE
+
+    n = 0
+    for p in flatten(params)[0]:
+        if p.ndim:
+            rows, width = p.numel() // p.shape[-1], p.shape[-1]
+            n += -(-rows // max(1, PIECE // width))
+    return n
+
+
+def phase_train(arch, layers, d_model, kernel, moments):
+    """``arch`` at its full config trains ``TRAIN_STEPS`` steps at b
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` through ``Trainer`` (remat full,
+    ``moments`` the moments' dtype), its steps replaying one CUDA graph from
+    step 2: losses and grad norms equal to the eager steps'
+    (``_eager_train``) bit for bit, parameters changed, the kernel launched
+    exactly twice per layer and step (and with int8 moments the quantize
+    and the dequantize twice a moment piece and step, ``_moment_pieces``);
+    step time, tokens/s and peak memory of both runs are logged beside the
+    card (an int8 run beside the same arch's fp32 run, where there is one),
+    and one warm step is profiled."""
+
+    import dataclasses
     import math
 
     import torch
@@ -1954,9 +2094,10 @@ def phase_train(arch, layers, d_model, kernel):
     from repro_torch.configs import base
     from repro_torch.core.futures import flatten
 
-    cfg, pcfg = base.get_config(arch), base.get_parallel(arch)
+    cfg = base.get_config(arch)
+    pcfg = dataclasses.replace(base.get_parallel(arch), moment_dtype=moments)
     check(cfg.num_layers == layers and cfg.d_model == d_model, f"not the full {arch} config")
-    path = f"train_{arch}"
+    path = f"train_{arch}" + ("_int8" if moments == "int8" else "")
     eager = _eager_train(cfg, pcfg)
     torch.cuda.reset_peak_memory_stats()
     trainer = _trainer(cfg, pcfg, "cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
@@ -1968,8 +2109,12 @@ def phase_train(arch, layers, d_model, kernel):
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     metrics = result["metrics"]
+    per_step = {kernel: 2 * cfg.num_layers}
+    if moments == "int8":
+        pieces = _moment_pieces(trainer.params)
+        per_step.update({QUANT: 2 * pieces, DEQUANT: 2 * pieces})
     for name, n in launches.items():
-        want = 2 * cfg.num_layers * TRAIN_STEPS if name == kernel else 0
+        want = per_step.get(name, 0) * TRAIN_STEPS
         check(n == want, f"{path}: {name} launches {n}, want {want}")
     check(len(metrics) == TRAIN_STEPS and all(math.isfinite(m["loss"])
                                               and math.isfinite(m["grad_norm"])
@@ -1981,16 +2126,24 @@ def phase_train(arch, layers, d_model, kernel):
     warm_s = [m["duration_s"] for m in metrics[1:]]
     step_s = sorted(warm_s)[len(warm_s) // 2]
     losses = [(m["loss"], m["grad_norm"]) for m in metrics]
-    row = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+    row = {"arch": arch, "moments": moments, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "params_b": cfg.param_count() / 1e9, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
            "losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
            "step_s": [m["duration_s"] for m in metrics], "warm_step_s": step_s,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_mem_gb": peak_gb,
            "wall_s_init_included": wall, "launches": launches,
+           "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items() if n},
            f"{kernel}_per_step": launches[kernel] / TRAIN_STEPS, "leaves_changed": changed,
            "graph_captures": trainer._request.captured,
            "losses_equal_eager_bitwise": losses == eager["losses"], "eager": eager,
            "device": RESULTS["device"]["nvidia_smi"]}
+    fp32 = RESULTS.get("train", {}).get(f"train_{arch}")
+    if moments == "int8" and fp32 is not None:
+        row["beside_fp32_moments"] = {
+            "warm_step_s": [fp32["warm_step_s"], step_s],
+            "peak_mem_gb": [fp32["peak_mem_gb"], peak_gb],
+            "eager_peak_mem_gb": [fp32["eager"]["peak_mem_gb"], eager["peak_mem_gb"]],
+            "step_ratio_int8_over_fp32": step_s / fp32["warm_step_s"]}
     log_row(row)
     check(trainer._request.captured == 1, f"{path}: {trainer._request.captured} graph captures")
     check(losses == eager["losses"], f"{path}: graph steps' (loss, grad norm) {losses} != the "
@@ -2004,6 +2157,140 @@ def phase_train(arch, layers, d_model, kernel):
     del trainer, seen, batch
     _free()
     return path, launches
+
+
+# phase grad_sync: phi4-mini at full width, depth cut to this many layers
+# (the embedding, 200,064 x 3,072, is its largest leaf at any depth)
+GRAD_SYNC_LAYERS = 2
+
+
+def _grad_sync_call(sync, grads, ef, plain: bool):
+    """One ``sync(grads, ef)`` on the card → (result, new residual,
+    launches, seconds); with ``plain``, the quant ops' row functions are
+    their plain versions for the call (``kernels/quant/ops.py`` looks them
+    up at each call), so the same call runs without the kernels."""
+
+    import torch
+
+    from repro_torch.kernels.quant import ops, ref
+
+    saved = ops.quantize_int8_rows, ops.dequantize_int8_rows
+    if plain:
+        ops.quantize_int8_rows, ops.dequantize_int8_rows = (ref.quantize_int8_rows,
+                                                            ref.dequantize_int8_rows)
+    try:
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        out, new_ef = sync(grads, ef)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        ops.quantize_int8_rows, ops.dequantize_int8_rows = saved
+    return out, new_ef, launches, seconds
+
+
+def phase_grad_sync():
+    """``PartitionedGradSync(inner, outer, compression=INT8)`` with error
+    feedback on the NCCL world of one, folded 1 x 1 onto ("outer",
+    "inner"), over a phi4-mini gradient tree at full width
+    (``GRAD_SYNC_LAYERS`` layers): bf16 leaves of the parameters' shapes
+    from numpy seed 0, and a residual from a first call.  The second call's
+    result and residual equal, bit for bit, the same call with the plain
+    row functions on the same values, and the residual is m - C(m) (m = g +
+    e, C the flat quantize and dequantize); one quantize and one dequantize
+    launch a leaf; two ``pready`` orders over two buckets (the norms'
+    gradients in fp32) give bit-equal results.  The world of one skips the
+    int8 cross-pod stage (``outer.size() == 1``, as in the reference: the
+    gloo tests hold it).  The call and its error-feedback share are timed."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.core import compress, datatypes
+    from repro_torch.core.communicator import Communicator
+    from repro_torch.core.descriptors import Compression
+    from repro_torch.core.futures import flatten, unflatten
+    from repro_torch.core.session import default_session
+    from repro_torch.models import api as model_api
+    from repro_torch.optim import ErrorFeedbackState, PartitionedGradSync
+    from repro_torch.optim.grad_sync import _compress_with_feedback
+
+    cfg = dataclasses.replace(base.get_config("phi4_mini_3_8b"), num_layers=GRAD_SYNC_LAYERS)
+    with torch.no_grad():
+        params = model_api.build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    leaves, treedef = flatten(params)
+    shapes = [tuple(p.shape) for p in leaves]
+    del params, leaves
+    _free()
+    rng = np.random.default_rng(0)
+
+    def draw():
+        return unflatten(treedef, [
+            torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(
+                torch.bfloat16) for shape in shapes])
+
+    sess = default_session(device_type="cuda")
+    comm = Communicator.from_group(sess.group("repro://world"), tag="repro://world",
+                                   shape=(1, 1), axis_names=("outer", "inner"))
+    inner, outer = comm.split("inner"), comm.split("outer")
+    sync = PartitionedGradSync(inner, outer, compression=Compression.INT8)
+    log(f"grad_sync: outer.size() == {outer.size()}: the int8 cross-pod stage is skipped on "
+        f"the world of one (the gloo tests hold it)")
+    first = draw()
+    _, ef, _, first_s = _grad_sync_call(sync, first, ErrorFeedbackState.init(first), False)
+    del first
+    grads = draw()
+    out, new_ef, launches, call_s = _grad_sync_call(sync, grads, ef, False)
+    pout, pef, plain_launches, plain_s = _grad_sync_call(sync, grads, ef, True)
+    n = len(shapes)
+    check({k: v for k, v in launches.items() if v} == {QUANT: n, DEQUANT: n}
+          and not any(plain_launches.values()),
+          f"grad_sync: launches {launches} (want one quantize and one dequantize a leaf, "
+          f"{n} leaves), plain call {plain_launches}")
+    err = 0.0
+    for a, b in zip(flatten((out, new_ef.residual))[0], flatten((pout, pef.residual))[0]):
+        err = max(err, _bit_equal("grad_sync against the plain rows", a, b))
+    del pout, pef
+    for g, e, r in zip(flatten(grads)[0], flatten(ef.residual)[0],
+                       flatten(new_ef.residual)[0]):
+        m = g.float() + e
+        q, sc, pad = compress.quantize_int8(m)
+        _bit_equal("grad_sync residual m - C(m)", r,
+                   m - compress.dequantize_int8(q, sc, pad, m.shape, torch.float32))
+    del out, new_ef, m
+    _free()
+    # the error-feedback share of the call: every leaf's compression alone
+    t0 = time.perf_counter()
+    for g, e in zip(flatten(grads)[0], flatten(ef.residual)[0]):
+        _compress_with_feedback(g, e)
+    torch.cuda.synchronize()
+    ef_s = time.perf_counter() - t0
+    # two buckets: the norms' gradients (a d_model vector a layer) in fp32
+    mixed = unflatten(treedef, [
+        g.float() if g.shape[-1] == cfg.d_model and g.numel() <= cfg.num_layers * cfg.d_model
+        else g for g in flatten(grads)[0]])
+    check(len(datatypes.pack(mixed)[0]) == 2, "grad_sync: the mixed tree is not two buckets")
+    nosync = PartitionedGradSync(inner, outer, compression=Compression.NONE)
+    a, _ = nosync(mixed, None, pready_order=(0, 1))
+    b, _ = nosync(mixed, None, pready_order=(1, 0))
+    for x, y in zip(flatten(a)[0], flatten(b)[0]):
+        _bit_equal("grad_sync pready orders", x, y)
+    row = {"config": f"phi4_mini_3_8b {GRAD_SYNC_LAYERS} layers", "leaves": n,
+           "grad_elements": sum(math.prod(sh) for sh in shapes),
+           "launches": launches, "bit_equal_plain": True, "residual_is_m_minus_Cm": True,
+           "orders_bit_equal": True, "first_call_s": first_s, "call_s": call_s,
+           "plain_call_s": plain_s, "ef_share_s": ef_s, "max_abs_err": err,
+           "device": RESULTS["device"]["nvidia_smi"]}
+    log_row(row)
+    RESULTS["grad_sync"] = row
+    del grads, ef, mixed, a, b
+    _free()
+    return "grad_sync_phi4_mini", launches
 
 
 def _eager_train(cfg, pcfg) -> dict:
@@ -2094,6 +2381,7 @@ def main() -> int:
         phase_train_small(*spec)
     phase_train_checkpoint()
     launches.update(phase_train(*spec) for spec in TRAIN_FULL)
+    launches.update([phase_grad_sync()])
 
     flash, ssd = RESULTS["kernel_cases"], RESULTS["ssd_cases"]
     quant, dequant = RESULTS["quant_cases"], RESULTS["dequant_cases"]

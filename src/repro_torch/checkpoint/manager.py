@@ -12,8 +12,9 @@ Layout::
     <dir>/latest                  text file: the newest complete step
 
 Leaves are named by their path in the tree, as the reference names them
-(``params/layers/layer/attn/wq``, ``opt/mu/embed``, ``opt/step``): dict keys
-in sorted order, dataclass fields in declaration order.  One process holds
+(``params/layers/layer/attn/wq``, ``opt/mu/embed``, ``opt/step``; an int8
+moment's payload and scales ``opt/mu/embed/q`` and ``opt/mu/embed/scale``):
+dict keys in sorted order, dataclass fields in declaration order.  One process holds
 each tensor whole, so each leaf is one fragment at offset 0.
 
 * a crash mid-save never corrupts an older checkpoint (new directory +

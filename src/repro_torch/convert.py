@@ -34,13 +34,28 @@ def params_from_jax(tree: Any, device: str | torch.device = "cuda") -> Any:
     return _tensor(tree, device)
 
 
+def _moments(tree: Any, device):
+    """A moment tree: fp32 or bf16 leaves, or the reference's int8 ``_Q8``
+    (numpy ``q`` and ``scale``; its static ``meta`` is implied by ``q``)
+    as the port's."""
+
+    from repro_torch.optim.adamw import _Q8
+
+    if isinstance(tree, dict):
+        return {k: _moments(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_moments(v, device) for v in tree)
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        return _Q8(q=_tensor(tree.q, device), scale=_tensor(tree.scale, device))
+    return _tensor(tree, device)
+
+
 def opt_state_from_jax(state: Any, device: str | torch.device = "cuda"):
     """The reference's ``AdamWState`` with numpy leaves → the port's
-    :class:`~repro_torch.optim.AdamWState` on ``device`` (fp32 or bf16
-    moments; the int8 ``_Q8`` moments wait for ROADMAP A13)."""
+    :class:`~repro_torch.optim.AdamWState` on ``device`` (fp32, bf16 or
+    int8 moments)."""
 
     from repro_torch.optim import AdamWState
 
-    return AdamWState(step=_tensor(state.step, device),
-                      mu=params_from_jax(state.mu, device),
-                      nu=params_from_jax(state.nu, device))
+    return AdamWState(step=_tensor(state.step, device), mu=_moments(state.mu, device),
+                      nu=_moments(state.nu, device))

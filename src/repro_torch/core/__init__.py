@@ -7,6 +7,7 @@ from repro_torch.core import _methods  # noqa: F401  (binds the method facade)
 from repro_torch.core.futures import (  # noqa: F401
     DeferredFuture,
     Future,
+    PartitionedRequest,
     PersistentCollective,
     PersistentRequest,
     when_all,

@@ -12,7 +12,8 @@ collectives run when issued (on the card they are queued on the stream) and
 their future's ``get()`` waits for the device.  ``comm.persistent`` and the
 persistent collectives (``allreduce_init`` and friends) bind
 persistent requests (:class:`~repro_torch.core.futures.PersistentRequest`);
-the partitioned forms are not ported yet (ROADMAP A14).
+``comm.partitioned_allreduce`` a partitioned request
+(:class:`~repro_torch.core.futures.PartitionedRequest`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import collectives, datatypes, tool
+from repro_torch.core import collectives, datatypes, overlap, tool
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.futures import (
     Future,
@@ -105,6 +106,13 @@ def _bind() -> None:
                              # shape-changing: raw per-dtype buckets for aggregates
                              ("reduce_scatter", False), ("allgather", False)):
         _bind_init(name, unpackable)
+
+    # partitioned communication (MPI_Psend_init / MPI_Pready)
+    def partitioned_allreduce(self, num_partitions, *, continuation=None):
+        return overlap.partitioned_allreduce(self, num_partitions, continuation=continuation)
+
+    partitioned_allreduce.__doc__ = overlap.partitioned_allreduce.__doc__
+    Communicator.partitioned_allreduce = partitioned_allreduce
 
 
 _LEAF_OPERANDS = (torch.Tensor, np.ndarray, np.generic, bool, int, float, complex)

@@ -27,6 +27,9 @@ eager PyTorch form.
 
 * :class:`PersistentCollective` — ``MPI_Allreduce_init`` and friends: one
   persistent request per dtype bucket of the example's reflected datatype.
+
+* :class:`PartitionedRequest` — ``MPI_Psend_init`` / ``MPI_Pready``: one
+  operation in independently ready partitions, issued in index order.
 """
 
 from __future__ import annotations
@@ -632,3 +635,146 @@ class PersistentCollective:
         if self._unpackable:
             return Future(self.datatype.unpack(outs))
         return Future(outs)
+
+
+# ---------------------------------------------------------------------------
+# partitioned communication (MPI_Psend_init / MPI_Pready)
+# ---------------------------------------------------------------------------
+
+
+class PartitionedRequest:
+    """Partitioned operation (``MPI_Psend_init`` family): one logical
+    operation split into ``num_partitions`` partitions, partition ``i``
+    computing ``fn(i, payload)``.
+
+    ``pready(i, payload)`` marks partition ``i`` ready.  The reference's
+    partitions are lazy trace futures that :meth:`wait` forces in index
+    order; here a partition's operation is **issued in index order** as soon
+    as it and every partition before it are ready (the longest ready
+    prefix), whatever the order of the ``pready`` calls.  That is what
+    collectives over NCCL and gloo need: every rank issues them in the same
+    order, while ranks may mark their partitions ready in different orders.
+    The result is therefore independent of the ``pready`` order, as the
+    reference's is.  On the card an issued operation is queued on the
+    stream and the host goes on.
+
+    ``pready`` returns a host future over its partition's result; its
+    ``get()`` raises ``ERR_PENDING`` while the partition waits for an
+    earlier one to be ready.  The request is persistent in the MPI sense:
+    :meth:`start` re-activates it for another round (``ERR_REQUEST`` on a
+    double start, a pready without start, a duplicate pready or an index
+    out of range; ``ERR_PENDING`` on a wait with partitions missing).
+    """
+
+    def __init__(self, fn: Callable[[int, Any], Any], num_partitions: int):
+        errors.check(
+            num_partitions > 0,
+            errors.ErrorClass.ERR_COUNT,
+            f"partitioned request needs >= 1 partition, got {num_partitions}",
+        )
+        tool.pvar_count("partitioned_init")
+        self._fn = fn
+        self._n = num_partitions
+        self._payloads: list = [None] * num_partitions
+        self._ready = [False] * num_partitions
+        # this round's results, _PENDING until issued; a new list each round,
+        # so a future of an earlier round keeps its own
+        self._results: list = [_PENDING] * num_partitions
+        self._issued = 0     # partitions 0 .. _issued - 1 have been issued
+        self._active = False
+
+    @property
+    def num_partitions(self) -> int:
+        return self._n
+
+    def start(self) -> "PartitionedRequest":
+        """``MPI_Start``: activate the request for one round of pready/wait."""
+
+        errors.check(
+            not self._active,
+            errors.ErrorClass.ERR_REQUEST,
+            "partitioned start: request already active (wait() first)",
+        )
+        tool.pvar_count("partitioned_start")
+        self._payloads = [None] * self._n
+        self._ready = [False] * self._n
+        self._results = [_PENDING] * self._n
+        self._issued = 0
+        self._active = True
+        return self
+
+    def _check_index(self, what: str, index: int) -> None:
+        errors.check(
+            0 <= index < self._n,
+            errors.ErrorClass.ERR_REQUEST,
+            f"{what} partition {index} out of range [0, {self._n})",
+        )
+
+    def pready(self, index: int, payload: Any) -> "DeferredFuture":
+        """``MPI_Pready``: partition ``index``'s payload is produced; issues
+        every partition of the ready prefix not issued yet, in index order,
+        and returns a future over this partition's result."""
+
+        errors.check(
+            self._active,
+            errors.ErrorClass.ERR_REQUEST,
+            "pready before start() on a partitioned request",
+        )
+        self._check_index("pready", index)
+        errors.check(
+            not self._ready[index],
+            errors.ErrorClass.ERR_REQUEST,
+            f"pready: partition {index} already marked ready",
+        )
+        tool.pvar_count("partition_ready")
+        self._payloads[index] = payload
+        self._ready[index] = True
+        while self._issued < self._n and self._ready[self._issued]:
+            i = self._issued
+            self._results[i] = self._fn(i, self._payloads[i])
+            self._payloads[i] = None
+            self._issued += 1
+        results = self._results
+        return DeferredFuture(lambda: self._result(index, results),
+                              probe=lambda: _arrived(results[index]))
+
+    def _result(self, index: int, results: list) -> Any:
+        errors.check(
+            results[index] is not _PENDING,
+            errors.ErrorClass.ERR_PENDING,
+            f"partition {index} is not issued: partitions "
+            f"{[i for i in range(index) if not self._ready[i]]} before it are not ready",
+        )
+        return results[index]
+
+    def parrived(self, index: int) -> bool:
+        """``MPI_Parrived``: has partition ``index``'s operation been issued
+        and completed?"""
+
+        self._check_index("parrived", index)
+        return _arrived(self._results[index])
+
+    def wait(self) -> list:
+        """Complete the operation and return the partitions' results in
+        index order.  ``ERR_PENDING`` if some partition was never marked
+        ready (the MPI program would deadlock)."""
+
+        missing = [i for i, ready in enumerate(self._ready) if not ready]
+        errors.check(
+            not missing,
+            errors.ErrorClass.ERR_PENDING,
+            f"partitioned wait: partitions {missing} never marked ready",
+        )
+        results = self._results
+        _sync(results)
+        self._results = [_PENDING] * self._n
+        self._active = False
+        return results
+
+
+#: A partition's result before its operation is issued.
+_PENDING = object()
+
+
+def _arrived(result: Any) -> bool:
+    return result is not _PENDING and Future(result).test()

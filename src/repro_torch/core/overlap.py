@@ -14,10 +14,18 @@ Contents:
   (:mod:`repro_torch.kernels.ring_attention`).
 * :func:`ring_attention` — the plain eager ring: KV blocks circulate while
   each rank holds its Q shard; the oracle of the fused ring.
+* :func:`hierarchical_allreduce` — reduce-scatter inside the fast
+  communicator, (optionally int8-compressed) reduction across the slow
+  one, all-gather back: the cross-pod gradient reduction.
+* :func:`partitioned_allreduce` — partitioned communication
+  (``MPI_Psend_init``/``MPI_Pready``): one all-reduce a partition, issued
+  in index order as the partitions become ready, with an optional
+  chunk-wise continuation (the schedule under
+  :class:`repro_torch.optim.grad_sync.PartitionedGradSync`).
 
-Not ported yet: ``ring_all_gather``, ``all_gather_matmul``,
-``hierarchical_allreduce``, ``halo_exchange``, ``pipeline_spmd`` and the
-partitioned forms (``ROADMAP.md``).
+Not ported yet, each with its callers (``ROADMAP.md`` A14):
+``ring_all_gather``, ``all_gather_matmul``, ``halo_exchange``,
+``pipeline_spmd`` and the partitioned ring schedules.
 """
 
 from __future__ import annotations
@@ -28,7 +36,10 @@ import torch
 
 from repro_torch.core import collectives, errors
 from repro_torch.core.communicator import Communicator
-from repro_torch.core.futures import Future, when_all
+from repro_torch.core.compress import BLOCK
+from repro_torch.core.descriptors import CollectiveSpec, Compression
+from repro_torch.core.futures import Future, PartitionedRequest, when_all
+from repro_torch.kernels.quant import ops as quant
 
 
 def _ring_perm(n: int, offset: int = 1) -> list[tuple[int, int]]:
@@ -136,3 +147,72 @@ def ring_attention(
     m, l, acc = ring_rotate_compute(rotate, torch.stack([k, v]), n, step_fn, (m, l, acc))
     norm = l.clamp_min(1e-30).transpose(1, 2)[..., None]  # (b,sq,h,1)
     return (acc / norm).to(q.dtype)
+
+
+def hierarchical_allreduce(
+    x: torch.Tensor,
+    inner: Communicator,
+    outer: Communicator,
+    *,
+    compression: Compression = Compression.NONE,
+) -> torch.Tensor:
+    """All-reduce factored as RS(inner) → AR(outer) → AG(inner).
+
+    ``inner`` is the fast fabric, ``outer`` the slow one.  The outer stage
+    moves ``1/inner_size`` of the payload (padded with zeros to
+    ``inner_size`` blocks of :data:`~repro_torch.core.compress.BLOCK`);
+    with :data:`Compression.INT8` (and more than one outer rank) it moves
+    ~1/4 of *that*: each rank's share is quantized in blocks (on the card
+    by the int8 row kernel), the payloads and scales are all-gathered over
+    ``outer``, and the dequantized shares are summed in fp32 in rank order
+    0..n-1, as the reference sums them.  Callers keep the error feedback
+    (:mod:`repro_torch.optim.grad_sync`).
+    """
+
+    ni = inner.size()
+    shape, dtype = x.shape, x.dtype
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % (ni * BLOCK)
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    rs = collectives.reduce_scatter(inner, flat)
+    if compression is Compression.INT8 and outer.size() > 1:
+        q, scale, qpad = quant.quantize_int8(rs)
+        stacked = CollectiveSpec(tiled=False)
+        qg = collectives.allgather(outer, q, spec=stacked)
+        sg = collectives.allgather(outer, scale, spec=stacked)
+        acc = torch.zeros(rs.shape, dtype=torch.float32, device=rs.device)
+        for r in range(qg.shape[0]):
+            acc = acc + quant.dequantize_int8(qg[r], sg[r], qpad, rs.shape, torch.float32)
+        red = acc.to(dtype)
+    else:
+        red = collectives.allreduce(outer, rs)
+    full = collectives.allgather(inner, red)
+    if pad:
+        full = full[:-pad]
+    return full.reshape(shape)
+
+
+def _partitioned(num_partitions: int, reduce_one, continuation) -> PartitionedRequest:
+    """A started :class:`PartitionedRequest` whose partition ``i``, once
+    issued, reduces its payload with ``reduce_one`` and applies the
+    optional chunk-wise ``continuation(i, reduced)``."""
+
+    def fn(i, x):
+        y = reduce_one(x)
+        return continuation(i, y) if continuation is not None else y
+
+    return PartitionedRequest(fn, num_partitions).start()
+
+
+def partitioned_allreduce(comm: Communicator, num_partitions: int, *,
+                          continuation=None) -> PartitionedRequest:
+    """All-reduce split into independently ready partitions.
+
+    Each partition is a full all-reduce over its own payload (the same as
+    reducing the concatenation), issued in index order once it and every
+    partition before it are ready, so the partitions can be marked ready as
+    their producers finish: per-bucket gradient reduction beside a
+    still-running backward pass is this schedule."""
+
+    return _partitioned(num_partitions, lambda x: collectives.allreduce(comm, x), continuation)

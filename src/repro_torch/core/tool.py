@@ -160,9 +160,12 @@ def pvar_info() -> dict[str, str]:
     return dict(PVARS)
 
 
-# request-layer pvars (persistent operations, C3)
+# request-layer pvars (persistent / partitioned operations, C3)
 pvar_register("persistent_init", "persistent requests initialised (argument list bound)")
 pvar_register("persistent_start", "MPI_Start analogues fired on persistent requests")
+pvar_register("partitioned_init", "partitioned requests constructed (Psend_init)")
+pvar_register("partitioned_start", "partitioned request activations (MPI_Start)")
+pvar_register("partition_ready", "partitions marked ready (MPI_Pready)")
 pvar_register("cart_create", "Cartesian topologies constructed (MPI_Cart_create)")
 
 

@@ -7,14 +7,21 @@ The source is compiled with ``nvcc`` for ``sm_90a`` at first use, under
 (:mod:`repro_torch.kernels.nvcc`).  Nothing is built when this module is
 imported.
 
-The wrappers take CUDA tensors only, any row count and a row width up to
-256 (the Pallas kernel takes width 256 only, and row counts that are a
-multiple of its 64-row tile: ROADMAP C2).  They launch on the current stream, read nothing back to the
-host and count their launches in :data:`LAUNCHES`, by entry point; a build
-or launch failure raises.
+The wrappers take CUDA tensors only, any row count and any row width (the
+Pallas kernel takes width 256 only, and row counts that are a multiple of
+its 64-row tile: ROADMAP C2).  They launch on the current stream, read
+nothing back to the host and count their launches in :data:`LAUNCHES`, by
+entry point, whichever body ran; a build or launch failure raises.
 
-The quantize has two bodies, and :func:`quant_body` picks one from the
-input's shape, stride and address.  Both are bound by bytes on the card
+The quantize has three bodies, and :func:`quant_body` picks one from the
+input's shape, stride and address.  Rows of up to :data:`MAX_WIDTH`
+elements (the int8 KV cache's heads, the flat API's blocks) take the vector
+or the warp body; wider rows (the optimizer's int8 moments, quantized along
+each parameter's last axis) the **wide body**: one block of 256 threads a
+row, a pass for the absmax (16-byte loads where the row's start allows)
+and a second pass, over the row again, for the payload.  The dequantize
+takes any width too: a warp a row up to :data:`MAX_WIDTH`, a block a row
+above it.  All are bound by bytes on the card
 (reading x, writing the int8 payload), with the conversion pipes near: an
 element takes a division and a float-to-int conversion, and nvcc's
 division alone is a MUFU.RCP, five FFMAs and a range check.  The **vector
@@ -26,7 +33,8 @@ one 8- or 4-byte store a lane (``csrc/quant_int8.cu`` gives its SASS count
 and its launch's reasons).  The **warp body** takes every other shape
 (200-byte rows, views offset by an element): one warp a row, one element a
 lane per load.  The entry point checks the choice and refuses a vector body
-the shape does not allow.  Both are bit for bit the plain version.
+the shape does not allow, and a wide body on rows the other two take (or
+theirs on wider rows).  All three are bit for bit the plain version.
 """
 
 from __future__ import annotations
@@ -40,10 +48,13 @@ from repro_torch.core import errors, tool
 from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quant_int8.cu"
+#: The widest row the warp and vector bodies take; wider rows take the wide body.
 MAX_WIDTH = 256
+#: The widest row the wrappers take (the C entry's width is an int).
+MAX_WIDE_WIDTH = 2 ** 31 - 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: The quantize's bodies, as its C entry point numbers them.
-WARP_BODY, VECTOR_BODY = 0, 1
+WARP_BODY, VECTOR_BODY, WIDE_BODY = 0, 1, 2
 #: Bytes a lane of the vector body loads at once.
 CHUNK_BYTES = 16
 #: ctypes declarations of the two C entry points: the three tensors; dtype,
@@ -79,10 +90,13 @@ _COUNT_LAUNCH = {symbol: tool.launch_counter(symbol, _launch_adder(symbol))
 def quant_body(width: int, itemsize: int, row_stride: int, data_ptr: int) -> int:
     """The quantize body for rows of ``width`` elements of ``itemsize``
     bytes, ``row_stride`` elements apart, from address ``data_ptr``:
-    :data:`VECTOR_BODY` where every 16-byte chunk lies in one row (the row's
-    bytes, the stride's bytes and the address multiples of 16), else
-    :data:`WARP_BODY`.  The C entry refuses the vector body otherwise."""
+    :data:`WIDE_BODY` for rows over :data:`MAX_WIDTH` elements (by width
+    alone); else :data:`VECTOR_BODY` where every 16-byte chunk lies in one
+    row (the row's bytes, the stride's bytes and the address multiples of
+    16), else :data:`WARP_BODY`.  The C entry refuses any other choice."""
 
+    if width > MAX_WIDTH:
+        return WIDE_BODY
     aligned = (width * itemsize, row_stride * itemsize, data_ptr)
     return VECTOR_BODY if all(n % CHUNK_BYTES == 0 for n in aligned) else WARP_BODY
 
@@ -99,10 +113,10 @@ def _check_rows(what: str, t: torch.Tensor, dtypes) -> None:
         f"quant kernel: {what} must be one of {list(dtypes)}, got {t.dtype}",
     )
     errors.check(
-        t.dim() == 2 and t.shape[0] >= 1 and 1 <= t.shape[1] <= MAX_WIDTH
+        t.dim() == 2 and t.shape[0] >= 1 and 1 <= t.shape[1] <= MAX_WIDE_WIDTH
         and (t.stride(1) == 1 or t.shape[1] == 1) and t.stride(0) >= t.shape[1],
         errors.ErrorClass.ERR_DIMS,
-        f"quant kernel: {what} must be a non-empty (rows, width <= {MAX_WIDTH}) tensor "
+        f"quant kernel: {what} must be a non-empty (rows, width) tensor "
         f"with unit column stride, got shape {tuple(t.shape)} strides {t.stride()}",
     )
 

@@ -17,8 +17,8 @@ from repro_torch.kernels.quant import ref as _ref
 
 
 def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (rows, width ≤ 256 on the card) → (int8 (rows, width), fp32
-    scales (rows, 1))."""
+    """x (rows, width), any width → (int8 (rows, width), fp32 scales
+    (rows, 1))."""
 
     if x.is_cuda:
         return _kernel.quantize_int8_rows(x)

@@ -48,9 +48,11 @@ communicator where the reference holds a ``CommEpoch``); plans that
 re-form the fabric or shard the model — pipeline stages, the ring, tensor
 and expert parallelism (ROADMAP A14), and the reference's deprecated
 ``pipeline_stages``/``ring_attention`` knobs that build them; checkpoints
-across several ranks, which wait for sharded state (ROADMAP A14 item 4);
-int8 moments (A13).  ``persistent=False`` and ``donate=False`` raise too:
-the step is always the persistent, in-place one.
+across several ranks, which wait for sharded state (ROADMAP A14 item 4).
+``persistent=False`` and ``donate=False`` raise too: the step is always
+the persistent, in-place one.  ``ParallelConfig(moment_dtype="int8")``
+trains with the int8 moments of :mod:`repro_torch.optim.adamw`, inside the
+same graph.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ from repro_torch.core import errors as terrors
 from repro_torch.core import io as tio
 from repro_torch.core import tool as ttool
 from repro_torch.core.descriptors import Mode
-from repro_torch.core.futures import DeferredFuture, Future, when_all
+from repro_torch.core.futures import DeferredFuture, Future, flatten, unflatten, when_all
 from repro_torch.optim import AdamWState
 from repro_torch.runtime.faults import FaultInjector
 
@@ -62,16 +62,18 @@ def _port_state(jstate):
 
 
 def _zeros_like_port(state):
-    return {"params": jax.tree_util.tree_map(torch.zeros_like, state["params"]),
-            "opt": AdamWState(step=torch.zeros((), dtype=torch.int32),
-                              mu=jax.tree_util.tree_map(torch.zeros_like, state["opt"].mu),
-                              nu=jax.tree_util.tree_map(torch.zeros_like, state["opt"].nu))}
+    """A template of ``state``'s structure (the port's ``_Q8`` moments
+    included), every leaf zero."""
+
+    leaves, treedef = flatten(state)
+    return unflatten(treedef, [torch.zeros_like(x) for x in leaves])
 
 
 def _port_leaves(state):
-    p = jax.tree_util.tree_leaves(state["params"])
+    """params, step, mu, nu: the order of the reference's leaves."""
+
     o = state["opt"]
-    return p + [o.step] + jax.tree_util.tree_leaves(o.mu) + jax.tree_util.tree_leaves(o.nu)
+    return (flatten(state["params"])[0] + [o.step] + flatten(o.mu)[0] + flatten(o.nu)[0])
 
 
 def _bits(x) -> bytes:
@@ -85,7 +87,7 @@ def _records(directory, step):
         return json.load(f)["arrays"]
 
 
-@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "int8"])
 def test_reference_checkpoint_restores_in_port(tmp_path, moment_dtype):
     jstate = _jax_state(moment_dtype)
     JManager(str(tmp_path / "j"), async_save=False).save(3, jstate, extra={"step": 3})
@@ -98,10 +100,11 @@ def test_reference_checkpoint_restores_in_port(tmp_path, moment_dtype):
         assert g.dtype == w.dtype and g.shape == w.shape and _bits(g) == _bits(w)
 
 
-@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "int8"])
 def test_port_checkpoint_restores_in_reference(tmp_path, moment_dtype):
     """And the manifests of the two packages hold the same records:
-    names, shapes, dtypes, storage etypes, fragments and checksums."""
+    names, shapes, dtypes, storage etypes, fragments and checksums; an int8
+    moment is two records, ``.../q`` and ``.../scale``, and no ``meta``."""
 
     jstate = _jax_state(moment_dtype)
     tstate = _port_state(jstate)
@@ -114,7 +117,13 @@ def test_port_checkpoint_restores_in_reference(tmp_path, moment_dtype):
     for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(jstate)):
         assert g.dtype == w.dtype and g.shape == w.shape and _bits(g) == _bits(w)
     JManager(str(tmp_path / "j"), async_save=False).save(3, jstate)
-    assert _records(tmp_path / "t", 3) == _records(tmp_path / "j", 3)
+    records = _records(tmp_path / "t", 3)
+    assert records == _records(tmp_path / "j", 3)
+    assert not any("meta" in name for name in records)
+    if moment_dtype == "int8":
+        moments = {n.rsplit("/", 1)[1] for n in records if n.startswith(("opt/mu/", "opt/nu/"))}
+        assert moments == {"q", "scale"}
+        assert records["opt/mu/embed/q"]["dtype"] == "int8"
 
 
 def _state(seed=0):

@@ -58,9 +58,9 @@ _MULTI_RANK = ("core/topology.py", "core/collectives.py", "core/_methods.py", "c
                "kernels/ring_attention/ops.py")
 
 
-_TRAINING = ("optim/adamw.py", "optim/clip.py", "optim/schedules.py", "data/pipeline.py",
-             "core/datatypes.py", "core/io.py", "checkpoint/manager.py", "runtime/faults.py",
-             "runtime/trainer.py", "launch/train.py")
+_TRAINING = ("optim/adamw.py", "optim/clip.py", "optim/schedules.py", "optim/grad_sync.py",
+             "data/pipeline.py", "core/datatypes.py", "core/io.py", "checkpoint/manager.py",
+             "runtime/faults.py", "runtime/trainer.py", "launch/train.py")
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -263,6 +263,10 @@ _BODIES = {
     "fp32_256": (256, 4, 256, 0, tqk.VECTOR_BODY),          # 64 chunks, 2 a lane
     "fp32_256_address_4": (256, 4, 256, 4, tqk.WARP_BODY),
     "fp32_1": (1, 4, 1, 0, tqk.WARP_BODY),
+    # rows over 256 elements take the wide body, by width alone
+    "fp32_257": (257, 4, 257, 0, tqk.WIDE_BODY),
+    "bf16_4096_view_offset_1": (4096, 2, 4097, 2, tqk.WIDE_BODY),
+    "fp32_152064": (152_064, 4, 152_064, 0, tqk.WIDE_BODY),
 }
 
 
@@ -290,6 +294,21 @@ def test_quantize_wrapper_passes_the_chosen_body(monkeypatch):
     assert [args[6] for _, args in calls] == [128] * 3
     assert [args[4] for _, args in calls] == [4096, 64, 4096]
     assert {symbol for symbol, _ in calls} == {"quantize_int8_rows"}
+
+
+def test_quantize_wrapper_passes_the_wide_body(monkeypatch):
+    """Rows wider than 256 reach the C entry as the wide body, aligned or
+    not, whatever the row count; the launch is recorded, not made."""
+
+    calls = []
+    monkeypatch.setattr(tqk, "_check_rows", lambda *a: None)
+    monkeypatch.setattr(tqk, "_launch", lambda symbol, args, *a: calls.append(args))
+    base = torch.zeros((3, 3073))
+    for x in (base[:, :3072], base[:, 1:], base[:1, :257]):
+        tqk.quantize_int8_rows(x)
+    assert [args[7] for args in calls] == [tqk.WIDE_BODY] * 3
+    assert [(args[4], args[5], args[6]) for args in calls] == [(3, 3072, 3073)] * 2 + [
+        (1, 257, 3073)]
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

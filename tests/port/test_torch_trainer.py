@@ -1,7 +1,9 @@
 """The port's Trainer against the reference's on the CPU, and its paths.
 
 * Parity: the tiny dense config of ``tests/test_trainer.py`` and the
-  mamba2 smoke config, in fp32 with remat full, start from the reference's
+  mamba2 smoke config (and the tiny one with int8 moments, held to the
+  wider bound ``_int8_trajectory_held`` derives), in fp32 with remat full,
+  start from the reference's
   init and optimizer state (converted) and take the same batches: the
   4-step loss trajectory within 1e-4 relative, the parameters after step 4
   within 1e-4 absolute (the frameworks sum in different orders, and the
@@ -95,9 +97,13 @@ class FakeClock:
         self.t += dt
 
 
-@pytest.mark.parametrize("arch,seq,batch", [("tiny", 32, 4), ("mamba2_2_7b", 64, 2)])
-def test_trajectory_matches_reference_trainer(arch, seq, batch):
+@pytest.mark.parametrize("arch,seq,batch,moments", [("tiny", 32, 4, "float32"),
+                                                    ("mamba2_2_7b", 64, 2, "float32"),
+                                                    ("tiny", 32, 4, "int8")])
+def test_trajectory_matches_reference_trainer(arch, seq, batch, moments):
     jcfg, tcfg, jpcfg, tpcfg = _configs(arch)
+    jpcfg = dataclasses.replace(jpcfg, moment_dtype=moments)
+    tpcfg = dataclasses.replace(tpcfg, moment_dtype=moments)
     kw = dict(steps=4, lr=1e-3, warmup_steps=2, log_every=1)
     jt = JTrainer(jcfg, jpcfg, JTrainerConfig(**kw), make_host_mesh(), seq_len=seq,
                   global_batch=batch, clock=lambda: 0.0)
@@ -127,12 +133,17 @@ def test_trajectory_matches_reference_trainer(arch, seq, batch):
     jl = [m["loss"] for m in jres["metrics"]]
     tl = [m["loss"] for m in tres["metrics"]]
     assert len(tl) == len(jl) == 4
-    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=0)
-    np.testing.assert_allclose([m["grad_norm"] for m in tres["metrics"]],
-                               [m["grad_norm"] for m in jres["metrics"]], rtol=1e-4)
     tleaves = [p.detach().numpy() for p in flatten(tt.params)[0]]
     jleaves = jax.tree_util.tree_leaves(seen["params"])
     assert len(tleaves) == len(jleaves)
+    tgn = [m["grad_norm"] for m in tres["metrics"]]
+    jgn = [m["grad_norm"] for m in jres["metrics"]]
+    if moments == "int8":
+        _int8_trajectory_held(tl, jl, tgn, jgn, tleaves, jleaves)
+        assert int(tt.opt_state.step) == 4
+        return
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=0)
+    np.testing.assert_allclose(tgn, jgn, rtol=1e-4)
     # the most |p| can move in four steps: lr_t (|step_dir| <= 1/sqrt(1 - b2)
     # from the first bias-corrected step on, plus the decay) summed
     lrs = [float(tt.opt.lr(torch.tensor(s))) for s in range(1, 5)]
@@ -150,6 +161,71 @@ def test_trajectory_matches_reference_trainer(arch, seq, batch):
         n_noise += int(held.sum())
     assert n_noise <= 0.005 * sum(t.size for t in tleaves)
     assert int(tt.opt_state.step) == 4
+
+
+def test_int8_moments_diverge_as_the_reference():
+    """ROADMAP C10, a hazard of the reference that the port mirrors: on the
+    tiny dense model at lr 1e-3, 40 steps, the reference's int8 moments
+    drive the loss up (a nu stored as 0 beside a non-zero mu steps by
+    lr mu_hat / eps), where fp32 moments lower it; the port's Trainer does
+    the same from the same init.  How far up is chaotic (the two parted at
+    step 6 here: the reference peaked at 21.9 times its first loss, the
+    port at 1.49), so both are held to the direction: the last 10 losses'
+    mean above the first loss by 0.5 with int8 moments, under it with
+    fp32."""
+
+    jcfg, tcfg, jpcfg, tpcfg = _configs("tiny")
+    kw = dict(steps=40, lr=1e-3, log_every=1)
+    rises = {}
+    for moments in ("float32", "int8"):
+        jt = JTrainer(jcfg, dataclasses.replace(jpcfg, moment_dtype=moments),
+                      JTrainerConfig(**kw), make_host_mesh(), seq_len=64, global_batch=4,
+                      clock=lambda: 0.0)
+        seen = {}
+        init = jt.init_state
+
+        def capture_init(init=init, seen=seen):
+            params, opt_state = init()
+            seen["init"] = jax.tree_util.tree_map(np.array, (params, opt_state))
+            return params, opt_state
+
+        jt.init_state = capture_init
+        jl = [m["loss"] for m in jt.run()["metrics"]]
+        tt = Trainer(tcfg, dataclasses.replace(tpcfg, moment_dtype=moments), TrainerConfig(**kw),
+                     device="cpu", seq_len=64, global_batch=4, clock=lambda: 0.0)
+        jparams, jopt = seen["init"]
+        tt.init_state = lambda: (Trainer._trainable(params_from_jax(jparams, "cpu")),
+                                 opt_state_from_jax(jopt, "cpu"))
+        tl = [m["loss"] for m in tt.run()["metrics"]]
+        assert np.isfinite(jl).all() and np.isfinite(tl).all()
+        rises[moments] = [np.mean(l[-10:]) - l[0] for l in (jl, tl)]
+    assert all(r < 0 for r in rises["float32"]), rises
+    assert all(r > 0.5 for r in rises["int8"]), rises
+
+
+def _int8_trajectory_held(tl, jl, tgn, jgn, tleaves, jleaves):
+    """The int8-moment trajectory, held to a wider bound than fp32's, for a
+    derived reason.  An int8 moment sits on a grid of 1/127 of its row's
+    absmax, so the update is discontinuous in the gradient: where the two
+    frameworks' fp32 moments straddle a rounding boundary (their gradients
+    differ by ~1e-7 relative, and under ``jit`` the reference's scale by up
+    to an ulp, ROADMAP C5), the stored moments differ by a whole step of
+    the grid.  And a nu of the same row far under its absmax stores 0 (nu
+    is g^2: its rows span twice the decades of g's), so such an element
+    steps by lr mu_hat / eps (ROADMAP C10).  The two runs are therefore
+    held step by step only until such an element moves: the losses of
+    steps 1 and 2 (step 1's update reads no stored moment) within fp32's
+    1e-4, then
+    the losses within 1e-3 and the grad norms within 5e-2 relative, and 98%
+    of the parameters within fp32's 1e-4 after step 4 (measured on this
+    model: 1.6e-7, 8.1e-8, 1.6e-5 and 3.3e-4; 1.4e-2 at step 4; 99.0%)."""
+
+    np.testing.assert_allclose(tl[:2], jl[:2], rtol=1e-4, atol=0)
+    np.testing.assert_allclose(tgn[:2], jgn[:2], rtol=1e-4)
+    np.testing.assert_allclose(tl, jl, rtol=1e-3, atol=0)
+    np.testing.assert_allclose(tgn, jgn, rtol=5e-2)
+    d = np.concatenate([np.abs(t - j).ravel() for t, j in zip(tleaves, jleaves)])
+    assert np.isfinite(d).all() and (d <= 1e-4).mean() >= 0.98, (d <= 1e-4).mean()
 
 
 def _step1_direction_gaps(jcfg, jpcfg, tcfg, tpcfg, jparams, batch, eps):
@@ -416,7 +492,7 @@ class _TwoRanks:
 
 
 @pytest.mark.parametrize("case", ["evict", "admit", "pipeline", "ring_plan", "ring_pcfg",
-                                  "tensor", "int8_moments", "plan_auto", "evict_flag",
+                                  "tensor", "plan_auto", "evict_flag",
                                   "no_donation", "not_persistent", "legacy_pipeline_knob",
                                   "legacy_ring_knob", "pipeline_flag",
                                   "multi_rank_checkpoint"])
@@ -435,7 +511,6 @@ def test_unported_paths_raise(tmp_path, case):
         "ring_plan": lambda: make(TrainerConfig(plan=tbase.ParallelPlan(ring=2))),
         "ring_pcfg": lambda: make(pcfg=dataclasses.replace(pcfg, ring_attention=True)),
         "tensor": lambda: make(TrainerConfig(plan=tbase.ParallelPlan(tensor=2))),
-        "int8_moments": lambda: make(pcfg=dataclasses.replace(pcfg, moment_dtype="int8")),
         "plan_auto": lambda: tlaunch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device",
                                           "cpu", "--plan", "auto"]),
         "evict_flag": lambda: tlaunch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device",

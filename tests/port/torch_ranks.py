@@ -335,9 +335,87 @@ def prog_requests(rank: int, world: int, inputs: dict) -> dict:
     return {k: v.numpy() for k, v in out.items()}
 
 
+#: prog_grad_sync's modes: (name, the outer communicator is used, int8 compression
+#: with error feedback), the reference test's three (tests/test_requests.py)
+GRAD_SYNC_MODES = (("single", False, False), ("hier", True, False),
+                   ("hier_int8_ef", True, True))
+
+
+def grad_sync_order(rank: int) -> tuple[int, int]:
+    """The ``pready`` order of rank ``rank`` in prog_grad_sync's modes:
+    ranks 0 and 3 mark their two buckets ready in index order, ranks 1 and
+    2 the other way round, in one call."""
+
+    return (0, 1) if rank in (0, 3) else (1, 0)
+
+
+def prog_grad_sync(rank: int, world: int, inputs: dict) -> dict:
+    """The partitioned forms on a 2 x 2 grid ("outer", "inner"), on this
+    rank's slice of the inputs: ``partitioned_allreduce`` with a chunk-wise
+    continuation, partitions marked ready out of order;
+    ``hierarchical_allreduce`` with and without int8 compression; and
+    ``PartitionedGradSync`` in its three modes over two rounds (the second
+    with the first's error feedback), with ranks marking their buckets
+    ready in different orders, and ``sync_gradients`` in both orders and
+    with the int8 stage alone."""
+
+    import torch
+
+    from repro_torch.core.communicator import Communicator
+    from repro_torch.core.descriptors import Compression
+    from repro_torch.core.overlap import hierarchical_allreduce
+    from repro_torch.core.session import default_session
+    from repro_torch.optim import ErrorFeedbackState, PartitionedGradSync, sync_gradients
+
+    sess = default_session(device_type="cpu")
+    comm = Communicator.from_group(sess.group("repro://world"), tag="repro://world",
+                                   shape=(2, 2), axis_names=("outer", "inner"))
+    inner, outer = comm.split("inner"), comm.split("outer")
+    out = {"rank": np.array(comm.rank())}
+
+    req = inner.partitioned_allreduce(3, continuation=lambda i, y: y + i)
+    pa = torch.from_numpy(inputs["pa"][rank])
+    for i in (2, 0, 1):
+        req.pready(i, pa[i])
+    for i, y in enumerate(req.wait()):
+        out[f"partitioned_{i}"] = y.numpy()
+    hx = torch.from_numpy(inputs["hx"][rank])
+    for c in (Compression.NONE, Compression.INT8):
+        out[f"hier_{c.value}"] = hierarchical_allreduce(hx, inner, outer, compression=c).numpy()
+
+    def grads(i):
+        return {"w": torch.from_numpy(inputs["w"][rank, i]),
+                "b": torch.from_numpy(inputs["b"][rank, i]),
+                "h": torch.from_numpy(inputs["h"][rank, i]).to(torch.bfloat16)}
+
+    for name, hier, int8 in GRAD_SYNC_MODES:
+        sync = PartitionedGradSync(inner, outer if hier else None,
+                                   compression=Compression.INT8 if int8 else Compression.NONE)
+        ef = ErrorFeedbackState.init(grads(0)) if int8 else None
+        for i in range(2):
+            # error feedback makes every leaf fp32: one bucket, one order
+            got, ef = sync(grads(i), ef, pready_order=None if int8 else grad_sync_order(rank))
+            for k, v in got.items():
+                out[f"{name}_{i}_{k}"] = v.float().numpy()
+            if int8:
+                for k, v in ef.residual.items():
+                    out[f"{name}_{i}_residual_{k}"] = v.numpy()
+    for order in ((0, 1), (1, 0)):
+        got, _ = sync_gradients(grads(0), inner, outer, pready_order=order)
+        for k, v in got.items():
+            out[f"order_{order[0]}{order[1]}_{k}"] = v.float().numpy()
+    # the int8 stage without error feedback: two buckets, the bf16 one
+    # compressed too, ranks in different orders
+    got, _ = sync_gradients(grads(1), inner, outer, compression=Compression.INT8,
+                            pready_order=grad_sync_order(rank))
+    for k, v in got.items():
+        out[f"int8_no_ef_{k}"] = v.float().numpy()
+    return out
+
+
 PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_server,
             "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer,
-            "requests": prog_requests}
+            "requests": prog_requests, "grad_sync": prog_grad_sync}
 
 
 def main(argv: list[str]) -> int:

@@ -32,10 +32,15 @@ any failure.  In order:
    width (b 2, h 16, hk 8, d 256, softcap 50, bf16; one fp32 case) and at
    zamba2-7b's (b 2, s 4096, h = hk = 32, d 112, bf16; one fp32 case),
    and at the shape phi4-mini's training step gives it (b 2, s 2048, h 24,
-   hk 8, d 128, bf16), bf16 cases within the limit that one bf16 pass of P adds (``P_BF16``):
-   error, the kernel's median time, the plain version's, the bound, and
-   ``library_ms`` — ``F.scaled_dot_product_attention`` at the same shapes
-   without the softcap and window, a yardstick the port never calls;
+   hk 8, d 128, bf16), at paligemma-3b's serve (b 2, s 4352 = 256 image
+   tokens + 4096, h 8, hk 1, d 256, prefix 256, bf16; one fp32 case) and
+   at seamless-m4t-large-v2's encoder (b 2, s 2048, h = hk = 16, d 64, not
+   causal, bf16; one fp32 case), bf16 cases within the limit that one bf16
+   pass of P adds (``P_BF16``): error, the kernel's median time, the plain
+   version's, the bound, and ``library_ms`` —
+   ``F.scaled_dot_product_attention`` on the same inputs and mask but the
+   softcap (its own causal flag, or the case's window or prefix mask as a
+   boolean tensor), a yardstick the port never calls;
 5. the SSD scan against ``ref.ssd_chunked`` on the card, y and the final
    state, at mamba2-2.7b width (b 2, l 4096, h 80, p 64, n 128, bf16, and
    the same in fp32; and l 2048, the shape of mamba2's training step) and
@@ -124,8 +129,13 @@ any failure.  In order:
    prefill logits' max |Δ| is logged).  Then the full granite-3-8b (40
    layers, 2 x 4096) and qwen1.5-32b (64 layers, 2 x 1024: its weights
    take 70.4 GB), whose random init draws each stacked leaf one layer at
-   a time;
-9. small inputs: the gemma2, mamba2 and zamba2 smoke models in fp32 (and
+   a time; then the prefix-LM VLM paligemma-3b (18 layers, 2 x 4096
+   text tokens after 256 image tokens each, 18 flash launches a prefill)
+   and the encoder-decoder seamless-m4t-large-v2 (24 + 24 layers, 2 x 2048
+   frames and tokens, 48 a prefill), each request's image embeddings or
+   frames drawn by the launcher;
+9. small inputs: the gemma2, mamba2, zamba2, paligemma and seamless smoke
+   models in fp32 (and
    gemma2 and zamba2 with the int8 cache, phi4-mini with the ring, whose
    kernel must launch once per layer) generate the same tokens on the card
    as on the CPU path (held against the JAX reference by the CPU tests);
@@ -155,7 +165,11 @@ any failure.  In order:
     dequantize launched exactly twice a moment piece and step; and
     ``train_small``'s tiny model with int8 moments, held to the CPU run for
     its first ``TRAIN_SMALL_INT8_HELD`` steps (the reference's int8 moments
-    diverge, ROADMAP C10), then finite and bit for bit through the restore;
+    diverge, ROADMAP C10), then finite and bit for bit through the restore.
+    Last, with fp32 moments, the full paligemma-3b (flash 36 times a step:
+    the forward and the recompute of 18 layers, over 256 image tokens and
+    2048 text tokens) and seamless-m4t-large-v2 (96: 24 encoder layers
+    over 256 frames and 24 decoder layers over 2048 tokens);
 11. grad sync: ``PartitionedGradSync`` with int8 error feedback on the NCCL
     world of one over phi4-mini's gradient tree at full width (2 layers),
     bit for bit the same call with the plain row functions, the residual m
@@ -233,6 +247,13 @@ SERVES = [
     # second prefill's cache beside the first, 78.6 GB at the peak
     ("granite_3_8b", 40, 4096, 4096, "bfloat16", False, {"flash_attention_fwd": 40}, {}),
     ("qwen1_5_32b", 64, 5120, 1024, "bfloat16", False, {"flash_attention_fwd": 64}, {}),
+    # the prefix-LM VLM: 256 image tokens before each 4096-token prompt, 18
+    # flash launches a prefill; the encoder-decoder: 2048 frames through 24
+    # non-causal encoder layers and 2048 tokens through 24 causal decoder
+    # layers, 48 a prefill (its cross-attention is plain, as the reference's)
+    ("paligemma_3b", 18, 2048, 4096, "bfloat16", False, {"flash_attention_fwd": 18}, {}),
+    ("seamless_m4t_large_v2", 24, 1024, 2048, "bfloat16", False,
+     {"flash_attention_fwd": 48}, {}),
 ]
 
 # the port's kernel bodies, as the profiler names them
@@ -619,11 +640,20 @@ def _attention_case(name, seed, *, b, s, h, hk, d, dtype, reps, **kw):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # the yardstick computes the case's function but the softcap: SDPA's
+        # own causal mask, or the case's mask as a boolean tensor where a
+        # window or a prefix changes it
+        masked = kw.get("sliding_window") is not None or kw.get("prefix_len") is not None
+        sdpa_mask = mask if masked else None
+        sdpa_causal = kw.get("causal", True) and not masked
         _kernel_timed(row, lambda: fk.flash_attention_fwd(q, k, v, **kw), reps)
         row.update(
+            library_call=("SDPA, boolean mask" if masked
+                          else f"SDPA, is_causal={sdpa_causal}"),
             plain_ms=time_ms(lambda: ref.mha(q, k, v, **kw), max(2, reps // 4)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=kw.get("scale"), enable_gqa=True), reps),
+                qt, kt, vt, attn_mask=sdpa_mask, is_causal=sdpa_causal, scale=kw.get("scale"),
+                enable_gqa=True), reps),
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             flops=flops, bytes=nbytes,
@@ -660,6 +690,20 @@ def phase_kernels():
         # 128-wide tile, GQA 24/8, no softcap)
         _attention_case("phi4_train_2048_d128", 9, b=2, s=2048, h=24, hk=8, d=128,
                         dtype="bfloat16", reps=10, causal=True, scale=128.0 ** -0.5),
+        # paligemma-3b's serve: 256 image tokens, a bidirectional prefix,
+        # before 4096 text tokens; MQA (8 query heads over 1 KV head) at d 256
+        _attention_case("paligemma_prefix256", 10, b=2, s=4352, h=8, hk=1, d=256,
+                        dtype="bfloat16", reps=10, causal=True, prefix_len=256,
+                        scale=256.0 ** -0.5),
+        _attention_case("paligemma_fp32_1000", 11, b=1, s=1000, h=8, hk=1, d=256,
+                        dtype="float32", reps=0, causal=True, prefix_len=256,
+                        scale=256.0 ** -0.5),
+        # seamless-m4t-large-v2's encoder: 2 x 2048 frames, bidirectional,
+        # 16 heads of 64
+        _attention_case("seamless_encoder", 12, b=2, s=2048, h=16, hk=16, d=64,
+                        dtype="bfloat16", reps=10, causal=False, scale=64.0 ** -0.5),
+        _attention_case("seamless_encoder_fp32_1000", 13, b=1, s=1000, h=16, hk=16, d=64,
+                        dtype="float32", reps=0, causal=False, scale=64.0 ** -0.5),
     ]
     RESULTS["kernel_cases"] = rows
 
@@ -1519,20 +1563,8 @@ def _serve(arch, prompt_len, kv, ring):
     pcfg = dataclasses.replace(base.get_parallel(arch), kv_cache_dtype=kv, ring_attention=ring)
     server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS),
                     make_host_communicator(device="cuda"))
-    tokens, stats = server.generate(_prompts(cfg, prompt_len))
+    tokens, stats = server.generate(serve.requests(cfg, 2, prompt_len))
     return server, tokens, stats
-
-
-def _prompts(cfg, prompt_len):
-    """The launcher's prompts, drawn again."""
-
-    import numpy as np
-
-    from repro_torch.runtime.server import Request
-
-    rng = np.random.default_rng(0)
-    return [Request(tokens=rng.integers(1, cfg.vocab_size, size=(prompt_len,), dtype=np.int32))
-            for _ in range(2)]
 
 
 def phase_serve(arch, layers, d_model, prompt_len, kv, ring, per_prefill, per_step):
@@ -1544,6 +1576,8 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, ring, per_prefill, per_st
 
     import numpy as np
     import torch
+
+    from repro_torch.launch import serve
 
     path = arch + ("" if kv == "bfloat16" else f"_{kv}") + ("_ring" if ring else "")
     start_gb = torch.cuda.memory_allocated() / 1e9
@@ -1573,7 +1607,8 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, ring, per_prefill, per_st
     check(tokens.shape == (2, NEW_TOKENS), f"tokens shape {tokens.shape}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token outside the vocab")
 
-    reqs = _prompts(cfg, prompt_len)
+    # the launcher's requests, drawn again (with their image embeddings or frames)
+    reqs = serve.requests(cfg, 2, prompt_len)
     params_gb = sum(t.numel() * t.element_size() for t in _tensors(server.params)) / 1e9
     torch.cuda.reset_peak_memory_stats()
     warm_tokens, warm = server.generate(reqs)
@@ -1581,7 +1616,7 @@ def phase_serve(arch, layers, d_model, prompt_len, kv, ring, per_prefill, per_st
     log("warm stats " + json.dumps(warm) + f"; params {params_gb:.2f} GB, "
         f"peak of the warm generate {warm_peak_gb:.2f} GB")
     check(np.array_equal(warm_tokens, tokens), f"{path}: warm generate changed the greedy tokens")
-    batch = {"tokens": torch.as_tensor(np.stack([r.tokens for r in reqs]), device="cuda")}
+    batch, _ = server._pad_batch(reqs)
     # the prefill sees the communicator when the ring is on, as the server's does
     mesh = server.comm if ring else None
     with torch.inference_mode():
@@ -1761,7 +1796,8 @@ def phase_small_model(arch, kv="bfloat16", ring=False):
     import torch
 
     from repro_torch.configs import base
-    from repro_torch.runtime.server import Request, Server, ServerConfig
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import Server, ServerConfig
 
     cfg = dataclasses.replace(base.get_smoke_config(arch), dtype="float32")
     pcfg = dataclasses.replace(base.get_parallel(arch), kv_cache_dtype=kv, ring_attention=ring)
@@ -1769,9 +1805,8 @@ def phase_small_model(arch, kv="bfloat16", ring=False):
     gpu = Server(cfg, pcfg, scfg, device="cuda")
     cpu = Server(cfg, pcfg, scfg, device="cpu")
     cpu.params = _to_cpu(gpu.params)
-    rng = np.random.default_rng(1)
-    reqs = [Request(tokens=rng.integers(1, cfg.vocab_size, size=(24,), dtype=np.int32))
-            for _ in range(2)]
+    # the launcher's requests (with their image embeddings or frames)
+    reqs = serve.requests(cfg, 2, 24)
     _reset_launches()
     t_gpu, _ = gpu.generate(reqs)
     if ring:
@@ -1816,7 +1851,9 @@ TRAIN_SMALL_INT8_HELD = 2
 TRAIN_FULL = (("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd", "float32"),
               ("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd", "int8"),
               ("mamba2_2_7b", 64, 2560, "ssd_scan_fwd", "float32"),
-              ("granite_3_8b", 40, 4096, "flash_attention_fwd", "int8"))
+              ("granite_3_8b", 40, 4096, "flash_attention_fwd", "int8"),
+              ("paligemma_3b", 18, 2048, "flash_attention_fwd", "float32"),
+              ("seamless_m4t_large_v2", 24, 1024, "flash_attention_fwd", "float32"))
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 2, 4
 
 
@@ -2109,7 +2146,8 @@ def phase_train(arch, layers, d_model, kernel, moments):
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     metrics = result["metrics"]
-    per_step = {kernel: 2 * cfg.num_layers}
+    # the encoder-decoder runs the kernel in its encoder's layers too
+    per_step = {kernel: 2 * (cfg.num_layers + cfg.encoder_layers)}
     if moments == "int8":
         pieces = _moment_pieces(trainer.params)
         per_step.update({QUANT: 2 * pieces, DEQUANT: 2 * pieces})
@@ -2372,7 +2410,8 @@ def main() -> int:
     phase_quant()
     phase_ring()
     launches = dict(phase_serve(*spec) for spec in SERVES)
-    for arch in ("gemma2_9b", "mamba2_2_7b", "zamba2_7b"):
+    for arch in ("gemma2_9b", "mamba2_2_7b", "zamba2_7b", "paligemma_3b",
+                 "seamless_m4t_large_v2"):
         phase_small_model(arch)
     for arch in ("gemma2_9b", "zamba2_7b"):
         phase_small_model(arch, "int8")

@@ -4,7 +4,12 @@
         --requests 8 --prompt-len 64 --new-tokens 16 [--device cpu]
 
 ``--arch`` takes the ported configs: the dense family (gemma2_9b,
-phi4_mini_3_8b, granite_3_8b, qwen1_5_32b), mamba2_2_7b and zamba2_7b.
+phi4_mini_3_8b, granite_3_8b, qwen1_5_32b), mamba2_2_7b, zamba2_7b, the
+prefix-LM VLM paligemma_3b and the encoder-decoder seamless_m4t_large_v2.
+Each request draws its prompt, then its stub ``image_embeds`` (VLM) or
+``frames`` (encoder-decoder), from one seeded generator, as the reference
+launcher does, so both launchers serve the same requests.
+
 Runs on the CUDA device unless ``--device cpu`` is given; a machine with no
 CUDA device raises ``ERR_SESSION`` instead of falling back.  ``--mesh DxM``
 folds the process world onto a (data, model) grid, e.g. on the CPU::
@@ -56,6 +61,27 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def requests(cfg, n: int, prompt_len: int) -> list:
+    """The launcher's ``n`` random requests: per request, its tokens, then
+    its extras, drawn in turn from one generator seeded 0."""
+
+    from repro_torch.runtime.server import Request
+
+    rng = np.random.default_rng(0)
+    reqs = []
+    for _ in range(n):
+        toks = rng.integers(1, cfg.vocab_size, size=(prompt_len,), dtype=np.int32)
+        extra = {}
+        if cfg.family == "vlm":
+            extra["image_embeds"] = rng.standard_normal(
+                (cfg.num_image_tokens, 1152), dtype=np.float32
+            )
+        if cfg.family == "encdec":
+            extra["frames"] = rng.standard_normal((prompt_len, cfg.d_model), dtype=np.float32)
+        reqs.append(Request(tokens=toks, extra=extra))
+    return reqs
+
+
 def run(argv=None):
     """Serve one batch of random prompts; returns (server, tokens, stats)."""
 
@@ -64,7 +90,7 @@ def run(argv=None):
     from repro_torch.configs import base
     from repro_torch.core import errors
     from repro_torch.launch.mesh import make_host_communicator
-    from repro_torch.runtime.server import Request, Server, ServerConfig
+    from repro_torch.runtime.server import Server, ServerConfig
 
     for flag in _NOT_PORTED:
         errors.check(
@@ -86,11 +112,7 @@ def run(argv=None):
     else:
         d, m = (int(t) for t in args.mesh.split("x"))
         comm = make_host_communicator(d, m, pset=args.pset, device=args.device)
-    rng = np.random.default_rng(0)
-    reqs = [
-        Request(tokens=rng.integers(1, cfg.vocab_size, size=(args.prompt_len,), dtype=np.int32))
-        for _ in range(args.requests)
-    ]
+    reqs = requests(cfg, args.requests, args.prompt_len)
     scfg = ServerConfig(max_batch=args.requests, max_new_tokens=args.new_tokens,
                         temperature=args.temperature)
     server = Server(cfg, pcfg, scfg, comm)

@@ -1,6 +1,6 @@
 """Unified model API: ``build(cfg)`` returns a :class:`ModelBundle` with
-init / loss / prefill / decode entry points.  The dense, ``ssm`` and
-``hybrid`` families are ported; ``moe``, ``vlm`` and ``encdec`` raise
+init / loss / prefill / decode entry points.  The dense, ``vlm``, ``ssm``,
+``hybrid`` and ``encdec`` families are ported; ``moe`` raises
 ``ERR_UNSUPPORTED_OPERATION``."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.core import errors
-from repro_torch.models import ssm_lm, transformer
+from repro_torch.models import encdec, ssm_lm, transformer
 
 
 @dataclasses.dataclass
@@ -24,7 +24,7 @@ class ModelBundle:
 
 def build(cfg) -> ModelBundle:
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         return ModelBundle(
             cfg=cfg,
             init=lambda gen: transformer.init_lm(gen, cfg),
@@ -65,8 +65,19 @@ def build(cfg) -> ModelBundle:
                 cfg, pc, batch, length, device
             ),
         )
+    if fam == "encdec":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen: encdec.init_encdec(gen, cfg),
+            loss=lambda p, b, pc, mesh=None: encdec.encdec_loss(p, b, cfg, pc, mesh),
+            prefill=lambda p, b, pc, mesh=None, extra_capacity=0: encdec.encdec_prefill(
+                p, b, cfg, pc, mesh, extra_capacity=extra_capacity
+            ),
+            decode=lambda p, c, t, pc, mesh=None: encdec.encdec_decode(p, c, t, cfg, pc, mesh),
+            init_cache=None,  # built by prefill (cross-attention needs the encoder length)
+        )
     errors.fail(
         errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        f"model family {fam!r} ({cfg.name}) is not ported yet; the port serves the "
-        f"dense, ssm and hybrid families",
+        f"model family {fam!r} ({cfg.name}) is not ported yet (ROADMAP A12 items 3-4); "
+        f"the port serves the dense, vlm, ssm, hybrid and encdec families",
     )

@@ -1,13 +1,17 @@
-"""Decoder-only LM trunk, dense family (qwen/phi4/granite, and gemma-2's
-local-global alternation with softcaps), with forward / loss / prefill /
-decode entry points — the dense path of :mod:`repro.models.transformer`.
+"""Decoder-only LM trunk: dense (qwen/phi4/granite), gemma-2's local-global
+alternation with softcaps, and the prefix-LM VLM (paligemma), with forward
+/ loss / prefill / decode entry points — the dense and VLM paths of
+:mod:`repro.models.transformer`.
 
 The parameter tree is the reference's: ``params["layers"][name]`` stacks
 every leaf of one sub-layer along a leading unit dimension.  The reference
 ``scan``\\ s over that dimension; eager PyTorch loops over it.  Remat
 (``pcfg.remat``) wraps each unit of the loss path in
-``torch.utils.checkpoint`` (:func:`_maybe_remat`).  Not ported yet: MoE,
-MLA, the VLM prefix, ``first_dense_layers`` and the pipeline decomposition.
+``torch.utils.checkpoint`` (:func:`_maybe_remat`).  The VLM projects its
+image embeddings through ``mm_proj`` and puts them before the text, a
+bidirectional prefix of ``num_image_tokens`` under ``prefix_lm``.  Not
+ported yet: MoE, MLA, ``first_dense_layers`` (ROADMAP A12 items 3-4) and
+the pipeline decomposition.
 """
 
 from __future__ import annotations
@@ -27,12 +31,13 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.common import dense_init
 
 
-def _check_dense(cfg) -> None:
+def _check_ported(cfg) -> None:
     errors.check(
-        cfg.family == "dense" and not cfg.mla and not cfg.num_experts
+        cfg.family in ("dense", "vlm") and not cfg.mla and not cfg.num_experts
         and not cfg.first_dense_layers,
         errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        f"only the dense family is ported yet, not {cfg.name!r} ({cfg.family})",
+        f"{cfg.name!r} ({cfg.family}): MoE, MLA and leading dense layers are not ported "
+        f"yet (ROADMAP A12 items 3-4); the trunk runs the dense and vlm families",
     )
 
 
@@ -192,7 +197,7 @@ def _maybe_remat(fn, pcfg):
 def init_lm(gen: torch.Generator, cfg) -> common.Params:
     """Random parameters on ``gen.device``, drawn from ``gen``."""
 
-    _check_dense(cfg)
+    _check_ported(cfg)
     dtype = common.dtype_of(cfg)
     params: common.Params = {
         "embed": common.trunc_normal(gen, (cfg.padded_vocab, cfg.d_model), 1.0, dtype),
@@ -204,6 +209,9 @@ def init_lm(gen: torch.Generator, cfg) -> common.Params:
     params["layers"] = {
         name: _init_block(gen, cfg, dtype, stack=(n_units,)) for name, _, _ in _unit_plan(cfg)
     }
+    if cfg.family == "vlm":
+        # multimodal projector (SigLIP stub dim 1152 → d_model)
+        params["mm_proj"] = dense_init(gen, 1152, (1152, cfg.d_model), dtype)
     return params
 
 
@@ -234,17 +242,22 @@ def _head(params, x, cfg, pcfg=None):
 
 
 def _prepare_inputs(params, batch: dict, cfg):
-    """tokens → (x, positions, prefix_len)."""
+    """tokens (+ image embeds for VLM) → (x, positions, prefix_len)."""
 
     x = _embed(params, batch["tokens"], cfg)
+    prefix_len = None
+    if cfg.family == "vlm":
+        img = torch.matmul(batch["image_embeds"].to(x.dtype), params["mm_proj"])
+        x = torch.cat([img, x], dim=1)
+        prefix_len = cfg.num_image_tokens if cfg.prefix_lm else None
     positions = torch.arange(x.shape[1], device=x.device)
-    return x, positions, None
+    return x, positions, prefix_len
 
 
 def lm_forward(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward → (logits, aux metrics)."""
 
-    _check_dense(cfg)
+    _check_ported(cfg)
     x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
     plan = _unit_plan(cfg)
 
@@ -270,6 +283,9 @@ def lm_forward(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor,
 def lm_loss(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, dict]:
     logits, aux = lm_forward(params, batch, cfg, pcfg, mesh)
     tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        # labels cover only the text region (image prefix contributes no loss)
+        logits = logits[:, cfg.num_image_tokens:]
     loss = common.cross_entropy(
         logits[:, :-1], tokens[:, 1:], softcap_val=cfg.final_logit_softcap
     )
@@ -283,7 +299,7 @@ def lm_loss(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, di
 def init_cache(cfg, pcfg, batch: int, length: int, device=None) -> dict[str, Any]:
     """Cache tree for decode: one entry per unit sub-layer name."""
 
-    _check_dense(cfg)
+    _check_ported(cfg)
     n_units = _num_units(cfg)
     dtype = common.dtype_of(cfg)
     quant = pcfg.kv_cache_dtype == "int8"
@@ -301,7 +317,7 @@ def lm_prefill(params, batch: dict, cfg, pcfg, mesh=None, extra_capacity: int = 
     """Prefill: full forward that also builds the cache.  Returns
     (last-token logits, cache dict)."""
 
-    _check_dense(cfg)
+    _check_ported(cfg)
     x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
     seq = x.shape[1]
     plan = _unit_plan(cfg)
@@ -360,9 +376,10 @@ def _entry_to_cache(entry, cfg, pcfg, *, stack: bool, extra: int = 0):
 
 def lm_decode(params, caches: dict, token: torch.Tensor, cfg, pcfg, mesh=None):
     """One decode step.  token: (B, 1) int32.  Returns (logits, caches); the
-    cache tensors are updated in place and every cache's ``pos`` advances."""
+    cache tensors are updated in place and every cache's ``pos`` advances.
+    A VLM's image prefix already lives in the cache."""
 
-    _check_dense(cfg)
+    _check_ported(cfg)
     pos = next(iter(caches.values())).pos
     x = _embed(params, token, cfg)
     plan = _unit_plan(cfg)

@@ -43,11 +43,12 @@ _TINY = dict(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
              num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128)
 
 
-def _jax_state(moment_dtype):
+def _jax_state(moment_dtype, cfg=None):
     """The reference trainer's state after one update: bf16 parameters of
-    the tiny dense model, the AdamW state with ``moment_dtype`` moments."""
+    the tiny dense model (or of ``cfg``), the AdamW state with
+    ``moment_dtype`` moments."""
 
-    cfg = jbase.ModelConfig(**_TINY)
+    cfg = cfg or jbase.ModelConfig(**_TINY)
     params = jax.jit(japi.build(cfg).init)(jax.random.PRNGKey(0))
     opt = JAdamW(lr=1e-2, moment_dtype=moment_dtype)
     grads = jax.tree_util.tree_map(lambda p: jnp.full(p.shape, 0.01, p.dtype), params)
@@ -124,6 +125,30 @@ def test_port_checkpoint_restores_in_reference(tmp_path, moment_dtype):
         moments = {n.rsplit("/", 1)[1] for n in records if n.startswith(("opt/mu/", "opt/nu/"))}
         assert moments == {"q", "scale"}
         assert records["opt/mu/embed/q"]["dtype"] == "int8"
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_encdec_checkpoint_crosses_packages(tmp_path, writer):
+    """The encoder-decoder's state (seamless's smoke model: the stacked
+    ``encoder`` and ``decoder`` trees, fp32 moments) saved by one package
+    restores in the other bit for bit, with manifests of the same records."""
+
+    jstate = _jax_state("float32", jbase.get_smoke_config("seamless_m4t_large_v2"))
+    tstate = _port_state(jstate)
+    assert "encoder" in tstate["params"] and "cross" in tstate["params"]["decoder"]
+    JManager(str(tmp_path / "j"), async_save=False).save(2, jstate, extra={"step": 2})
+    TManager(str(tmp_path / "t")).save(2, tstate, extra={"step": 2}).get()
+    assert _records(tmp_path / "t", 2) == _records(tmp_path / "j", 2)
+    if writer == "reference":
+        got, step = TManager(str(tmp_path / "j")).restore(_zeros_like_port(tstate))
+        pairs = zip(_port_leaves(got), _port_leaves(tstate))
+    else:
+        got, step = JManager(str(tmp_path / "t")).restore(
+            jax.tree_util.tree_map(jnp.zeros_like, jstate))
+        pairs = zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(jstate))
+    assert step == 2
+    for g, w in pairs:
+        assert g.dtype == w.dtype and g.shape == w.shape and _bits(g) == _bits(w)
 
 
 def _state(seed=0):

@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[2]
 _FORBIDDEN = ("jax", "jaxlib", "repro")
 _DENSE = ("gemma2_9b", "phi4_mini_3_8b", "granite_3_8b", "qwen1_5_32b", "mamba2_2_7b",
-          "zamba2_7b")
+          "zamba2_7b", "paligemma_3b", "seamless_m4t_large_v2")
 
 
 def _port_files():
@@ -63,6 +63,10 @@ _TRAINING = ("optim/adamw.py", "optim/clip.py", "optim/schedules.py", "optim/gra
              "runtime/faults.py", "runtime/trainer.py", "launch/train.py")
 
 
+_MODELS = ("models/transformer.py", "models/encdec.py", "models/api.py",
+           "configs/paligemma_3b.py", "configs/seamless_m4t_large_v2.py", "launch/serve.py")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
@@ -70,6 +74,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     covered = {str(f.relative_to(package)) for f in files if f.is_relative_to(package)}
     assert ROOT / "tools" / "quant_variants.py" in files
     assert set(_MULTI_RANK) <= covered and set(_TRAINING) <= covered
+    assert set(_MODELS) <= covered
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}

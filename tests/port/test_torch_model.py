@@ -1,7 +1,7 @@
 """The port's models against the reference, on CPU tensors: the common
 layers, then ``prefill`` (logits and every cache leaf) and two ``decode``
-steps of the dense, SSM and hybrid families, with parameters converted from
-the reference's init.
+steps of the dense, VLM, SSM, hybrid and encoder-decoder families, with
+parameters converted from the reference's init.
 
 The models run in fp32.  Logits agree within 1e-4: the two frameworks sum
 the same products in different orders, and those rounding differences grow
@@ -104,14 +104,30 @@ def _same_cache(tcache, jcache):
             _close(t[key], j[key])
 
 
-def _prefill_and_decode_match(arch, seq, kv_cache_dtype="bfloat16"):
+def _batch(cfg, seq, seed, enc_len=None):
+    """Tokens (2, seq), and the family's stub inputs: the VLM's 2 x
+    ``num_image_tokens`` image embeddings of 1152, the encoder-decoder's
+    2 x ``enc_len`` frames of d_model; as numpy, then as each package's."""
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(1, cfg.vocab_size, size=(2, seq), dtype=np.int32)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal((2, cfg.num_image_tokens, 1152),
+                                                    dtype=np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((2, enc_len or seq, cfg.d_model), dtype=np.float32)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+def _prefill_and_decode_match(arch, seq, kv_cache_dtype="bfloat16", enc_len=None):
     jcfg, jb, jparams, tcfg, tb, tparams = _models(arch)
-    toks = np.random.default_rng(1).integers(1, jcfg.vocab_size, size=(2, seq), dtype=np.int32)
+    jbatch, tbatch = _batch(jcfg, seq, 1, enc_len)
     jpc = dataclasses.replace(jbase.ParallelConfig(), kv_cache_dtype=kv_cache_dtype)
     tpc = dataclasses.replace(tbase.ParallelConfig(), kv_cache_dtype=kv_cache_dtype)
-    jl, jc = jb.prefill(jparams, {"tokens": jnp.asarray(toks)}, jpc, extra_capacity=3)
+    jl, jc = jb.prefill(jparams, jbatch, jpc, extra_capacity=3)
     with torch.inference_mode():
-        tl, tc = tb.prefill(tparams, {"tokens": torch.from_numpy(toks)}, tpc, extra_capacity=3)
+        tl, tc = tb.prefill(tparams, tbatch, tpc, extra_capacity=3)
     _close(tl, jl)
     _same_cache(tc, jc)
     for _ in range(2):
@@ -147,6 +163,22 @@ def test_int8_cache_prefill_and_decode_match(arch, seq):
     _prefill_and_decode_match(arch, seq, "int8")
 
 
+@pytest.mark.parametrize("arch,seq,enc_len,kv", [
+    ("paligemma_3b", 10, None, "bfloat16"), ("paligemma_3b", 10, None, "int8"),
+    ("seamless_m4t_large_v2", 10, 13, "bfloat16"), ("seamless_m4t_large_v2", 7, 7, "int8"),
+])
+def test_vlm_and_encdec_prefill_and_decode_match(arch, seq, enc_len, kv):
+    """paligemma: 4 image tokens before the text, a bidirectional prefix,
+    and the cache holds them (decode is the dense step).  seamless: 13
+    frames into the encoder (non-causal), the decoder's self-attention
+    cache and the stacked cross-attention K/V (``EncDecCache``) leaf by
+    leaf.  With ``kv_cache_dtype="int8"`` the VLM quantizes its cache as the
+    dense family does; the encoder-decoder's cache stays in the model's
+    dtype with no scales in both packages (ROADMAP C11)."""
+
+    _prefill_and_decode_match(arch, seq, kv, enc_len)
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 def test_kv_cache_init_matches_reference(quantized):
     """``KVCache.init``: the reference's leaves, shapes, dtypes and zeros."""
@@ -168,6 +200,19 @@ def test_loss_matches():
     _close(tloss, jloss)
 
 
+@pytest.mark.parametrize("arch,enc_len", [("paligemma_3b", None),
+                                           ("seamless_m4t_large_v2", 9)])
+def test_vlm_and_encdec_loss_match(arch, enc_len):
+    """The VLM's loss covers the text only (its logits from the image
+    prefix on); the encoder-decoder's reads 9 frames against 12 tokens."""
+
+    jcfg, jb, jparams, tcfg, tb, tparams = _models(arch)
+    jbatch, tbatch = _batch(jcfg, 12, 2, enc_len)
+    jloss, _ = jb.loss(jparams, jbatch, jbase.ParallelConfig())
+    tloss, _ = tb.loss(tparams, tbatch, tbase.ParallelConfig())
+    _close(tloss, jloss)
+
+
 @pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_7b"])
 def test_ssm_loss_matches(arch):
     jcfg, jb, jparams, tcfg, tb, tparams = _models(arch)
@@ -182,19 +227,33 @@ def test_init_matches_reference_tree():
     and dtypes (the values differ: torch and jax draw different numbers)."""
 
     for arch in ("gemma2_9b", "qwen1_5_32b", "mamba2_2_7b", "zamba2_7b"):
-        jcfg = jbase.get_smoke_config(arch)
-        jparams = japi.build(jcfg).init(jax.random.PRNGKey(0))
-        gen = torch.Generator().manual_seed(0)
-        tparams = tapi.build(tbase.get_smoke_config(arch)).init(gen)
-        flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
-        flat_t = {
-            jax.tree_util.keystr(p): (tuple(t.shape), str(t.dtype).removeprefix("torch."))
-            for p, t in jax.tree_util.tree_flatten_with_path(tparams)[0]
-        }
-        assert len(flat_j) == len(flat_t)
-        for path, leaf in flat_j:
-            key = jax.tree_util.keystr(path)
-            assert flat_t[key] == (tuple(leaf.shape), str(leaf.dtype)), key
+        _same_init_tree(arch)
+
+
+def _same_init_tree(arch):
+    jcfg = jbase.get_smoke_config(arch)
+    jparams = japi.build(jcfg).init(jax.random.PRNGKey(0))
+    gen = torch.Generator().manual_seed(0)
+    tparams = tapi.build(tbase.get_smoke_config(arch)).init(gen)
+    flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    flat_t = {
+        jax.tree_util.keystr(p): (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+        for p, t in jax.tree_util.tree_flatten_with_path(tparams)[0]
+    }
+    assert len(flat_j) == len(flat_t)
+    for path, leaf in flat_j:
+        key = jax.tree_util.keystr(path)
+        assert flat_t[key] == (tuple(leaf.shape), str(leaf.dtype)), key
+
+
+@pytest.mark.parametrize("arch", ["paligemma_3b", "seamless_m4t_large_v2"])
+def test_vlm_and_encdec_init_trees_match_reference(arch):
+    """paligemma's ``mm_proj`` (1152, d_model) beside the dense trunk;
+    seamless's ``encoder`` and ``decoder`` stacks (a leading layer
+    dimension, as the reference's ``jax.vmap`` init gives), ``enc_norm``
+    and the decoder's ``ln_cross`` and ``cross`` leaves."""
+
+    _same_init_tree(arch)
 
 
 @pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_7b"])
@@ -203,6 +262,18 @@ def test_params_from_jax_carries_the_ssm_trees(arch):
     ``layers``, the hybrid's ``(groups, attn_every, …)`` ``ssm_layers``,
     ``ssm_tail`` and the unstacked ``shared_attn``."""
 
+    _converted_is_own_tree(arch)
+
+
+@pytest.mark.parametrize("arch", ["paligemma_3b", "seamless_m4t_large_v2"])
+def test_params_from_jax_carries_the_vlm_and_encdec_trees(arch):
+    """``mm_proj`` and the ``encoder``/``decoder`` stacks convert to the
+    port's own tree."""
+
+    _converted_is_own_tree(arch)
+
+
+def _converted_is_own_tree(arch):
     *_, tb, tparams = _models(arch)
     own = tb.init(torch.Generator().manual_seed(0))
     flat = {jax.tree_util.keystr(p): (tuple(t.shape), t.dtype)
@@ -218,4 +289,18 @@ def test_other_families_raise_typed():
     cfg = dataclasses.replace(tbase.get_smoke_config("gemma2_9b"), family="moe")
     with pytest.raises(errors.Error) as ei:
         tapi.build(cfg)
+    assert ei.value.klass == errors.ErrorClass.ERR_UNSUPPORTED_OPERATION
+
+
+@pytest.mark.parametrize("change", [dict(num_experts=4), dict(mla=True),
+                                    dict(first_dense_layers=1)])
+def test_vlm_trunk_still_refuses_moe_and_mla(change):
+    """The trunk admits the dense and vlm families; experts, MLA and
+    leading dense layers (ROADMAP A12 items 3-4) still raise typed."""
+
+    from repro_torch.core import errors
+
+    cfg = dataclasses.replace(tbase.get_smoke_config("paligemma_3b"), **change)
+    with pytest.raises(errors.Error) as ei:
+        tapi.build(cfg).init(torch.Generator().manual_seed(0))
     assert ei.value.klass == errors.ErrorClass.ERR_UNSUPPORTED_OPERATION

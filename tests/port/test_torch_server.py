@@ -1,7 +1,8 @@
 """The port's Server against the reference Server, on CPU tensors: the same
-prompts through the same weights give identical tokens at temperature 0 —
-in one process, and with ring attention across gloo ranks (one process
-each) against the reference on virtual devices.  Also the
+prompts (and image embeddings or frames) through the same weights give
+identical tokens at temperature 0 — in one process, and with ring
+attention across gloo ranks (one process each) against the reference on
+virtual devices.  Also the
 persistent-request bookkeeping (the decode request donates the cache; its
 CUDA graph path, stood in for on the CPU by ``graph_stub``, gives the eager
 tokens), the CLI and the refusal to fall back to the CPU on a machine
@@ -20,6 +21,7 @@ import torch
 import graph_stub
 from repro.configs import base as jbase
 from repro.core import tool as jtool
+from repro.launch import serve as jserve
 from repro.launch.mesh import make_host_communicator as j_comm
 from repro.runtime import server as jserver
 from repro_torch.configs import base as tbase
@@ -36,6 +38,25 @@ torch.set_num_threads(1)
 def _prompts(n=2, length=16, vocab=512, seed=3):
     rng = np.random.default_rng(seed)
     return [rng.integers(1, vocab, size=(length,), dtype=np.int32) for _ in range(n)]
+
+
+def _extras(cfg, n=2, seed=11):
+    """Per request, the family's stub inputs (none for a text-only model):
+    the VLM's image embeddings, the encoder-decoder's 16 frames."""
+
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        return [{"image_embeds": rng.standard_normal((cfg.num_image_tokens, 1152),
+                                                     dtype=np.float32)} for _ in range(n)]
+    if cfg.family == "encdec":
+        return [{"frames": rng.standard_normal((16, cfg.d_model), dtype=np.float32)}
+                for _ in range(n)]
+    return [{} for _ in range(n)]
+
+
+def _requests(module, cfg, prompts, seed=11):
+    return [module.Request(tokens=p, extra=e)
+            for p, e in zip(prompts, _extras(cfg, len(prompts), seed=seed))]
 
 
 @pytest.fixture(scope="module")
@@ -98,17 +119,19 @@ def test_decode_request_donates_the_cache(servers):
 
 
 @pytest.mark.parametrize("arch,kv", [("gemma2_9b", "bfloat16"), ("mamba2_2_7b", "bfloat16"),
-                                     ("zamba2_7b", "int8")])
+                                     ("zamba2_7b", "int8"), ("paligemma_3b", "bfloat16"),
+                                     ("seamless_m4t_large_v2", "bfloat16")])
 def test_graph_decode_gives_the_eager_tokens(monkeypatch, arch, kv):
     """The decode step through the graph path (capture and replay stood in
     for by ``graph_stub``): two generates give an eager server's tokens; the
     first decode step runs eagerly, each generate captures once and releases
-    its graph at the end."""
+    its graph at the end.  The encoder-decoder's graph reads the
+    cross-attention K/V of its own generate's prefill."""
 
     cfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype="float32")
     pcfg = dataclasses.replace(tbase.get_parallel(arch), kv_cache_dtype=kv)
     scfg = tserver.ServerConfig(max_batch=2, max_new_tokens=6)
-    batches = [[tserver.Request(tokens=p) for p in _prompts(length=24, seed=s)] for s in (8, 9)]
+    batches = [_requests(tserver, cfg, _prompts(length=24, seed=s), seed=s) for s in (8, 9)]
     eager = tserver.Server(cfg, pcfg, scfg, device="cpu")
     want = [eager.generate(b)[0] for b in batches]
     graph_stub.install(monkeypatch)
@@ -120,20 +143,24 @@ def test_graph_decode_gives_the_eager_tokens(monkeypatch, arch, kv):
     assert req._graph is None and req._bound == []   # released after each generate
 
 
-@pytest.mark.parametrize("graph", [False, True])
-def test_generate_frees_its_cache_at_once(monkeypatch, graph):
+@pytest.mark.parametrize("arch,graph", [("gemma2_9b", False), ("gemma2_9b", True),
+                                        ("seamless_m4t_large_v2", False),
+                                        ("seamless_m4t_large_v2", True)],
+                         ids=["False", "True", "encdec-False", "encdec-True"])
+def test_generate_frees_its_cache_at_once(monkeypatch, arch, graph):
     """The prefill's cache is freed when ``generate`` returns, without the
     cyclic garbage collector: a cache kept to the next call's prefill would
     be a second cache beside the new one (and, on the graph path, the
-    released graph holds none of it)."""
+    released graph holds none of it).  Also the encoder-decoder's
+    ``EncDecCache``, the cross-attention K/V included."""
 
     import gc
     import weakref
 
     if graph:
         graph_stub.install(monkeypatch)
-    cfg = dataclasses.replace(tbase.get_smoke_config("gemma2_9b"), dtype="float32")
-    ts = tserver.Server(cfg, tbase.get_parallel("gemma2_9b"),
+    cfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype="float32")
+    ts = tserver.Server(cfg, tbase.get_parallel(arch),
                         tserver.ServerConfig(max_batch=2, max_new_tokens=4), device="cpu")
     refs = []
     prefill = ts.bundle.prefill
@@ -146,7 +173,7 @@ def test_generate_frees_its_cache_at_once(monkeypatch, graph):
     ts.bundle = dataclasses.replace(ts.bundle, prefill=recording_prefill)
     gc.disable()
     try:
-        ts.generate([tserver.Request(tokens=p) for p in _prompts(length=16)])
+        ts.generate(_requests(tserver, cfg, _prompts(length=16)))
         assert refs and all(r() is None for r in refs)
     finally:
         gc.enable()
@@ -206,6 +233,64 @@ def test_ssm_tokens_identical_to_reference_server(arch):
     jtok, _ = js.generate([jserver.Request(tokens=p) for p in prompts])
     ttok, _ = ts.generate([tserver.Request(tokens=p) for p in prompts])
     np.testing.assert_array_equal(ttok, jtok)
+
+
+@pytest.mark.parametrize("arch", ["paligemma_3b", "seamless_m4t_large_v2"])
+def test_vlm_and_encdec_tokens_identical_to_reference_server(arch):
+    """The paligemma and seamless smoke models in fp32, the port with the
+    reference's weights, both through the plain attention (the reference
+    serves with ``attn_impl="ref"``; its Pallas kernel ignores the prefix
+    in its causal tile skip, ROADMAP C1): prompts of 16 and 11 tokens, so
+    the shorter one's left padding sits between the image prefix and its
+    text, as in the reference; 16 frames each for the encoder."""
+
+    scfg = dict(max_batch=2, max_new_tokens=5, temperature=0.0)
+    jcfg = dataclasses.replace(jbase.get_smoke_config(arch), dtype="float32")
+    js = jserver.Server(jcfg, jbase.get_parallel(arch), jserver.ServerConfig(**scfg), j_comm())
+    tcfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype="float32")
+    ts = tserver.Server(tcfg, tbase.get_parallel(arch), tserver.ServerConfig(**scfg),
+                        device="cpu")
+    ts.params = params_from_jax(jax.tree_util.tree_map(np.asarray, js.params), "cpu")
+    prompts = _prompts(seed=12)
+    prompts[1] = prompts[1][:11]
+    jtok, _ = js.generate(_requests(jserver, jcfg, prompts))
+    ttok, _ = ts.generate(_requests(tserver, tcfg, prompts))
+    np.testing.assert_array_equal(ttok, jtok)
+
+
+@pytest.mark.parametrize("arch", ["paligemma_3b", "seamless_m4t_large_v2"])
+def test_vlm_and_encdec_serve_cli_draws_the_references_requests(monkeypatch, arch, capsys):
+    """The serve CLIs on the smoke configs: the port's draws each request's
+    tokens and then its image embeddings or frames from the one generator,
+    as the reference's does, so the two hand their servers equal requests
+    (extras of the reference's shapes); the port's generates."""
+
+    seen = {}
+
+    def recorder(cls, name):
+        generate = cls.generate
+
+        def record(self, reqs):
+            seen[name] = reqs
+            return generate(self, reqs)
+
+        monkeypatch.setattr(cls, "generate", record)
+
+    recorder(jserver.Server, "reference")
+    recorder(tserver.Server, "port")
+    argv = ["--arch", arch, "--smoke", "--requests", "2", "--prompt-len", "12",
+            "--new-tokens", "3"]
+    assert jserve.main(argv) == 0
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out.count("generated shape: (2, 3)") == 2
+    assert len(seen["port"]) == len(seen["reference"]) == 2
+    for t, j in zip(seen["port"], seen["reference"]):
+        np.testing.assert_array_equal(t.tokens, j.tokens)
+        assert sorted(t.extra) == sorted(j.extra) == [
+            "image_embeds" if arch == "paligemma_3b" else "frames"]
+        for k in t.extra:
+            assert t.extra[k].dtype == j.extra[k].dtype
+            np.testing.assert_array_equal(t.extra[k], j.extra[k])
 
 
 @pytest.mark.parametrize("arch,prompt_len", [

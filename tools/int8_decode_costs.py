@@ -66,12 +66,13 @@ def decode_in_turns(arch: str, prompt_len: int, steps: int = 8) -> dict:
     import torch
 
     from repro_torch.configs import base
+    from repro_torch.launch import serve
     from repro_torch.runtime.server import Server, ServerConfig
 
     cfg = base.get_config(arch)
     server = Server(cfg, base.get_parallel(arch),
                     ServerConfig(max_batch=2, max_new_tokens=chip_smoke.NEW_TOKENS))
-    reqs = chip_smoke._prompts(cfg, prompt_len)
+    reqs = serve.requests(cfg, 2, prompt_len)
     batch = {"tokens": torch.as_tensor(np.stack([r.tokens for r in reqs]), device="cuda")}
     times: dict = {"bfloat16": [], "int8": []}
     with torch.inference_mode():

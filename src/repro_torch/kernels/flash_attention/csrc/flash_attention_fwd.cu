@@ -5,12 +5,14 @@
 //
 // Computes, per (batch b, query head h):
 //   out = softmax(mask(softcap(scale * Q K^T))) V
-// with GQA (K/V head = h / (H / Hk)), an fp32 online softmax (running max m,
-// running sum l, accumulator acc; masked logits are the finite -1e30) and
-// out = acc / max(l, 1e-30) per element, in the input's type.  The mask is
-// causal AND (q - k < window), OR (k < prefix_len), and finally AND (k < sk).
+// with Q and K of width d and V (and out) of width dv <= d (MLA's values are
+// narrower than its keys), with GQA (K/V head = h / (H / Hk)), an fp32 online
+// softmax (running max m, running sum l, accumulator acc; masked logits are
+// the finite -1e30) and out = acc / max(l, 1e-30) per element, in the
+// input's type.  The mask is causal AND (q - k < window), OR (k < prefix_len),
+// and finally AND (k < sk).
 //
-// Bound on an H100 SXM: 4*d FLOPs per admitted (q, k) pair against reading
+// Bound on an H100 SXM: 2*(d + dv) FLOPs per admitted (q, k) pair against reading
 // Q, K, V and writing O once.  At gemma2-9b prefill (d 256, S 4608) that is
 // ~1k FLOPs per byte, far above the card's ~295 bf16 FLOPs per byte, so the
 // kernel is bound by operations (989 TFLOP/s on the tensor cores).
@@ -51,7 +53,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int b, sq, sk, h, hk, d;
+  int b, sq, sk, h, hk, d, dv;
   long long q_sb, q_ss, q_sh, q_sd;
   long long k_sb, k_ss, k_sh, k_sd;
   long long v_sb, v_ss, v_sh, v_sd;
@@ -133,7 +135,7 @@ __device__ __forceinline__ void fp32_body(const Params& p, float* smem) {
 
     __syncthreads();  // the previous tile's reads of sK, sV, sS are done
     load_tile<HD>(sK, k, k0, BK, p.sk, p.d, p.k_ss, p.k_sd);
-    load_tile<HD>(sV, v, k0, BK, p.sk, p.d, p.v_ss, p.v_sd);
+    load_tile<HD>(sV, v, k0, BK, p.sk, p.dv, p.v_ss, p.v_sd);
     __syncthreads();
 
     // S = Q K^T on a 4 x 4 micro-tile per thread
@@ -234,11 +236,11 @@ __device__ __forceinline__ void fp32_body(const Params& p, float* smem) {
     // a division per element, as the TPU kernel and the ring's finalize do:
     // the ring of one then equals this kernel bit for bit
     const float l = fmaxf(sL[r], 1e-30f);
-    float* orow = o + ((static_cast<long long>(bi) * p.sq + qp) * p.h + hi) * p.d;
+    float* orow = o + ((static_cast<long long>(bi) * p.sq + qp) * p.h + hi) * p.dv;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int col = tx + 16 * j;
-      if (col < p.d) orow[col] = acc[i][j] / l;
+      if (col < p.dv) orow[col] = acc[i][j] / l;
     }
   }
 }
@@ -306,7 +308,8 @@ __device__ __forceinline__ void bf16_body(const Params& p, unsigned char* smem) 
   st.l[0] = st.l[1] = 0.f;
   const FlashMask mask{p.scale, p.softcap, p.causal, p.window, p.prefix, p.sk, q0,
                        ft::Shape<HD>::BK, p.softcap > 0.f ? 1.f / p.softcap : 0.f};
-  ft::fold_tiles<HD>(smem, st, mask, q, p.q_ss, p.sq, p.d, &p.tk, &p.tv, kh, bi, q0, k_end);
+  ft::fold_tiles<HD>(smem, st, mask, q, p.q_ss, p.sq, p.d, p.dv, &p.tk, &p.tv, kh, bi, q0,
+                     k_end);
 
   bf16* o = static_cast<bf16*>(p.o);
 #pragma unroll
@@ -316,12 +319,12 @@ __device__ __forceinline__ void bf16_body(const Params& p, unsigned char* smem) 
     // a division per element, as the TPU kernel and the ring's finalize do:
     // the ring of one then equals this kernel bit for bit
     const float l = fmaxf(st.l[h], 1e-30f);
-    bf16* orow = o + ((static_cast<long long>(bi) * p.sq + qp) * p.h + hi) * p.d;
+    bf16* orow = o + ((static_cast<long long>(bi) * p.sq + qp) * p.h + hi) * p.dv;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int i = 4 * j + 2 * h;  // columns frag_col(i) and the one after it
       const int col = ft::frag_col(i);
-      if (col < p.d) {
+      if (col < p.dv) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(st.o[i] / l, st.o[i + 1] / l);
       }
@@ -347,7 +350,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     constexpr int BK = flash_tile::Shape<HD>::BK;
     if (!flash_tile::make_tile_map(&pp.tk, p.k, p.d, p.sk, p.hk, p.b, p.k_ss, p.k_sh, p.k_sb, BK) ||
-        !flash_tile::make_tile_map(&pp.tv, p.v, p.d, p.sk, p.hk, p.b, p.v_ss, p.v_sh, p.v_sb, BK)) {
+        !flash_tile::make_tile_map(&pp.tv, p.v, p.dv, p.sk, p.hk, p.b, p.v_ss, p.v_sh, p.v_sb,
+                                   BK)) {
       return cudaErrorInvalidValue;
     }
     smem = flash_tile::Shape<HD>::SMEM_BYTES;
@@ -381,19 +385,20 @@ cudaError_t dispatch_bf16(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  The output is
-// a contiguous (b, sq, h, d) buffer that the caller allocated.  Returns the
+// a contiguous (b, sq, h, dv) buffer that the caller allocated.  Returns the
 // launch's cudaError_t (0 on success); nothing is synchronised or allocated.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
-    int b, int sq, int sk, int h, int hk, int d,
+    int b, int sq, int sk, int h, int hk, int d, int dv,
     long long q_sb, long long q_ss, long long q_sh, long long q_sd,
     long long k_sb, long long k_ss, long long k_sh, long long k_sd,
     long long v_sb, long long v_ss, long long v_sh, long long v_sd,
     float scale, float softcap, int causal, int window, int prefix, void* stream) {
-  Params p{q, k, v, o, b, sq, sk, h, hk, d,
+  Params p{q, k, v, o, b, sq, sk, h, hk, d, dv,
            q_sb, q_ss, q_sh, q_sd, k_sb, k_ss, k_sh, k_sd, v_sb, v_ss, v_sh, v_sd,
            scale, softcap, causal, window, prefix};
-  if (b < 1 || sq < 1 || sk < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256) {
+  if (b < 1 || sq < 1 || sk < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256 || dv < 1 ||
+      dv > d) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

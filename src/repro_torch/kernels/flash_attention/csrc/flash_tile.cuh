@@ -28,6 +28,10 @@
 // descriptors name (16-byte chunk c of row r at chunk c ^ (r % 8)).  Q is
 // copied by cp.async 16-byte copies, K and V by TMA boxes; both zero-fill
 // past the last row and past column d, so padded head dimensions are exact.
+// V may be narrower than Q and K (dv <= d, MLA's values): its columns past
+// dv read as zeros and give output columns that are never stored.  A panel
+// that lies wholly past K's d or V's dv is never copied: it is zeroed once
+// in both stages before the first tile, so no TMA box starts out of bounds.
 // The next key tile's copy is in flight while the current one is computed,
 // and a key tile the caller's mask skips is never loaded.
 //
@@ -369,7 +373,8 @@ __device__ __forceinline__ int frag_row(int h) {
 //   masked(x, row, key)      the logit x of element (row, key), masked.
 // Rows and keys are the caller's local indices.  Q is read through q (row r
 // at q + r q_ss); K and V through their TMA maps (make_tile_map with BK-row
-// boxes), at head kh of batch bi.  Must be called by all THREADS threads;
+// boxes, K's d columns wide and V's dv), at head kh of batch bi.  Must be
+// called by all THREADS threads;
 // smem holds Shape<HD>::SMEM_BYTES bytes.
 //
 // The two warpgroups run apart, so one's softmax overlaps the other's
@@ -383,7 +388,7 @@ __device__ __forceinline__ int frag_row(int h) {
 template <int HD, class Mask>
 __device__ __forceinline__ void fold_tiles(unsigned char* smem, State<HD>& st, const Mask& mask,
                                            const bf16* q, long long q_ss, int sq, int d,
-                                           const CUtensorMap* tk, const CUtensorMap* tv,
+                                           int dv, const CUtensorMap* tk, const CUtensorMap* tv,
                                            int kh, int bi, int q0, int k_end) {
   using Sh = Shape<HD>;
   constexpr int BK = Sh::BK;
@@ -396,6 +401,8 @@ __device__ __forceinline__ void fold_tiles(unsigned char* smem, State<HD>& st, c
   const int tid = threadIdx.x & 127;
   const bool loader = threadIdx.x == 128;
   const int r0 = q0 + 64 * wg;  // this warpgroup's first row
+  // 64-column panels that hold a column of K (of d) and of V (of dv)
+  const int k_panels = (d + 63) / 64, v_panels = (dv + 63) / 64;
 
   auto next = [&](int k0) {
     k0 += BK;
@@ -405,11 +412,14 @@ __device__ __forceinline__ void fold_tiles(unsigned char* smem, State<HD>& st, c
   auto load_kv = [&](int k0, int stage) {  // by the loader thread
     const uint32_t dst = sKV + stage * 2 * Sh::KV_BYTES;
     const uint32_t bar = full + 8 * stage;
-    mbar_expect(bar, 2 * Sh::KV_BYTES);  // out-of-bounds boxes count in full
+    // boxes partly out of bounds count in full
+    mbar_expect(bar, static_cast<uint32_t>((k_panels + v_panels) * BK * 128));
 #pragma unroll
     for (int panel = 0; panel < HD / 64; ++panel) {
-      tma_load(dst + panel * BK * 128, tk, bar, 64 * panel, k0, kh, bi);
-      tma_load(dst + Sh::KV_BYTES + panel * BK * 128, tv, bar, 64 * panel, k0, kh, bi);
+      if (panel < k_panels) tma_load(dst + panel * BK * 128, tk, bar, 64 * panel, k0, kh, bi);
+      if (panel < v_panels) {
+        tma_load(dst + Sh::KV_BYTES + panel * BK * 128, tv, bar, 64 * panel, k0, kh, bi);
+      }
     }
   };
 
@@ -419,6 +429,21 @@ __device__ __forceinline__ void fold_tiles(unsigned char* smem, State<HD>& st, c
       mbar_init(empty + 8 * s, THREADS);  // every thread releases the stage
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the panels no TMA box fills: zeros, read by wgmma through the async proxy
+  if (k_panels < HD / 64 || v_panels < HD / 64) {
+    constexpr int PANEL_WORDS = BK * 128 / 16;  // 16-byte words a panel
+    for (int s = 0; s < Sh::STAGES; ++s) {
+      for (int panel = 0; panel < HD / 64; ++panel) {
+        for (int half = 0; half < 2; ++half) {  // K, then V
+          if (panel < (half ? v_panels : k_panels)) continue;
+          uint4* w = reinterpret_cast<uint4*>(
+              smem + (sKV - raw) + s * 2 * Sh::KV_BYTES + half * Sh::KV_BYTES + panel * BK * 128);
+          for (int i = threadIdx.x; i < PANEL_WORDS; i += THREADS) w[i] = make_uint4(0, 0, 0, 0);
+        }
+      }
+    }
+    fence_proxy_async();
   }
   __syncthreads();
 

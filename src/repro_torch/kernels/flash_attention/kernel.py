@@ -9,7 +9,8 @@ Nothing is built when this module is imported.
 
 :func:`flash_attention_fwd` takes CUDA tensors only, launches on the current
 stream and counts its launches in :data:`LAUNCHES`; a build or launch
-failure raises.  bf16 inputs run on the tensor cores, their tiles copied by
+failure raises.  The values may be narrower than the queries and keys
+(``dv <= d``, MLA's).  bf16 inputs run on the tensor cores, their tiles copied by
 TMA and 16-byte cp.async copies, so each of q, k and v must have contiguous
 rows on 16-byte boundaries (:func:`check_copyable`); fp32 inputs run on the
 CUDA cores in any strides.
@@ -30,11 +31,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: ctypes declaration of the C entry point: q, k, v, o; dtype, b, sq, sk, h,
-#: hk, d; the 12 strides of q, k, v; scale, softcap; causal, window,
+#: hk, d, dv; the 12 strides of q, k, v; scale, softcap; causal, window,
 #: prefix; stream.
 ARGTYPES = (
     [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 7
+    + [ctypes.c_int] * 8
     + [ctypes.c_longlong] * 12
     + [ctypes.c_float] * 2
     + [ctypes.c_int] * 3
@@ -98,7 +99,7 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
     b, _, h, d = q.shape
     errors.check(
-        k.shape == v.shape and k.shape[0] == b and k.shape[3] == d,
+        k.shape[:3] == v.shape[:3] and k.shape[0] == b and k.shape[3] == d,
         errors.ErrorClass.ERR_DIMS,
         f"flash kernel: k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q "
         f"{tuple(q.shape)}",
@@ -112,6 +113,11 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         d % 8 == 0 and d <= MAX_HEAD_DIM,
         errors.ErrorClass.ERR_DIMS,
         f"flash kernel: head_dim must be a multiple of 8 up to {MAX_HEAD_DIM}, got {d}",
+    )
+    errors.check(
+        v.shape[3] % 8 == 0 and v.shape[3] <= d,
+        errors.ErrorClass.ERR_DIMS,
+        f"flash kernel: v's width must be a multiple of 8 up to q's {d}, got {v.shape[3]}",
     )
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -129,8 +135,9 @@ def flash_attention_fwd(
     logit_softcap: float | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """q: (b, sq, h, d); k/v: (b, sk, hk, d), h % hk == 0, any strides.
-    → contiguous (b, sq, h, d) in q's dtype (bf16 or fp32)."""
+    """q: (b, sq, h, d); k: (b, sk, hk, d); v: (b, sk, hk, dv) with dv <= d;
+    h % hk == 0, any strides.  → contiguous (b, sq, h, dv) in q's dtype
+    (bf16 or fp32)."""
 
     _check_inputs(q, k, v)
     errors.check(
@@ -149,16 +156,16 @@ def flash_attention_fwd(
         f"flash kernel: logit_softcap must be > 0, got {logit_softcap}",
     )
     b, sq, h, d = q.shape
-    sk, hk = k.shape[1], k.shape[2]
+    sk, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     entry = LIBRARY.entry("flash_attention_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, sq, sk, h, hk, d,
+            _DTYPE_CODES[q.dtype], b, sq, sk, h, hk, d, dv,
             *q.stride(), *k.stride(), *v.stride(),
             float(scale),
             float(logit_softcap) if logit_softcap is not None else 0.0,
@@ -171,7 +178,7 @@ def flash_attention_fwd(
         errors.fail(
             errors.ErrorClass.ERR_OTHER,
             f"flash kernel launch failed: cudaError {rc} "
-            f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)})",
+            f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, v {tuple(v.shape)})",
         )
     _count_launch()
     return out

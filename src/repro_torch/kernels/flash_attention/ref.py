@@ -53,8 +53,9 @@ def mha(
     scale: float | None = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Reference attention.  q: (b, sq, h, d); k/v: (b, sk, hk, d) with
-    ``h % hk == 0`` (GQA).  Returns (b, sq, h, d) in q's dtype."""
+    """Reference attention.  q: (b, sq, h, d); k: (b, sk, hk, d); v: (b, sk,
+    hk, dv) with ``h % hk == 0`` (GQA).  Returns (b, sq, h, dv) in q's
+    dtype."""
 
     b, sq, h, d = q.shape
     if scale is None:
@@ -95,7 +96,9 @@ def chunked_mha(
     """Memory-efficient (online-softmax) attention: never materialises the
     (S, S) score matrix.  The same blockwise schedule as the kernel, written
     as loops over query blocks and key blocks; ragged shapes fall back to
-    :func:`mha`, as in the reference."""
+    :func:`mha`, as in the reference.  Like the reference's, it needs v as
+    wide as q and k (ROADMAP C14): with narrower values on whole blocks its
+    accumulator does not take the products and it raises."""
 
     b, sq, h, d = q.shape
     sk = k.shape[1]

@@ -332,7 +332,8 @@ __device__ __forceinline__ void bf16_body(const Params& p, unsigned char* smem) 
     st.o[i] = (row < p.sq && col < p.d) ? acc[static_cast<long long>(row) * p.d + col] : 0.f;
   }
   const RingMask mask{p.scale, p.causal, q_off, k_off, kv_len, p.sk};
-  ft::fold_tiles<HD>(smem, st, mask, q, p.q_ss, p.sq, p.d, &p.tk, &p.tv, kh, bi, q0, k_end);
+  ft::fold_tiles<HD>(smem, st, mask, q, p.q_ss, p.sq, p.d, p.d, &p.tk, &p.tv, kh, bi, q0,
+                     k_end);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {

@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b --smoke \\
         --requests 8 --prompt-len 64 --new-tokens 16 [--device cpu]
 
-``--arch`` takes the ported configs: the dense family (gemma2_9b,
-phi4_mini_3_8b, granite_3_8b, qwen1_5_32b), mamba2_2_7b, zamba2_7b, the
+``--arch`` takes every config of the reference: the dense family
+(gemma2_9b, phi4_mini_3_8b, granite_3_8b, qwen1_5_32b), the MoE family
+(grok_1_314b; deepseek_v2_236b with MLA), mamba2_2_7b, zamba2_7b, the
 prefix-LM VLM paligemma_3b and the encoder-decoder seamless_m4t_large_v2.
 Each request draws its prompt, then its stub ``image_embeds`` (VLM) or
 ``frames`` (encoder-decoder), from one seeded generator, as the reference

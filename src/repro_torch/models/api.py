@@ -1,7 +1,7 @@
 """Unified model API: ``build(cfg)`` returns a :class:`ModelBundle` with
-init / loss / prefill / decode entry points.  The dense, ``vlm``, ``ssm``,
-``hybrid`` and ``encdec`` families are ported; ``moe`` raises
-``ERR_UNSUPPORTED_OPERATION``."""
+init / loss / prefill / decode entry points, for every family of the
+reference: ``dense``, ``moe`` and ``vlm`` (the transformer trunk), ``ssm``,
+``hybrid`` and ``encdec``; another family raises ``ERR_UNSUPPORTED_OPERATION``."""
 
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ class ModelBundle:
 
 def build(cfg) -> ModelBundle:
     fam = cfg.family
-    if fam in ("dense", "vlm"):
+    if fam in ("dense", "moe", "vlm"):
         return ModelBundle(
             cfg=cfg,
             init=lambda gen: transformer.init_lm(gen, cfg),
@@ -78,6 +78,6 @@ def build(cfg) -> ModelBundle:
         )
     errors.fail(
         errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        f"model family {fam!r} ({cfg.name}) is not ported yet (ROADMAP A12 items 3-4); "
-        f"the port serves the dense, vlm, ssm, hybrid and encdec families",
+        f"model family {fam!r} ({cfg.name}) is not a family of the reference; "
+        f"the port serves the dense, moe, vlm, ssm, hybrid and encdec families",
     )

@@ -1,13 +1,14 @@
-"""Attention: GQA/MQA (+ RoPE, sliding window, softcap) and the KV cache
-(bf16 or int8, linear or ring-buffer), the serving path of
-:mod:`repro.models.attention` for the dense family and the hybrid's shared
-block.  The int8 cache quantizes and dequantizes through
+"""Attention: GQA/MQA (+ RoPE, sliding window, softcap), MLA (deepseek-v2)
+and the KV caches (bf16 or int8, linear or ring-buffer; MLA's compressed
+latent cache), the serving path of :mod:`repro.models.attention`.  The
+int8 cache quantizes and dequantizes through
 :mod:`repro_torch.kernels.quant` (the CUDA kernels on the card).  With
 ``pcfg.ring_attention`` and a communicator (the reference's ``mesh``
 argument), layers with no softcap, window or prefix shard the sequence
-over the ring kernel (:mod:`repro_torch.kernels.ring_attention`).  Not
-ported yet: per-row decode positions, MLA and the sequence-sharded
-decode."""
+over the ring kernel (:mod:`repro_torch.kernels.ring_attention`).  MLA's
+full-sequence attention runs the flash kernel with values narrower than
+the keys; its absorbed decode is plain fp32, as the reference's.  Not
+ported yet: per-row decode positions and the sequence-sharded decode."""
 
 from __future__ import annotations
 
@@ -325,3 +326,122 @@ def _decode_attend(q, kc, vc, valid, cfg):
     s = torch.where(valid[None, None, None, :], s, fa_ref.NEG_INF)
     pattn = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", pattn, vc.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): low-rank Q/KV with compressed cache + absorbed decode
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MLACache:
+    """Compressed latent cache: ``ckv`` (L, B, S, kv_lora), ``k_rope``
+    (L, B, S, rope_dim), ``pos`` () int32 tensor.  Written in place by
+    decode.  Like the reference's, it has no int8 form: an MLA model keeps
+    its cache in the model's dtype under ``kv_cache_dtype="int8"`` too."""
+
+    ckv: torch.Tensor
+    k_rope: torch.Tensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(num_layers, batch, length, kv_lora, rope_dim, dtype=torch.bfloat16,
+             device=None) -> "MLACache":
+        return MLACache(
+            ckv=torch.zeros((num_layers, batch, length, kv_lora), dtype=dtype, device=device),
+            k_rope=torch.zeros((num_layers, batch, length, rope_dim), dtype=dtype, device=device),
+            pos=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+
+def init_mla(gen, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Params:
+    """``stack`` prepends leading dims (the scanned unit stack)."""
+
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    st = bool(stack)
+
+    def norm(n):
+        return torch.zeros(stack + (n,), dtype=dtype, device=gen.device)
+
+    return {
+        "wq_a": dense_init(gen, d, stack + (d, cfg.q_lora), dtype, stacked=st),
+        "q_norm": norm(cfg.q_lora),
+        "wq_b": dense_init(gen, cfg.q_lora, stack + (cfg.q_lora, h, dn + dr), dtype, stacked=st),
+        "wkv_a": dense_init(gen, d, stack + (d, cfg.kv_lora + dr), dtype, stacked=st),
+        "kv_norm": norm(cfg.kv_lora),
+        "wk_b": dense_init(gen, cfg.kv_lora, stack + (cfg.kv_lora, h, dn), dtype, stacked=st),
+        "wv_b": dense_init(gen, cfg.kv_lora, stack + (cfg.kv_lora, h, dv), dtype, stacked=st),
+        "wo": dense_init(gen, h * dv, stack + (h, dv, d), dtype, stacked=st),
+    }
+
+
+def _mla_scale(cfg) -> float:
+    return 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+
+
+def _mla_latents(p, x, cfg, positions):
+    """Shared q/kv latent computation.  Returns (q_nope, q_rope, ckv, k_rope)."""
+
+    cq = common.rms_norm(torch.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    q = _proj(cq, p["wq_b"])
+    q_nope, q_rope = q[..., : cfg.nope_head_dim], q[..., cfg.nope_head_dim:]
+    q_rope = common.rope(q_rope, positions, theta=cfg.rope_theta)
+
+    kv = torch.matmul(x, p["wkv_a"])
+    ckv, k_rope = kv[..., : cfg.kv_lora], kv[..., cfg.kv_lora:]
+    ckv = common.rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    k_rope = common.rope(k_rope[:, :, None, :], positions, theta=cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_attention_full(p, x, cfg, pcfg, *, positions, mesh=None, return_cache=False):
+    """Training/prefill MLA: expand the latents and run causal attention
+    over keys of width nope + rope and values of width v (the flash kernel
+    takes the narrower values as they are)."""
+
+    q_nope, q_rope, ckv, k_rope = _mla_latents(p, x, cfg, positions)
+    k_nope = _proj(ckv, p["wk_b"])
+    v = _proj(ckv, p["wv_b"])
+    h = cfg.num_heads
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], h, cfg.rope_head_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = fa_ops.flash_attention(
+        q_full, k_full, v, causal=True, scale=_mla_scale(cfg),
+        impl=getattr(pcfg, "attn_impl", "ref"),
+    )
+    y = _out(out, p["wo"])
+    if return_cache:
+        return y, (ckv, k_rope)
+    return y
+
+
+def mla_attention_decode(p, x1, ckv_layer, krope_layer, pos, cfg, pcfg, *, mesh=None):
+    """Absorbed decode: attend in the compressed latent space (the W^UK
+    absorption: no per-step expansion), in fp32.  The new latents are
+    written into the cached layer in place."""
+
+    errors.check(
+        pos.dim() == 0,
+        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+        "per-row decode positions are not ported yet (scalar pos only)",
+    )
+    q_nope, q_rope, ckv_new, krope_new = _mla_latents(p, x1, cfg, pos[None])
+    idx = pos.long() + torch.arange(ckv_new.shape[1], device=ckv_layer.device)
+    ckv_layer.index_copy_(1, idx, ckv_new.to(ckv_layer.dtype))
+    krope_layer.index_copy_(1, idx, krope_new.to(krope_layer.dtype))
+    capacity = ckv_layer.shape[1]
+    valid = torch.arange(capacity, device=ckv_layer.device) <= pos
+
+    # absorb: q_latent = q_nope @ W^UK  → (B, 1, H, kv_lora)
+    q_latent = torch.einsum("bshn,khn->bshk", q_nope, p["wk_b"])
+    ckv_f = ckv_layer.float()
+    s = torch.einsum("bshk,btk->bhst", q_latent.float(), ckv_f)
+    s = s + torch.einsum("bshr,btr->bhst", q_rope.float(), krope_layer.float())
+    s = s * _mla_scale(cfg)
+    s = torch.where(valid[None, None, None, :], s, fa_ref.NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o_latent = torch.einsum("bhst,btk->bshk", pattn, ckv_f)
+    out = torch.einsum("bshk,khv->bshv", o_latent.to(x1.dtype), p["wv_b"])
+    return _out(out, p["wo"]), (ckv_layer, krope_layer)

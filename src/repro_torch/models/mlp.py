@@ -1,5 +1,30 @@
-"""Dense gated MLP (SwiGLU/GeGLU).  The mixture-of-experts blocks of
-:mod:`repro.models.mlp` are not ported yet."""
+"""MLPs: the gated (SwiGLU/GeGLU) dense block and the mixture-of-experts
+block of :mod:`repro.models.mlp` (top-k routing, shared experts,
+capacity-bounded sort-based dispatch; the global and the per-row dispatch).
+
+The dispatch is the reference's, made deterministic on the card, where a
+scatter-add's atomics add in any order:
+
+- ties: the router's top-k and the bucket sort are stable sorts, so tied
+  probabilities pick the lower expert first (``jax.lax.top_k``) and the
+  rows of one expert keep their order (``jnp.argsort``), which decides the
+  rows that overflow capacity;
+- dropped rows: the slot buffers carry one sink row past the ``e * c``
+  slots, where overflowed rows are written and read (a zero row), and which
+  is cut off: nothing is indexed past the end;
+- the combine adds each token's k weighted rows in order ``j = 0 … k-1``
+  in the model's dtype (the order of XLA's serial scatter-add on the CPU),
+  not by ``index_add_``: the sum is the same bits every run, so a CUDA
+  graph's decode equals the eager loop's and remat's recompute equals the
+  forward;
+- a row is repeated k times for the dispatch by ``expand``, whose backward
+  sums the k gradients in a fixed order.
+
+Everything is capturable in a CUDA graph: no ``.item()``, no
+boolean-mask indexing, the capacity computed from static shapes.  The
+expert-parallel dispatch (``moe_neighbor``, ``expert_dispatch_graph``) and
+the mesh placement ``_pin`` are not ported yet (ROADMAP A14 items 1, 4, 7).
+"""
 
 from __future__ import annotations
 
@@ -7,6 +32,15 @@ import torch
 
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+# ---------------------------------------------------------------------------
+# dense gated MLP
+# ---------------------------------------------------------------------------
 
 
 def init_mlp(gen: torch.Generator, d: int, f: int, dtype, *, stack: tuple[int, ...] = ()) -> common.Params:
@@ -24,3 +58,164 @@ def mlp(p: common.Params, x: torch.Tensor, act: str) -> torch.Tensor:
     g = torch.matmul(x, p["w_gate"])
     u = torch.matmul(x, p["w_up"])
     return torch.matmul(a(g) * u, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+
+def _dispatch_slots(bucket: torch.Tensor, e: int, c: int) -> torch.Tensor:
+    """Each row's flat slot ``bucket * c + position in its bucket``, or
+    ``e * c`` where the position reaches capacity; positions follow the
+    rows' order within a bucket (a stable sort)."""
+
+    n = bucket.shape[-1]
+    order = torch.argsort(bucket, dim=-1, stable=True)
+    sorted_b = torch.gather(bucket, -1, order)
+    first = torch.searchsorted(sorted_b, sorted_b, side="left")
+    pos_in_b = torch.arange(n, device=bucket.device) - first
+    slot_sorted = torch.where(pos_in_b < c, sorted_b * c + pos_in_b,
+                              torch.full_like(pos_in_b, e * c))
+    return torch.empty_like(slot_sorted).scatter_(-1, order, slot_sorted).to(torch.int32)
+
+
+def _scatter_rows(rows: torch.Tensor, slot: torch.Tensor, e: int, c: int) -> torch.Tensor:
+    """rows (..., n, d) into (..., e, c, d) at their flat ``slot`` (..., n);
+    rows at ``e * c`` land in a sink row that is cut off.  Every other slot
+    takes at most one row, so the write is a copy (the reference adds into
+    zeros)."""
+
+    *lead, n, d = rows.shape
+    buf = rows.new_zeros((*lead, e * c + 1, d))
+    index = [torch.arange(m, device=rows.device).reshape((-1,) + (1,) * (len(lead) - i))
+             for i, m in enumerate(lead)]
+    buf = buf.index_put((*index, slot.long()), rows)
+    return buf[..., : e * c, :].unflatten(-2, (e, c))
+
+
+def _sort_dispatch(rows: torch.Tensor, bucket: torch.Tensor, e: int, c: int):
+    """Capacity-bounded sort-based dispatch: scatter ``rows`` (n, d) into
+    ``(e, c, d)`` slots keyed by ``bucket`` (n,) ids.  Returns ``(slots,
+    slot)`` where ``slot`` (n,) int32 is each row's flat destination
+    (``e*c`` = overflowed/dropped)."""
+
+    slot = _dispatch_slots(bucket, e, c)
+    return _scatter_rows(rows, slot, e, c), slot
+
+
+def init_moe(gen: torch.Generator, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Params:
+    """The router is fp32 in any model dtype, as the reference draws it."""
+
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    st = bool(stack)
+    p = {
+        "router": dense_init(gen, d, stack + (d, e), torch.float32, stacked=st),
+        "w_gate": dense_init(gen, d, stack + (e, d, f), dtype, stacked=st),
+        "w_up": dense_init(gen, d, stack + (e, d, f), dtype, stacked=st),
+        "w_down": dense_init(gen, f, stack + (e, f, d), dtype, stacked=st),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(gen, d, cfg.num_shared_experts * f, dtype, stack=stack)
+    return p
+
+
+def _route(p, xt: torch.Tensor, k: int):
+    """fp32 router logits, softmax, top-k (ties to the lower expert, as
+    ``jax.lax.top_k``) and the renormalised gates."""
+
+    logits = torch.matmul(xt.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, top_p, top_e
+
+
+def _repeat_rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., t, d) → (..., t*k, d), row i*k + j = row i: ``x[token_idx]``
+    with ``token_idx = repeat(arange(t), k)``."""
+
+    *lead, t, d = x.shape
+    return x.unsqueeze(-2).expand(*lead, t, k, d).reshape(*lead, t * k, d)
+
+
+def _experts(p, slots: torch.Tensor, act: str) -> torch.Tensor:
+    """The grouped expert FFN: ``slots`` (..., e, c, d) → (..., e, c, d)."""
+
+    a = common.activation(act)
+    g = torch.matmul(slots, p["w_gate"])
+    u = torch.matmul(slots, p["w_up"])
+    return torch.matmul(a(g) * u, p["w_down"])
+
+
+def _combine(out_slots: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor, k: int):
+    """Gather each dispatch's output row (a zero row where it was dropped),
+    weight it by its gate in the rows' dtype, and add each token's k rows
+    in order j = 0 … k-1.  out_slots (..., e*c, d), slot/gates (..., t*k)
+    → (..., t, d)."""
+
+    *lead, n, d = out_slots.shape
+    padded = torch.cat([out_slots, out_slots.new_zeros((*lead, 1, d))], dim=-2)
+    idx = slot.long().unsqueeze(-1).expand(*slot.shape, d)
+    gathered = torch.gather(padded, -2, idx)
+    weighted = (gathered * gates.unsqueeze(-1).to(gathered.dtype)).unflatten(-2, (-1, k))
+    y = weighted[..., 0, :]
+    for j in range(1, k):
+        y = y + weighted[..., j, :]
+    return y
+
+
+def _aux(logits, probs, top_e, slot, e: int, c: int) -> dict:
+    me = probs.reshape(-1, e).mean(0)                          # (e,)
+    flat_e = top_e.reshape(-1)
+    ce_frac = torch.zeros(e, device=probs.device).index_add_(
+        0, flat_e, torch.ones(flat_e.shape, device=probs.device)) / flat_e.numel()
+    return {
+        "load_balance_loss": e * torch.sum(me * ce_frac),
+        "router_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        "dropped_fraction": torch.mean((slot == e * c).float()),
+    }
+
+
+def moe_per_row(p: common.Params, x: torch.Tensor, cfg, pcfg=None) -> tuple[torch.Tensor, dict]:
+    """Data-local MoE dispatch: routing, sort and scatter run independently
+    per batch row, with capacity bounded per row."""
+
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.moe_top_k
+    logits, probs, top_p, top_e = _route(p, x, k)             # (b, s, k)
+    c = min(_round_up(int(cfg.capacity_factor * s * k / e) or 1, 8), s * k)
+    slot = _dispatch_slots(top_e.reshape(b, s * k), e, c)     # (b, s*k)
+    rows = _repeat_rows(x, k)                                 # (b, s*k, d)
+    slots = _scatter_rows(rows, slot, e, c)                   # (b, e, c, d)
+    out_flat = _experts(p, slots, cfg.act).reshape(b, e * c, d)
+    y = _combine(out_flat, slot, top_p.reshape(b, s * k), k)
+    if cfg.num_shared_experts:
+        y = y + mlp(p["shared"], x, cfg.act)
+    return y, _aux(logits, probs, top_e, slot, e, c)
+
+
+def moe(
+    p: common.Params, x: torch.Tensor, cfg, *, capacity: int | None = None, pcfg=None
+) -> tuple[torch.Tensor, dict]:
+    """Capacity-bounded top-k MoE: sort-based dispatch into ``(E, C, D)``
+    slots, one grouped product per projection, a gather-combine.
+    Overflowing rows drop; aux: load balance, router z-loss, dropped share."""
+
+    if pcfg is not None and getattr(pcfg, "moe_dispatch", "global") == "per_row":
+        return moe_per_row(p, x, cfg, pcfg)
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.moe_top_k
+    t = b * s
+    xt = x.reshape(t, d)
+    logits, probs, top_p, top_e = _route(p, xt, k)           # (t, k)
+    if capacity is None:
+        capacity = _round_up(int(cfg.capacity_factor * t * k / e) or 1, 8)
+    c = min(capacity, t * k)
+    slots, slot = _sort_dispatch(_repeat_rows(xt, k), top_e.reshape(-1), e, c)
+    out_slots = _experts(p, slots, cfg.act).reshape(e * c, d)
+    y = _combine(out_slots, slot, top_p.reshape(-1), k)
+    if cfg.num_shared_experts:
+        y = y + mlp(p["shared"], xt, cfg.act)
+    return y.reshape(b, s, d), _aux(logits, probs, top_e, slot, e, c)

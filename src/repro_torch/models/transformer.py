@@ -1,7 +1,8 @@
 """Decoder-only LM trunk: dense (qwen/phi4/granite), gemma-2's local-global
-alternation with softcaps, and the prefix-LM VLM (paligemma), with forward
-/ loss / prefill / decode entry points — the dense and VLM paths of
-:mod:`repro.models.transformer`.
+alternation with softcaps, MoE (grok-1), MLA + MoE with a leading dense
+layer (deepseek-v2) and the prefix-LM VLM (paligemma), with forward / loss /
+prefill / decode entry points — :mod:`repro.models.transformer` but its
+pipeline decomposition.
 
 The parameter tree is the reference's: ``params["layers"][name]`` stacks
 every leaf of one sub-layer along a leading unit dimension.  The reference
@@ -9,9 +10,11 @@ every leaf of one sub-layer along a leading unit dimension.  The reference
 (``pcfg.remat``) wraps each unit of the loss path in
 ``torch.utils.checkpoint`` (:func:`_maybe_remat`).  The VLM projects its
 image embeddings through ``mm_proj`` and puts them before the text, a
-bidirectional prefix of ``num_image_tokens`` under ``prefix_lm``.  Not
-ported yet: MoE, MLA, ``first_dense_layers`` (ROADMAP A12 items 3-4) and
-the pipeline decomposition.
+bidirectional prefix of ``num_image_tokens`` under ``prefix_lm``.  The
+``first_dense_layers`` blocks (``params["dense_{i}"]``) run before the
+stack, unstacked and not rematted, as in the reference; the MoE blocks'
+aux metrics are summed over the stacked units.  Not ported yet: the
+pipeline decomposition.
 """
 
 from __future__ import annotations
@@ -27,18 +30,10 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.core import errors
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.common import dense_init
 
-
-def _check_ported(cfg) -> None:
-    errors.check(
-        cfg.family in ("dense", "vlm") and not cfg.mla and not cfg.num_experts
-        and not cfg.first_dense_layers,
-        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        f"{cfg.name!r} ({cfg.family}): MoE, MLA and leading dense layers are not ported "
-        f"yet (ROADMAP A12 items 3-4); the trunk runs the dense and vlm families",
-    )
+_AUX = ("load_balance_loss", "router_z_loss", "dropped_fraction")
 
 
 # ---------------------------------------------------------------------------
@@ -46,9 +41,10 @@ def _check_ported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(gen, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Params:
-    """One residual block: attention + dense MLP with pre-norms (+ gemma-2
-    post-norms); ``stack`` prepends the unit dimension to every leaf."""
+def _init_block(gen, cfg, dtype, *, kind: str, stack: tuple[int, ...] = ()) -> common.Params:
+    """One residual block: attention (GQA or MLA) + (dense|moe) MLP with
+    pre-norms (+ gemma-2 post-norms); ``stack`` prepends the unit dimension
+    to every leaf."""
 
     def norm():
         return torch.zeros(stack + (cfg.d_model,), dtype=dtype, device=gen.device)
@@ -57,8 +53,12 @@ def _init_block(gen, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Param
     if cfg.post_norms:
         p["ln_attn_post"] = norm()
         p["ln_mlp_post"] = norm()
-    p["attn"] = attn.init_attention(gen, cfg, dtype, stack=stack)
-    p["mlp"] = mlp.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, stack=stack)
+    p["attn"] = (attn.init_mla(gen, cfg, dtype, stack=stack) if cfg.mla
+                 else attn.init_attention(gen, cfg, dtype, stack=stack))
+    if kind == "moe":
+        p["mlp"] = mlp.init_moe(gen, cfg, dtype, stack=stack)
+    else:
+        p["mlp"] = mlp.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, stack=stack)
     return p
 
 
@@ -69,7 +69,14 @@ def _block_full(
 
     h = common.rms_norm(x, p["ln_attn"], cfg.norm_eps)
     cache_entry = None
-    if collect_cache:
+    if cfg.mla:
+        if collect_cache:
+            a, cache_entry = attn.mla_attention_full(
+                p["attn"], h, cfg, pcfg, positions=positions, mesh=mesh, return_cache=True
+            )
+        else:
+            a = attn.mla_attention_full(p["attn"], h, cfg, pcfg, positions=positions, mesh=mesh)
+    elif collect_cache:
         a, cache_entry = attn.attention_prefill(
             p["attn"], h, cfg, pcfg, positions=positions,
             sliding_window=sliding_window, prefix_len=prefix_len, mesh=mesh,
@@ -84,10 +91,14 @@ def _block_full(
     x = x + a
 
     h = common.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    m = mlp.mlp(p["mlp"], h, cfg.act)
+    aux = {}
+    if kind == "moe":
+        m, aux = mlp.moe(p["mlp"], h, cfg, pcfg=pcfg)
+    else:
+        m = mlp.mlp(p["mlp"], h, cfg.act)
     if cfg.post_norms:
         m = common.rms_norm(m, p["ln_mlp_post"], cfg.norm_eps)
-    return x + m, cache_entry, {}
+    return x + m, cache_entry, aux
 
 
 def _block_decode(p, x1, cache_slices, pos, cfg, pcfg, *, kind, sliding_window, mesh):
@@ -95,17 +106,26 @@ def _block_decode(p, x1, cache_slices, pos, cfg, pcfg, *, kind, sliding_window, 
     arrays, updated in place.  Returns (x1, cache_slices)."""
 
     h = common.rms_norm(x1, p["ln_attn"], cfg.norm_eps)
-    k_l, v_l, ks_l, vs_l = cache_slices
-    a, new_slices = attn.attention_decode(
-        p["attn"], h, k_l, v_l, ks_l, vs_l, pos, cfg, pcfg,
-        sliding_window=sliding_window, mesh=mesh,
-    )
+    if cfg.mla:
+        ckv_l, krope_l = cache_slices
+        a, new_slices = attn.mla_attention_decode(
+            p["attn"], h, ckv_l, krope_l, pos, cfg, pcfg, mesh=mesh
+        )
+    else:
+        k_l, v_l, ks_l, vs_l = cache_slices
+        a, new_slices = attn.attention_decode(
+            p["attn"], h, k_l, v_l, ks_l, vs_l, pos, cfg, pcfg,
+            sliding_window=sliding_window, mesh=mesh,
+        )
     if cfg.post_norms:
         a = common.rms_norm(a, p["ln_attn_post"], cfg.norm_eps)
     x1 = x1 + a
 
     h = common.rms_norm(x1, p["ln_mlp"], cfg.norm_eps)
-    m = mlp.mlp(p["mlp"], h, cfg.act)
+    if kind == "moe":
+        m, _ = mlp.moe(p["mlp"], h, cfg, pcfg=pcfg)
+    else:
+        m = mlp.mlp(p["mlp"], h, cfg.act)
     if cfg.post_norms:
         m = common.rms_norm(m, p["ln_mlp_post"], cfg.norm_eps)
     return x1 + m, new_slices
@@ -121,20 +141,27 @@ def _unit_plan(cfg) -> list[tuple[str, str, int | None]]:
 
     if cfg.layer_pattern == "local_global":
         return [
-            ("local", "dense", cfg.sliding_window),
-            ("global", "dense", None),
+            ("local", _mlp_kind(cfg), cfg.sliding_window),
+            ("global", _mlp_kind(cfg), None),
         ]
-    return [("layer", "dense", cfg.sliding_window)]
+    return [("layer", _mlp_kind(cfg), cfg.sliding_window)]
+
+
+def _mlp_kind(cfg) -> str:
+    return "moe" if cfg.num_experts else "dense"
 
 
 def _num_units(cfg) -> int:
+    """Stacked units: the layers after the ``first_dense_layers``."""
+
+    n_scanned = cfg.num_layers - cfg.first_dense_layers
     per_unit = len(_unit_plan(cfg))
     errors.check(
-        cfg.num_layers % per_unit == 0,
+        n_scanned >= 0 and n_scanned % per_unit == 0,
         errors.ErrorClass.ERR_DIMS,
-        f"{cfg.num_layers} layers do not fold into units of {per_unit}",
+        f"{n_scanned} stacked layers do not fold into units of {per_unit}",
     )
-    return cfg.num_layers // per_unit
+    return n_scanned // per_unit
 
 
 def _unit(tree: Any, i: int) -> Any:
@@ -197,7 +224,6 @@ def _maybe_remat(fn, pcfg):
 def init_lm(gen: torch.Generator, cfg) -> common.Params:
     """Random parameters on ``gen.device``, drawn from ``gen``."""
 
-    _check_ported(cfg)
     dtype = common.dtype_of(cfg)
     params: common.Params = {
         "embed": common.trunc_normal(gen, (cfg.padded_vocab, cfg.d_model), 1.0, dtype),
@@ -207,8 +233,11 @@ def init_lm(gen: torch.Generator, cfg) -> common.Params:
         params["lm_head"] = dense_init(gen, cfg.d_model, (cfg.d_model, cfg.padded_vocab), dtype)
     n_units = _num_units(cfg)
     params["layers"] = {
-        name: _init_block(gen, cfg, dtype, stack=(n_units,)) for name, _, _ in _unit_plan(cfg)
+        name: _init_block(gen, cfg, dtype, kind=kind, stack=(n_units,))
+        for name, kind, _ in _unit_plan(cfg)
     }
+    for i in range(cfg.first_dense_layers):
+        params[f"dense_{i}"] = _init_block(gen, cfg, dtype, kind="dense")
     if cfg.family == "vlm":
         # multimodal projector (SigLIP stub dim 1152 → d_model)
         params["mm_proj"] = dense_init(gen, 1152, (1152, cfg.d_model), dtype)
@@ -255,28 +284,41 @@ def _prepare_inputs(params, batch: dict, cfg):
 
 
 def lm_forward(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, dict]:
-    """Full-sequence forward → (logits, aux metrics)."""
+    """Full-sequence forward → (logits, aux metrics).  The leading dense
+    blocks run first and are not rematted; the aux metrics are summed over
+    the stacked units."""
 
-    _check_ported(cfg)
     x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
+    for i in range(cfg.first_dense_layers):
+        x, _, _ = _block_full(
+            params[f"dense_{i}"], x, cfg, pcfg, kind="dense", sliding_window=None,
+            positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=False,
+        )
     plan = _unit_plan(cfg)
 
     def unit(x, unit_params):
+        aux_l = {}
         for name, kind, window in plan:
-            x, _, _ = _block_full(
+            x, _, aux = _block_full(
                 unit_params[name], x, cfg, pcfg, kind=kind, sliding_window=window,
                 positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=False,
             )
-        return x
+            for k_, v_ in aux.items():
+                aux_l[k_] = aux_l[k_] + v_ if k_ in aux_l else v_
+        return x, aux_l
 
     unit = _maybe_remat(unit, pcfg)
     units = _units(params["layers"])
     errors.check(len(units) == _num_units(cfg), errors.ErrorClass.ERR_DIMS,
                  f"{len(units)} stacked units, the config folds {_num_units(cfg)}")
+    per_unit = []
     for unit_params in units:
-        x = unit(x, unit_params)
+        x, aux_l = unit(x, unit_params)
+        per_unit.append(aux_l)
     logits = _head(params, x, cfg, pcfg)
-    aux = {"load_balance_loss": 0.0, "router_z_loss": 0.0, "dropped_fraction": 0.0}
+    aux = {k_: 0.0 for k_ in _AUX}
+    if per_unit and per_unit[0]:
+        aux.update({k_: torch.stack([a[k_] for a in per_unit]).sum() for k_ in per_unit[0]})
     return logits, aux
 
 
@@ -289,6 +331,8 @@ def lm_loss(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, di
     loss = common.cross_entropy(
         logits[:, :-1], tokens[:, 1:], softcap_val=cfg.final_logit_softcap
     )
+    if cfg.num_experts:
+        loss = loss + 1e-2 * aux["load_balance_loss"] + 1e-3 * aux["router_z_loss"]
     metrics = {"loss": loss, **{k: torch.as_tensor(v) for k, v in aux.items()}}
     return loss, metrics
 
@@ -297,17 +341,33 @@ def lm_loss(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, di
 
 
 def init_cache(cfg, pcfg, batch: int, length: int, device=None) -> dict[str, Any]:
-    """Cache tree for decode: one entry per unit sub-layer name."""
+    """Cache tree for decode: one entry per unit sub-layer name and per
+    leading dense block (``dense_{i}``).  MLA's latent cache stays in the
+    model's dtype under an int8 ``kv_cache_dtype`` too, as the reference's
+    (ROADMAP C13)."""
 
-    _check_ported(cfg)
     n_units = _num_units(cfg)
     dtype = common.dtype_of(cfg)
     quant = pcfg.kv_cache_dtype == "int8"
     caches: dict[str, Any] = {}
+    if cfg.mla:
+        caches["layer"] = MLACache.init(
+            n_units, batch, length, cfg.kv_lora, cfg.rope_head_dim, dtype, device
+        )
+        for i in range(cfg.first_dense_layers):
+            caches[f"dense_{i}"] = MLACache.init(
+                1, batch, length, cfg.kv_lora, cfg.rope_head_dim, dtype, device
+            )
+        return caches
     for name, _, window in _unit_plan(cfg):
         cap = min(length, window) if window else length
         caches[name] = KVCache.init(
             n_units, batch, cap, cfg.num_kv_heads, cfg.head_dim, dtype=dtype,
+            quantized=quant, device=device,
+        )
+    for i in range(cfg.first_dense_layers):
+        caches[f"dense_{i}"] = KVCache.init(
+            1, batch, length, cfg.num_kv_heads, cfg.head_dim, dtype=dtype,
             quantized=quant, device=device,
         )
     return caches
@@ -317,9 +377,17 @@ def lm_prefill(params, batch: dict, cfg, pcfg, mesh=None, extra_capacity: int = 
     """Prefill: full forward that also builds the cache.  Returns
     (last-token logits, cache dict)."""
 
-    _check_ported(cfg)
     x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
     seq = x.shape[1]
+    caches: dict[str, Any] = {}
+    for i in range(cfg.first_dense_layers):
+        x, entry, _ = _block_full(
+            params[f"dense_{i}"], x, cfg, pcfg, kind="dense", sliding_window=None,
+            positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=True,
+        )
+        caches[f"dense_{i}"] = _entry_to_cache(
+            entry, cfg, pcfg, stack=True, extra=extra_capacity
+        )
     plan = _unit_plan(cfg)
     entries: dict[str, list] = {name: [] for name, _, _ in plan}
     for u in range(_num_units(cfg)):
@@ -330,16 +398,13 @@ def lm_prefill(params, batch: dict, cfg, pcfg, mesh=None, extra_capacity: int = 
                 positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=True,
             )
             entries[name].append(entry)
-    caches: dict[str, Any] = {}
     pos = torch.tensor(seq, dtype=torch.int32, device=x.device)
     for name, _, window in plan:
         # windowed layers use a fixed ring buffer — no headroom needed
         extra = 0 if (window is not None and seq > window) else extra_capacity
-        k = torch.stack([e[0] for e in entries[name]])
-        v = torch.stack([e[1] for e in entries[name]])
-        caches[name] = dataclasses.replace(
-            _entry_to_cache((k, v), cfg, pcfg, stack=False, extra=extra), pos=pos
-        )
+        stacked = tuple(torch.stack(parts) for parts in zip(*entries[name]))
+        caches[name] = _entry_to_cache(stacked, cfg, pcfg, stack=False, extra=extra)
+    caches = {name: dataclasses.replace(c, pos=pos) for name, c in caches.items()}
     logits = _head(params, x[:, -1:], cfg, pcfg)
     if cfg.final_logit_softcap:
         logits = common.softcap(logits, cfg.final_logit_softcap)
@@ -353,16 +418,24 @@ def _pad_seq(arr, extra: int):
 
     if not extra:
         return arr
-    return torch.nn.functional.pad(arr, (0, 0, 0, 0, 0, extra))
+    return torch.nn.functional.pad(arr, (0, 0) * (arr.dim() - 3) + (0, extra))
 
 
 def _entry_to_cache(entry, cfg, pcfg, *, stack: bool, extra: int = 0):
-    """Stacked (L, B, S, Hk, Dh) entries → cache.  The int8 cache pads, then
-    quantizes, as the reference does: the headroom's zero rows carry scale
-    1.0, and each of k and v is one quantize call over all layers."""
+    """Stacked (L, B, S, Hk, Dh) entries (MLA: (L, B, S, kv_lora) and
+    (L, B, S, rope)) → cache.  The int8 cache pads, then quantizes, as the
+    reference does: the headroom's zero rows carry scale 1.0, and each of k
+    and v is one quantize call over all layers; MLA's latents are not
+    quantized."""
 
     dtype = common.dtype_of(cfg)
     pos = torch.zeros((), dtype=torch.int32, device=entry[0].device)
+    if cfg.mla:
+        ckv, krope = entry
+        if stack:
+            ckv, krope = ckv[None], krope[None]
+        ckv, krope = _pad_seq(ckv, extra), _pad_seq(krope, extra)
+        return MLACache(ckv=ckv.to(dtype), k_rope=krope.to(dtype), pos=pos)
     k, v = entry
     if stack:
         k, v = k[None], v[None]
@@ -374,20 +447,32 @@ def _entry_to_cache(entry, cfg, pcfg, *, stack: bool, extra: int = 0):
     return KVCache(k=k.to(dtype), v=v.to(dtype), k_scale=None, v_scale=None, pos=pos)
 
 
+def _cache_xs(cache) -> tuple:
+    """The stacked arrays of one cache, in the order a block reads them."""
+
+    if isinstance(cache, MLACache):
+        return (cache.ckv, cache.k_rope)
+    return (cache.k, cache.v, cache.k_scale, cache.v_scale)
+
+
 def lm_decode(params, caches: dict, token: torch.Tensor, cfg, pcfg, mesh=None):
     """One decode step.  token: (B, 1) int32.  Returns (logits, caches); the
     cache tensors are updated in place and every cache's ``pos`` advances.
     A VLM's image prefix already lives in the cache."""
 
-    _check_ported(cfg)
     pos = next(iter(caches.values())).pos
     x = _embed(params, token, cfg)
+    for i in range(cfg.first_dense_layers):
+        slices = tuple(None if a is None else a[0] for a in _cache_xs(caches[f"dense_{i}"]))
+        x, _ = _block_decode(
+            params[f"dense_{i}"], x, slices, pos, cfg, pcfg,
+            kind="dense", sliding_window=None, mesh=mesh,
+        )
     plan = _unit_plan(cfg)
     for u in range(_num_units(cfg)):
         unit_params = _unit(params["layers"], u)
         for name, kind, window in plan:
-            c = caches[name]
-            slices = tuple(None if a is None else a[u] for a in (c.k, c.v, c.k_scale, c.v_scale))
+            slices = tuple(None if a is None else a[u] for a in _cache_xs(caches[name]))
             x, _ = _block_decode(
                 unit_params[name], x, slices, pos, cfg, pcfg,
                 kind=kind, sliding_window=window, mesh=mesh,

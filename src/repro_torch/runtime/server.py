@@ -3,8 +3,9 @@
 
 Requests are grouped into one batch (left-padded so the last prompt tokens
 align), prefilled once, then decoded step by step over the model's cache:
-the KV cache of the dense family, the ``SSMCache`` of Mamba-2, the
-``HybridCache`` of zamba2.
+the KV cache of the dense and MoE families, deepseek's latent
+``MLACache``, the ``SSMCache`` of Mamba-2, the ``HybridCache`` of zamba2,
+the ``EncDecCache`` of the encoder-decoder.
 
 **Persistent steps**: prefill and the single-token decode step are each
 bound once per argument signature as a

@@ -151,6 +151,33 @@ def test_encdec_checkpoint_crosses_packages(tmp_path, writer):
         assert g.dtype == w.dtype and g.shape == w.shape and _bits(g) == _bits(w)
 
 
+@pytest.mark.parametrize("arch,moments", [("grok_1_314b", "int8"),
+                                           ("deepseek_v2_236b", "float32")])
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_moe_checkpoint_crosses_packages(tmp_path, writer, arch, moments):
+    """The MoE smoke models' state (bf16 experts beside the fp32 router;
+    deepseek's MLA units and unstacked ``dense_0``) saved by one package
+    restores in the other bit for bit, with manifests of the same records."""
+
+    jstate = _jax_state(moments, jbase.get_smoke_config(arch))
+    tstate = _port_state(jstate)
+    assert tstate["params"]["layers"]["layer"]["mlp"]["router"].dtype == torch.float32
+    assert tstate["params"]["layers"]["layer"]["mlp"]["w_gate"].dtype == torch.bfloat16
+    JManager(str(tmp_path / "j"), async_save=False).save(2, jstate, extra={"step": 2})
+    TManager(str(tmp_path / "t")).save(2, tstate, extra={"step": 2}).get()
+    assert _records(tmp_path / "t", 2) == _records(tmp_path / "j", 2)
+    if writer == "reference":
+        got, step = TManager(str(tmp_path / "j")).restore(_zeros_like_port(tstate))
+        pairs = zip(_port_leaves(got), _port_leaves(tstate))
+    else:
+        got, step = JManager(str(tmp_path / "t")).restore(
+            jax.tree_util.tree_map(jnp.zeros_like, jstate))
+        pairs = zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(jstate))
+    assert step == 2
+    for g, w in pairs:
+        assert g.dtype == w.dtype and g.shape == w.shape and _bits(g) == _bits(w)
+
+
 def _state(seed=0):
     g = torch.Generator().manual_seed(seed)
     return {"params": {"w": torch.randn((8, 8), generator=g),

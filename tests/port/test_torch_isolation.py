@@ -26,8 +26,10 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[2]
 _FORBIDDEN = ("jax", "jaxlib", "repro")
+# every arch of ARCHITECTURES: the configs the port copied
 _DENSE = ("gemma2_9b", "phi4_mini_3_8b", "granite_3_8b", "qwen1_5_32b", "mamba2_2_7b",
-          "zamba2_7b", "paligemma_3b", "seamless_m4t_large_v2")
+          "zamba2_7b", "paligemma_3b", "seamless_m4t_large_v2", "grok_1_314b",
+          "deepseek_v2_236b")
 
 
 def _port_files():
@@ -63,8 +65,9 @@ _TRAINING = ("optim/adamw.py", "optim/clip.py", "optim/schedules.py", "optim/gra
              "runtime/faults.py", "runtime/trainer.py", "launch/train.py")
 
 
-_MODELS = ("models/transformer.py", "models/encdec.py", "models/api.py",
-           "configs/paligemma_3b.py", "configs/seamless_m4t_large_v2.py", "launch/serve.py")
+_MODELS = ("models/transformer.py", "models/encdec.py", "models/api.py", "models/mlp.py",
+           "models/attention.py", "configs/paligemma_3b.py", "configs/seamless_m4t_large_v2.py",
+           "configs/grok_1_314b.py", "configs/deepseek_v2_236b.py", "launch/serve.py")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -100,6 +103,10 @@ def _plain(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_plain(x) for x in obj)
     return obj
+
+
+def test_every_architecture_is_copied():
+    assert sorted(_DENSE) == sorted(jbase.ARCHITECTURES) == sorted(tbase.ARCHITECTURES)
 
 
 @pytest.mark.parametrize("arch", _DENSE)

@@ -160,6 +160,70 @@ def test_flash_backward_matches_reference_grads():
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=2e-4, rtol=2e-4)
 
 
+def _qkv_mla(seed, B, S, H, Hk, D, Dv):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, D), dtype=np.float32),
+            rng.standard_normal((B, S, Hk, D), dtype=np.float32),
+            rng.standard_normal((B, S, Hk, Dv), dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S,H,Hk,D,Dv,kw", [
+    (2, 48, 4, 4, 24, 16, dict(causal=True, scale=24 ** -0.5)),   # deepseek smoke's MLA
+    (1, 40, 4, 2, 192, 128, dict(causal=True, scale=192 ** -0.5)),  # MLA widths, GQA
+    (1, 33, 2, 1, 64, 8, dict(causal=False, logit_softcap=30.0)),
+])
+def test_flash_narrower_values_match_reference(B, S, H, Hk, D, Dv, kw, dtype, tol):
+    """Values narrower than the keys (MLA: keys of nope + rope, values of
+    v_head_dim): the port's plain attention and its public wrapper give
+    the reference's (b, s, h, dv) output."""
+
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv_mla(20, B, S, H, Hk, D, Dv), dtype)
+    want = jfa.flash_attention(jq, jk, jv, impl="ref", **kw)
+    assert want.shape == (B, S, H, Dv)
+    _close(tref.mha(tq, tk, tv, **kw), jref.mha(jq, jk, jv, **kw), tol)
+    out = tfa.flash_attention(tq, tk, tv, **kw)
+    assert out.shape == (B, S, H, Dv) and out.dtype == tq.dtype
+    _close(out, want, tol)
+
+
+def test_flash_narrower_values_backward_matches_reference():
+    """The grads of q, k and the narrower v equal the reference's."""
+
+    import jax
+
+    arrs = _qkv_mla(21, 2, 32, 4, 2, 24, 16)
+    (jq, jk, jv), _ = _both(arrs)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in arrs)
+    kw = dict(causal=True, scale=24 ** -0.5)
+    tfa.flash_attention(tq, tk, tv, **kw).square().sum().backward()
+    g_ref = jax.grad(
+        lambda q, k, v: jnp.sum(jfa.flash_attention(q, k, v, impl="ref", **kw) ** 2),
+        argnums=(0, 1, 2),
+    )(jq, jk, jv)
+    for t, j in zip((tq, tk, tv), g_ref):
+        assert t.grad.shape == j.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=2e-4, rtol=2e-4)
+
+
+def test_chunked_and_pallas_need_equal_widths_as_the_reference():
+    """ROADMAP C14, pinned: the reference's chunked path reshapes v with
+    q's width and raises on narrower values, and its Pallas kernel (in
+    interpret mode) returns an output of q's width, not v's; so the
+    reference's MLA runs only with ``attn_impl="ref"``.  The port's chunked
+    path raises on whole blocks as the reference's does, and falls back to
+    the plain version on ragged ones, as both do."""
+
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv_mla(22, 1, 64, 2, 2, 24, 16))
+    with pytest.raises(TypeError):
+        jref.chunked_mha(jq, jk, jv, q_block=32, k_block=32)
+    with pytest.raises(RuntimeError):
+        tref.chunked_mha(tq, tk, tv, q_block=32, k_block=32)
+    assert jfa.flash_attention(jq, jk, jv, impl="pallas").shape[-1] == 24
+    _close(tref.chunked_mha(tq, tk, tv, q_block=48, k_block=48),
+           jref.chunked_mha(jq, jk, jv, q_block=48, k_block=48), 2e-5)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel wrapper takes CUDA tensors only; it raises before any
     build on anything else."""

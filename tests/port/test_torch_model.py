@@ -1,7 +1,8 @@
 """The port's models against the reference, on CPU tensors: the common
 layers, then ``prefill`` (logits and every cache leaf) and two ``decode``
-steps of the dense, VLM, SSM, hybrid and encoder-decoder families, with
-parameters converted from the reference's init.
+steps of the dense, MoE (grok-1; deepseek-v2 with MLA and a leading dense
+layer), VLM, SSM, hybrid and encoder-decoder families, with parameters
+converted from the reference's init.
 
 The models run in fp32.  Logits agree within 1e-4: the two frameworks sum
 the same products in different orders, and those rounding differences grow
@@ -284,23 +285,147 @@ def _converted_is_own_tree(arch):
 
 
 def test_other_families_raise_typed():
+    """Every family of the reference builds; a name that is none of them
+    raises typed."""
+
     from repro_torch.core import errors
 
-    cfg = dataclasses.replace(tbase.get_smoke_config("gemma2_9b"), family="moe")
+    cfg = dataclasses.replace(tbase.get_smoke_config("gemma2_9b"), family="diffusion")
     with pytest.raises(errors.Error) as ei:
         tapi.build(cfg)
     assert ei.value.klass == errors.ErrorClass.ERR_UNSUPPORTED_OPERATION
 
 
-@pytest.mark.parametrize("change", [dict(num_experts=4), dict(mla=True),
-                                    dict(first_dense_layers=1)])
+@pytest.mark.parametrize("change", [
+    dict(num_experts=4, moe_top_k=2, moe_d_ff=32),
+    dict(mla=True, q_lora=16, kv_lora=16, rope_head_dim=8, nope_head_dim=8, v_head_dim=8),
+    dict(first_dense_layers=1, num_layers=3),
+])
 def test_vlm_trunk_still_refuses_moe_and_mla(change):
-    """The trunk admits the dense and vlm families; experts, MLA and
-    leading dense layers (ROADMAP A12 items 3-4) still raise typed."""
+    """The trunk no longer refuses experts, MLA or leading dense layers
+    (ROADMAP A12 items 3-4, ported): on the VLM's trunk each gives the
+    reference's init tree and loss."""
 
-    from repro_torch.core import errors
+    jcfg = dataclasses.replace(jbase.get_smoke_config("paligemma_3b"), dtype="float32",
+                               **change)
+    tcfg = dataclasses.replace(tbase.get_smoke_config("paligemma_3b"), dtype="float32",
+                               **change)
+    jb, tb = japi.build(jcfg), tapi.build(tcfg)
+    jparams = jb.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    own = tb.init(torch.Generator().manual_seed(0))
+    assert {jax.tree_util.keystr(k): tuple(v.shape)
+            for k, v in jax.tree_util.tree_flatten_with_path(own)[0]} == \
+        {jax.tree_util.keystr(k): tuple(v.shape)
+         for k, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    jbatch, tbatch = _batch(jcfg, 8, 2)
+    jloss, _ = jb.loss(jparams, jbatch, jbase.ParallelConfig())
+    tloss, _ = tb.loss(tparams, tbatch, tbase.ParallelConfig())
+    _close(tloss, jloss)
 
-    cfg = dataclasses.replace(tbase.get_smoke_config("paligemma_3b"), **change)
-    with pytest.raises(errors.Error) as ei:
-        tapi.build(cfg).init(torch.Generator().manual_seed(0))
-    assert ei.value.klass == errors.ErrorClass.ERR_UNSUPPORTED_OPERATION
+
+# -- MoE (grok-1) and MLA + MoE (deepseek-v2) -------------------------------------
+
+_MOE = ("grok_1_314b", "deepseek_v2_236b")
+
+
+@pytest.mark.parametrize("arch,seq,kv", [
+    ("grok_1_314b", 12, "bfloat16"), ("grok_1_314b", 10, "int8"),
+    ("deepseek_v2_236b", 12, "bfloat16"),
+])
+def test_moe_prefill_and_decode_match(arch, seq, kv):
+    """grok's GQA cache (int8 too) and deepseek's latent caches: the
+    stacked ``layer`` ``MLACache`` and the leading dense block's
+    ``dense_0``, leaf by leaf after the prefill and each decode step."""
+
+    _prefill_and_decode_match(arch, seq, kv)
+
+
+def test_mla_cache_ignores_int8_as_the_reference():
+    """ROADMAP C13, pinned: the reference's MLA cache has no int8 form, so
+    ``kv_cache_dtype="int8"`` leaves deepseek's latent cache in the model's
+    dtype; both packages' int8 prefills give the bf16 setting's caches."""
+
+    jcfg, jb, jparams, tcfg, tb, tparams = _models("deepseek_v2_236b")
+    jbatch, tbatch = _batch(jcfg, 10, 3)
+    caches = {}
+    for kv in ("bfloat16", "int8"):
+        jpc = dataclasses.replace(jbase.ParallelConfig(), kv_cache_dtype=kv)
+        tpc = dataclasses.replace(tbase.ParallelConfig(), kv_cache_dtype=kv)
+        _, jc = jb.prefill(jparams, jbatch, jpc, extra_capacity=2)
+        with torch.inference_mode():
+            _, tc = tb.prefill(tparams, tbatch, tpc, extra_capacity=2)
+        _same_cache(tc, jc)
+        caches[kv] = _leaves(tc)
+        assert set(tc) == {"layer", "dense_0"}
+        assert tb.init_cache(tpc, 2, 12)["layer"].ckv.dtype == torch.float32
+    assert caches["int8"].keys() == caches["bfloat16"].keys()
+    for key, t in caches["int8"].items():
+        assert torch.equal(t, caches["bfloat16"][key]), key
+
+
+@pytest.mark.parametrize("arch", _MOE)
+def test_moe_forward_logits_and_aux_match(arch):
+    """``lm_forward``: the logits, and the aux metrics summed over the
+    stacked units (deepseek's dense_0 adds none)."""
+
+    from repro.models import transformer as jtr
+    from repro_torch.models import transformer as ttr
+
+    jcfg, jb, jparams, tcfg, tb, tparams = _models(arch)
+    jbatch, tbatch = _batch(jcfg, 12, 4)
+    jl, jaux = jtr.lm_forward(jparams, jbatch, jcfg, jbase.ParallelConfig())
+    tl, taux = ttr.lm_forward(tparams, tbatch, tcfg, tbase.ParallelConfig())
+    _close(tl, jl)
+    assert set(taux) == set(jaux)
+    for k in jaux:
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]), rtol=1e-5)
+    assert float(taux["load_balance_loss"]) > 0
+
+
+@pytest.mark.parametrize("arch", _MOE)
+def test_moe_loss_and_grads_match(arch):
+    """The loss adds 1e-2 load balance + 1e-3 router z; the metrics carry
+    the aux terms; every gradient leaf (the fp32 routers and deepseek's
+    dense_0 included) within 1e-4."""
+
+    from repro_torch.core.futures import flatten
+
+    jcfg, jb, jparams, tcfg, tb, tparams = _models(arch)
+    jbatch, tbatch = _batch(jcfg, 12, 5)
+    (jloss, jm), jg = jax.value_and_grad(
+        lambda p: jb.loss(p, jbatch, jbase.ParallelConfig()), has_aux=True)(jparams)
+    leaves, treedef = flatten(tparams)
+    for t in leaves:
+        t.requires_grad_(True)
+    tloss, tm = tb.loss(tparams, tbatch, tbase.ParallelConfig())
+    _close(tloss.detach(), jloss)
+    assert set(tm) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k].detach()), float(jm[k]), rtol=1e-5)
+    tg = torch.autograd.grad(tloss, leaves)
+    jflat = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_flatten_with_path(jg)[0]}
+    tflat = jax.tree_util.tree_flatten_with_path(
+        jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(tparams), tg))[0]
+    assert len(tflat) == len(jflat)
+    for k, g in tflat:
+        _close(g, jflat[jax.tree_util.keystr(k)])
+
+
+@pytest.mark.parametrize("arch", _MOE)
+def test_moe_init_trees_match_reference(arch):
+    """grok's stacked experts and untied head; deepseek's stacked MLA and
+    MoE units beside the unstacked ``dense_0`` block."""
+
+    _same_init_tree(arch)
+    _converted_is_own_tree(arch)
+
+
+def test_build_accepts_every_architecture():
+    """``api.build`` accepts every arch of ``ARCHITECTURES`` (full and
+    smoke configs), and each smoke model initialises."""
+
+    for arch in tbase.ARCHITECTURES:
+        assert tapi.build(tbase.get_config(arch)).cfg.name == arch
+        bundle = tapi.build(tbase.get_smoke_config(arch))
+        assert bundle.init(torch.Generator().manual_seed(0))

@@ -120,7 +120,9 @@ def test_decode_request_donates_the_cache(servers):
 
 @pytest.mark.parametrize("arch,kv", [("gemma2_9b", "bfloat16"), ("mamba2_2_7b", "bfloat16"),
                                      ("zamba2_7b", "int8"), ("paligemma_3b", "bfloat16"),
-                                     ("seamless_m4t_large_v2", "bfloat16")])
+                                     ("seamless_m4t_large_v2", "bfloat16"),
+                                     ("grok_1_314b", "int8"),
+                                     ("deepseek_v2_236b", "bfloat16")])
 def test_graph_decode_gives_the_eager_tokens(monkeypatch, arch, kv):
     """The decode step through the graph path (capture and replay stood in
     for by ``graph_stub``): two generates give an eager server's tokens; the
@@ -316,6 +318,37 @@ def test_int8_cache_tokens_identical_to_reference_server(arch, prompt_len):
     np.testing.assert_array_equal(ttok, jtok)
 
 
+@pytest.mark.parametrize("arch,kv", [("grok_1_314b", "bfloat16"), ("grok_1_314b", "int8"),
+                                     ("deepseek_v2_236b", "bfloat16"),
+                                     ("deepseek_v2_236b", "int8")])
+def test_moe_tokens_identical_to_reference_server(arch, kv):
+    """The grok and deepseek smoke models in fp32, the port with the
+    reference's weights: greedy tokens from prompts of 16 and 11 tokens
+    (the shorter one left-padded), with the bf16 and the int8 cache setting
+    (which deepseek's latent cache ignores in both packages, ROADMAP C13)."""
+
+    scfg = dict(max_batch=2, max_new_tokens=5, temperature=0.0)
+    jcfg = dataclasses.replace(jbase.get_smoke_config(arch), dtype="float32")
+    jpcfg = dataclasses.replace(jbase.get_parallel(arch), kv_cache_dtype=kv)
+    js = jserver.Server(jcfg, jpcfg, jserver.ServerConfig(**scfg), j_comm())
+    tcfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype="float32")
+    tpcfg = dataclasses.replace(tbase.get_parallel(arch), kv_cache_dtype=kv)
+    ts = tserver.Server(tcfg, tpcfg, tserver.ServerConfig(**scfg), device="cpu")
+    ts.params = params_from_jax(jax.tree_util.tree_map(np.asarray, js.params), "cpu")
+    prompts = _prompts(seed=13)
+    prompts[1] = prompts[1][:11]
+    jtok, _ = js.generate([jserver.Request(tokens=p) for p in prompts])
+    ttok, _ = ts.generate([tserver.Request(tokens=p) for p in prompts])
+    np.testing.assert_array_equal(ttok, jtok)
+
+
+@pytest.mark.parametrize("arch", ["grok_1_314b", "deepseek_v2_236b"])
+def test_moe_serve_cli_on_cpu(arch, capsys):
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
+                       "--prompt-len", "16", "--new-tokens", "4"]) == 0
+    assert "generated shape: (2, 4)" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("arch", ["mamba2_2_7b", "zamba2_7b"])
 def test_ssm_serve_cli_on_cpu(arch, capsys):
     assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
@@ -345,7 +378,8 @@ def test_no_silent_cpu_fallback():
 
 
 @pytest.mark.parametrize("argv,klass", [
-    (["--arch", "grok_1_314b"], "ERR_UNSUPPORTED_OPERATION"),
+    # grok (moe) is ported now: the first case is the fanout mode
+    (["--arch", "gemma2_9b", "--fanout", "2"], "ERR_UNSUPPORTED_OPERATION"),
     (["--arch", "gemma2_9b", "--disaggregate"], "ERR_UNSUPPORTED_OPERATION"),
     (["--arch", "gemma2_9b", "--continuous-batching"], "ERR_UNSUPPORTED_OPERATION"),
 ])

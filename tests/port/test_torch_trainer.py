@@ -1,7 +1,8 @@
 """The port's Trainer against the reference's on the CPU, and its paths.
 
 * Parity: the tiny dense config of ``tests/test_trainer.py``, the
-  mamba2, paligemma and seamless smoke configs (and the tiny one with int8
+  mamba2, paligemma, seamless, grok and deepseek smoke configs (and the
+  tiny one with int8
   moments, held to the wider bound ``_int8_trajectory_held`` derives), in
   fp32 with remat full,
   start from the reference's
@@ -103,7 +104,9 @@ class FakeClock:
                                                     ("tiny", 32, 4, "int8"),
                                                     ("paligemma_3b", 32, 2, "float32"),
                                                     ("seamless_m4t_large_v2", 64, 2,
-                                                     "float32")])
+                                                     "float32"),
+                                                    ("grok_1_314b", 32, 2, "float32"),
+                                                    ("deepseek_v2_236b", 32, 2, "float32")])
 def test_trajectory_matches_reference_trainer(arch, seq, batch, moments):
     jcfg, tcfg, jpcfg, tpcfg = _configs(arch)
     jpcfg = dataclasses.replace(jpcfg, moment_dtype=moments)
@@ -273,7 +276,8 @@ def _step1_direction_gaps(jcfg, jpcfg, tcfg, tpcfg, jparams, batch, eps):
 
 
 @pytest.mark.parametrize("arch", ["tiny", "mamba2_2_7b", "zamba2_7b", "paligemma_3b",
-                                  "seamless_m4t_large_v2"])
+                                  "seamless_m4t_large_v2", "grok_1_314b",
+                                  "deepseek_v2_236b"])
 def test_remat_modes_give_the_same_grads(arch):
     """The encoder-decoder has no "dots" policy (as in the reference): its
     "dots" is a full checkpoint."""
@@ -389,6 +393,35 @@ def test_graph_step_gives_the_eager_run_bit_for_bit(monkeypatch):
     got = [m["loss"] for m in t.run()["metrics"]]
     assert got == want and t._request.captured == 1 and t._request.settled
     assert all(torch.equal(a, b) for a, b in zip(_final(t), _final(eager)))
+
+
+@pytest.mark.parametrize("arch", ["grok_1_314b", "deepseek_v2_236b"])
+def test_moe_graph_step_gives_the_eager_run_and_carries_aux(monkeypatch, arch):
+    """The MoE smoke models (bf16, as configured) through the step's graph
+    path give the eager run's losses and state bit for bit, and the step's
+    metrics carry the aux terms of the loss."""
+
+    from repro_torch.runtime.trainer import make_train_step
+
+    cfg, pcfg = tbase.get_smoke_config(arch), tbase.get_parallel(arch)
+
+    def trainer():
+        return Trainer(cfg, pcfg, TrainerConfig(steps=4, lr=1e-3, log_every=1), device="cpu",
+                       seq_len=32, global_batch=2, clock=lambda: 0.0)
+
+    eager = trainer()
+    want = [(m["loss"], m["grad_norm"]) for m in eager.run()["metrics"]]
+    graph_stub.install(monkeypatch)
+    t = trainer()
+    got = [(m["loss"], m["grad_norm"]) for m in t.run()["metrics"]]
+    assert got == want and t._request.captured == 1
+    assert all(torch.equal(a, b) for a, b in zip(_final(t), _final(eager)))
+    params, opt_state = t.init_state()
+    step = make_train_step(t.cfg, t.pcfg, t.tcfg, t.opt)
+    _, _, metrics = step(params, opt_state, t._batch(0))
+    for k in ("load_balance_loss", "router_z_loss", "dropped_fraction"):
+        assert metrics[k].dim() == 0 and torch.isfinite(metrics[k])
+    assert float(metrics["load_balance_loss"]) > 0
 
 
 def test_graph_step_captures_again_after_a_restore(monkeypatch, tmp_path):

@@ -152,7 +152,28 @@ any failure.  In order:
    gemma2 and zamba2 with the int8 cache, phi4-mini with the ring, whose
    kernel must launch once per layer) generate the same tokens on the card
    as on the CPU path (held against the JAX reference by the CPU tests);
-10. train: ``repro_torch.runtime.trainer.Trainer`` on the card.
+10. engine: the continuous-batching ``Engine`` (``runtime/engine.py``) on
+    the full phi4-mini (32 layers, d 3072, GQA 24/8 of 128), one weight
+    tree for every setup.  A: 8 prompts of 256-2048 tokens left-padded to a
+    2048 bucket, 8 slots, every budget 32, no pool cap: every request's
+    tokens must equal ``Server.generate`` on the same padded prompts bit for
+    bit, with the bf16 and with the int8 cache.  B: 24 requests, budgets of
+    8-64 from the seed, 8 slots of 2048 + 64 tokens in blocks of 16 under a
+    pool of 910 blocks: at least one preemption and one request admitted
+    mid-flight, every request its budget's length, the pool drained, a
+    second run's tokens identical; the share of tokens equal to the fixed
+    batches' is logged, as are useful tokens/s against the same requests as
+    fixed batches of 8 through ``Server.generate``, four profiled graph
+    replays of the decode step on the slot table, a one-row admission
+    prefill profiled and the peak memory.  Each run's launches are exact
+    (flash 32 a prefill, the throwaway prefill included, none in a decode
+    step; with the int8 cache the quantize 2 a prefill and 64 a decode step,
+    the dequantize 64 a step), and each run captures the decode step once.
+    Then the phi4-mini, grok-1 and deepseek-v2 smoke models in fp32 through
+    the engine with preemption, card against CPU: the same tokens and
+    stats, agreeing with each device's fixed-batch oracle on the same
+    requests (all of them for the dense model; ROADMAP C15);
+11. train: ``repro_torch.runtime.trainer.Trainer`` on the card.
     ``train_small``: tests/test_trainer.py's tiny dense model and the mamba2
     smoke model in fp32, 40 steps, every loss within 1e-4 relative of the
     CPU run from the same init and batches, the loss down by more than 0.1;
@@ -187,12 +208,12 @@ any failure.  In order:
     launches a step) and deepseek-v2 at dense_0 and 1 MoE layer (3: the
     leading dense layer is not rematted, as in the reference); every
     parameter leaf is held whole against its initial copy;
-11. grad sync: ``PartitionedGradSync`` with int8 error feedback on the NCCL
+12. grad sync: ``PartitionedGradSync`` with int8 error feedback on the NCCL
     world of one over phi4-mini's gradient tree at full width (2 layers),
     bit for bit the same call with the plain row functions, the residual m
     - C(m), one quantize and one dequantize a leaf, two ``pready`` orders
     bit-equal; the call and its error-feedback share timed;
-12. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+13. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
 
 Also writes everything it prints as JSON to ``artifacts/chip_smoke.json``.
@@ -750,6 +771,15 @@ def phase_kernels():
         # 128-wide tile, GQA 24/8, no softcap)
         _attention_case("phi4_train_2048_d128", 9, b=2, s=2048, h=24, hk=8, d=128,
                         dtype="bfloat16", reps=10, causal=True, scale=128.0 ** -0.5),
+        # the shapes the engine's phi4-mini path gives the kernel: an
+        # admission side batch of 8 rows at the 2048 bucket, and resumes,
+        # which re-prefill prompt + generated[:-1] at lengths off the tile
+        _attention_case("phi4_engine_admit_8x2048", 18, b=8, s=2048, h=24, hk=8, d=128,
+                        dtype="bfloat16", reps=0, causal=True, scale=128.0 ** -0.5),
+        _attention_case("phi4_engine_resume_1x2071", 19, b=1, s=2071, h=24, hk=8, d=128,
+                        dtype="bfloat16", reps=0, causal=True, scale=128.0 ** -0.5),
+        _attention_case("phi4_engine_resume_2x2093", 20, b=2, s=2093, h=24, hk=8, d=128,
+                        dtype="bfloat16", reps=0, causal=True, scale=128.0 ** -0.5),
         # paligemma-3b's serve: 256 image tokens, a bidirectional prefix,
         # before 4096 text tokens; MQA (8 query heads over 1 KV head) at d 256
         _attention_case("paligemma_prefix256", 10, b=2, s=4352, h=8, hk=1, d=256,
@@ -1941,6 +1971,320 @@ def phase_small_model(arch, kv="bfloat16", ring=False):
     torch.cuda.empty_cache()
 
 
+# -- the continuous-batching engine ------------------------------------------------
+
+# phase engine: phi4-mini at full width and depth (32 layers, d 3072, GQA 24/8
+# of 128; its KV cache is 128 KiB a token), random bf16 weights from seed 0,
+# one parameter tree for every setup.  A (batch-equal): 8 prompts of
+# 256-2048 tokens, left-padded to the 2048 bucket, 8 slots, every budget 32,
+# no pool cap: the engine's tokens must be Server.generate's on the same
+# padded prompts bit for bit, with the bf16 and the int8 cache.  B (ragged):
+# 24 requests, budgets of 8-64 drawn from the seed, 8 slots of 2048 + 64
+# tokens in blocks of 16 (132 blocks a slot) under a pool of 910 blocks
+# (seven slots' worth of 130): eight rows never fit at once, so rows wait,
+# are admitted mid-flight and are preempted
+ENGINE_ARCH = "phi4_mini_3_8b"
+ENGINE_BUCKET = 2048
+ENGINE_SLOTS = 8
+ENGINE_PROMPT_LENS = (256, 2048)
+ENGINE_A_NEW = 32
+ENGINE_B_REQUESTS = 24
+ENGINE_B_BUDGETS = (8, 64)
+ENGINE_B_BLOCK_TOKENS = 16
+ENGINE_B_POOL_BLOCKS = 910
+# the smoke engines, card against CPU: the reference's engine tests' shape
+# (6 ragged prompts in a bucket of 8, 4 slots of 6 new tokens) under a pool
+# of 14 blocks of 2 tokens, which forces preemptions
+ENGINE_SMALL = ("phi4_mini_3_8b", "grok_1_314b", "deepseek_v2_236b")
+
+
+def _engine_requests(n, vocab, seed, budgets=None):
+    """``n`` prompts of ENGINE_PROMPT_LENS tokens and, with ``budgets``, a
+    budget each in that range, drawn from one generator."""
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(ENGINE_PROMPT_LENS[0], ENGINE_PROMPT_LENS[1] + 1, size=n)
+    prompts = [rng.integers(1, vocab, size=(int(m),), dtype=np.int32) for m in lens]
+    if budgets is None:
+        return prompts, None
+    return prompts, [int(b) for b in rng.integers(budgets[0], budgets[1] + 1, size=n)]
+
+
+def _padded(prompts, bucket):
+    """The prompts left-padded to the bucket: the fixed-batch oracle's
+    requests (the engine pads the same way)."""
+
+    import numpy as np
+
+    from repro_torch.runtime.server import Request
+
+    return [Request(tokens=np.concatenate([np.zeros((bucket - len(p),), np.int32), p]))
+            for p in prompts]
+
+
+def _server_like(server, kv, max_new, max_batch=None):
+    """A Server on ``server``'s weights with another cache type, token
+    ceiling or slot count, and persistent requests of its own."""
+
+    import copy
+    import dataclasses
+
+    srv = copy.copy(server)
+    srv.pcfg = dataclasses.replace(server.pcfg, kv_cache_dtype=kv)
+    srv.scfg = dataclasses.replace(server.scfg, max_new_tokens=max_new,
+                                   max_batch=max_batch or server.scfg.max_batch)
+    srv._prefill_reqs, srv._decode_reqs = {}, {}
+    return srv
+
+
+def _oracle(server, prompts, bucket, budgets=None):
+    """Server.generate over the padded prompts in fixed batches of
+    ``max_batch``, in arrival order: (rows of tokens, wall seconds).  With
+    ``budgets``, each batch decodes only to its own largest budget (a Server
+    of that ceiling on the same weights), as a fixed-batch deployment that
+    knew the budgets would."""
+
+    rows, mb = [], server.scfg.max_batch
+    t0 = time.perf_counter()
+    for i in range(0, len(prompts), mb):
+        srv = server if budgets is None else _server_like(
+            server, server.pcfg.kv_cache_dtype, max(budgets[i:i + mb]))
+        tokens, _ = srv.generate(_padded(prompts[i:i + mb], bucket))
+        rows += list(tokens)
+    return rows, time.perf_counter() - t0
+
+
+def _engine_run(path, server, ecfg, prompts, budgets):
+    """One ``Engine.run`` over the requests, launches zeroed just before and
+    read just after: the handles, the engine and a row of its stats, the
+    launches, the prefills it ran (its initial throwaway prefill included),
+    the decode captures, the wall time from the engine's construction (its
+    throwaway prefill of the slot table included) and of its steps alone,
+    the peak memory once the engine has built its slot table, and each step
+    after which the peak rose, with the peak.  Every request must finish
+    with its budget's length, the pool must drain, and the run must capture
+    the decode step once; flash runs 32 times a prefill and never in a
+    decode step, and with the int8 cache the quantize runs twice a prefill
+    (k and v) and the quantize and dequantize 64 times a decode step (k and
+    v in each of 32 layers)."""
+
+    import torch
+
+    from repro_torch.runtime.engine import Engine
+
+    def captured():
+        return sum(r.captured for r in server._decode_reqs.values())
+
+    layers = server.cfg.num_layers
+    _reset_launches()
+    prefills0, captured0 = server.prefill_calls, captured()
+    t0 = time.perf_counter()
+    eng = Engine(server, ecfg)
+    handles = [eng.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak_after_init_gb = torch.cuda.max_memory_allocated() / 1e9
+    peaks, step = [], eng.step
+
+    def step_and_read_peak():
+        done = step()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not peaks or peak > peaks[-1][1]:
+            peaks.append((eng.stats()["steps"], peak))
+        return done
+
+    eng.step = step_and_read_peak   # run() calls self.step
+    t1 = time.perf_counter()
+    eng.run()
+    end = time.perf_counter()
+    del eng.step   # no cycle through the wrapper: the slot table goes with the engine
+    launches = _launches()
+    stats = eng.stats()
+    prefills = server.prefill_calls - prefills0
+    steps = stats["steps"]
+    check(all(h.state == "finished" and len(h.generated) == b for h, b in zip(handles, budgets)),
+          f"{path}: a request did not finish with its budget's length")
+    check(stats["pool_live_blocks"] == 0, f"{path}: {stats['pool_live_blocks']} blocks left live")
+    captures = captured() - captured0
+    check(captures == 1, f"{path}: {captures} decode captures in one run")
+    check(eng._decode_req._graph is None, f"{path}: the run kept its decode graph")
+    # the admissions' prefills and inserts run eagerly: nothing else captures
+    check(not any(r.captures for r in server._prefill_reqs.values()),
+          f"{path}: a prefill request captures")
+    int8 = server.pcfg.kv_cache_dtype == "int8"
+    want = {"flash_attention_fwd": layers * prefills,
+            QUANT: (2 * prefills + 2 * layers * steps) if int8 else 0,
+            DEQUANT: 2 * layers * steps if int8 else 0}
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"{path}: {name} launches {n}, want {want.get(name, 0)} "
+                                      f"({prefills} prefills, {steps} decode steps)")
+    return handles, eng, {"stats": stats, "launches": launches, "prefills": prefills,
+                          "decode_captures": captures, "wall_s": end - t0,
+                          "init_s": init_s, "steps_s": end - t1,
+                          "peak_gb_after_init": peak_after_init_gb,
+                          "peak_gb_rose_after_step": peaks}
+
+
+def _batch_equal(path, base, kv, gen):
+    """Setup A with a ``kv`` cache: the engine against Server.generate on
+    the same padded prompts, bit for bit."""
+
+    from repro_torch.runtime.engine import EngineConfig
+
+    srv = _server_like(base, kv, ENGINE_A_NEW)
+    prompts, _ = _engine_requests(ENGINE_SLOTS, srv.cfg.vocab_size, gen)
+    oracle, oracle_s = _oracle(srv, prompts, ENGINE_BUCKET)
+    handles, eng, run = _engine_run(
+        path, srv, EngineConfig(prompt_bucket=ENGINE_BUCKET, block_tokens=ENGINE_B_BLOCK_TOKENS),
+        prompts, [ENGINE_A_NEW] * ENGINE_SLOTS)
+    for i, (h, row) in enumerate(zip(handles, oracle)):
+        check(row.tolist() == h.generated,
+              f"{path}: request {i}: engine {h.generated} != Server.generate {row.tolist()}")
+    check(run["prefills"] == 2,
+          f"{path}: {run['prefills']} prefills, want the throwaway and one admission")
+    row = {"card": RESULTS["device"]["nvidia_smi"], "kv_cache_dtype": kv,
+           "tokens_equal_server_generate": True, **run, "server_generate_s": oracle_s}
+    log(f"{path}: {json.dumps(row)}")
+    del eng, srv
+    return row, run["launches"]
+
+
+def phase_engine():
+    """The continuous-batching engine (``runtime/engine.py``) serving the
+    full phi4-mini: setups A (bf16, then int8) and B (twice, then the same
+    requests as fixed batches), four profiled decode replays of B's slot
+    table, an admission prefill profiled, peak memory."""
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.runtime.engine import EngineConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = base.get_config(ENGINE_ARCH)
+    check(cfg.num_layers == 32 and cfg.d_model == 3072 and cfg.num_heads == 24
+          and cfg.num_kv_heads == 8 and cfg.head_dim == 128, "not the phi4-mini config")
+    t0 = time.perf_counter()
+    base_srv = Server(cfg, base.get_parallel(ENGINE_ARCH),
+                      ServerConfig(max_batch=ENGINE_SLOTS, max_new_tokens=ENGINE_A_NEW),
+                      device="cuda")
+    torch.cuda.synchronize()
+    log(f"engine: {cfg.name} {cfg.param_count() / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    out, launches = {}, {}
+    for kv in ("bfloat16", "int8"):
+        path = f"engine_A_{kv}"
+        out[path], launches[path] = _batch_equal(path, base_srv, kv, gen=1)
+
+    # B: the ragged traffic, twice, then as fixed batches
+    srv = _server_like(base_srv, "bfloat16", ENGINE_B_BUDGETS[1])
+    prompts, budgets = _engine_requests(ENGINE_B_REQUESTS, cfg.vocab_size, 2, ENGINE_B_BUDGETS)
+    ecfg = EngineConfig(prompt_bucket=ENGINE_BUCKET, block_tokens=ENGINE_B_BLOCK_TOKENS,
+                        pool_blocks=ENGINE_B_POOL_BLOCKS)
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(2):
+        handles, eng, run = _engine_run(f"engine_B_run{i + 1}", srv, ecfg, prompts, budgets)
+        first = min(h.first_token_s for h in handles)
+        runs.append({"tokens": [h.generated for h in handles], **run,
+                     "admitted_mid_flight": sum(h.first_token_s > first for h in handles),
+                     "resumes": sum(h.preemptions for h in handles)})
+        if i == 0:
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            launches["engine_B"] = run["launches"]
+            with torch.inference_mode():
+                graph = _graph_decode("engine_B", srv, eng.cache, eng.tok, {})
+        del eng, handles
+    check(runs[0]["tokens"] == runs[1]["tokens"], "engine_B: a second run gave other tokens")
+    b = runs[0]
+    check(b["stats"]["preemptions"] >= 1, "engine_B: no preemption")
+    check(b["admitted_mid_flight"] >= 1, "engine_B: no request admitted mid-flight")
+    useful = sum(budgets)
+    oracle, fixed_s = _oracle(srv, prompts, ENGINE_BUCKET, budgets)
+    equal = sum(int(a == c) for t, row, n in zip(b["tokens"], oracle, budgets)
+                for a, c in zip(t, row.tolist()[:n]))
+    batch = {"tokens": torch.as_tensor(_padded(prompts[:1], ENGINE_BUCKET)[0].tokens[None],
+                                       device=srv.device)}
+    # a fresh request's admission: one row, the bucket deep, headroom to the slot's end
+    with torch.inference_mode():
+        admission = _profile(lambda: srv._prefill_request(
+            batch, extra_capacity=ENGINE_B_BUDGETS[1])(srv.params, batch))
+    row = {"card": RESULTS["device"]["nvidia_smi"], "requests": ENGINE_B_REQUESTS,
+           "budgets": budgets,
+           "prompt_lens": [len(p) for p in prompts], "pool_blocks": ENGINE_B_POOL_BLOCKS,
+           "block_tokens": ENGINE_B_BLOCK_TOKENS, "stats": b["stats"], "prefills": b["prefills"],
+           "launches": b["launches"], "decode_captures": [r["decode_captures"] for r in runs],
+           "admitted_mid_flight": b["admitted_mid_flight"], "resumes": b["resumes"],
+           "second_run_identical": True, "useful_tokens": useful,
+           "engine_s": [r["wall_s"] for r in runs],
+           "engine_steps_s": [r["steps_s"] for r in runs],
+           "engine_useful_tokens_per_s": [useful / r["wall_s"] for r in runs],
+           "fixed_batches_s": fixed_s, "fixed_batches_useful_tokens_per_s": useful / fixed_s,
+           "fixed_batches_generated_tokens": sum(len(r) for r in oracle),
+           "fixed_batches_budgets": [max(budgets[i:i + ENGINE_SLOTS])
+                                     for i in range(0, len(budgets), ENGINE_SLOTS)],
+           "tokens_equal_fixed_batch_share": equal / useful,
+           "peak_mem_gb": peak_gb, "peak_mem_gb_after_init": b["peak_gb_after_init"],
+           "peak_mem_gb_rose_after_step": b["peak_gb_rose_after_step"],
+           "graph_decode": graph,
+           "admission_prefill_1x2048": admission}
+    log("engine_B: " + json.dumps({k: v for k, v in row.items()
+                                    if k not in ("budgets", "prompt_lens", "graph_decode",
+                                                 "admission_prefill_1x2048")}))
+    out["engine_B"] = row
+    RESULTS["engine"] = out
+    del srv, base_srv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_engine_small(arch):
+    """A smoke model in fp32 through the engine with preemption, card
+    against CPU: the same tokens and stats; and each against its device's
+    fixed-batch oracle, agreeing on the same requests (every one for the
+    dense model; the MoE models' capacity-bounded dispatch drops tokens by
+    the batch's other rows, ROADMAP C15)."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.runtime.engine import Engine, EngineConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = dataclasses.replace(base.get_smoke_config(arch), dtype="float32")
+    scfg = ServerConfig(max_batch=4, max_new_tokens=6)
+    gpu = Server(cfg, base.get_parallel(arch), scfg, device="cuda")
+    cpu = Server(cfg, base.get_parallel(arch), scfg, device="cpu")
+    cpu.params = _to_cpu(gpu.params)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(int(rng.integers(2, 9)),), dtype=np.int32)
+               for _ in range(6)]
+    got = {}
+    for name, srv in (("card", gpu), ("cpu", cpu)):
+        eng = Engine(srv, EngineConfig(prompt_bucket=8, block_tokens=2, pool_blocks=14))
+        handles = [eng.submit(p) for p in prompts]
+        eng.run()
+        rows, _ = _oracle(srv, prompts, 8)
+        got[name] = ([h.generated for h in handles], eng.stats(),
+                     [h.generated == r.tolist() for h, r in zip(handles, rows)])
+    (t_gpu, s_gpu, a_gpu), (t_cpu, s_cpu, a_cpu) = got["card"], got["cpu"]
+    log(f"engine {arch} smoke fp32, card vs CPU path: tokens {t_gpu} vs {t_cpu}; stats "
+        f"{s_gpu}; agrees with the fixed-batch oracle {a_gpu} vs {a_cpu}")
+    check(t_gpu == t_cpu and s_gpu == s_cpu, f"engine {arch}: card and CPU engines differ")
+    check(s_gpu["preemptions"] > 0, f"engine {arch}: no preemption")
+    check(a_gpu == a_cpu, f"engine {arch}: card and CPU agree with their oracles differently")
+    check(cfg.family != "dense" or all(a_gpu), f"engine {arch}: differs from the oracle")
+    RESULTS.setdefault("engine_small", {})[arch] = {
+        "tokens_equal_cpu": True, "stats": s_gpu, "agrees_with_oracle": a_gpu}
+    del gpu
+    torch.cuda.empty_cache()
+
+
 # -- training ------------------------------------------------------------------
 
 # phase train_small: (name, config source, seq, batch, lr).  The tiny dense
@@ -2546,6 +2890,9 @@ def main() -> int:
     for arch in ("gemma2_9b", "zamba2_7b"):
         phase_small_model(arch, "int8")
     phase_small_model("phi4_mini_3_8b", ring=True)
+    launches.update(phase_engine())
+    for arch in ENGINE_SMALL:
+        phase_engine_small(arch)
     for spec in TRAIN_SMALL:
         phase_train_small(*spec)
     phase_train_checkpoint()

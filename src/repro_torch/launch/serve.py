@@ -19,10 +19,13 @@ folds the process world onto a (data, model) grid, e.g. on the CPU::
         --arch gemma2_9b --smoke --device cpu --mesh 2x2
 
 As in the reference, the CLI has no ring flag: the ring is
-``replace(pcfg, ring_attention=True)`` handed to ``Server``.  The other
-serving modes of :mod:`repro.launch.serve` (``--disaggregate``,
-``--fanout``, ``--plan``, ``--continuous-batching``) are not ported yet and
-raise ``ERR_UNSUPPORTED_OPERATION``.
+``replace(pcfg, ring_attention=True)`` handed to ``Server``.
+``--continuous-batching`` serves the requests through the paged-KV
+:class:`~repro_torch.runtime.engine.Engine` instead of one fixed batch, on
+``min(requests, 4)`` slots with a bucket of ``--prompt-len``; it prints each
+request's generated length and the engine's stats.  The other serving modes
+of :mod:`repro.launch.serve` (``--disaggregate``, ``--fanout``, ``--plan``)
+are not ported yet and raise ``ERR_UNSUPPORTED_OPERATION``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import json
 
 import numpy as np
 
-_NOT_PORTED = ("disaggregate", "fanout", "plan", "continuous_batching")
+_NOT_PORTED = ("disaggregate", "fanout", "plan")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -58,7 +61,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--disaggregate", action="store_true", help="not ported yet")
     ap.add_argument("--plan", default=None, help="not ported yet")
     ap.add_argument("--fanout", default=None, help="not ported yet")
-    ap.add_argument("--continuous-batching", action="store_true", help="not ported yet")
+    ap.add_argument(
+        "--continuous-batching",
+        action="store_true",
+        help="serve through the continuous-batching engine (paged KV block "
+        "pool, in-flight admission) instead of one fixed batch",
+    )
     return ap
 
 
@@ -84,9 +92,15 @@ def requests(cfg, n: int, prompt_len: int) -> list:
 
 
 def run(argv=None):
-    """Serve one batch of random prompts; returns (server, tokens, stats)."""
+    """Serve one batch of random prompts; returns (server, tokens, stats).
+    With ``--continuous-batching``, ``tokens`` is the list of each request's
+    generated tokens, in submission order, and ``stats`` the engine's."""
 
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.continuous_batching and (args.disaggregate or args.fanout is not None):
+        ap.error("--continuous-batching schedules a single-group Server; "
+                 "it does not compose with --disaggregate/--fanout yet")
 
     from repro_torch.configs import base
     from repro_torch.core import errors
@@ -114,16 +128,27 @@ def run(argv=None):
         d, m = (int(t) for t in args.mesh.split("x"))
         comm = make_host_communicator(d, m, pset=args.pset, device=args.device)
     reqs = requests(cfg, args.requests, args.prompt_len)
-    scfg = ServerConfig(max_batch=args.requests, max_new_tokens=args.new_tokens,
-                        temperature=args.temperature)
+    scfg = ServerConfig(max_batch=min(args.requests, 4) if args.continuous_batching
+                        else args.requests,
+                        max_new_tokens=args.new_tokens, temperature=args.temperature)
     server = Server(cfg, pcfg, scfg, comm)
+    if args.continuous_batching:
+        from repro_torch.runtime.engine import Engine, EngineConfig
+
+        eng = Engine(server, EngineConfig(prompt_bucket=args.prompt_len))
+        handles = [eng.submit(r) for r in reqs]
+        eng.run()
+        return server, [h.generated for h in handles], eng.stats()
     tokens, stats = server.generate(reqs)
     return server, tokens, stats
 
 
 def main(argv=None):
     _, tokens, stats = run(argv)
-    print("generated shape:", tokens.shape)
+    if isinstance(tokens, list):
+        print("generated lengths:", [len(t) for t in tokens])
+    else:
+        print("generated shape:", tokens.shape)
     print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()},
                      indent=1))
     return 0

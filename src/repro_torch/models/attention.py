@@ -7,8 +7,10 @@ int8 cache quantizes and dequantizes through
 argument), layers with no softcap, window or prefix shard the sequence
 over the ring kernel (:mod:`repro_torch.kernels.ring_attention`).  MLA's
 full-sequence attention runs the flash kernel with values narrower than
-the keys; its absorbed decode is plain fp32, as the reference's.  Not
-ported yet: per-row decode positions and the sequence-sharded decode."""
+the keys; its absorbed decode is plain fp32, as the reference's.  Decode
+takes the shared scalar position of the fixed-batch ``Server`` or a per-row
+``(B,)`` vector (the continuous-batching engine's slot table).  Not ported
+yet: the sequence-sharded decode."""
 
 from __future__ import annotations
 
@@ -91,30 +93,42 @@ def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return x.reshape(q.shape)
 
 
-def cache_layer_update(k_layer, v_layer, k_scale_l, v_scale_l, k_new, v_new, pos, *, ring: bool):
-    """Write k_new/v_new (B, T, Hk, Dh) at the scalar ``pos`` (ring: pos %
-    capacity), quantized with their scales into an int8 cache.  The write is
-    in place (``index_copy_``): it stands in for the reference's donated
-    cache buffers, so decode allocates no new cache."""
+def _row_update(layer: torch.Tensor, new: torch.Tensor, write_pos: torch.Tensor) -> None:
+    """Per-row cache write in place: ``layer`` (B, S, ...), ``new`` (B, T,
+    ...), ``write_pos`` () or (B,): row b writes its T tokens at its own
+    position, clamped into [0, S - T] as ``jax.lax.dynamic_update_slice``
+    clamps its start.  The engine never resets an idle slot's position, so
+    an empty or retired row's position grows past S; its write lands at the
+    end of its row, where the reference's does, instead of indexing out of
+    bounds (a device-side assert inside a CUDA graph).  One scatter over all
+    rows, with the positions on the device: no host sync, so it can be
+    captured."""
 
-    errors.check(
-        pos.dim() == 0,
-        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        "per-row decode positions are not ported yet (scalar pos only)",
-    )
+    s, t = layer.shape[1], new.shape[1]
+    start = torch.clamp(write_pos.long().expand(layer.shape[0]), 0, s - t)
+    cols = start[:, None] + torch.arange(t, device=layer.device)
+    rows = torch.arange(layer.shape[0], device=layer.device)[:, None].expand_as(cols)
+    layer.index_put_((rows, cols), new.to(layer.dtype))
+
+
+def cache_layer_update(k_layer, v_layer, k_scale_l, v_scale_l, k_new, v_new, pos, *, ring: bool):
+    """Write k_new/v_new (B, T, Hk, Dh) at ``pos`` (ring: pos % capacity),
+    quantized with their scales into an int8 cache (one quantize call over
+    all rows).  ``pos`` is a shared scalar or a per-row ``(B,)`` vector
+    (:func:`_row_update`, clamped as the reference's).  The write is in
+    place: it stands in for the reference's donated cache buffers, so
+    decode allocates no new cache."""
+
     capacity = k_layer.shape[1]
     write_pos = (pos % capacity) if ring else pos
-    idx = write_pos.long() + torch.arange(k_new.shape[1], device=k_layer.device)
     if k_layer.dtype == torch.int8:
         kq, ks = _quantize_kv(k_new)
         vq, vs = _quantize_kv(v_new)
-        k_layer.index_copy_(1, idx, kq)
-        v_layer.index_copy_(1, idx, vq)
-        k_scale_l.index_copy_(1, idx, ks)
-        v_scale_l.index_copy_(1, idx, vs)
+        writes = ((k_layer, kq), (v_layer, vq), (k_scale_l, ks), (v_scale_l, vs))
     else:
-        k_layer.index_copy_(1, idx, k_new.to(k_layer.dtype))
-        v_layer.index_copy_(1, idx, v_new.to(v_layer.dtype))
+        writes = ((k_layer, k_new), (v_layer, v_new))
+    for layer, new in writes:
+        _row_update(layer, new, write_pos)
     return k_layer, v_layer, k_scale_l, v_scale_l
 
 
@@ -283,7 +297,7 @@ def attention_decode(
     v_layer,
     k_scale_l,
     v_scale_l,
-    pos: torch.Tensor,        # () int32 tokens already cached
+    pos: torch.Tensor,        # () int32 tokens already cached, or (B,) per row
     cfg,
     pcfg,
     *,
@@ -291,26 +305,30 @@ def attention_decode(
     mesh=None,
 ):
     """Single-token attention against a cached layer (updated in place).
-    Returns (y (B,1,D), cache slices)."""
+    Returns (y (B,1,D), cache slices).  The fixed-batch path's scalar
+    ``pos`` (every row at one depth) is taken as the ``(B,)`` vector that
+    gives each row its own depth and validity mask (B, capacity)."""
 
     dtype = x1.dtype
-    q, k_new, v_new = _project_qkv(p, x1, cfg, pos[None])
+    pos = pos.expand(x1.shape[0])
+    q, k_new, v_new = _project_qkv(p, x1, cfg, pos[:, None])
     ring = sliding_window is not None and k_layer.shape[1] == sliding_window
     k_layer, v_layer, k_scale_l, v_scale_l = cache_layer_update(
         k_layer, v_layer, k_scale_l, v_scale_l, k_new, v_new, pos, ring=ring
     )
     capacity = k_layer.shape[1]
     slots = torch.arange(capacity, device=k_layer.device)
+    pos_b = pos[:, None]   # against the slots: a (B, capacity) mask
     if ring:
         # slot i holds global position p_i = pos - ((pos - i) mod capacity)
-        slot_pos = pos - torch.remainder(pos - slots, capacity)
-        valid = slot_pos >= torch.clamp(pos - capacity + 1, min=0)
-        valid = valid & (slot_pos <= pos)
+        slot_pos = pos_b - torch.remainder(pos_b - slots, capacity)
+        valid = slot_pos >= torch.clamp(pos_b - capacity + 1, min=0)
+        valid = valid & (slot_pos <= pos_b)
     else:
         slot_pos = slots
-        valid = slot_pos <= pos
+        valid = slot_pos <= pos_b
     if sliding_window is not None:
-        valid = valid & (pos - slot_pos < sliding_window)
+        valid = valid & (pos_b - slot_pos < sliding_window)
     kc, vc = cache_layer_read(k_layer, v_layer, k_scale_l, v_scale_l, dtype)
     y = _decode_attend(q, kc, vc, valid, cfg)
     return _out(y, p["wo"]), (k_layer, v_layer, k_scale_l, v_scale_l)
@@ -323,7 +341,7 @@ def _decode_attend(q, kc, vc, valid, cfg):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc.float())
     s = s * _scale(cfg)
     s = common.softcap(s, cfg.attn_logit_softcap)
-    s = torch.where(valid[None, None, None, :], s, fa_ref.NEG_INF)
+    s = torch.where(valid[:, None, None, :], s, fa_ref.NEG_INF)
     pattn = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", pattn, vc.float()).to(q.dtype)
 
@@ -420,19 +438,15 @@ def mla_attention_full(p, x, cfg, pcfg, *, positions, mesh=None, return_cache=Fa
 def mla_attention_decode(p, x1, ckv_layer, krope_layer, pos, cfg, pcfg, *, mesh=None):
     """Absorbed decode: attend in the compressed latent space (the W^UK
     absorption: no per-step expansion), in fp32.  The new latents are
-    written into the cached layer in place."""
+    written into the cached layer in place, at each row's own position of a
+    ``(B,)`` ``pos`` (a scalar is every row's)."""
 
-    errors.check(
-        pos.dim() == 0,
-        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        "per-row decode positions are not ported yet (scalar pos only)",
-    )
-    q_nope, q_rope, ckv_new, krope_new = _mla_latents(p, x1, cfg, pos[None])
-    idx = pos.long() + torch.arange(ckv_new.shape[1], device=ckv_layer.device)
-    ckv_layer.index_copy_(1, idx, ckv_new.to(ckv_layer.dtype))
-    krope_layer.index_copy_(1, idx, krope_new.to(krope_layer.dtype))
+    pos = pos.expand(x1.shape[0])
+    q_nope, q_rope, ckv_new, krope_new = _mla_latents(p, x1, cfg, pos[:, None])
+    _row_update(ckv_layer, ckv_new, pos)
+    _row_update(krope_layer, krope_new, pos)
     capacity = ckv_layer.shape[1]
-    valid = torch.arange(capacity, device=ckv_layer.device) <= pos
+    valid = torch.arange(capacity, device=ckv_layer.device) <= pos[:, None]
 
     # absorb: q_latent = q_nope @ W^UK  → (B, 1, H, kv_lora)
     q_latent = torch.einsum("bshn,khn->bshk", q_nope, p["wk_b"])
@@ -440,7 +454,7 @@ def mla_attention_decode(p, x1, ckv_layer, krope_layer, pos, cfg, pcfg, *, mesh=
     s = torch.einsum("bshk,btk->bhst", q_latent.float(), ckv_f)
     s = s + torch.einsum("bshr,btr->bhst", q_rope.float(), krope_layer.float())
     s = s * _mla_scale(cfg)
-    s = torch.where(valid[None, None, None, :], s, fa_ref.NEG_INF)
+    s = torch.where(valid[:, None, None, :], s, fa_ref.NEG_INF)
     pattn = torch.softmax(s, dim=-1)
     o_latent = torch.einsum("bhst,btk->bshk", pattn, ckv_f)
     out = torch.einsum("bshk,khv->bshv", o_latent.to(x1.dtype), p["wv_b"])

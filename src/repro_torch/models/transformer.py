@@ -457,8 +457,9 @@ def _cache_xs(cache) -> tuple:
 
 def lm_decode(params, caches: dict, token: torch.Tensor, cfg, pcfg, mesh=None):
     """One decode step.  token: (B, 1) int32.  Returns (logits, caches); the
-    cache tensors are updated in place and every cache's ``pos`` advances.
-    A VLM's image prefix already lives in the cache."""
+    cache tensors are updated in place and every cache's ``pos`` (the shared
+    scalar, or the engine's per-row (B,) vector) advances.  A VLM's image
+    prefix already lives in the cache."""
 
     pos = next(iter(caches.values())).pos
     x = _embed(params, token, cfg)

@@ -35,8 +35,9 @@ the same weights from the same seed and runs ``generate`` on the same
 requests; decode runs replicated, with no communicator, and every rank
 returns the same tokens.
 
-The disaggregated server and the continuous-batching engine are not ported
-yet.
+The continuous-batching engine (:mod:`repro_torch.runtime.engine`) runs
+over a server's persistent prefill and decode requests.  The disaggregated
+server is not ported yet.
 """
 
 from __future__ import annotations
@@ -121,6 +122,10 @@ class Server:
         # persistent steps, keyed by argument signature (shape bucket)
         self._prefill_reqs: dict[tuple, PersistentRequest] = {}
         self._decode_reqs: dict[tuple, PersistentRequest] = {}
+        # the continuous-batching engine's insert signatures (one
+        # trace:insert_row each), shared by the engines over this server as
+        # the reference shares its compiled inserts
+        self.engine_insert_sigs: set[tuple] = set()
         # per-call sampling counter: each generate() seeds a fresh generator
         self._generate_calls = 0
 

@@ -65,6 +65,9 @@ _TRAINING = ("optim/adamw.py", "optim/clip.py", "optim/schedules.py", "optim/gra
              "runtime/faults.py", "runtime/trainer.py", "launch/train.py")
 
 
+_SERVING = ("runtime/server.py", "runtime/engine.py", "runtime/kvpool.py")
+
+
 _MODELS = ("models/transformer.py", "models/encdec.py", "models/api.py", "models/mlp.py",
            "models/attention.py", "configs/paligemma_3b.py", "configs/seamless_m4t_large_v2.py",
            "configs/grok_1_314b.py", "configs/deepseek_v2_236b.py", "launch/serve.py")
@@ -77,7 +80,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     covered = {str(f.relative_to(package)) for f in files if f.is_relative_to(package)}
     assert ROOT / "tools" / "quant_variants.py" in files
     assert set(_MULTI_RANK) <= covered and set(_TRAINING) <= covered
-    assert set(_MODELS) <= covered
+    assert set(_MODELS) <= covered and set(_SERVING) <= covered
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}

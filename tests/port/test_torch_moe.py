@@ -257,14 +257,28 @@ def test_mla_absorbed_decode_matches():
 
 
 def test_mla_decode_refuses_per_row_positions():
-    from repro_torch.core import errors
+    """Per-row ``(B,)`` positions, which the MLA decode refused until the
+    continuous-batching engine came, are taken now: each row writes at its
+    own position, and a position past the latent cache's end is clamped to
+    its last slot (``dynamic_update_slice``'s rule) instead of refused;
+    outputs and both latent layers are the reference's."""
 
-    _, tcfg, _, tp = _mla()
-    with pytest.raises(errors.Error) as ei:
-        tattn.mla_attention_decode(
-            tp, torch.zeros((2, 1, 64)), torch.zeros((2, 4, 32)), torch.zeros((2, 4, 8)),
-            torch.tensor([1, 2], dtype=torch.int32), tcfg, tbase.ParallelConfig())
-    assert ei.value.klass == errors.ErrorClass.ERR_UNSUPPORTED_OPERATION
+    jcfg, tcfg, jp, tp = _mla()
+    rng = np.random.default_rng(5)
+    ckv = rng.standard_normal((2, 4, jcfg.kv_lora), dtype=np.float32)
+    kr = rng.standard_normal((2, 4, jcfg.rope_head_dim), dtype=np.float32)
+    jx, tx = _x((2, 1, 64), "float32", seed=6)
+    pos = np.array([1, 7], np.int32)
+    jy, (jckv, jkr) = jattn.mla_attention_decode(
+        jp, jx, jnp.asarray(ckv), jnp.asarray(kr), jnp.asarray(pos), jcfg,
+        jbase.ParallelConfig())
+    tckv, tkr = torch.from_numpy(ckv.copy()), torch.from_numpy(kr.copy())
+    ty, _ = tattn.mla_attention_decode(
+        tp, tx, tckv, tkr, torch.from_numpy(pos), tcfg, tbase.ParallelConfig())
+    _close(ty, jy, 2e-5)
+    _close(tckv, jckv, 2e-5)
+    _close(tkr, jkr, 2e-5)
+    assert not np.array_equal(tckv[1, 3].numpy(), ckv[1, 3])   # the clamped write
 
 
 def test_mla_cache_init_matches_reference():

@@ -20,6 +20,7 @@ import torch
 
 import graph_stub
 from repro.configs import base as jbase
+from repro.core import errors as jerrors
 from repro.core import tool as jtool
 from repro.launch import serve as jserve
 from repro.launch.mesh import make_host_communicator as j_comm
@@ -381,12 +382,19 @@ def test_no_silent_cpu_fallback():
     # grok (moe) is ported now: the first case is the fanout mode
     (["--arch", "gemma2_9b", "--fanout", "2"], "ERR_UNSUPPORTED_OPERATION"),
     (["--arch", "gemma2_9b", "--disaggregate"], "ERR_UNSUPPORTED_OPERATION"),
+    # the continuous-batching engine is ported; it refuses gemma2's
+    # ring-buffer (local_global, sliding-window) caches, as the reference's
+    # engine does
     (["--arch", "gemma2_9b", "--continuous-batching"], "ERR_UNSUPPORTED_OPERATION"),
 ])
 def test_unported_modes_raise_typed(argv, klass):
     with pytest.raises(errors.Error) as ei:
         serve.main(argv + ["--smoke", "--device", "cpu"])
     assert ei.value.klass.name == klass
+    if "--continuous-batching" in argv:
+        with pytest.raises(jerrors.Error) as je:
+            jserve.main(argv + ["--smoke"])
+        assert je.value.klass.name == klass
 
 
 def test_pvar_names_are_the_references():

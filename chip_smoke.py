@@ -28,6 +28,13 @@ any failure.  In order:
    ``shift_exchange`` on the ring of one, through the port's communicator,
    must each return its input; so must the persistent ``allreduce_init`` on
    a bf16 tensor and on an aggregate of three dtype buckets, started twice;
+   an RMA window (``core/onesided.py``) over a bf16 tensor (put, rput in
+   pages, get, accumulate SUM, fetch_and_op, compare_and_swap), over an
+   aggregate of three dtype buckets and a dynamic window's attach/detach
+   give what the reference's rules give on a one-rank window; a
+   ``DistGraphComm`` self-loop's ``neighbor_alltoall``,
+   ``neighbor_alltoallv`` and ``neighbor_alltoall_init`` (started twice)
+   return their input;
 4. flash attention against its plain version on the card, at gemma2-9b
    width (b 2, h 16, hk 8, d 256, softcap 50, bf16; one fp32 case) and at
    zamba2-7b's (b 2, s 4096, h = hk = 32, d 112, bf16; one fp32 case),
@@ -173,6 +180,19 @@ any failure.  In order:
     the engine with preemption, card against CPU: the same tokens and
     stats, agreeing with each device's fixed-batch oracle on the same
     requests (all of them for the dense model; ROADMAP C15);
+    Then disaggregated serving: ``DisaggregatedServer`` on the full
+    phi4-mini over the NCCL world of one (prefill and decode on the card,
+    the KV cache handed over through an RMA window in 4 pages), 2 requests
+    of 4096 tokens, 16 new tokens, with the bf16 and the int8 cache: the
+    tokens equal ``Server.generate``'s on the same weights bit for bit, a
+    second generate repeats them, ``kv_bytes`` is the cache's own bytes,
+    the launches are exact (flash 32 a prefill, none in the handoff or a
+    decode step; with int8 the quantize 2 a prefill and 64 a step, the
+    dequantize 64 a step), the decode step captured once a generate; the
+    phases' times and the handoff's GB/s logged beside its bytes bound.
+    Then ``moe_neighbor`` over ``expert_dispatch_graph`` on the grok-1
+    smoke model in fp32, equal to ``mlp.moe`` on the same inputs, card
+    against CPU;
 11. train: ``repro_torch.runtime.trainer.Trainer`` on the card.
     ``train_small``: tests/test_trainer.py's tiny dense model and the mamba2
     smoke model in fp32, 40 steps, every loss within 1e-4 relative of the
@@ -1371,8 +1391,106 @@ def phase_nccl():
                       if e.device_type == torch.autograd.DeviceType.CUDA})
     RESULTS["nccl"] = {"backend": str(dist.get_backend()), "equal": sorted(results),
                        "device_kernels": kernels,
-                       "allreduce_init": _persistent_allreduce(comm, gen)}
+                       "allreduce_init": _persistent_allreduce(comm, gen),
+                       "window": _window_checks(comm, gen),
+                       "dist_graph": _graph_checks(comm, gen)}
     log("NCCL world of one: " + json.dumps(RESULTS["nccl"]))
+
+
+def _window_checks(comm, gen) -> dict:
+    """RMA windows (``core/onesided.py``) on the world of one: a bf16
+    tensor window (put, rput in pages, get, accumulate SUM, fetch_and_op,
+    compare_and_swap), an aggregate of fp32, int32 and bf16 leaves (three
+    packed buffers: rput in pages, get, accumulate SUM) and a dynamic
+    window's attach/detach; each result what the reference's rules give on
+    a one-rank window (a pair (0, 0) is a local copy, a reduction over one
+    rank its input)."""
+
+    import torch
+
+    from repro_torch.core import errors, onesided
+    from repro_torch.core.descriptors import ReduceOp, WindowSpec
+
+    def bf16(n):
+        return torch.randn((n,), generator=gen, device="cuda").to(torch.bfloat16)
+
+    x, y, z = bf16(4096), bf16(4096), bf16(4096)
+    win = onesided.Window(comm, torch.zeros_like(x), WindowSpec(num_pages=4)).fence()
+    win.put(x, [(0, 0)])
+    check(torch.equal(win.buffer, x), "window put on the world of one")
+    win.fence()
+    win.fence()
+    futs = [win.rput(y, [(0, 0)], page=p) for p in range(4)]
+    win.fence()
+    check(all(f.test() for f in futs) and torch.equal(win.buffer, y), "window rput in 4 pages")
+    win.fence()
+    check(torch.equal(win.get([(0, 0)]), y), "window get")
+    win.accumulate(z, target=0, op=ReduceOp.SUM)
+    check(torch.equal(win.buffer, y + z), "window accumulate SUM")
+    old = win.fetch_and_op(torch.tensor(2.0, device="cuda"), target=0, op=ReduceOp.SUM, index=3)
+    check(torch.equal(old, (y + z)[3]) and torch.equal(win.buffer[3], (y + z)[3] + 2),
+          "window fetch_and_op")
+    first = win.buffer[0].item()
+    old = win.compare_and_swap(first, 42.0, target=0, index=0)
+    check(old.item() == first and win.buffer[0].item() == 42.0, "window compare_and_swap")
+    win.fence()
+
+    agg = {"w": torch.randn((64, 3), generator=gen, device="cuda"),
+           "n": torch.randint(-9, 9, (5,), generator=gen, device="cuda", dtype=torch.int32),
+           "h": bf16(7)}
+    win = onesided.Window(comm, {k: torch.zeros_like(v) for k, v in agg.items()},
+                          WindowSpec(num_pages=3)).fence()
+    for p in range(3):
+        win.rput(agg, [(0, 0)], page=p)
+    win.fence()
+    buffers = len(win._buffers)
+    check(buffers == 3 and all(torch.equal(win.buffer[k], v) for k, v in agg.items()),
+          "aggregate window rput in 3 pages")
+    win.fence()
+    got = win.get([(0, 0)])
+    win.accumulate(agg, target=0, op=ReduceOp.SUM)
+    check(all(torch.equal(got[k], v) and torch.equal(win.buffer[k], v + v)
+              for k, v in agg.items()), "aggregate window get / accumulate SUM")
+    win.fence()
+
+    win = onesided.Window(comm, torch.zeros_like(x), WindowSpec(dynamic=True, num_pages=4))
+    win.attach([1]).fence()
+    win.put(x, [(0, 0)], page=1)
+    try:
+        win.put(x, [(0, 0)], page=2)
+        refused = "none"
+    except errors.Error as e:
+        refused = e.klass.name
+    win.fence()
+    win.detach([1])
+    span = slice(1024, 2048)
+    check(refused == "ERR_RMA_RANGE" and torch.equal(win.buffer[span], x[span])
+          and not win.buffer[:1024].any() and not win.attached_pages,
+          f"dynamic window: a put to a detached page gave {refused}")
+    return {"bf16": "put, rput x4 pages, get, accumulate SUM, fetch_and_op, compare_and_swap",
+            "aggregate_buffers": buffers, "dynamic_detached_put": refused, "equal": True}
+
+
+def _graph_checks(comm, gen) -> dict:
+    """A ``DistGraphComm`` self-loop on the world of one: neighbor_alltoall,
+    neighbor_alltoallv and neighbor_alltoall_init (started twice) each
+    return their input."""
+
+    import torch
+
+    from repro_torch.core import topology
+
+    g = topology.dist_graph_create_adjacent(comm, [[0]], [[0]])
+    x = torch.randn((1, 64, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    check(torch.equal(g.neighbor_alltoall(x).get(), x), "neighbor_alltoall on a self-loop")
+    blocks, rc = g.neighbor_alltoallv(x, [[64]]).get()
+    check(torch.equal(blocks, x) and rc.tolist() == [64], "neighbor_alltoallv on a self-loop")
+    req = g.neighbor_alltoall_init(x)
+    for _ in range(2):
+        v = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        out = req.start(v).get()
+        check(out.is_cuda and torch.equal(out, v), "neighbor_alltoall_init on a self-loop")
+    return {"degrees": [g.indegree(), g.outdegree()], "starts": req.starts, "equal": True}
 
 
 def _persistent_allreduce(comm, gen) -> dict:
@@ -2285,6 +2403,165 @@ def phase_engine_small(arch):
     torch.cuda.empty_cache()
 
 
+# -- disaggregated prefill/decode and the expert-parallel dispatch -------------
+
+DISAGG_ARCH = "phi4_mini_3_8b"
+DISAGG_PROMPT = 4096
+DISAGG_PAGES = 4
+# kernel launches of one disaggregated generate (16 new tokens: 15 decode
+# steps): flash 32 a prefill and none in the handoff or a decode step; with
+# the int8 cache the quantize 2 a prefill (k and v of the stacked cache)
+# and 64 a step (k_new, v_new of 32 layers), the dequantize 64 a step
+DISAGG_LAUNCHES = {
+    "bfloat16": ({"flash_attention_fwd": 32}, {}),
+    "int8": ({"flash_attention_fwd": 32, QUANT: 2}, {QUANT: 64, DEQUANT: 64}),
+}
+
+
+def _cache_bytes(cfg, pcfg, batch, length) -> int:
+    """Bytes of every leaf of the model's cache for ``batch`` rows of
+    ``length`` tokens (the structure built on the meta device)."""
+
+    from repro_torch.core.futures import flatten
+    from repro_torch.models import transformer
+
+    cache = transformer.init_cache(cfg, pcfg, batch, length, device="meta")
+    return sum(t.numel() * t.element_size() for t in flatten(cache)[0])
+
+
+def phase_disaggregate(kv):
+    """``DisaggregatedServer`` serving the full phi4-mini on the NCCL world
+    of one (the degenerate set: prefill and decode on the card, the handoff
+    over a one-rank bridge): 2 requests of 4096 tokens, 16 new tokens, the
+    KV cache in ``DISAGG_PAGES`` pages through the RMA window.  The tokens
+    must equal ``Server.generate``'s bit for bit (``dis.prefill`` is a plain
+    ``Server`` on the same seed), a second generate must repeat them,
+    ``kv_bytes`` must be the cache's own bytes, the launches exact and the
+    decode step captured once a generate.  Logs the phases' times and the
+    handoff's rate beside its bytes bound (the cache read and written
+    once)."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import DisaggregatedServer, ServerConfig
+
+    path = f"disaggregate_{kv}"
+    cfg = base.get_config(DISAGG_ARCH)
+    check(cfg.num_layers == 32 and cfg.d_model == 3072 and cfg.num_heads == 24
+          and cfg.num_kv_heads == 8 and cfg.head_dim == 128, "not the phi4-mini config")
+    pcfg = dataclasses.replace(base.get_parallel(DISAGG_ARCH), kv_cache_dtype=kv)
+    t0 = time.perf_counter()
+    dis = DisaggregatedServer(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS),
+                              kv_pages=DISAGG_PAGES, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(dis.prefill is not None and dis.decode is not None, f"{path}: a group is missing")
+    reqs = serve.requests(cfg, 2, DISAGG_PROMPT)
+    per_prefill, per_step = DISAGG_LAUNCHES[kv]
+    runs = []
+    for i in range(2):
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        tokens, stats = dis.generate(reqs)
+        wall = time.perf_counter() - t1
+        launches = _launches()
+        (decode,) = dis.decode._decode_reqs.values()
+        steps = NEW_TOKENS - 1
+        for name, n in launches.items():
+            want = per_prefill.get(name, 0) + per_step.get(name, 0) * steps
+            check(n == want, f"{path} run {i + 1}: {name} launches {n} != "
+                             f"{per_prefill.get(name, 0)} + {per_step.get(name, 0)} x {steps}")
+        check(decode.captured == i + 1, f"{path}: {decode.captured} decode captures "
+                                        f"after {i + 1} generates")
+        runs.append({"tokens": tokens, "stats": stats, "launches": launches, "wall_s": wall,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    check(np.array_equal(runs[0]["tokens"], runs[1]["tokens"]),
+          f"{path}: a second generate gave other tokens")
+    base_tokens, base_stats = dis.prefill.generate(reqs)
+    check(np.array_equal(runs[0]["tokens"], base_tokens),
+          f"{path}: tokens {runs[0]['tokens'].tolist()} != Server.generate's "
+          f"{base_tokens.tolist()}")
+    check(runs[0]["tokens"].shape == (2, NEW_TOKENS), f"{path}: tokens shape")
+    want_bytes = _cache_bytes(cfg, pcfg, 2, DISAGG_PROMPT + NEW_TOKENS)
+    stats = runs[1]["stats"]
+    check(all(r["stats"]["kv_bytes"] == want_bytes for r in runs),
+          f"{path}: kv_bytes {stats['kv_bytes']} != the cache's {want_bytes}")
+    check(stats["kv_pages"] == DISAGG_PAGES, f"{path}: kv_pages {stats['kv_pages']}")
+    bound_ms = 2 * want_bytes / HBM_BYTES_PER_S * 1e3
+    row = {
+        "card": RESULTS["device"]["nvidia_smi"], "kv_cache_dtype": kv, "init_s": init_s,
+        "tokens_equal_server_generate": True, "second_generate_identical": True,
+        "kv_bytes": want_bytes, "kv_pages": DISAGG_PAGES,
+        "transfer_bound_ms": bound_ms,
+        "runs": [{k: v for k, v in r.items() if k != "tokens"} for r in runs],
+        "transfer_gb_per_s": [r["stats"]["kv_bytes"] / r["stats"]["transfer_s"] / 1e9
+                              for r in runs],
+        "server_generate": {k: base_stats[k] for k in ("prefill_s", "decode_s",
+                                                       "tokens_per_s")},
+    }
+    log(f"{path}: " + json.dumps(row))
+    RESULTS.setdefault("disaggregate", {})[path] = row
+    del dis
+    torch.cuda.empty_cache()
+    return path, runs[0]["launches"]
+
+
+def phase_moe_neighbor():
+    """``mlp.moe_neighbor`` over ``expert_dispatch_graph`` on the world of
+    one (a self-loop: every expert is local, the two neighbor exchanges
+    cross the one-rank graph) against ``mlp.moe`` on the same inputs, on
+    the grok-1 smoke model in fp32 at a capacity that drops nothing; card
+    against CPU."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.core import topology
+    from repro_torch.core.communicator import world
+    from repro_torch.models import mlp
+
+    cfg = dataclasses.replace(base.get_smoke_config("grok_1_314b"), dtype="float32")
+    gen = torch.Generator().manual_seed(31)
+    p_cpu = mlp.init_moe(gen, cfg, torch.float32)
+    x_cpu = torch.randn((2, 64, cfg.d_model), generator=gen)
+    t = x_cpu.shape[0] * x_cpu.shape[1]
+    cap = t * cfg.moe_top_k
+    got = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        comm = world(device_type=device)
+        graph = topology.dist_graph_create_adjacent(
+            comm, *mlp.expert_dispatch_graph(comm.size(), cfg.num_experts))
+        p = {k: v.to(device) for k, v in p_cpu.items()}
+        x = x_cpu.to(device)
+        y_nb, aux_nb = mlp.moe_neighbor(p, x.reshape(t, -1), cfg, graph, capacity=cap)
+        y_moe, aux_moe = mlp.moe(p, x, cfg, capacity=cap)
+        got[name] = (y_nb.cpu(), y_moe.reshape(t, -1).cpu(),
+                     {k: float(v) for k, v in aux_nb.items()},
+                     {k: float(v) for k, v in aux_moe.items()})
+    (nb, moe, aux_nb, aux_moe), (nb_cpu, moe_cpu, _, _) = got["card"], got["cpu"]
+    err_moe = (nb - moe).abs().max().item()
+    err_cpu = (nb - nb_cpu).abs().max().item()
+    row = {"experts": cfg.num_experts, "top_k": cfg.moe_top_k, "tokens": t, "capacity": cap,
+           "max_abs_err_vs_moe": err_moe, "bit_equal_moe": bool(torch.equal(nb, moe)),
+           "max_abs_err_card_vs_cpu": err_cpu, "aux": aux_nb, "aux_moe": aux_moe}
+    log("moe_neighbor: " + json.dumps(row))
+    check(err_moe <= 1e-6, f"moe_neighbor differs from moe on the card by {err_moe}")
+    check(torch.allclose(nb, nb_cpu, rtol=1e-5, atol=1e-5) and torch.allclose(moe, moe_cpu,
+                                                                             rtol=1e-5,
+                                                                             atol=1e-5),
+          f"moe_neighbor: card against CPU {err_cpu}")
+    check(aux_nb["dropped_fraction"] == 0.0, "moe_neighbor dropped rows at full capacity")
+    RESULTS["moe_neighbor"] = row
+
+
 # -- training ------------------------------------------------------------------
 
 # phase train_small: (name, config source, seq, batch, lr).  The tiny dense
@@ -2893,6 +3170,8 @@ def main() -> int:
     launches.update(phase_engine())
     for arch in ENGINE_SMALL:
         phase_engine_small(arch)
+    launches.update(phase_disaggregate(kv) for kv in ("bfloat16", "int8"))
+    phase_moe_neighbor()
     for spec in TRAIN_SMALL:
         phase_train_small(*spec)
     phase_train_checkpoint()

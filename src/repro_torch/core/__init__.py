@@ -1,7 +1,8 @@
 """repro_torch.core — the interface layer of the port: typed errors, the
 MPI_T-style pvar/cvar registry, sessions and groups over the process world,
-communicators with their collectives, Cartesian topologies and requests
-(futures, and persistent requests that replay CUDA graphs on the card)."""
+communicators with their collectives, Cartesian and graph topologies with
+the neighborhood collectives, RMA windows and requests (futures, and
+persistent requests that replay CUDA graphs on the card)."""
 
 from repro_torch.core import _methods  # noqa: F401  (binds the method facade)
 from repro_torch.core.futures import (  # noqa: F401
@@ -12,4 +13,13 @@ from repro_torch.core.futures import (  # noqa: F401
     PersistentRequest,
     when_all,
     when_any,
+)
+from repro_torch.core.onesided import Window, create_window  # noqa: F401
+from repro_torch.core.topology import (  # noqa: F401
+    PROC_NULL,
+    CartComm,
+    CartShift,
+    DistGraphComm,
+    cart_create,
+    dist_graph_create_adjacent,
 )

@@ -122,7 +122,11 @@ class Future:
             _sync(self._value)
             return
         for w in self._works:
-            w.wait()
+            # a work another future already waited (a when_all join, a
+            # window's fence) is complete: gloo would wait for a second
+            # transfer on it
+            if not w.is_completed():
+                w.wait()
         self._works = []
 
     def valid(self) -> bool:

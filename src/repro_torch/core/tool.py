@@ -128,9 +128,35 @@ def _pvar_check(op: str) -> None:
         )
 
 
+#: Per thread, the open :func:`pvars_paused` blocks that pause counting.
+_PAUSED = threading.local()
+
+
+@contextlib.contextmanager
+def pvars_paused(paused: bool = True) -> Iterator[None]:
+    """Count no pvar in this thread inside the block, when ``paused``.  A
+    persistent request that re-runs its step eagerly at every start pauses
+    its counters after the first: the reference traces such a step once and
+    counts its pvars at that trace.  Other threads (background file I/O)
+    go on counting."""
+
+    depth = getattr(_PAUSED, "depth", 0)
+    _PAUSED.depth = depth + int(paused)
+    try:
+        yield
+    finally:
+        _PAUSED.depth = depth
+
+
+def _paused() -> bool:
+    return getattr(_PAUSED, "depth", 0) > 0
+
+
 def pvar_count(op: str) -> None:
     if PVAR_STRICT:
         _pvar_check(op)
+    if _paused():
+        return
     with _PVAR_LOCK:
         pvar_counters[op] += 1
 
@@ -140,6 +166,8 @@ def pvar_add(op: str, amount: int) -> None:
 
     if PVAR_STRICT:
         _pvar_check(op)
+    if _paused():
+        return
     with _PVAR_LOCK:
         pvar_counters[op] += int(amount)
 
@@ -167,6 +195,21 @@ pvar_register("partitioned_init", "partitioned requests constructed (Psend_init)
 pvar_register("partitioned_start", "partitioned request activations (MPI_Start)")
 pvar_register("partition_ready", "partitions marked ready (MPI_Pready)")
 pvar_register("cart_create", "Cartesian topologies constructed (MPI_Cart_create)")
+pvar_register("dist_graph_create",
+              "distributed graph topologies constructed (MPI_Dist_graph_create_adjacent)")
+pvar_register("neighbor_allgather", "neighborhood allgathers issued (MPI_Neighbor_allgather)")
+pvar_register("neighbor_alltoall", "neighborhood alltoalls issued (MPI_Neighbor_alltoall)")
+pvar_register("neighbor_alltoallv", "vector neighborhood alltoalls issued (MPI_Neighbor_alltoallv)")
+pvar_register("neighbor_alltoall_init",
+              "persistent neighborhood alltoalls initialised (MPI_Neighbor_alltoall_init)")
+pvar_register("rma_fence", "window fence epochs opened/closed (MPI_Win_fence)")
+pvar_register("rma_put", "blocking window puts (MPI_Put)")
+pvar_register("rma_rput", "request-based window puts (MPI_Rput)")
+pvar_register("rma_get", "blocking window gets (MPI_Get)")
+pvar_register("rma_rget", "request-based window gets (MPI_Rget)")
+pvar_register("rma_accumulate", "window accumulates (MPI_Accumulate/Raccumulate)")
+pvar_register("rma_attach", "pages attached to dynamic windows (MPI_Win_attach)")
+pvar_register("rma_detach", "pages detached from dynamic windows (MPI_Win_detach)")
 
 
 # --------------------------------------------------------------------------

@@ -20,7 +20,7 @@ the device once per call, so no step copies a host scalar.
 
 The gradient is not ported: the reference's ``custom_vjp`` recomputes
 through the plain ring, and the torch equivalent needs a differentiable
-rotation; both come with the training slice.  Until then a call whose
+rotation; both wait for ROADMAP A14 item 5.  Until then a call whose
 inputs require grad raises ``ERR_UNSUPPORTED_OPERATION``.
 """
 
@@ -182,7 +182,8 @@ def ring_attention(
     errors.check(
         not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))),
         errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        "ring attention's gradient is not ported yet: it comes with the training slice",
+        "ring attention's gradient is not ported yet: it waits for ROADMAP A14 item 5 "
+        "(a differentiable rotation and a recompute backward through the plain ring)",
     )
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

@@ -23,9 +23,26 @@ As in the reference, the CLI has no ring flag: the ring is
 ``--continuous-batching`` serves the requests through the paged-KV
 :class:`~repro_torch.runtime.engine.Engine` instead of one fixed batch, on
 ``min(requests, 4)`` slots with a bucket of ``--prompt-len``; it prints each
-request's generated length and the engine's stats.  The other serving modes
-of :mod:`repro.launch.serve` (``--disaggregate``, ``--fanout``, ``--plan``)
-are not ported yet and raise ``ERR_UNSUPPORTED_OPERATION``.
+request's generated length and the engine's stats.
+
+``--disaggregate`` splits the serving process set into prefill and decode
+worker groups (``<pset>/prefill`` / ``<pset>/decode``, the leading
+``--prefill-fraction`` of the set for prefill): prefill ranks compute the
+KV cache and ``rput`` it into the decode ranks' RMA window (``--kv-pages``
+pages per handoff); decode rides its persistent request.  ``--fanout P:D``
+makes that split heterogeneous (2:6, 3:5, ...) with the KV routed along the
+dist-graph fan-out adjacency; on the CPU, four gloo ranks::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch phi4_mini_3_8b --smoke --device cpu --fanout 1:3
+
+``--plan`` takes the reference's grammar (``configs.base.parse_plan``):
+``fanout=P:D`` selects the disaggregated split, any other plan folds its
+data and model dims onto the host communicator.  ``--plan auto`` needs the
+tuner (``repro.tune``), which is not ported yet (ROADMAP A15): it raises
+``ERR_UNSUPPORTED_OPERATION``.  The reference's usage errors are kept:
+``--plan`` with ``--fanout`` or ``--mesh``, ``--mesh`` with
+``--disaggregate``, ``--continuous-batching`` with ``--disaggregate``.
 """
 
 from __future__ import annotations
@@ -34,9 +51,6 @@ import argparse
 import json
 
 import numpy as np
-
-_NOT_PORTED = ("disaggregate", "fanout", "plan")
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
@@ -57,10 +71,29 @@ def _parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--mesh", default="auto",
                     help="DxM: fold the process world onto a (data, model) grid")
-    # serving modes of the reference launcher that the port has not reached
-    ap.add_argument("--disaggregate", action="store_true", help="not ported yet")
-    ap.add_argument("--plan", default=None, help="not ported yet")
-    ap.add_argument("--fanout", default=None, help="not ported yet")
+    ap.add_argument(
+        "--disaggregate",
+        action="store_true",
+        help="split the pset into prefill/decode groups; KV crosses via RMA",
+    )
+    ap.add_argument("--prefill-fraction", type=float, default=0.5)
+    ap.add_argument("--kv-pages", type=int, default=4)
+    ap.add_argument(
+        "--plan",
+        default=None,
+        help="the unified parallelism plan: 'DxT' dims, or key=value pairs; "
+        "'fanout=P:D' selects the heterogeneous disaggregated split; 'auto' "
+        "(the tuner's search) is not ported yet and raises "
+        "ERR_UNSUPPORTED_OPERATION",
+    )
+    ap.add_argument(
+        "--fanout",
+        default=None,
+        metavar="P:D",
+        help="alias for --plan fanout=P:D (same parser): heterogeneous "
+        "prefill:decode worker split (e.g. 2:6, 3:5); implies "
+        "--disaggregate and replaces --prefill-fraction",
+    )
     ap.add_argument(
         "--continuous-batching",
         action="store_true",
@@ -98,21 +131,23 @@ def run(argv=None):
 
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.continuous_batching and (args.disaggregate or args.fanout is not None):
-        ap.error("--continuous-batching schedules a single-group Server; "
-                 "it does not compose with --disaggregate/--fanout yet")
+    if args.plan and args.fanout:
+        ap.error("--fanout is an alias for --plan fanout=P:D; pass one")
+    if args.plan and args.mesh != "auto":
+        ap.error("--plan subsumes --mesh (the plan's data/model dims are "
+                 "the mesh); drop one of the two")
+    if args.fanout is not None:
+        args.disaggregate = True
+    if args.disaggregate and args.mesh != "auto":
+        ap.error("--mesh has no effect with --disaggregate (group layouts "
+                 "come from --prefill-fraction/--fanout); drop one of the two")
 
     from repro_torch.configs import base
     from repro_torch.core import errors
+    from repro_torch.core.session import default_session
     from repro_torch.launch.mesh import make_host_communicator
-    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.runtime.server import DisaggregatedServer, Server, ServerConfig
 
-    for flag in _NOT_PORTED:
-        errors.check(
-            not getattr(args, flag),
-            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-            f"--{flag.replace('_', '-')} is not ported yet",
-        )
     try:
         cfg = base.get_smoke_config(args.arch) if args.smoke else base.get_config(args.arch)
         pcfg = base.get_parallel(args.arch)
@@ -122,16 +157,50 @@ def run(argv=None):
             f"arch {args.arch!r} is not ported yet ({e})",
         )
 
-    if args.mesh == "auto":
-        comm = make_host_communicator(pset=args.pset, device=args.device)
-    else:
-        d, m = (int(t) for t in args.mesh.split("x"))
-        comm = make_host_communicator(d, m, pset=args.pset, device=args.device)
+    # one parser for every layout flag: --plan wins; --fanout routes through
+    # the same grammar as "fanout=P:D"
+    plan = None
+    if args.plan == "auto":
+        errors.fail(
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            "--plan auto searches plans with the tuner (repro.tune), which is "
+            "not ported yet (ROADMAP A15); pass a plan",
+        )
+    elif args.plan or args.fanout is not None:
+        spec = args.plan or f"fanout={args.fanout}"
+        devices = default_session(device_type=args.device).group().size()
+        plan = base.parse_plan(spec, devices=devices)
+    if plan is not None and plan.fanout is not None:
+        args.disaggregate = True
+    if args.continuous_batching and args.disaggregate:
+        ap.error("--continuous-batching schedules a single-group Server; "
+                 "it does not compose with --disaggregate/--fanout yet")
+
+    comm = None
+    if not args.disaggregate:
+        if plan is not None:
+            d, m = (plan.fold_dims() + (1,))[:2]
+            comm = make_host_communicator(d, m, pset=args.pset, device=args.device)
+        elif args.mesh == "auto":
+            comm = make_host_communicator(pset=args.pset, device=args.device)
+        else:
+            d, m = (int(t) for t in args.mesh.split("x"))
+            comm = make_host_communicator(d, m, pset=args.pset, device=args.device)
     reqs = requests(cfg, args.requests, args.prompt_len)
     scfg = ServerConfig(max_batch=min(args.requests, 4) if args.continuous_batching
                         else args.requests,
                         max_new_tokens=args.new_tokens, temperature=args.temperature)
-    server = Server(cfg, pcfg, scfg, comm)
+    if args.disaggregate:
+        server = DisaggregatedServer(
+            cfg, pcfg, scfg,
+            pset=args.pset,
+            prefill_fraction=args.prefill_fraction,
+            kv_pages=args.kv_pages,
+            fanout=plan.fanout if plan is not None else None,
+            device=args.device,
+        )
+    else:
+        server = Server(cfg, pcfg, scfg, comm)
     if args.continuous_batching:
         from repro_torch.runtime.engine import Engine, EngineConfig
 

@@ -21,15 +21,22 @@ scatter-add's atomics add in any order:
   sums the k gradients in a fixed order.
 
 Everything is capturable in a CUDA graph: no ``.item()``, no
-boolean-mask indexing, the capacity computed from static shapes.  The
-expert-parallel dispatch (``moe_neighbor``, ``expert_dispatch_graph``) and
-the mesh placement ``_pin`` are not ported yet (ROADMAP A14 items 1, 4, 7).
+boolean-mask indexing, the capacity computed from static shapes.
+
+The expert-parallel dispatch (:func:`moe_neighbor` over the router's expert
+graph, :func:`expert_dispatch_graph`) moves token rows between the ranks
+that own the experts with two ``neighbor_alltoallv`` rounds of a
+:class:`~repro_torch.core.topology.DistGraphComm`; each rank calls it with
+its own tokens and its own slice of the experts.  The mesh placement
+``_pin`` is not ported yet (ROADMAP A14 item 4).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core import errors
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
 
@@ -194,6 +201,175 @@ def moe_per_row(p: common.Params, x: torch.Tensor, cfg, pcfg=None) -> tuple[torc
     if cfg.num_shared_experts:
         y = y + mlp(p["shared"], x, cfg.act)
     return y, _aux(logits, probs, top_e, slot, e, c)
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel dispatch over a distributed-graph topology (MPI 4.0 ch. 8)
+# ---------------------------------------------------------------------------
+
+#: Explicit mantissa bits of the payload dtypes (``jnp.finfo(...).nmant``).
+_MANTISSA_BITS = {torch.float64: 52, torch.float32: 23, torch.float16: 10, torch.bfloat16: 7}
+
+
+def expert_dispatch_graph(
+    world: int, num_experts: int, *, radius: int | None = None
+) -> tuple[list[list[int]], list[list[int]]]:
+    """The router's expert map as a ``dist_graph_create_adjacent`` adjacency.
+
+    Rank ``r`` owns experts ``[r·E/W, (r+1)·E/W)`` and its router may select
+    experts owned by ranks within ring distance ``radius`` (device-limited
+    routing, the production trick that keeps expert dispatch neighbor-local
+    instead of world-dense; ``radius=None`` → the full graph, vanilla top-k
+    over every expert).  The returned ``(sources, destinations)`` lists are
+    symmetric and order-aligned per rank — the property
+    :func:`moe_neighbor` needs so expert outputs ride the reverse edges
+    home — and include the self-edge (local experts dispatch through the
+    same path, keeping the program uniform).
+    """
+
+    errors.check(
+        num_experts % world == 0,
+        errors.ErrorClass.ERR_DIMS,
+        f"{num_experts} experts do not shard over {world} ranks",
+    )
+    r_eff = world if radius is None else int(radius)
+    errors.check(
+        r_eff >= 0,
+        errors.ErrorClass.ERR_ARG,
+        f"expert graph radius must be >= 0, got {radius}",
+    )
+    neighbors = []
+    for r in range(world):
+        nb = {(r + off) % world for off in range(-r_eff, r_eff + 1)}
+        neighbors.append(sorted(nb))
+    return [list(n) for n in neighbors], [list(n) for n in neighbors]
+
+
+def moe_neighbor(
+    p: common.Params, x: torch.Tensor, cfg, graph, *, capacity: int | None = None
+) -> tuple[torch.Tensor, dict]:
+    """Expert-parallel MoE dispatch riding ``neighbor_alltoallv`` over a
+    :class:`~repro_torch.core.topology.DistGraphComm` built from the router's
+    expert map (:func:`expert_dispatch_graph`).
+
+    Every rank of ``graph`` calls it: ``x`` (t, d) is this rank's tokens,
+    ``p['router']`` is the whole router, and the expert tensors hold only
+    this rank's **local** expert slice (E/W, ...).  Routing is masked to
+    experts the graph can reach; token blocks (capacity-padded) and expert
+    ids travel to the owning ranks over the graph's exchange, experts run
+    locally through the same sort-based dispatch as the dense path, and
+    outputs ride the reverse edges home (the adjacency must be symmetric
+    and order-aligned, which :func:`expert_dispatch_graph` guarantees) —
+    two ``neighbor_alltoallv`` rounds in all, the expert ids travelling as
+    a trailing payload column of the token exchange.  A row the router
+    sends to an owner the graph cannot reach lands in the dropped bucket.
+    """
+
+    t, d = x.shape
+    e, k = cfg.num_experts, cfg.moe_top_k
+    el = p["w_gate"].shape[0]
+    n = graph.size()
+    errors.check(
+        el * n == e,
+        errors.ErrorClass.ERR_DIMS,
+        f"local expert slice {el} x {n} ranks != {e} experts",
+    )
+    adj = [graph.dist_graph_neighbors(r) for r in range(n)]
+    for r, (srcs, _, dsts, _) in enumerate(adj):
+        errors.check(
+            tuple(srcs) == tuple(dsts),
+            errors.ErrorClass.ERR_TOPOLOGY,
+            f"moe_neighbor needs a symmetric, order-aligned expert graph "
+            f"(rank {r}: sources {srcs} != destinations {dsts}) — expert "
+            f"outputs return over the reverse edges",
+        )
+    d_out = graph.outdegree()
+    c = capacity if capacity is not None else t * k
+
+    # static router map: which experts each rank may select, and the out
+    # slot of each owning rank
+    slot_tab = np.full((n, n), -1, np.int64)
+    mask_tab = np.zeros((n, e), bool)
+    owner = np.arange(e) // el
+    for r, (_, _, dsts, _) in enumerate(adj):
+        for j, dst in enumerate(dsts):
+            slot_tab[r, dst] = j
+            mask_tab[r, owner == dst] = True
+    # every rank's router must be able to fill its top-k from reachable
+    # experts; otherwise top_k is forced onto masked (prob-0) experts whose
+    # owner is not a neighbor and the dispatch has nowhere to send them
+    reachable = mask_tab.sum(axis=1)
+    errors.check(
+        int(reachable.min()) >= k,
+        errors.ErrorClass.ERR_TOPOLOGY,
+        f"expert graph reaches only {int(reachable.min())} experts from "
+        f"some rank but the router selects top-{k}; widen the graph radius",
+    )
+    rank = graph.rank()
+    mask = torch.as_tensor(mask_tab[rank], device=x.device)     # (e,)
+
+    logits = torch.matmul(x.float(), p["router"])
+    logits = torch.where(mask[None, :], logits, torch.full_like(logits, -torch.inf))
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]                  # (t, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_e.reshape(-1)                                  # (t*k,)
+    flat_slot = torch.as_tensor(slot_tab[rank], device=x.device)[flat_e // el]
+    flat_slot = torch.where(flat_slot < 0, torch.full_like(flat_slot, d_out), flat_slot)
+
+    # pack token rows with the local expert id as a trailing payload column
+    # (one exchange moves both; ids stay exact as long as the mantissa
+    # covers the local expert range)
+    errors.check(
+        el <= 2 ** _MANTISSA_BITS.get(x.dtype, 0),
+        errors.ErrorClass.ERR_TYPE,
+        f"{el} local experts are not exactly representable in the id "
+        f"column's {x.dtype} payload",
+    )
+    local_ids = (flat_e % el).to(x.dtype)[:, None]
+    payload = torch.cat([_repeat_rows(x, k), local_ids], dim=-1)       # (t*k, d+1)
+    pos = _dispatch_slots(flat_slot, d_out, c)
+    # a row with no reachable owner (bucket d_out) goes to the sink row
+    pos = torch.where(flat_slot >= d_out, torch.full_like(pos, d_out * c), pos)
+    send_x = _scatter_rows(payload, pos, d_out, c)                     # (d_out, c, d+1)
+
+    counts = np.zeros((n, d_out), np.int64)
+    for r, (_, _, dsts, _) in enumerate(adj):
+        counts[r, : len(dsts)] = c
+    recv, _ = graph.neighbor_alltoallv(send_x, counts).get()          # (d_in, c, d+1)
+    recv_x, recv_ids = recv[..., :d], recv[..., d]
+
+    # owner side: group arrivals by local expert (capacity = all arrivals:
+    # the sender-side capacity already bounded the traffic, so nothing drops
+    # here) and run the expert FFNs
+    rows_in = recv_x.reshape(-1, d)
+    ids_in = torch.round(recv_ids.reshape(-1)).to(torch.int64)
+    ci = rows_in.shape[0]
+    slots, pos_in = _sort_dispatch(rows_in, ids_in, el, ci)
+    out_slots = _experts(p, slots, cfg.act).reshape(-1, d)
+
+    # un-dispatch to arrival order and ride the reverse edges home
+    padded = torch.cat([out_slots, out_slots.new_zeros((1, d))])
+    reply = padded[pos_in.long()].reshape(recv_x.shape)
+    home, _ = graph.neighbor_alltoallv(reply, counts).get()           # (d_out, c, d)
+
+    # combine at the origin: each dispatch's packed position, weighted by
+    # its gate, the token's k rows added in order
+    y = _combine(home.reshape(-1, d), pos, top_p.reshape(-1), k)
+    if cfg.num_shared_experts:
+        y = y + mlp(p["shared"], x, cfg.act)
+
+    ce_frac = torch.zeros(e, device=x.device).index_add_(
+        0, flat_e, torch.ones(flat_e.shape, device=x.device)) / (t * k)
+    masked = torch.where(mask[None, :], logits, torch.full_like(logits, -1e30))
+    aux = {
+        "load_balance_loss": e * torch.sum(probs.mean(0) * ce_frac),
+        "router_z_loss": torch.mean(torch.logsumexp(masked, dim=-1) ** 2),
+        "dropped_fraction": torch.mean((pos == d_out * c).float()),
+    }
+    return y, aux
 
 
 def moe(

@@ -19,10 +19,11 @@ like MPI sub-allocated window memory:
   the free-list, and a ``put`` to an unallocated block fails with
   ``ERR_RMA_RANGE`` instead of silently landing in freed memory.
 
-All accounting is host-side and trace-free; the arrays never move.  The
-port has no RMA window yet (``core/onesided.py``): :meth:`KVBlockPool.bind_window`
-reads only the window's ``spec.dynamic``, ``spec.num_pages``, ``attach`` and
-``detach``, so it binds any object that has them.
+All accounting is host-side; the arrays never move.  The window is a
+dynamic :class:`~repro_torch.core.onesided.Window` (``create_window(comm,
+cache, WindowSpec(dynamic=True, num_pages=pool.total_blocks))``);
+:meth:`KVBlockPool.bind_window` reads its ``spec`` and calls its
+``attach`` and ``detach``.
 """
 
 from __future__ import annotations

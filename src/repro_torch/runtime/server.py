@@ -36,27 +36,37 @@ requests; decode runs replicated, with no communicator, and every rank
 returns the same tokens.
 
 The continuous-batching engine (:mod:`repro_torch.runtime.engine`) runs
-over a server's persistent prefill and decode requests.  The disaggregated
-server is not ported yet.
+over a server's persistent prefill and decode requests.
+
+**Disaggregated prefill/decode** (:class:`DisaggregatedServer`): the
+serving process set is split into a *prefill* group and a *decode* group;
+prefill ranks compute the KV cache and ``rput`` it page by page into an RMA
+window on the decode ranks (:mod:`repro_torch.core.onesided`), and the
+decode group rides its persistent decode request.  At ``temperature=0``
+the generated tokens equal the single-group :meth:`Server.generate`'s.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.core import errors, tool
+from repro_torch.core import collectives, errors, futures, onesided, tool, topology
 from repro_torch.core.communicator import Communicator
-from repro_torch.core.futures import PersistentRequest, argument_signature
+from repro_torch.core.futures import PersistentRequest, argument_signature, flatten, unflatten
+from repro_torch.core.session import UNDEFINED, Session, default_session
 from repro_torch.launch.mesh import make_host_communicator
 from repro_torch.models import api as model_api
 
 tool.pvar_register("trace:prefill_step", "prefill requests built (want 1 per shape bucket)")
 tool.pvar_register("trace:decode_step", "decode requests built (want 1 per shape bucket)")
+tool.pvar_register("trace:kv_transfer", "KV-transfer requests built (want 1 per shape)")
 
 
 @dataclasses.dataclass
@@ -260,5 +270,286 @@ class Server:
             "generated_tokens": int(gen_lens.sum()),
             "tokens_per_s": int(gen_lens.sum()) / max(t_decode, 1e-9),
             "batch": len(requests),
+        }
+        return tokens, stats
+
+
+# ---------------------------------------------------------------------------
+# disaggregated prefill/decode serving (the RMA transport)
+# ---------------------------------------------------------------------------
+
+
+def _structure(tree) -> tuple:
+    """(treedef, per-leaf (shape, dtype)) of a cache: what a rank that did
+    not run the prefill needs to open its window."""
+
+    leaves, treedef = flatten(tree)
+    return treedef, tuple((tuple(t.shape), t.dtype) for t in leaves)
+
+
+class DisaggregatedServer:
+    """Prefill and decode on *disjoint* groups of one serving process set,
+    with the KV cache crossing between them through an RMA window.
+
+    The session pset is split with the group algebra: the leading
+    ``prefill_fraction`` of the set becomes ``<pset>/prefill``, the rest
+    ``<pset>/decode`` (both registered on the session), or ``fanout=(P,
+    D)`` takes the first ``P`` ranks for prefill and the next ``D`` for
+    decode.  Three communicators are carved out of it, by every rank of
+    the process world in the same order (each creates process groups):
+
+    * ``prefill_comm`` — a ``(k, 1)`` data×model grid; its members hold
+      :attr:`prefill`, a :class:`Server` that runs the persistent prefill
+      request and samples the first token;
+    * ``decode_comm`` — a ``(m, 1)`` grid; its members hold :attr:`decode`,
+      whose persistent decode request produces every later token;
+    * ``bridge`` — one axis over the union, ordered prefill-then-decode;
+      carries the KV handoff, the first token and the generated tokens.
+
+    A rank holds weights only for a group it belongs to: on a rank outside
+    the prefill group :attr:`prefill` is ``None``, and likewise
+    :attr:`decode`.  Each member runs its group's work on the whole batch
+    (the port's ``Server`` runs replicated), and every rank of the set
+    returns the same tokens: the decode root's, broadcast over the bridge.
+
+    The handoff is a persistent request over the bridge (one per cache
+    structure) whose body is chapter-12 RMA: every rank opens a
+    zero-initialised window over the cache's datatype, prefill rank ``i``
+    ``rput``\\ s the packed cache page by page into its decode partner's
+    window (paired: ``(i, k+i)``; fan-out: the rounds of
+    :func:`~repro_torch.core.topology.fanout_rounds`), each page's
+    requests joined with ``when_all`` and chained onto the previous page's
+    with ``then()``, the closing fence completes the epoch, and the decode
+    root's window is broadcast over the bridge.  A decode rank that ran no
+    prefill learns the cache's structure once a batch shape, broadcast from
+    the prefill root.  The handoff donates nothing and runs eagerly; the
+    broadcast leaves the cache in fresh buffers that the decode request
+    donates (a CUDA graph on the card).  Its pvars count at the request's
+    first start only, as the reference counts them at its one trace.
+
+    With a single-device process set the groups degenerate to the same
+    device (prefill == decode == the set; two servers on the same seed);
+    the transport still runs, over a one-rank bridge.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        pcfg: ParallelConfig,
+        scfg: ServerConfig,
+        session: Session | None = None,
+        *,
+        pset: str = "repro://world",
+        prefill_fraction: float = 0.5,
+        kv_pages: int = 4,
+        fanout: tuple[int, int] | None = None,
+        device: str | None = None,
+    ):
+        sess = session if session is not None else default_session(device_type=device or "cuda")
+        g = sess.group(pset)
+        n = g.size()
+        if fanout is not None:
+            # explicit heterogeneous P:D split (2:6, 3:5, ...) — the KV
+            # routing follows the dist-graph adjacency rather than the
+            # paired i -> k+i bridge permutation
+            pf, df = int(fanout[0]), int(fanout[1])
+            errors.check(
+                pf + df == n and n > 1,
+                errors.ErrorClass.ERR_TOPOLOGY,
+                f"fan-out {pf}:{df} needs a {pf + df}-rank process set, "
+                f"pset {pset!r} has {n}",
+            )
+            k, prefill_g, decode_g = pf, g.incl(range(pf)), g.excl(range(pf))
+        else:
+            errors.check(
+                0.0 < prefill_fraction < 1.0,
+                errors.ErrorClass.ERR_ARG,
+                f"prefill_fraction must be in (0, 1), got {prefill_fraction}",
+            )
+            if n > 1:
+                k = min(n - 1, max(1, round(n * prefill_fraction)))
+                prefill_g, decode_g = g.incl(range(k)), g.excl(range(k))
+            else:
+                k, prefill_g, decode_g = 1, g, g  # degenerate single-device set
+        sess.register_pset(f"{pset}/prefill", prefill_g)
+        sess.register_pset(f"{pset}/decode", decode_g)
+        self.prefill_comm = Communicator.from_group(
+            prefill_g, tag=f"{pset}/prefill",
+            shape=(prefill_g.size(), 1), axis_names=("data", "model"),
+        )
+        self.decode_comm = Communicator.from_group(
+            decode_g, tag=f"{pset}/decode",
+            shape=(decode_g.size(), 1), axis_names=("data", "model"),
+        )
+        self.bridge = Communicator.from_group(prefill_g | decode_g, tag=f"{pset}/bridge")
+        self.prefill = (Server(cfg, pcfg, scfg, self.prefill_comm)
+                        if self.prefill_comm.rank() != UNDEFINED else None)
+        self.decode = (Server(cfg, pcfg, scfg, self.decode_comm)
+                       if self.decode_comm.rank() != UNDEFINED else None)
+        # bridge ranks: prefill devices first, then decode's (group union
+        # order); pair prefill i -> decode i (distinct targets: ERR_RANK
+        # guards duplicates)
+        if fanout is not None:
+            # the routing IS the graph: every dist-graph edge becomes a
+            # window rput pair, so decode rank P+j pulls from prefill j % P
+            self.graph = topology.serving_fanout_graph(self.bridge, pf, df)
+            self._perm = topology.fanout_routes(
+                *topology.serving_fanout_adjacency(pf, df)
+            )
+            self._decode_root = pf
+        else:
+            self.graph = None
+            pairs = min(prefill_g.size(), decode_g.size())
+            if n > 1:
+                self._perm = [(i, k + i) for i in range(pairs)]
+                self._decode_root = k
+            else:
+                self._perm = [(0, 0)]
+                self._decode_root = 0
+        self.fanout = fanout
+        self.kv_pages = int(kv_pages)
+        self.scfg = scfg
+        # a rank outside the set builds the communicators with the others
+        # and serves nothing
+        self.device = self.bridge.device if self.bridge.rank() != UNDEFINED else None
+        self._transfer_reqs: dict[tuple, PersistentRequest] = {}
+        self._structures: dict[tuple, tuple] = {}
+
+    # -- the RMA transport --------------------------------------------------
+
+    def _transfer_request(self, staged_cache) -> PersistentRequest:
+        key = argument_signature(staged_cache)
+        req = self._transfer_reqs.get(key)
+        if req is None:
+            tool.pvar_count("trace:kv_transfer")
+            bridge, pages, root = self.bridge, self.kv_pages, self._decode_root
+            # a heterogeneous fan-out gives one prefill origin several decode
+            # targets; an rput carries at most one target per origin, so
+            # each page goes out as one rput per round (targets are disjoint
+            # across rounds — decode ranks have exactly one source)
+            rounds = topology.fanout_rounds(self._perm)
+            started = [False]
+
+            def move(cache):
+                # the reference counts the body's pvars at its one trace
+                with tool.pvars_paused(started[0]):
+                    started[0] = True
+                    leaves, treedef = flatten(cache)
+                    win = onesided.Window(
+                        bridge, unflatten(treedef, [torch.zeros_like(t) for t in leaves]))
+                    win.fence()
+
+                    def page_puts(p):
+                        return futures.when_all(
+                            [win.rput(cache, rnd, page=(p, pages)) for rnd in rounds])
+
+                    fut = page_puts(0)
+                    for p in range(1, pages):
+                        # the continuation completes the previous page's
+                        # transfer, then issues the next page's rputs
+                        fut = fut.then(lambda f, _p=p: (f.get(), page_puts(_p))[1])
+                    futures.when_all([fut]).get()   # MPI_Waitall before the close
+                    win.fence()                     # epoch close completes the epoch
+                    # the decode root's window, on every rank: the buffers
+                    # started as zeros, so a value here proves the window
+                    # carried it
+                    return collectives.broadcast(bridge, win.buffer, root=root)
+
+            req = self.bridge.persistent(move, staged_cache)
+            self._transfer_reqs[key] = req
+        return req
+
+    def _cache_structure(self, batch_key: tuple, cache) -> tuple:
+        """The prefill cache's structure for this batch shape: local on a
+        prefill rank, broadcast from the prefill root (bridge rank 0) to the
+        other ranks the first time the shape is served."""
+
+        struct = self._structures.get(batch_key)
+        if struct is None:
+            struct = _structure(cache) if cache is not None else None
+            pg = self.bridge.process_group()
+            if self.bridge.size() > 1 and pg is not None:
+                box = [struct]
+                dist.broadcast_object_list(box, src=self.bridge.global_ranks()[0], group=pg)
+                struct = box[0]
+            self._structures[batch_key] = struct
+        return struct
+
+    def _transfer(self, cache, batch_key: tuple) -> tuple[Any, dict]:
+        """Move the prefill-side cache into the decode group via the window;
+        returns (decode-side cache, transfer stats).  A rank that ran no
+        prefill passes zeros of the cache's structure."""
+
+        t0 = time.perf_counter()
+        treedef, leaves = self._cache_structure(batch_key, cache)
+        if cache is None:
+            cache = unflatten(treedef, [torch.zeros(shape, dtype=dtype, device=self.device)
+                                        for shape, dtype in leaves])
+        out = self._transfer_request(cache).start(cache).get()
+        _synchronize(self.device)
+        kv_bytes = int(sum(np.prod(shape, dtype=np.int64) * dtype.itemsize
+                           for shape, dtype in leaves))
+        return out, {
+            "transfer_s": time.perf_counter() - t0,
+            "kv_bytes": kv_bytes,
+            "kv_pages": self.kv_pages,
+        }
+
+    # -- serving ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def generate(self, requests: list[Request]) -> tuple[np.ndarray, dict]:
+        """Disaggregated prefill + decode; token-for-token equal to
+        :meth:`Server.generate` at ``temperature=0``.  Every rank of the
+        set calls it with the same requests and returns the same tokens."""
+
+        self.bridge._member_rank()   # ERR_COMM outside the serving set
+        t0 = time.perf_counter()
+        b, new = len(requests), self.scfg.max_new_tokens
+        # every rank pads the batch: its shape keys the handoff
+        batch, _lens = (self.prefill or self.decode)._pad_batch(requests)
+        batch_key = argument_signature(batch)
+        cache = tok = gen = None
+        if self.prefill is not None:
+            gen = self.prefill._next_generator()
+            logits, cache = self.prefill._prefill_request(batch)(self.prefill.params, batch)
+            tok = self.prefill._sample(logits, gen)
+            del logits
+            _synchronize(self.device)
+        t_prefill = time.perf_counter() - t0
+
+        # the first token: the prefill root's, on every rank (a collective
+        # over the whole bridge before its first point-to-point transfer,
+        # which NCCL asks of a communicator's first call)
+        if tok is None:
+            tok = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        tok = collectives.broadcast(self.bridge, tok, root=0)
+        # a decode rank waits here for the prefill group, so that its
+        # transfer_s times the handoff alone
+        _synchronize(self.device)
+        cache, transfer_stats = self._transfer(cache, batch_key)
+
+        t1 = time.perf_counter()
+        if self.decode is not None:
+            if gen is None:
+                gen = self.decode._next_generator()
+            tokens = torch.stack(self.decode._decode_loop(cache, tok, gen), dim=1)
+        else:
+            tokens = torch.zeros((b, new), dtype=torch.int32, device=self.device)
+        del cache
+        tokens = collectives.broadcast(self.bridge, tokens, root=self._decode_root)
+        tokens = tokens.cpu().numpy()
+        t_decode = time.perf_counter() - t1
+        gen_lens = generation_lengths(tokens, self.scfg.stop_token)
+        stats = {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "gen_lens": gen_lens.tolist(),
+            "generated_tokens": int(gen_lens.sum()),
+            "tokens_per_s": int(gen_lens.sum()) / max(t_decode, 1e-9),
+            "batch": len(requests),
+            "prefill_devices": self.prefill_comm.size(),
+            "decode_devices": self.decode_comm.size(),
+            **transfer_stats,
         }
         return tokens, stats

@@ -361,32 +361,27 @@ def test_pool_budget_and_range_errors():
         tkvpool.KVBlockPool(num_slots=2, slot_capacity=8, block_tokens=4, budget_blocks=1)
 
 
-class _StandInWindow:
-    """What ``bind_window`` reads of a dynamic RMA window (the port has no
-    ``core/onesided.py`` yet): its spec and attach/detach."""
+def _dynamic_window(num_pages, dynamic=True):
+    """The port's RMA window over a slot table's stand-in buffer."""
 
-    def __init__(self, num_pages, dynamic=True):
-        self.spec = WindowSpec(dynamic=dynamic, num_pages=num_pages)
-        self.attached_pages: set[int] = set()
+    from repro_torch.core import onesided as tonesided
+    from repro_torch.core.communicator import world
 
-    def attach(self, pages):
-        self.attached_pages |= set(pages)
-
-    def detach(self, pages):
-        self.attached_pages -= set(pages)
+    return tonesided.Window(world(device_type="cpu"), torch.zeros(8, 4),
+                            WindowSpec(dynamic=dynamic, num_pages=num_pages))
 
 
 def test_pool_mirrors_window_attach_state_as_the_reference():
-    """The port's pool bound to a stand-in window attaches and detaches the
-    pages the reference's pool attaches to its dynamic window; it refuses a
-    static window (``ERR_WIN``) and a page count other than its blocks
-    (``ERR_RMA_RANGE``)."""
+    """The port's pool bound to the port's dynamic window attaches and
+    detaches the pages the reference's pool attaches to its dynamic window;
+    it refuses a static window (``ERR_WIN``) and a page count other than
+    its blocks (``ERR_RMA_RANGE``)."""
 
     kw = dict(num_slots=2, slot_capacity=8, block_tokens=4)
     jp, tp = jkvpool.KVBlockPool(**kw), tkvpool.KVBlockPool(**kw)
     jwin = onesided.Window(j_comm(), np.zeros((8, 4), np.float32),
                            WindowSpec(dynamic=True, num_pages=jp.total_blocks))
-    twin = _StandInWindow(tp.total_blocks)
+    twin = _dynamic_window(tp.total_blocks)
     seen = []
     for op, args in (("ensure", (0, 8)), ("bind", ()), ("ensure", (1, 5)), ("release", (0,)),
                      ("ensure", (0, 3)), ("release", (1,))):
@@ -399,9 +394,9 @@ def test_pool_mirrors_window_attach_state_as_the_reference():
         assert twin.attached_pages == set(jwin.attached_pages)
     assert seen == [set(), {0, 1}, {0, 1, 2, 3}, {2, 3}, {0, 2, 3}, {0}]
     with pytest.raises(errors.WinError):
-        tp.bind_window(_StandInWindow(tp.total_blocks, dynamic=False))
+        tp.bind_window(_dynamic_window(tp.total_blocks, dynamic=False))
     with pytest.raises(errors.RmaRangeError):
-        tp.bind_window(_StandInWindow(3))
+        tp.bind_window(_dynamic_window(3))
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,8 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-_MULTI_RANK = ("core/topology.py", "core/collectives.py", "core/_methods.py", "core/overlap.py",
+_MULTI_RANK = ("core/topology.py", "core/onesided.py", "core/collectives.py", "core/_methods.py",
+               "core/overlap.py",
                "kernels/ring_attention/ref.py", "kernels/ring_attention/kernel.py",
                "kernels/ring_attention/ops.py")
 

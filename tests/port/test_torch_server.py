@@ -379,19 +379,28 @@ def test_no_silent_cpu_fallback():
 
 
 @pytest.mark.parametrize("argv,klass", [
-    # grok (moe) is ported now: the first case is the fanout mode
-    (["--arch", "gemma2_9b", "--fanout", "2"], "ERR_UNSUPPORTED_OPERATION"),
-    (["--arch", "gemma2_9b", "--disaggregate"], "ERR_UNSUPPORTED_OPERATION"),
+    # --fanout takes P:D: "2" is refused by the plan parser, in both
+    # packages (grok, the first case's old mode, and then the fanout mode
+    # itself, are ported)
+    (["--arch", "gemma2_9b", "--fanout", "2"], "ERR_ARG"),
+    # the disaggregated server is ported: this mode now serves
+    (["--arch", "gemma2_9b", "--disaggregate"], None),
     # the continuous-batching engine is ported; it refuses gemma2's
     # ring-buffer (local_global, sliding-window) caches, as the reference's
     # engine does
     (["--arch", "gemma2_9b", "--continuous-batching"], "ERR_UNSUPPORTED_OPERATION"),
+    # the tuner (repro.tune) behind --plan auto is not ported yet
+    (["--arch", "gemma2_9b", "--plan", "auto"], "ERR_UNSUPPORTED_OPERATION"),
 ])
 def test_unported_modes_raise_typed(argv, klass):
+    if klass is None:
+        assert serve.main(argv + ["--smoke", "--device", "cpu", "--requests", "2",
+                                  "--prompt-len", "12", "--new-tokens", "3"]) == 0
+        return
     with pytest.raises(errors.Error) as ei:
         serve.main(argv + ["--smoke", "--device", "cpu"])
     assert ei.value.klass.name == klass
-    if "--continuous-batching" in argv:
+    if "--continuous-batching" in argv or "--fanout" in argv:
         with pytest.raises(jerrors.Error) as je:
             jserve.main(argv + ["--smoke"])
         assert je.value.klass.name == klass

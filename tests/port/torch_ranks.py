@@ -413,9 +413,282 @@ def prog_grad_sync(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+@dataclasses.dataclass
+class KV:
+    """The aggregate of the RMA numerics: an fp32 and an int32 leaf."""
+
+    k: object
+    v: object
+
+
+def prog_rma(rank: int, world: int, inputs: dict) -> dict:
+    """The RMA numerics of the reference's ``CODE_RMA`` on this rank's
+    slice of the inputs: put/get/accumulate over the op set, the window's
+    default op, the atomics, a paged rput of an aggregate, rget, request
+    ordering through ``then()``, REPLACE across ranks, the per-epoch write
+    ledger, an empty pattern and a dynamic window."""
+
+    import torch
+
+    from repro_torch.core import futures, onesided
+    from repro_torch.core.communicator import world as world_comm
+    from repro_torch.core.descriptors import ReduceOp, WindowSpec
+
+    comm = world_comm(device_type="cpu")
+    n = comm.size()
+    w, x = torch.from_numpy(inputs["w0"][rank]), torch.from_numpy(inputs["val"][rank])
+    bits = torch.from_numpy(inputs["bits"][rank])
+    out = {}
+
+    win = onesided.Window(comm, w).fence()
+    out["ops_get"] = win.get([((d - 1) % n, d) for d in range(n)])
+    win.put(x, [(1, 0)])
+    win.accumulate(x, target=2, op=ReduceOp.MAX)
+    win.accumulate(x, target=3, op=ReduceOp.PROD)
+    win.accumulate(x, target=1, op=ReduceOp.SUM)
+    out["ops_buffer"] = win.fence().buffer
+
+    win = onesided.Window(comm, bits).fence()
+    win.accumulate(bits, target=0, op=ReduceOp.BXOR)
+    win.accumulate(bits, target=1, op=ReduceOp.LOR)
+    win.accumulate(bits, target=2, op=ReduceOp.BAND)
+    out["bits_buffer"] = win.fence().buffer
+
+    win = onesided.Window(comm, w, WindowSpec(accumulate_op=ReduceOp.MIN)).fence()
+    win.accumulate(x, target=1)
+    out["spec_buffer"] = win.fence().buffer
+
+    win = onesided.Window(comm, w).fence()
+    out["fo_sum"] = win.fetch_and_op(torch.tensor(5.0), target=1, op=ReduceOp.SUM, index=2)
+    out["cas_hit"] = win.compare_and_swap(float(inputs["w0"][2][0]), 42.0, target=2, index=0)
+    out["cas_miss"] = win.compare_and_swap(7.5, -1.0, target=2, index=1)
+    out["ga_noop"] = win.get_accumulate(torch.ones(4), target=3, op=ReduceOp.NO_OP)
+    out["fo_max"] = win.fetch_and_op(w[0], target=0, op=ReduceOp.MAX, index=1)
+    out["fo_replace"] = win.fetch_and_op(w[3], target=3, op=ReduceOp.REPLACE, index=3)
+    out["atomics_buffer"] = win.fence().buffer
+
+    agg = KV(k=torch.from_numpy(inputs["k"][rank]), v=torch.from_numpy(inputs["v"][rank]))
+    win = onesided.Window(comm, KV(k=torch.zeros_like(agg.k), v=torch.zeros_like(agg.v)),
+                          WindowSpec(num_pages=3)).fence()
+    futures.when_all([win.rput(agg, [(n - 1, 1)], page=p) for p in range(3)]).get()
+    buf = win.fence().buffer
+    out["pytree_k"], out["pytree_v"] = buf.k, buf.v
+
+    win = onesided.Window(comm, w).fence()
+    out["rget"] = win.rget([(2, 0), (0, 3)]).get()
+    win.fence()
+
+    # REPLACE-then-SUM is order-observable: issue order gives 5 + n
+    win = onesided.Window(comm, torch.zeros(4)).fence()
+    f1 = win.raccumulate(torch.full((4,), 5.0), target=2, op=ReduceOp.REPLACE)
+    f2 = f1.then(lambda f: (f.get(), win.raccumulate(torch.ones(4), target=2,
+                                                     op=ReduceOp.SUM).get())[1])
+    futures.when_all([f2]).get()
+    out["order_buffer"] = win.fence().buffer
+
+    win = onesided.Window(comm, torch.zeros(4)).fence()
+    win.accumulate(x + 10.0, target=3, op=ReduceOp.REPLACE)
+    out["replace_buffer"] = win.fence().buffer
+
+    win = onesided.Window(comm, torch.zeros(8)).fence()
+    win.put(torch.full((8,), 1.0), [(0, 3)], page=(0, 2))
+    win.put(torch.full((8,), 2.0), [(1, 3)], page=(1, 2))
+    out["ledger_error"] = torch.tensor(_err(lambda: win.put(torch.full((8,), 3.0), [(2, 3)]))
+                                       == "ERR_RANK")
+    win.fence()
+    win.fence()   # a fresh epoch: the ledger is cleared
+    win.put(torch.full((8,), 4.0), [(2, 3)])
+    out["ledger_buffer"] = win.fence().buffer
+
+    win = onesided.Window(comm, w).fence()
+    win.put(x, [])
+    out["empty_buffer"] = win.fence().buffer
+
+    win = onesided.Window(comm, torch.zeros(8), WindowSpec(dynamic=True, num_pages=4))
+    win.attach([1, 2]).fence()
+    win.put(torch.arange(8.0) + rank, [(0, 2)], page=1)
+    out["dynamic_error"] = torch.tensor(_err(
+        lambda: win.put(torch.arange(8.0), [(1, 2)], page=3)) == "ERR_RMA_RANGE")
+    win.fence()
+    win.detach([1])
+    out["dynamic_buffer"] = win.buffer
+    out["dynamic_attached"] = torch.tensor(sorted(win.attached_pages))
+    return {k: v.numpy() for k, v in out.items()}
+
+
+#: prog_neighbors' distributed graphs on 4 ranks: (sources, destinations)
+NEIGHBOR_GRAPHS = {
+    # a fan-in star (everyone -> rank 0) plus a chain edge 0 -> 1:
+    # asymmetric in/out degrees
+    "star": ([[1, 2, 3], [0], [], []], [[1], [0], [0], [0]]),
+    # a ring with PROC_NULL placeholder slots
+    "ring_null": ([[3, -1], [0], [1], [2]], [[1], [2], [3], [0, -1]]),
+    # every rank neighbors every rank, in rank order
+    "full": ([[0, 1, 2, 3]] * 4, [[0, 1, 2, 3]] * 4),
+}
+
+#: prog_neighbors' neighbor_alltoallv counts on the full graph (rank x slot)
+FULL_COUNTS = [[3, 1, 2, 0], [2, 2, 2, 2], [0, 3, 1, 1], [1, 0, 3, 2]]
+
+
+def prog_neighbors(rank: int, world: int, inputs: dict) -> dict:
+    """The neighborhood collectives on this rank's slice of the inputs: a
+    2 x 2 cart (periodic rows, non-periodic columns), the graphs of
+    ``NEIGHBOR_GRAPHS``, a size-2 periodic cart over ranks 0 and 1, and the
+    persistent form on a periodic ring of 4 (every rank the same value)."""
+
+    import torch
+
+    from repro_torch.core import topology
+    from repro_torch.core.communicator import world as world_comm
+
+    comm = world_comm(device_type="cpu")
+    x = torch.from_numpy(inputs["x"][rank])            # (3,)
+    blocks = torch.from_numpy(inputs["blocks"][rank])  # (4, 3, 2)
+    out = {}
+    cart = topology.cart_create(comm, (2, 2), (True, False), axis_names=("row", "col"))
+    out["cart_allgather"] = cart.neighbor_allgather(x).get()
+    out["cart_alltoall"] = cart.neighbor_alltoall(blocks[:, 0]).get()
+    out["cart_alltoallv"], out["cart_alltoallv_rc"] = cart.neighbor_alltoallv(
+        blocks, [[3, 1, 2, 0], [1, 1, 1, 1], [2, 0, 3, 1], [0, 2, 2, 3]]).get()
+    for name, (srcs, dsts) in NEIGHBOR_GRAPHS.items():
+        g = topology.dist_graph_create_adjacent(comm, srcs, dsts)
+        out[f"{name}_degrees"] = torch.tensor([g.indegree(rank), g.outdegree(rank),
+                                               g.indegree(), g.outdegree()])
+        out[f"{name}_allgather"] = g.neighbor_allgather(x).get()
+        out[f"{name}_alltoall"] = g.neighbor_alltoall(
+            blocks[: g.outdegree(), 0] + 1.0 + rank).get()
+    full = topology.dist_graph_create_adjacent(comm, *NEIGHBOR_GRAPHS["full"])
+    out["full_alltoallv"], out["full_alltoallv_rc"] = full.neighbor_alltoallv(
+        blocks, FULL_COUNTS).get()
+    pair = topology.cart_create(comm.group().incl([0, 1]), (2,), (True,))
+    if rank < 2:
+        two = torch.arange(6.0).reshape(2, 3) + 1.0 + 10.0 * rank
+        got, rc = pair.neighbor_alltoallv(two[..., None], [3, 1]).get()
+        out["pair_alltoallv"], out["pair_rc"] = got[..., 0], rc
+    ring = topology.cart_create(comm, (world,), (True,), tag="repro://cart/ring4")
+    req = ring.neighbor_alltoall_init(torch.zeros((2, 8)))
+    for i in range(2):
+        out[f"persistent_{i}"] = req.start(torch.from_numpy(inputs["same"][i])).get()
+    out["persistent_starts"] = torch.tensor(req.starts)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def prog_moe_neighbor(rank: int, world: int, inputs: dict) -> dict:
+    """``moe_neighbor`` on this rank's tokens and expert slice of the
+    reference's MoE weights: the full expert graph, radius 1, and radius 1
+    at a capacity that drops rows."""
+
+    import torch
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import topology
+    from repro_torch.core.communicator import world as world_comm
+    from repro_torch.models import mlp
+
+    comm = world_comm(device_type="cpu")
+    cfg = ModelConfig(name="t", family="moe", num_layers=2, d_model=16, num_heads=2,
+                      num_kv_heads=2, head_dim=8, d_ff=32, vocab_size=64,
+                      num_experts=2 * world, moe_top_k=2, moe_d_ff=24)
+    el = cfg.num_experts // world
+    p = {"router": torch.from_numpy(inputs["router"])}
+    for k in ("w_gate", "w_up", "w_down"):
+        p[k] = torch.from_numpy(inputs[k][rank * el:(rank + 1) * el])
+    t = inputs["x"].shape[0] // world
+    x = torch.from_numpy(inputs["x"][rank * t:(rank + 1) * t])
+    out = {}
+    for name, radius, capacity in (("full", None, None), ("r1", 1, None), ("r1_cap", 1, 3)):
+        g = topology.dist_graph_create_adjacent(
+            comm, *mlp.expert_dispatch_graph(world, cfg.num_experts, radius=radius))
+        y, aux = mlp.moe_neighbor(p, x, cfg, g, capacity=capacity)
+        out[f"{name}_y"] = y
+        for k, v in aux.items():
+            out[f"{name}_{k}"] = v
+    g0 = topology.dist_graph_create_adjacent(
+        comm, *mlp.expert_dispatch_graph(world, world, radius=0))
+    cfg1 = ModelConfig(name="t1", family="moe", num_layers=2, d_model=16, num_heads=2,
+                       num_kv_heads=2, head_dim=8, d_ff=32, vocab_size=64,
+                       num_experts=world, moe_top_k=2, moe_d_ff=24)
+    p1 = {"router": torch.zeros(16, world), "w_gate": torch.zeros(1, 16, 24),
+          "w_up": torch.zeros(1, 16, 24), "w_down": torch.zeros(1, 24, 16)}
+    out["narrow_graph_error"] = torch.tensor(
+        _err(lambda: mlp.moe_neighbor(p1, x, cfg1, g0)) == "ERR_TOPOLOGY")
+    return {k: v.numpy() for k, v in out.items()}
+
+
+#: prog_disagg's cases: (name, config, kv cache dtype, split keyword, kv_pages)
+DISAGG_CASES = (("paired", "tiny", "bfloat16", {"prefill_fraction": 0.5}, 3),
+                ("fanout", "tiny", "bfloat16", {"fanout": (1, 3)}, 3),
+                ("gemma2_int8", "gemma2_9b", "int8", {"prefill_fraction": 0.5}, 2))
+
+#: the pvars the disaggregated server's tests compare
+DISAGG_PVARS = ("trace:kv_transfer", "trace:prefill_step", "trace:decode_step",
+                "rma_fence", "rma_rput", "rma_put", "rma_get")
+
+
+def disagg_config(name: str, module):
+    """The config of a DISAGG_CASES entry, from ``module`` (either
+    package's ``configs.base``): the reference test's tiny fp32 model, or a
+    smoke config in fp32."""
+
+    if name == "tiny":
+        return module.ModelConfig(name="tiny", family="dense", num_layers=2, d_model=32,
+                                  num_heads=2, num_kv_heads=1, head_dim=16, d_ff=64,
+                                  vocab_size=64, dtype="float32")
+    return dataclasses.replace(module.get_smoke_config(name), dtype="float32")
+
+
+def prog_disagg(rank: int, world: int, inputs: dict) -> dict:
+    """``DisaggregatedServer`` on every rank for each case of
+    ``DISAGG_CASES``, on the reference's weights: two ``generate``s, their
+    tokens, the transfer stats and the pvars they counted."""
+
+    from repro_torch.configs import base
+    from repro_torch.core import tool
+    from repro_torch.runtime.server import DisaggregatedServer, Request, ServerConfig
+
+    out = {}
+    for name, arch, kv, split, pages in DISAGG_CASES:
+        cfg = disagg_config(arch, base)
+        pcfg = dataclasses.replace(
+            base.get_parallel(arch) if arch != "tiny" else base.ParallelConfig(),
+            kv_cache_dtype=kv)
+        params = _params({k[len(arch) + 1:]: v for k, v in inputs.items()
+                          if k.startswith(f"{arch}/")})
+        tool.pvar_reset()
+        dis = DisaggregatedServer(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=6),
+                                  kv_pages=pages, device="cpu", **split)
+        for srv in (dis.prefill, dis.decode):
+            if srv is not None:
+                srv.params = params
+        reqs = [Request(tokens=inputs[f"{arch}_prompt{i}"].copy()) for i in range(2)]
+        for i in range(2):
+            out[f"{name}_tokens{i}"], stats = dis.generate(reqs)
+        counts = tool.pvar_read()
+        out[f"{name}_pvars"] = np.array([counts.get(k, 0) for k in DISAGG_PVARS])
+        out[f"{name}_stats"] = np.array([stats["kv_bytes"], stats["kv_pages"],
+                                         stats["prefill_devices"], stats["decode_devices"]])
+        out[f"{name}_roles"] = np.array([dis.prefill is not None, dis.decode is not None])
+    return out
+
+
+def prog_serve_fanout(rank: int, world: int, inputs: dict) -> dict:
+    """The serve CLI with ``--fanout 1:3`` on every rank: its tokens and
+    its stats' keys."""
+
+    from repro_torch.launch import serve
+
+    _, tokens, stats = serve.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device", "cpu",
+                                  "--fanout", "1:3", "--requests", "2", "--prompt-len", "8",
+                                  "--new-tokens", "4"])
+    return {"tokens": tokens, "keys": np.array(sorted(stats))}
+
+
 PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_server,
             "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer,
-            "requests": prog_requests, "grad_sync": prog_grad_sync}
+            "requests": prog_requests, "grad_sync": prog_grad_sync, "rma": prog_rma,
+            "neighbors": prog_neighbors, "moe_neighbor": prog_moe_neighbor,
+            "disagg": prog_disagg, "serve_fanout": prog_serve_fanout}
 
 
 def main(argv: list[str]) -> int:

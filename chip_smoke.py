@@ -2512,6 +2512,436 @@ def phase_disaggregate(kv):
     return path, runs[0]["launches"]
 
 
+# the placement phase: every arch's specs at these folds (pure logic, on
+# the meta device), then DTensor serving and training on the mesh of one
+SHARD_FOLDS = ((("data", "model"), (16, 16)), (("pod", "data", "model"), (2, 16, 16)),
+               (("data", "model"), (1, 4)))
+SHARD_ARCH = "phi4_mini_3_8b"
+SHARD_PROMPT = 4096
+SHARD_SSM_LAYERS = 8
+# the sequence-sharded merged decode's merge (o·l/l over the mesh of one)
+# may round apart from the plain decode, so it is held by its first decode
+# step's logits against the plain path's: within this share of (1 + their
+# largest magnitude), the limit tools/shard_ranks.py holds tensor
+# parallelism to
+MERGED_LOGITS_TOL = 2e-2
+# per generate (16 new tokens, 15 decode steps): flash 32 a prefill; with
+# the int8 cache the quantize 2 a prefill and 64 a step, the dequantize 64
+# a step; mamba2 at 8 layers: the SSD scan 8 a prefill (decode is plain)
+SHARD_LAUNCHES = {
+    "bfloat16": ({"flash_attention_fwd": 32}, {}),
+    "int8": ({"flash_attention_fwd": 32, QUANT: 2}, {QUANT: 64, DEQUANT: 64}),
+    "ssm": ({"ssd_scan_fwd": SHARD_SSM_LAYERS}, {}),
+}
+
+
+def _meta_params(cfg):
+    """``cfg``'s parameter tree on the meta device (shapes only): the
+    init with its draws replaced by empty meta tensors."""
+
+    import torch
+
+    from repro_torch.models import api, common
+
+    class _MetaGen:
+        device = torch.device("meta")
+
+    draw = common._draw
+    common._draw = lambda gen, shape, stddev: torch.empty(shape, device="meta")
+    try:
+        return api.build(cfg).init(_MetaGen())
+    finally:
+        common._draw = draw
+
+
+def _placement_summary(tree, specs, shape) -> dict:
+    """Leaves, split leaves and the largest rank's bytes of ``tree`` under
+    ``specs`` on a mesh of ``shape`` ({axis: size})."""
+
+    import math as _m
+
+    from repro_torch.core.futures import flatten
+    from repro_torch.sharding import rules
+
+    leaves, spec_list = flatten(tree)[0], rules.spec_leaves(specs)
+    whole = per_rank = split = 0
+    for leaf, spec in zip(leaves, spec_list):
+        n = leaf.numel() * leaf.element_size()
+        parts = _m.prod(_m.prod(shape[a] for a in ((ax,) if isinstance(ax, str) else ax))
+                        for ax in spec if ax is not None)
+        whole += n
+        per_rank += n // parts
+        split += parts > 1
+    return {"leaves": len(leaves), "split_leaves": split, "gb": whole / 1e9,
+            "per_rank_gb": per_rank / 1e9}
+
+
+def _shard_placements() -> dict:
+    """Every arch's parameter, cache and batch specs at ``SHARD_FOLDS``,
+    and what each rank holds under them."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.sharding import rules
+
+    out = {}
+    for arch in base.ARCHITECTURES:
+        cfg, pcfg = base.get_config(arch), base.get_parallel(arch)
+        params = _meta_params(cfg)
+        cache = None
+        if cfg.family != "encdec":
+            from repro_torch.models import api
+
+            cache = api.build(cfg).init_cache(pcfg, 32, 4096, "meta")
+        batch = {"tokens": torch.empty((32, 4096), dtype=torch.int32, device="meta")}
+        row = {}
+        for names, dims in SHARD_FOLDS:
+            shape = dict(zip(names, dims))
+            pc = dataclasses.replace(pcfg, data_axes=tuple(n for n in names if n != "model"))
+            fold = {"params": _placement_summary(params, rules.param_specs(params, shape, pc),
+                                                 shape)}
+            if cache is not None:
+                fold["cache"] = _placement_summary(
+                    cache, rules.cache_specs(cache, shape, pc, cfg), shape)
+            fold["batch"] = rules.batch_spec(batch, shape, pc)["tokens"]
+            row["x".join(map(str, dims))] = fold
+        out[arch] = row
+    return out
+
+
+def _placed(tree, device_mesh, pcfg):
+    """A parameter tree placed under ``param_specs`` on ``device_mesh``."""
+
+    from repro_torch.sharding import rules
+
+    return rules.distribute(tree, rules.param_specs(tree, rules.mesh_shape(device_mesh), pcfg),
+                            device_mesh)
+
+
+def _shard_generate(path, server, reqs, kind, want_tokens, generates,
+                    bitwise: bool = True) -> dict:
+    """One placed generate: its tokens against ``want_tokens`` bit for bit
+    (else counted), its launches exact, one more decode capture."""
+
+    import numpy as np
+    import torch
+
+    per_prefill, per_step = SHARD_LAUNCHES[kind]
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens, stats = server.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    steps = NEW_TOKENS - 1
+    for name in set(launches) | set(per_prefill) | set(per_step):
+        want = per_prefill.get(name, 0) + per_step.get(name, 0) * steps
+        check(launches.get(name, 0) == want,
+              f"{path}: {name} launches {launches.get(name, 0)} != {want}")
+    check(np.isfinite(tokens).all() and tokens.shape == want_tokens.shape,
+          f"{path}: tokens of shape {tokens.shape}")
+    check(not bitwise or np.array_equal(tokens, want_tokens),
+          f"{path}: DTensor tokens {tokens.tolist()} != the plain path's {want_tokens.tolist()}")
+    decodes = list(server._decode_reqs.values())
+    check(sum(d.captured for d in decodes) == generates,
+          f"{path}: {[d.captured for d in decodes]} decode captures after {generates} "
+          f"placed generates")
+    return {"launches": launches, "wall_s": wall, "prefill_s": stats["prefill_s"],
+            "tokens_per_s": stats["tokens_per_s"],
+            "tokens_equal": int((tokens == want_tokens).sum()), "tokens": tokens.size,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _first_decode_logits(server, reqs):
+    """The first decode step's whole logits (fp32) after a prefill of
+    ``reqs``, from a decode request of its own (dropped after, so it
+    captures nothing)."""
+
+    import torch
+
+    batch, _ = server._pad_batch(reqs)
+    server._decode_reqs.clear()
+    with torch.inference_mode():
+        logits, cache = server._prefill_request(batch)(server.params, batch)
+        tok = server._sample(logits, None)[:, None]
+        dec, _ = server._decode_request(cache, tok)(server.params, cache, tok)
+        dec = dec.full_tensor() if hasattr(dec, "full_tensor") else dec
+        server._decode_reqs.clear()
+        return dec.float()
+
+
+def _placed_cache(server, reqs) -> list:
+    """The placements of the prefill cache's leaves (DTensors, or the
+    refusal says which is not)."""
+
+    import torch
+
+    from repro_torch.core.futures import flatten
+    from repro_torch.sharding.local import is_dtensor
+
+    batch, _ = server._pad_batch(reqs)
+    with torch.inference_mode():
+        _, cache = server._prefill_request(batch)(server.params, batch)
+    leaves = flatten(cache)[0]
+    check(all(is_dtensor(t) for t in leaves), "shard: a prefill cache leaf is not a DTensor")
+    return sorted({str(tuple(t.placements)) for t in leaves})
+
+
+def _decode_replays(server, reqs) -> dict:
+    """A fresh decode request on a fresh prefill's cache: its eager first
+    start, its capturing second start and eight replays, each timed on the
+    host clock between synchronisations; the graph released after."""
+
+    import torch
+
+    batch, _ = server._pad_batch(reqs)
+    with torch.inference_mode():
+        logits, cache = server._prefill_request(batch)(server.params, batch)
+        tok = server._sample(logits, None)[:, None]
+        req = server._decode_request(cache, tok)
+        check(req.starts == 0, "shard: the decode request is not fresh")
+        marks = [time.perf_counter()]
+        for _ in range(2 + 8):
+            logits, cache = req(server.params, cache, tok)
+            if len(marks) < 3:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        check(req.captured == 1, f"shard: {req.captured} captures for ten starts")
+        req.release()
+    return {"eager_ms": (marks[1] - marks[0]) * 1e3, "capture_ms": (marks[2] - marks[1]) * 1e3,
+            "replay_ms": (marks[3] - marks[2]) / 8 * 1e3}
+
+
+def _shard_serve(results) -> dict:
+    """The full phi4-mini (32 layers, 2 x 4096, 16 new tokens): plain
+    tokens with the bf16 and the int8 cache, then the same weights placed
+    on the mesh of one give them bit for bit.  The sequence-sharded merged
+    decode (its merge's arithmetic and all-reduces run over the mesh of
+    one) is held by its first decode step's logits on two prompt sets,
+    within ``MERGED_LOGITS_TOL``, and its tokens counted against the plain
+    path's.  Logs the plain and the placed generates' times, and a decode
+    capture and its replays on each."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+    from repro_torch.sharding.local import is_dtensor
+
+    cfg = base.get_config(SHARD_ARCH)
+    check(cfg.num_layers == 32 and cfg.d_model == 3072, "not the phi4-mini config")
+    pcfg = base.get_parallel(SHARD_ARCH)
+    reqs = serve.requests(cfg, 2, SHARD_PROMPT)
+    server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS),
+                    device="cuda")
+    mesh = server.comm.device_mesh
+    check(tuple(mesh.mesh.shape) == (1, 1), f"shard: mesh {tuple(mesh.mesh.shape)}")
+
+    def use(pc):
+        server.pcfg = pc
+        server._prefill_reqs.clear()
+        server._decode_reqs.clear()
+
+    # the merged decode's second reading: the same prompts reversed
+    reqs_b = [Request(tokens=r.tokens[::-1].copy()) for r in reqs]
+    plain = {}
+    for kv in ("bfloat16", "int8"):
+        use(dataclasses.replace(pcfg, kv_cache_dtype=kv))
+        runs = [server.generate(reqs) for _ in range(2)]
+        plain[kv] = runs[0][0]
+        results[f"plain_phi4_{kv}"] = [{k: st[k] for k in ("prefill_s", "decode_s",
+                                                          "tokens_per_s")} for _, st in runs]
+    use(pcfg)
+    plain["reversed"] = server.generate(reqs_b)[0]
+    first = {"prompts": _first_decode_logits(server, reqs),
+             "reversed": _first_decode_logits(server, reqs_b)}
+    results["plain_phi4_decode_graph"] = _decode_replays(server, reqs)
+    with torch.inference_mode():
+        server.params = _placed(server.params, mesh, pcfg)
+    check(server.placed and is_dtensor(server.params["embed"]), "shard: params not placed")
+    generates = 0
+    for kv in ("int8", "bfloat16"):
+        use(dataclasses.replace(pcfg, kv_cache_dtype=kv))
+        generates = 1
+        results[f"phi4_{kv}"] = _shard_generate(f"shard_phi4_{kv}", server, reqs, kv,
+                                                plain[kv], generates)
+        results[f"phi4_{kv}"]["cache_placements"] = _placed_cache(server, reqs)
+        generates += 1
+        results[f"phi4_{kv}"]["second"] = _shard_generate(
+            f"shard_phi4_{kv}_again", server, reqs, kv, plain[kv], generates)
+    use(pcfg)
+    results["phi4_decode_graph"] = _decode_replays(server, reqs)
+    use(dataclasses.replace(pcfg, seq_shard_cache=True, flash_decode_merge=True))
+    merged = {}
+    for name, rs, want in (("prompts", reqs, plain["bfloat16"]),
+                           ("reversed", reqs_b, plain["reversed"])):
+        got = _first_decode_logits(server, rs)
+        err = float((got - first[name]).abs().max())
+        scale = float(first[name].abs().max())
+        row = _shard_generate(f"shard_phi4_merged_{name}", server, rs, "bfloat16", want, 1,
+                              bitwise=False)
+        merged[name] = {**row, "max_abs_err_first_decode": err, "logits_absmax": scale}
+        check(err <= MERGED_LOGITS_TOL * (1 + scale),
+              f"shard_phi4_merged_{name}: first decode logits {err} from the plain path's "
+              f"(limit {MERGED_LOGITS_TOL} x (1 + {scale}))")
+    results["phi4_merged_decode"] = merged
+    launches = {}
+    rows = [results["phi4_int8"], results["phi4_bfloat16"], *merged.values()]
+    for row in rows:
+        for name, n in row["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    del server
+    _free()
+    return launches
+
+
+def _shard_ssm(results) -> dict:
+    """mamba2-2.7b at full width, 8 of 64 layers (2 x 4096): the placed
+    model's tokens bit for bit the plain model's, the SSD scan run through
+    ``local_map`` 8 times a prefill."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = dataclasses.replace(base.get_config("mamba2_2_7b"), num_layers=SHARD_SSM_LAYERS)
+    pcfg = base.get_parallel("mamba2_2_7b")
+    reqs = serve.requests(cfg, 2, SHARD_PROMPT)
+    server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS),
+                    device="cuda")
+    plain, _ = server.generate(reqs)
+    with torch.inference_mode():
+        server.params = _placed(server.params, server.comm.device_mesh, pcfg)
+    server._prefill_reqs.clear()
+    server._decode_reqs.clear()
+    results["mamba2_8_layers"] = _shard_generate("shard_mamba2", server, reqs, "ssm", plain, 1)
+    launches = results["mamba2_8_layers"]["launches"]
+    del server
+    _free()
+    return launches
+
+
+def _shard_train(results, moments, cross: bool) -> dict:
+    """phi4-mini at full width, 2 layers, b 2 x 2048, 4 steps (step 1
+    eager, then one graph captured and replayed): the plain ``Trainer``,
+    then a ``Trainer`` whose state is placed (fsdp + tensor on the mesh of
+    one) from the same seed; losses and grad norms bit for bit.  With
+    ``cross``, the placed run's checkpoint restores into a plain
+    ``Trainer`` and the plain run's into a placed one, bit for bit."""
+
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.core.futures import flatten
+    from repro_torch.sharding.local import is_dtensor
+
+    cfg = dataclasses.replace(base.get_config(SHARD_ARCH), num_layers=2)
+    pcfg = dataclasses.replace(base.get_parallel(SHARD_ARCH), moment_dtype=moments)
+    check(pcfg.fsdp and pcfg.attn_plan == "tp_heads", "shard: not the fsdp + tensor layout")
+    dirs = {k: ROOT / "build" / f"shard_ckpt_{k}" for k in ("plain", "placed")}
+    kw = dict(steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH, checkpoint_every=TRAIN_STEPS)
+    runs, finals = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for kind in ("plain", "placed"):
+            shutil.rmtree(dirs[kind], ignore_errors=True)
+            torch.cuda.reset_peak_memory_stats()
+            trainer = _trainer(cfg, pcfg, "cuda",
+                               checkpoint_dir=str(dirs[kind]) if cross else None, **kw)
+            if kind == "placed":
+                trainer.placed = True
+            t0 = time.perf_counter()
+            result = trainer.run()
+            torch.cuda.synchronize()
+            leaves = flatten((trainer.params, trainer.opt_state))[0]
+            check(all(is_dtensor(t) for t in leaves) == (kind == "placed"),
+                  f"shard_train {moments}: the {kind} state's leaves")
+            runs[kind] = {"losses": [(m["loss"], m["grad_norm"]) for m in result["metrics"]],
+                          "run_s": time.perf_counter() - t0,
+                          "step_s": [m["duration_s"] for m in result["metrics"]],
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "captured": trainer._request.captured}
+            finals[kind] = [(t.to_local() if is_dtensor(t) else t).detach().cpu()
+                            for t in leaves]
+            check(trainer._request.captured == 1,
+                  f"shard_train {moments} {kind}: {trainer._request.captured} captures")
+            del trainer, result, leaves
+            _free()
+        check(runs["placed"]["losses"] == runs["plain"]["losses"],
+              f"shard_train {moments}: placed {runs['placed']['losses']} != plain "
+              f"{runs['plain']['losses']}")
+        for src, dst in (("placed", "plain"), ("plain", "placed")) if cross else ():
+            reader = _trainer(cfg, pcfg, "cuda", checkpoint_dir=str(dirs[src]), **kw)
+            reader.placed = dst == "placed"
+            params, opt_state = reader.init_state()
+            params, opt_state, step = reader._restore(params, opt_state)
+            check(step == TRAIN_STEPS, f"shard_train {moments}: restored step {step}")
+            got = [(t.to_local() if is_dtensor(t) else t).detach().cpu()
+                   for t in flatten((params, opt_state))[0]]
+            check(all(is_dtensor(t) for t in flatten(params)[0]) == (dst == "placed"),
+                  f"shard_train {moments}: restored into {dst}")
+            check(len(got) == len(finals[src]) and all(
+                torch.equal(a, b) for a, b in zip(got, finals[src])),
+                f"shard_train {moments}: {src} checkpoint restored into {dst} differs")
+            del reader, params, opt_state, got
+            _free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    results[f"train_{moments}"] = {**runs, "equal_bitwise": True, "checkpoints_cross":
+                                   ["placed->plain", "plain->placed"] if cross else []}
+    return {}
+
+
+def phase_shard():
+    """The sharding rules on the card: every arch's placements at the folds
+    (16, 16), (2, 16, 16) and (1, 4), logged; then on the NCCL world of
+    one and its device mesh of one (``rules.distribute`` called here), the
+    full phi4-mini served from DTensor weights (bf16 and int8 cache),
+    mamba2 at 8 layers, and phi4-mini trained at 2 layers with fp32 and
+    int8 moments: all bit for bit the plain path's, launches exact, one
+    decode capture a generate, the checkpoints crossing both ways; the
+    sequence-sharded merged decode held by its first decode logits."""
+
+    results = {"card": RESULTS["device"]["nvidia_smi"]}
+    t0 = time.perf_counter()
+    results["placements"] = _shard_placements()
+    results["placements_s"] = time.perf_counter() - t0
+    launches = dict.fromkeys(_launches(), 0)
+    t1 = time.perf_counter()
+    for name, n in list(_shard_serve(results).items()) + list(_shard_ssm(results).items()):
+        launches[name] += n
+    results["serve_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    for moments in ("float32", "int8"):
+        # the checkpoints cross once, with the int8 moments: their payloads
+        # and row-split scales are the placed state's every kind of leaf,
+        # at a quarter of the fp32 state's 8 GB of writes
+        _shard_train(results, moments, cross=moments == "int8")
+    results["train_s"] = time.perf_counter() - t2
+    results["phase_s"] = time.perf_counter() - t0
+    log("shard: " + json.dumps({k: v for k, v in results.items() if k != "placements"}))
+    log("shard placements: " + json.dumps(results["placements"]))
+    RESULTS["shard"] = results
+    return "shard", launches
+
+
 def phase_moe_neighbor():
     """``mlp.moe_neighbor`` over ``expert_dispatch_graph`` on the world of
     one (a self-loop: every expert is local, the two neighbor exchanges
@@ -3171,6 +3601,7 @@ def main() -> int:
     for arch in ENGINE_SMALL:
         phase_engine_small(arch)
     launches.update(phase_disaggregate(kv) for kv in ("bfloat16", "int8"))
+    launches.update([phase_shard()])
     phase_moe_neighbor()
     for spec in TRAIN_SMALL:
         phase_train_small(*spec)

@@ -14,8 +14,17 @@ Layout::
 Leaves are named by their path in the tree, as the reference names them
 (``params/layers/layer/attn/wq``, ``opt/mu/embed``, ``opt/step``; an int8
 moment's payload and scales ``opt/mu/embed/q`` and ``opt/mu/embed/scale``):
-dict keys in sorted order, dataclass fields in declaration order.  One process holds
-each tensor whole, so each leaf is one fragment at offset 0.
+dict keys in sorted order, dataclass fields in declaration order.  A
+plain tensor is one fragment at offset 0.  A DTensor leaf (placed state,
+:mod:`repro_torch.sharding`) is written as its shards: each rank writes its
+local shard as a fragment at its global offset (one rank of those holding
+the same shard), as the reference writes ``addressable_shards``.  With a
+communicator of several ranks the save joins before it returns: every rank
+writes and verifies its fragments, the fragment records are gathered on
+the communicator's rank 0, which commits the one manifest, and a barrier
+returns every rank after the commit.  A restore reassembles each leaf from
+its fragments and places it as its template is placed, on any mesh (or
+whole): the two packages restore each other's checkpoints either way.
 
 * a crash mid-save never corrupts an older checkpoint (new directory +
   completion marker); restore picks the newest *complete* step;
@@ -57,7 +66,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import errors, tool
+from repro_torch.core import datatypes, errors, tool
 from repro_torch.core import io as pio
 from repro_torch.core.descriptors import Mode
 from repro_torch.core.futures import Future, flatten, unflatten, when_all
@@ -70,6 +79,45 @@ tool.pvar_register("ckpt_save", "checkpoint saves issued (async or sync)")
 tool.pvar_register("ckpt_save_failed", "checkpoint saves that surfaced an I/O error")
 tool.pvar_register("ckpt_restore", "checkpoint restores")
 tool.pvar_register("ckpt_wait", "checkpoint completions joined (wait)")
+
+
+def _is_dtensor(x) -> bool:
+    from repro_torch.sharding.local import is_dtensor
+
+    return is_dtensor(x)
+
+
+def _shards(leaf: Any, writer: bool) -> tuple[tuple, list[tuple[tuple[int, ...], Any]]]:
+    """(global shape, [(global offset, local buffer)]) of the pieces this
+    rank writes of ``leaf``: a DTensor's local shard if this rank is the
+    first (coordinate 0 on every mesh dim that does not split it) of those
+    that hold it; a plain leaf whole if this rank is the ``writer``."""
+
+    if not _is_dtensor(leaf):
+        shape = tuple(getattr(leaf, "shape", np.shape(leaf)))
+        return shape, [((0,) * len(shape), leaf)] if writer else []
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, place = leaf.device_mesh, leaf.placements
+    shape = tuple(leaf.shape)
+    first = all(pl.is_shard() or mesh.get_local_rank(i) == 0 for i, pl in enumerate(place))
+    _, offset = compute_local_shape_and_global_offset(shape, mesh, place)
+    return shape, [(tuple(int(o) for o in offset), leaf.to_local())] if first else []
+
+
+def _placed_like(full: torch.Tensor, tmpl: Any) -> torch.Tensor:
+    """``full`` (a restored whole leaf, on the host) placed as the DTensor
+    ``tmpl``: this rank's shard moved to its device."""
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, place = tmpl.device_mesh, tmpl.placements
+    local_shape, offset = compute_local_shape_and_global_offset(tuple(tmpl.shape), mesh, place)
+    idx = tuple(slice(o, o + n) for o, n in zip(offset, local_shape))
+    local = full[idx].to(tmpl.to_local().device).contiguous()
+    return DTensor.from_local(local, mesh, place, run_check=False, shape=tmpl.shape,
+                              stride=tmpl.stride())
 
 
 def _flatten_with_names(tree: Any) -> list[tuple[str, Any]]:
@@ -123,8 +171,12 @@ class CheckpointManager:
         async_save: bool = True,
         verify: bool = True,
         injector: Any | None = None,
+        comm: Any | None = None,
     ):
         self.directory = directory
+        #: the communicator whose ranks save together (``None``: this
+        #: process alone)
+        self.comm = comm if comm is not None and comm.size() > 1 else None
         self.keep = keep
         self.async_save = async_save
         self.verify = verify
@@ -165,31 +217,39 @@ class CheckpointManager:
         records: dict[str, dict] = {}
         buckets: dict[str, list[list[tuple[str, np.ndarray]]]] = {}
         entry_by_frag: dict[str, dict] = {}
+        writer = self.comm is None or self.comm.rank() == 0
         for name, leaf in _flatten_with_names(tree):
-            buf, dtype = pio.to_host(leaf)
-            fragname = f"{name.replace('/', '.')}.{'_'.join(['0'] * buf.ndim)}.npy"
-            if fragname in entry_by_frag:
-                # sanitised names can collide ("a/b" vs {"a": {"b"}})
-                errors.fail(
-                    errors.ErrorClass.ERR_IO,
-                    f"leaf {name!r} collides with another leaf on "
-                    f"fragment {fragname!r} after '/'→'.' sanitisation",
-                )
-            chunks = buckets.setdefault(dtype, [[]])
-            if chunks[-1] and sum(b.nbytes for _, b in chunks[-1]) + buf.nbytes > BUCKET_BYTES:
-                chunks.append([])
-            chunks[-1].append((fragname, buf))
-            entry = {
-                "fragment": fragname,
-                "offset": [0] * buf.ndim,
-                "shape": list(buf.shape),
-                # filled by the commit continuation: digests are computed on
-                # the I/O threads, off the issue path
-                "checksum": None,
-            }
-            entry_by_frag[fragname] = entry
-            record = {"name": name, "shape": list(buf.shape), "dtype": dtype,
-                      "fragments": [entry]}
+            shape, frags = _shards(leaf, writer)
+            entries = []
+            dtype = datatypes.dtype_name(leaf.dtype) if isinstance(leaf, torch.Tensor) \
+                else str(np.asarray(leaf).dtype)
+            for start, local in frags:
+                buf, dtype = pio.to_host(local)
+                fragname = f"{name.replace('/', '.')}.{'_'.join(map(str, start))}.npy"
+                if fragname in entry_by_frag:
+                    # sanitised names can collide ("a/b" vs {"a": {"b"}})
+                    errors.fail(
+                        errors.ErrorClass.ERR_IO,
+                        f"leaf {name!r} collides with another leaf on "
+                        f"fragment {fragname!r} after '/'→'.' sanitisation",
+                    )
+                chunks = buckets.setdefault(dtype, [[]])
+                if chunks[-1] and sum(b.nbytes for _, b in chunks[-1]) + buf.nbytes \
+                        > BUCKET_BYTES:
+                    chunks.append([])
+                chunks[-1].append((fragname, buf))
+                entry = {
+                    "fragment": fragname,
+                    "offset": list(start),
+                    "shape": list(buf.shape),
+                    # filled by the commit continuation: digests are computed
+                    # on the I/O threads, off the issue path
+                    "checksum": None,
+                }
+                entry_by_frag[fragname] = entry
+                entries.append(entry)
+            record = {"name": name, "shape": list(shape), "dtype": dtype,
+                      "fragments": entries}
             alias = pio.storage_alias(dtype)
             if alias is not None:
                 record["etype"] = str(alias)
@@ -207,11 +267,15 @@ class CheckpointManager:
             for i, frags in enumerate(chunks)
         ]
 
+        comm = self.comm
+
         def commit(joined: Future) -> str:
             # joins every bucket; a failed write raises ERR_IO here
             for sums in joined.get():
                 for fragname, digest in sums.items():
                     entry_by_frag[fragname]["checksum"] = digest
+            if comm is not None and not _gather_records(comm, records):
+                return step_dir   # another rank commits the manifest
             f.commit_manifest(records, meta)  # ONE manifest sync point per step
             if extra:
                 pio._atomic_write(
@@ -230,10 +294,13 @@ class CheckpointManager:
             return chain._wait_value()
 
         completion = pio.IORequest(f"ckpt[{step}] commit", drive)
-        if self.async_save:
+        if self.async_save and comm is None:
             self._pending = completion
         else:
             completion._wait_value()
+            if comm is not None:
+                # every rank returns once the manifest is committed
+                _barrier(comm)
         return completion
 
     def wait(self) -> str | None:
@@ -310,7 +377,7 @@ class CheckpointManager:
             rec = arrays.get(name)
             if rec is None:
                 errors.fail(errors.ErrorClass.ERR_IO, f"array {name!r} not in {step_dir}")
-            if dev is None and isinstance(tmpl, torch.Tensor):
+            if dev is None and isinstance(tmpl, torch.Tensor) and not _is_dtensor(tmpl):
                 dev = tmpl.device
             f = pio.open(step_dir, Mode.RDONLY, checksum=True)
             f.set_view(etype=rec.get("etype"))
@@ -319,6 +386,8 @@ class CheckpointManager:
         for tmpl, arr in zip(flat_t, when_all(reqs).get()):
             if isinstance(tmpl, torch.Tensor) and arr.dtype != tmpl.dtype:
                 arr = arr.to(tmpl.dtype)
+            if _is_dtensor(tmpl):
+                arr = _placed_like(arr, tmpl)
             restored.append(arr)
         return unflatten(treedef, restored), step
 
@@ -338,3 +407,28 @@ class CheckpointManager:
         step_dir = os.path.join(self.directory, f"step_{step:08d}")
         f = pio.open(step_dir, Mode.RDONLY)
         return f.manifest().get("meta", {})
+
+
+def _gather_records(comm, records: dict) -> bool:
+    """Merge every rank's fragment records on the communicator's rank 0
+    (``records`` updated there); True on the rank that commits."""
+
+    import torch.distributed as dist
+
+    ranks = comm.global_ranks()
+    box = [None] * comm.size() if comm.rank() == 0 else None
+    dist.gather_object(records, box, dst=ranks[0], group=comm.process_group())
+    if comm.rank() != 0:
+        return False
+    for other in box[1:]:
+        for name, rec in other.items():
+            records[name]["fragments"] += rec["fragments"]
+    for rec in records.values():
+        rec["fragments"].sort(key=lambda e: e["offset"])
+    return True
+
+
+def _barrier(comm) -> None:
+    import torch.distributed as dist
+
+    dist.barrier(group=comm.process_group())

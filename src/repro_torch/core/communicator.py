@@ -236,6 +236,39 @@ class Communicator:
             return self._axis_groups[name][1]
         return (self._member_rank(),)
 
+    @property
+    def device_mesh(self):
+        """A ``torch.distributed`` ``DeviceMesh`` over this communicator's
+        ranks with its axis names (``DeviceMesh.from_group`` over the
+        per-axis process groups), on which DTensor places a tree
+        (:mod:`repro_torch.sharding.rules`).  A line of one rank, which has
+        no group among the communicator's, gets a group of its own, made by
+        this rank alone.  Built once per communicator."""
+
+        mesh = getattr(self, "_device_mesh", None)
+        if mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            ranks = self.global_ranks()
+            errors.check(
+                ranks is not None and dist.is_initialized(),
+                errors.ErrorClass.ERR_COMM,
+                f"{self!r} has no process world behind it: no device mesh",
+            )
+            self._member_rank()
+            groups = []
+            for name in self.axis_names:
+                pg = self.axis_group(name)
+                if pg is None:
+                    pg = dist.new_group([ranks[self._member_rank()]],
+                                        use_local_synchronization=True)
+                groups.append(pg)
+            dev = self.device
+            mesh = self._device_mesh = DeviceMesh.from_group(
+                groups, dev.type, mesh=torch.tensor(ranks).reshape(self.shape),
+                mesh_dim_names=self.axis_names)
+        return mesh
+
     def split(self, *axis_names: str) -> "Communicator":
         """``MPI_Comm_split`` along topology axes: the communicator over
         this rank's line (one axis) or over all of this communicator's

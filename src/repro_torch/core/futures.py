@@ -312,9 +312,29 @@ def when_any(
 
 
 def _leaf_signature(leaf: Any) -> tuple:
+    """(shape, dtype) of a leaf; a DTensor's adds its mesh and placements,
+    so a request bound to one layout refuses another (``ERR_REQUEST``), as
+    the reference's compiled step refuses a sharding drift."""
+
     shape = tuple(getattr(leaf, "shape", ()))
     dtype = getattr(leaf, "dtype", None)
-    return (shape, dtype if dtype is None else str(dtype))
+    sig = (shape, dtype if dtype is None else str(dtype))
+    if _is_dtensor(leaf):
+        mesh = leaf.device_mesh
+        sig += ((tuple(mesh.mesh_dim_names or ()), tuple(mesh.mesh.shape)),
+                tuple(str(p) for p in leaf.placements))
+    return sig
+
+
+def _is_dtensor(leaf: Any) -> bool:
+    return type(leaf).__name__ == "DTensor" and hasattr(leaf, "to_local")
+
+
+def _local_leaf(leaf: Any) -> Any:
+    """A DTensor's local shard (the buffer a graph reads); any other leaf
+    as it is."""
+
+    return leaf.to_local() if _is_dtensor(leaf) else leaf
 
 
 def argument_signature(tree: Any) -> tuple:
@@ -338,8 +358,10 @@ def _donated_leaves(args: tuple, donate_argnums: tuple[int, ...]) -> list[bool]:
 
 def _same_buffer(a: torch.Tensor, b: torch.Tensor) -> bool:
     """``a`` views exactly the elements of ``b``, which is alive (so its
-    memory cannot have been handed to another tensor)."""
+    memory cannot have been handed to another tensor); DTensors compare
+    their local shards."""
 
+    a, b = _local_leaf(a), _local_leaf(b)
     return (a.data_ptr() == b.data_ptr() and a.device == b.device and a.dtype == b.dtype
             and a.shape == b.shape and a.stride() == b.stride())
 
@@ -539,7 +561,7 @@ class PersistentRequest:
                 copies.append((bound, leaf))
         with torch.no_grad():
             for bound, leaf in copies:
-                bound.copy_(leaf)
+                _local_leaf(bound).copy_(_local_leaf(leaf))
         return True
 
     def _capture(self, leaves: list, treedef: Any) -> Any:

@@ -23,9 +23,17 @@ Contents:
   chunk-wise continuation (the schedule under
   :class:`repro_torch.optim.grad_sync.PartitionedGradSync`).
 
+* :func:`all_gather_matmul` / :func:`matmul_reduce_scatter` — the FSDP
+  weight gather and the tensor-parallel output scatter fused into a ring of
+  matmuls.  As in the reference, no model calls them: ``overlap_fsdp``
+  only names them, and stays a no-op.
+* :func:`merge_partial_attention` — the exact softmax merge of attention
+  over a sequence-sharded KV cache (the sharded decode of
+  :mod:`repro_torch.models.attention`).
+
 Not ported yet, each with its callers (``ROADMAP.md`` A14):
-``ring_all_gather``, ``all_gather_matmul``, ``halo_exchange``,
-``pipeline_spmd`` and the partitioned ring schedules.
+``ring_all_gather``, ``halo_exchange``, ``pipeline_spmd`` and the
+partitioned ring schedules.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import torch
 from repro_torch.core import collectives, errors
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.compress import BLOCK
-from repro_torch.core.descriptors import CollectiveSpec, Compression
+from repro_torch.core.descriptors import CollectiveSpec, Compression, ReduceOp
 from repro_torch.core.futures import Future, PartitionedRequest, when_all
 from repro_torch.kernels.quant import ops as quant
 
@@ -216,3 +224,92 @@ def partitioned_allreduce(comm: Communicator, num_partitions: int, *,
     still-running backward pass is this schedule."""
 
     return _partitioned(num_partitions, lambda x: collectives.allreduce(comm, x), continuation)
+
+
+# ---------------------------------------------------------------------------
+# fused compute/communication schedules
+# ---------------------------------------------------------------------------
+
+
+def all_gather_matmul(comm: Communicator, x: torch.Tensor, w_shard: torch.Tensor, *,
+                      accumulate_dtype=torch.float32) -> torch.Tensor:
+    """``x @ all_gather(w_shard)`` without materialising the gather.
+
+    ``w_shard``: this rank's ``(k/n, f)`` block of a ``(k, f)`` weight whose
+    contraction dim is sharded over the communicator.  Each ring step
+    matmuls the matching ``k``-slice of ``x`` against the block in flight
+    (the next block's exchange is issued before the product is queued);
+    the products are summed in ``accumulate_dtype`` in ring order."""
+
+    _, n = _axis(comm)
+    idx = comm.rank()
+    kb = w_shard.shape[0]
+    errors.check(
+        x.shape[-1] == kb * n,
+        errors.ErrorClass.ERR_COUNT,
+        f"contraction mismatch: x has k={x.shape[-1]}, shards give {kb * n}",
+    )
+
+    def mm(b, wb):
+        return torch.matmul(x.narrow(-1, b * kb, kb), wb).to(accumulate_dtype)
+
+    w_cur = w_shard
+    nxt = collectives.shift_start(comm, w_cur) if n > 1 else None
+    acc = mm(idx, w_cur)
+    for step in range(1, n):
+        w_cur = nxt.get()
+        if step + 1 < n:
+            nxt = collectives.shift_start(comm, w_cur)
+        acc = acc + mm((idx - step) % n, w_cur)
+    return acc
+
+
+def matmul_reduce_scatter(comm: Communicator, x: torch.Tensor, w: torch.Tensor, *,
+                          accumulate_dtype=torch.float32) -> torch.Tensor:
+    """``reduce_scatter(x @ w, axis=-1)`` with the matmul chunked into the
+    ring, so each partial block is computed just in time for its hop.
+
+    ``x``: ``(..., k_local)`` (each rank holds a partial sum), ``w``:
+    ``(k_local, f)``.  Returns this rank's ``(..., f/n)`` block of the
+    fully reduced product."""
+
+    _, n = _axis(comm)
+    idx = comm.rank()
+    f = w.shape[-1]
+    errors.check(
+        f % n == 0,
+        errors.ErrorClass.ERR_COUNT,
+        f"output dim {f} not divisible by communicator size {n}",
+    )
+    fb = f // n
+
+    def partial_block(b):
+        return torch.matmul(x, w.narrow(1, b * fb, fb)).to(accumulate_dtype)
+
+    acc = partial_block((idx - 1) % n)
+    for step in range(n - 1):
+        acc = collectives.shift(comm, acc)
+        acc = acc + partial_block((idx - 2 - step) % n)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# attention combiners (sequence-sharded KV)
+# ---------------------------------------------------------------------------
+
+
+def merge_partial_attention(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                            comm: Communicator) -> torch.Tensor:
+    """Flash-decoding combine across a sequence-sharded KV cache.
+
+    Each rank attended over its KV shard, giving the normalised output
+    ``o`` (..., q, h, d), running max ``m`` (..., h, q) and normaliser
+    ``l`` (..., h, q).  The exact global softmax comes back with one max
+    and two sum all-reduces of O(batch·heads) payload."""
+
+    gm = collectives.allreduce(comm, m, op=ReduceOp.MAX)
+    l_corr = l * torch.exp(m - gm)                        # (..., h, q)
+    w = l_corr.transpose(-1, -2)[..., None]               # (..., q, h, 1)
+    num = collectives.allreduce(comm, o * w)
+    den = collectives.allreduce(comm, w)
+    return num / torch.clamp(den, min=1e-30)

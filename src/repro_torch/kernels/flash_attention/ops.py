@@ -51,11 +51,14 @@ def flash_attention(
     """Public API, the reference's signature.  ``impl`` chooses the plain
     version on the CPU ('chunked' → online-softmax loops, anything else →
     ``mha``); on the card the kernel runs whatever it says.
-    ``q_block_axis`` names a mesh axis in the reference; the single-device
-    port has none and ignores it."""
+    ``q_block_axis`` (the ``sp`` plan) names a mesh axis over which the
+    chunked form's query blocks are placed when ``q`` is a DTensor, as the
+    reference constrains them; the kernel takes whole local tensors."""
 
     if q.is_cuda:
         return _Flash.apply(q, k, v, causal, sliding_window, prefix_len, logit_softcap, scale)
-    fn = _ref.chunked_mha if impl == "chunked" else _ref.mha
-    return fn(q, k, v, causal=causal, sliding_window=sliding_window,
-              prefix_len=prefix_len, logit_softcap=logit_softcap, scale=scale)
+    kw = dict(causal=causal, sliding_window=sliding_window, prefix_len=prefix_len,
+              logit_softcap=logit_softcap, scale=scale)
+    if impl == "chunked":
+        return _ref.chunked_mha(q, k, v, q_block_axis=q_block_axis, **kw)
+    return _ref.mha(q, k, v, **kw)

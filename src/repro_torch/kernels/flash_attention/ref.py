@@ -92,6 +92,7 @@ def chunked_mha(
     scale: float | None = None,
     q_block: int = 1024,
     k_block: int = 1024,
+    q_block_axis: str | None = None,
 ) -> torch.Tensor:
     """Memory-efficient (online-softmax) attention: never materialises the
     (S, S) score matrix.  The same blockwise schedule as the kernel, written
@@ -109,9 +110,11 @@ def chunked_mha(
                    prefix_len=prefix_len, logit_softcap=logit_softcap, scale=scale)
     kf = _repeat_heads(k, h).float()
     vf = _repeat_heads(v, h).float()
+    q_blocks = _q_block_constraint(q.reshape(b, sq // q_block, q_block, h, d).transpose(0, 1)
+                                   if q_block_axis is not None else None, q_block_axis)
     outs = []
     for q0 in range(0, sq, q_block):
-        qb = q[:, q0:q0 + q_block].float()
+        qb = (q_blocks[q0 // q_block] if q_blocks is not None else q[:, q0:q0 + q_block]).float()
         o = torch.zeros((b, h, q_block, d), dtype=torch.float32, device=q.device)
         m = torch.full((b, h, q_block), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, h, q_block), dtype=torch.float32, device=q.device)
@@ -139,4 +142,28 @@ def chunked_mha(
             m = m_new
         o = o / torch.clamp(l, min=1e-30)[..., None]
         outs.append(o.transpose(1, 2))
+    if q_blocks is not None:
+        o_blocks = _q_block_constraint(torch.stack(outs), q_block_axis)
+        return o_blocks.transpose(0, 1).flatten(1, 2).to(q.dtype)
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _q_block_constraint(blocks, axis):
+    """The reference's ``with_sharding_constraint`` of the stacked query
+    blocks (nq, b, q_block, h, d) over mesh axis ``axis``: their dim 0 split
+    over it when they are a DTensor on a mesh with that axis and it divides;
+    otherwise they are returned as they are (``None`` stays ``None``)."""
+
+    from repro_torch.sharding.local import is_dtensor
+
+    if blocks is None or not is_dtensor(blocks):
+        return blocks
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = blocks.device_mesh
+    names = mesh.mesh_dim_names
+    if axis not in names or mesh.size(names.index(axis)) <= 1 or \
+            blocks.shape[0] % mesh.size(names.index(axis)):
+        return blocks
+    pl = [Shard(0) if n == axis else Replicate() for n in names]
+    return blocks.redistribute(mesh, pl)

@@ -13,7 +13,11 @@ launcher does, so both launchers serve the same requests.
 
 Runs on the CUDA device unless ``--device cpu`` is given; a machine with no
 CUDA device raises ``ERR_SESSION`` instead of falling back.  ``--mesh DxM``
-folds the process world onto a (data, model) grid, e.g. on the CPU::
+folds the process world onto a (data, model) grid and, with M > 1,
+shards the model over it (the parameters under
+``repro_torch.sharding.rules``: FSDP over data, heads, ``d_ff`` and the
+vocabulary over model; the cache's batch over data, its heads over
+model), e.g. on the CPU::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch gemma2_9b --smoke --device cpu --mesh 2x2
@@ -23,7 +27,9 @@ As in the reference, the CLI has no ring flag: the ring is
 ``--continuous-batching`` serves the requests through the paged-KV
 :class:`~repro_torch.runtime.engine.Engine` instead of one fixed batch, on
 ``min(requests, 4)`` slots with a bucket of ``--prompt-len``; it prints each
-request's generated length and the engine's stats.
+request's generated length and the engine's stats.  The engine runs on
+whole weights, so with ``--mesh DxM``, M > 1, it raises
+``ERR_UNSUPPORTED_OPERATION``.
 
 ``--disaggregate`` splits the serving process set into prefill and decode
 worker groups (``<pset>/prefill`` / ``<pset>/decode``, the leading

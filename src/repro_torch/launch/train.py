@@ -1,5 +1,5 @@
 """Training launcher: the port's Trainer (checkpoint/restart, straggler
-guard, fault injection) with the data-only plan.
+guard, fault injection) with the data, FSDP, tensor and expert plans.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi4_mini_3_8b \\
         --steps 4 --batch 2 --seq 2048
@@ -9,13 +9,20 @@ guard, fault injection) with the data-only plan.
 Runs on the CUDA device unless ``--device cpu`` is given; a machine with no
 CUDA device raises ``ERR_SESSION`` instead of falling back.  ``--smoke``
 selects the reduced same-family config.  ``--mesh DxM`` folds the process
-world onto a (data, model) grid; the data plan averages over all of it.
-Several CPU ranks run under ``torchrun`` (gloo), as the serve launcher's do.
+world onto a (data, model) grid; on more than one rank the state is placed
+on it (``repro_torch.sharding.rules``: FSDP over data, heads, ``d_ff`` and
+the vocabulary over model) and the batch split over data.  ``--plan``
+takes data plans and ``tensor``/``expert`` > 1, which fold the world onto
+(data, model).  Several CPU ranks run under ``torchrun`` (gloo), as the
+serve launcher's do::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch phi4_mini_3_8b --smoke --device cpu --steps 4 --batch 4 --plan data=2,tensor=2
 
 Not ported yet, each raising ``ERR_UNSUPPORTED_OPERATION``: ``--plan auto``
-(the tuner, ROADMAP A15) and any plan that re-forms the fabric
-(``--pipeline-stages``, ``--ring-attention``; A14), and the elastic drills
-``--evict-at`` / ``--admit-at`` (A15).
+(the tuner, ROADMAP A15), the pipeline and ring plans
+(``--pipeline-stages``, ``--ring-attention``; A14 item 5), and the elastic
+drills ``--evict-at`` / ``--admit-at`` (A15).
 """
 
 from __future__ import annotations
@@ -63,7 +70,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="checkpoint writes overlap the next steps "
                          "(--no-async-checkpoint joins each save)")
     ap.add_argument("--plan", default=None,
-                    help="the parallelism plan; the port runs data plans only")
+                    help="the parallelism plan: data, tensor and expert dims (pipeline "
+                         "and ring plans are not ported yet)")
     ap.add_argument("--pipeline-stages", type=int, default=0, help="not ported yet")
     ap.add_argument("--pipeline-microbatches", type=int, default=2)
     ap.add_argument("--ring-attention", type=int, default=0, help="not ported yet")

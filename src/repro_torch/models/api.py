@@ -1,7 +1,11 @@
 """Unified model API: ``build(cfg)`` returns a :class:`ModelBundle` with
 init / loss / prefill / decode entry points, for every family of the
 reference: ``dense``, ``moe`` and ``vlm`` (the transformer trunk), ``ssm``,
-``hybrid`` and ``encdec``; another family raises ``ERR_UNSUPPORTED_OPERATION``."""
+``hybrid`` and ``encdec``; another family raises ``ERR_UNSUPPORTED_OPERATION``.
+The loss, prefill and decode entry points run under DTensor's implicit
+replication (:func:`repro_torch.sharding.local.implicit_replication`), so
+that on placed parameters the plain tensors they make (positions, masks,
+indices) count as replicated."""
 
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ from typing import Any, Callable
 
 from repro_torch.core import errors
 from repro_torch.models import encdec, ssm_lm, transformer
+from repro_torch.sharding.local import replicating
 
 
 @dataclasses.dataclass
@@ -23,6 +28,14 @@ class ModelBundle:
 
 
 def build(cfg) -> ModelBundle:
+    bundle = _build(cfg)
+    # (params, batch, pcfg, ...) and (params, cache, token, pcfg, ...)
+    return dataclasses.replace(bundle, loss=replicating(bundle.loss, 1),
+                               prefill=replicating(bundle.prefill, 1),
+                               decode=replicating(bundle.decode, 2))
+
+
+def _build(cfg) -> ModelBundle:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         return ModelBundle(

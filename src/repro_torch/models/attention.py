@@ -9,8 +9,16 @@ over the ring kernel (:mod:`repro_torch.kernels.ring_attention`).  MLA's
 full-sequence attention runs the flash kernel with values narrower than
 the keys; its absorbed decode is plain fp32, as the reference's.  Decode
 takes the shared scalar position of the fixed-batch ``Server`` or a per-row
-``(B,)`` vector (the continuous-batching engine's slot table).  Not ported
-yet: the sequence-sharded decode."""
+``(B,)`` vector (the continuous-batching engine's slot table).
+
+On DTensor parameters (:mod:`repro_torch.sharding`) the projections run
+through DTensor's sharding propagation and every kernel call sees this
+rank's shard through ``local_map`` (:mod:`repro_torch.sharding.local`):
+flash over the local batch rows and heads, the int8 quantize and
+dequantize over whole rows.  With ``seq_shard_cache`` and
+``flash_decode_merge`` and a communicator, decode attends over this rank's
+slice of a sequence-sharded cache and merges the partial softmaxes
+(:func:`_flash_decode_sharded`)."""
 
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import collectives, errors, topology
+from repro_torch.core import collectives, errors, overlap, topology
 from repro_torch.core.descriptors import CollectiveSpec
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -28,6 +36,7 @@ from repro_torch.kernels.quant import ops as quant_ops
 from repro_torch.kernels.ring_attention import ops as ring_ops
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
+from repro_torch.sharding import local as _local
 
 
 # ---------------------------------------------------------------------------
@@ -84,11 +93,15 @@ def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(token, head) symmetric int8: x (..., Dh) → (int8, fp32 scale
     (..., 1)), one quantize call over all rows."""
 
+    if _local.is_dtensor(x):
+        return _local.rowwise(_quantize_kv, x, n_out=2)
     q, s = quant_ops.quantize_int8_rows(x.reshape(-1, x.shape[-1]))
     return q.reshape(x.shape), s.reshape(x.shape[:-1] + (1,))
 
 
 def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    if _local.is_dtensor(q):
+        return _local.rowwise(lambda ql, sl: _dequantize_kv(ql, sl, dtype), q, scale, n_out=1)
     x = quant_ops.dequantize_int8_rows(q.reshape(-1, q.shape[-1]), scale.reshape(-1, 1), dtype)
     return x.reshape(q.shape)
 
@@ -104,11 +117,59 @@ def _row_update(layer: torch.Tensor, new: torch.Tensor, write_pos: torch.Tensor)
     rows, with the positions on the device: no host sync, so it can be
     captured."""
 
-    s, t = layer.shape[1], new.shape[1]
+    if _local.is_dtensor(layer):
+        _row_update_sharded(layer, new, write_pos)
+        return
+    _row_write(layer, new, write_pos, layer.shape[1], 0)
+
+
+def _row_write(layer, new, write_pos, s: int, off: int) -> None:
+    """:func:`_row_update` on a (local) layer that holds slots ``[off, off
+    + layer.shape[1])`` of a sequence of ``s``: a slot another rank holds
+    is written with its own value (one token a row, so no two writes of a
+    row meet)."""
+
+    t = new.shape[1]
     start = torch.clamp(write_pos.long().expand(layer.shape[0]), 0, s - t)
     cols = start[:, None] + torch.arange(t, device=layer.device)
     rows = torch.arange(layer.shape[0], device=layer.device)[:, None].expand_as(cols)
-    layer.index_put_((rows, cols), new.to(layer.dtype))
+    new = new.to(layer.dtype)
+    if off or layer.shape[1] != s:
+        cols = cols - off
+        held = (cols >= 0) & (cols < layer.shape[1])
+        cols = torch.clamp(cols, 0, layer.shape[1] - 1)
+        held = held.reshape(held.shape + (1,) * (new.dim() - 2))
+        new = torch.where(held, new, layer[rows, cols])
+    layer.index_put_((rows, cols), new)
+
+
+def _row_update_sharded(layer, new, write_pos) -> None:
+    """:func:`_row_update` of a DTensor cache layer, in place in each
+    rank's shard: batch rows and heads as the layer holds them, the
+    sequence (``seq_shard_cache``) by each rank's slot offset."""
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = layer.device_mesh, tuple(layer.placements)
+    s = layer.shape[1]
+    off, _ = _local.shard_range(pl, mesh, 1, s)
+    errors.check(
+        new.shape[1] == 1 or not any(p.is_shard(1) for p in pl),
+        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+        f"a sequence-sharded cache takes one token a row, got {new.shape[1]}",
+    )
+    new_pl = [Replicate() if p.is_shard(1) else p for p in pl]
+    pos_pl = [Shard(0) if p.is_shard(0) and write_pos.dim() == 1 else Replicate() for p in pl]
+
+    def body(ll, nl, wp):
+        _row_write(ll, nl, wp, s, off)
+        return ll
+
+    _local.local_map(
+        body, out_placements=list(pl),
+        in_placements=(pl, new_pl, pos_pl if _local.is_dtensor(write_pos) else None),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(layer, new, write_pos)
 
 
 def cache_layer_update(k_layer, v_layer, k_scale_l, v_scale_l, k_new, v_new, pos, *, ring: bool):
@@ -165,7 +226,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
 
     d, h, k = w.shape
-    return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return common.split_dim(torch.matmul(x, w.reshape(d, h * k)), -1, (h, k))
 
 
 def _out(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -192,20 +253,37 @@ def _scale(cfg) -> float:
     return cfg.query_scale if cfg.query_scale is not None else 1.0 / math.sqrt(cfg.head_dim)
 
 
+def _flash(q, k, v, pcfg, **kw):
+    """The flash call of a layer: on DTensors, the kernel over this rank's
+    batch rows and heads (``local_map``).  The ``sp`` plan's query-block
+    constraint is the reference's chunked form's (``impl="chunked"``): on
+    the CPU that form runs on the DTensors themselves, with the constraint
+    as a redistribution."""
+
+    impl = getattr(pcfg, "attn_impl", "ref")
+    sp = pcfg.model_axis if pcfg.attn_plan == "sp" else None
+    if not _local.is_dtensor(q):
+        return fa_ops.flash_attention(q, k, v, impl=impl, **kw)
+    if sp is not None and impl == "chunked" and not q.is_cuda:
+        return fa_ops.flash_attention(q, k, v, impl=impl, q_block_axis=sp, **kw)
+    return _local.attention_heads(
+        lambda ql, kl, vl: fa_ops.flash_attention(ql, kl, vl, impl=impl, **kw), q, k, v)
+
+
 def _attend(q, k, v, cfg, pcfg, sliding_window, prefix_len, mesh):
     if pcfg.ring_attention and mesh is not None and not cfg.attn_logit_softcap and \
             sliding_window is None and prefix_len is None:
         return _ring_attention_sharded(q, k, v, pcfg, mesh, scale=_scale(cfg))
-    return fa_ops.flash_attention(
+    return _flash(
         q,
         k,
         v,
+        pcfg,
         causal=True,
         sliding_window=sliding_window,
         prefix_len=prefix_len,
         logit_softcap=cfg.attn_logit_softcap,
         scale=_scale(cfg),
-        impl=getattr(pcfg, "attn_impl", "ref"),
     )
 
 
@@ -329,21 +407,79 @@ def attention_decode(
         valid = slot_pos <= pos_b
     if sliding_window is not None:
         valid = valid & (pos_b - slot_pos < sliding_window)
-    kc, vc = cache_layer_read(k_layer, v_layer, k_scale_l, v_scale_l, dtype)
-    y = _decode_attend(q, kc, vc, valid, cfg)
+    if pcfg.seq_shard_cache and pcfg.flash_decode_merge and mesh is not None and not ring \
+            and _local.is_dtensor(k_layer):
+        y = _flash_decode_sharded(q, k_layer, v_layer, k_scale_l, v_scale_l, valid, cfg,
+                                  pcfg, mesh, dtype)
+    else:
+        kc, vc = cache_layer_read(k_layer, v_layer, k_scale_l, v_scale_l, dtype)
+        y = _decode_attend(q, kc, vc, valid, cfg)
     return _out(y, p["wo"]), (k_layer, v_layer, k_scale_l, v_scale_l)
 
 
-def _decode_attend(q, kc, vc, valid, cfg):
-    h = q.shape[2]
-    kc = fa_ref._repeat_heads(kc, h)
-    vc = fa_ref._repeat_heads(vc, h)
+def _decode_scores(q, kc, valid, cfg):
+    """fp32 masked scores (B, H, 1, capacity) of one decode step."""
+
+    kc = fa_ref._repeat_heads(kc, q.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc.float())
     s = s * _scale(cfg)
     s = common.softcap(s, cfg.attn_logit_softcap)
-    s = torch.where(valid[:, None, None, :], s, fa_ref.NEG_INF)
-    pattn = torch.softmax(s, dim=-1)
+    return torch.where(valid[:, None, None, :], s, fa_ref.NEG_INF)
+
+
+def _decode_attend(q, kc, vc, valid, cfg):
+    pattn = torch.softmax(_decode_scores(q, kc, valid, cfg), dim=-1)
+    vc = fa_ref._repeat_heads(vc, q.shape[2])
     return torch.einsum("bhqk,bkhd->bqhd", pattn, vc.float()).to(q.dtype)
+
+
+def _flash_decode_sharded(q, k_layer, v_layer, k_scale_l, v_scale_l, valid, cfg, pcfg,
+                          comm, dtype):
+    """Sequence-sharded KV cache decode: each model-axis shard attends over
+    its slice of the cache, then the exact softmax merge
+    (:func:`~repro_torch.core.overlap.merge_partial_attention`) combines
+    the partial ``(o, m, l)`` (O(B·H) payload instead of all-gathering the
+    cache).  The cache layer is a DTensor; batch rows stay on the data
+    axes, and q is whole on the model axis."""
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    axis = pcfg.model_axis
+    mesh = k_layer.device_mesh
+    names = mesh.mesh_dim_names
+    b = q.shape[0]
+    kv_pl = tuple(Shard(1) if name == axis else
+                  (Shard(0) if name in pcfg.data_axes and b % mesh.size(i) == 0
+                   else Replicate())
+                  for i, name in enumerate(names))
+    q_pl = tuple(Replicate() if name == axis else pl for name, pl in zip(names, kv_pl))
+    errors.check(
+        k_layer.shape[1] % mesh.size(names.index(axis)) == 0,
+        errors.ErrorClass.ERR_DIMS,
+        f"a cache of {k_layer.shape[1]} slots does not split over {axis!r}",
+    )
+    merge_comm = comm.split(axis)
+
+    def body(ql, kl, vl, ksl, vsl, validl):
+        kc, vc = cache_layer_read(kl, vl, ksl, vsl, dtype)
+        s = _decode_scores(ql, kc, validl, cfg)
+        # the shard's normalised output as the unsharded decode computes it,
+        # and its (max, normaliser) for the merge
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                         fa_ref._repeat_heads(vc, ql.shape[2]).float())
+        m = torch.amax(s, dim=-1)
+        l_ = torch.sum(torch.exp(s - m[..., None]), dim=-1)
+        return overlap.merge_partial_attention(o, m, l_, merge_comm).to(ql.dtype)
+
+    if not _local.is_dtensor(valid):
+        valid = distribute_tensor(valid, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+    sc_pl = None if k_scale_l is None else kv_pl
+    # valid (B, capacity) splits as the cache's (B, S) dims
+    return _local.local_map(
+        body, out_placements=list(q_pl),
+        in_placements=(q_pl, kv_pl, kv_pl, sc_pl, sc_pl, kv_pl),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(q, k_layer, v_layer, k_scale_l, v_scale_l, valid)
 
 
 # ---------------------------------------------------------------------------
@@ -425,10 +561,7 @@ def mla_attention_full(p, x, cfg, pcfg, *, positions, mesh=None, return_cache=Fa
     k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], h, cfg.rope_head_dim)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope_h], dim=-1)
-    out = fa_ops.flash_attention(
-        q_full, k_full, v, causal=True, scale=_mla_scale(cfg),
-        impl=getattr(pcfg, "attn_impl", "ref"),
-    )
+    out = _flash(q_full, k_full, v, pcfg, causal=True, scale=_mla_scale(cfg))
     y = _out(out, p["wo"])
     if return_cache:
         return y, (ckv, k_rope)

@@ -64,6 +64,39 @@ def dense_init(gen: torch.Generator, in_dim: int, shape: tuple[int, ...], dtype,
     return _truncated_normal(gen, shape, 1.0 / math.sqrt(in_dim), dtype, stacked)
 
 
+def split_dim(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)`` as a reshape to the whole shape, which
+    DTensor's view propagation carries over a dim split on its leading
+    part (heads sharded on ``model``); ``unflatten`` checks the sizes
+    against the local shard."""
+
+    dim = dim % x.dim()
+    sizes = tuple(sizes)
+    if -1 in sizes:
+        known = math.prod(s for s in sizes if s != -1)
+        sizes = tuple(x.shape[dim] // known if s == -1 else s for s in sizes)
+    return x.reshape(tuple(x.shape[:dim]) + sizes + tuple(x.shape[dim + 1:]))
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[tokens]`` by ``F.embedding``, whose backward (and its
+    DTensor strategy over a vocabulary split on ``model``) is the
+    embedding's own rather than an indexed accumulate.  Over a split
+    vocabulary the rows come out as a masked partial sum, reduced here to
+    whole rows: DTensor cannot redistribute such a partial onto a batch
+    split."""
+
+    x = F.embedding(tokens, table)
+    from repro_torch.sharding.local import is_dtensor
+
+    if is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        from torch.distributed.tensor import Replicate
+
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in x.placements])
+    return x
+
+
 # -- norms -----------------------------------------------------------------------
 
 
@@ -126,11 +159,56 @@ def rope(
     return out
 
 
-def constrain(x: torch.Tensor, pcfg, *, logits: bool = False) -> torch.Tensor:
-    """Activation sharding constraint of the reference; the identity in the
-    single-device port."""
+def pin(x: torch.Tensor, dims: tuple, pcfg) -> torch.Tensor:
+    """Constrain a DTensor's placement: the reference's
+    ``with_sharding_constraint`` as a ``redistribute``.  ``dims`` entries:
+    ``'data'`` (the ParallelConfig data axes), ``'model'``, ``'experts'``
+    (the model axis iff ``shard_experts``) or ``None``; a mesh axis appears
+    once, a dim that does not divide (or an axis of one) stays replicated,
+    and every mesh dim not named is replicated.  The identity on a plain
+    tensor, or when nothing would be sharded."""
 
-    return x
+    from repro_torch.sharding.local import is_dtensor
+
+    if pcfg is None or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    shape = dict(zip(names, mesh.mesh.shape))
+    table = {
+        "data": tuple(a for a in pcfg.data_axes if a in shape) or None,
+        "model": pcfg.model_axis if pcfg.model_axis in shape else None,
+        "experts": pcfg.model_axis if pcfg.shard_experts and pcfg.model_axis in shape else None,
+    }
+    out: list = [Replicate()] * len(names)
+    used: set = set()
+    any_axis = False
+    for dim, (size, name) in enumerate(zip(x.shape, dims)):
+        axes = table.get(name) if name else None
+        if axes is None:
+            continue
+        group = (axes,) if isinstance(axes, str) else axes
+        n = math.prod(int(shape[a]) for a in group)
+        if used & set(group) or n <= 1 or size % n:
+            continue
+        used |= set(group)
+        any_axis = True
+        for a in group:
+            out[names.index(a)] = Shard(dim)
+    if not any_axis:
+        return x
+    return x.redistribute(mesh, out)
+
+
+def constrain(x: torch.Tensor, pcfg, *, logits: bool = False) -> torch.Tensor:
+    """Pin activation sharding: batch over the data axes, last dim over
+    'model' for logits; everything else replicated.  The identity on plain
+    tensors or when no dim divides."""
+
+    dims = ("data",) + (None,) * (x.dim() - 2) + ("model" if logits else None,)
+    return pin(x, dims[: x.dim()], pcfg)
 
 
 # -- losses -------------------------------------------------------------------------------
@@ -142,6 +220,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *, softcap_val=Non
     logits = logits.float()
     if softcap_val is not None:
         logits = softcap(logits, softcap_val)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    # the gathered column keeps its trailing dim: over a vocabulary sharded
+    # on ``model`` the gather is a masked partial, which a view cannot drop
+    gold = torch.gather(logits, -1, labels[..., None].long())
     return torch.mean(logz - gold)

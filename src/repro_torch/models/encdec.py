@@ -116,7 +116,7 @@ def _decoder_full(params, enc_out, tokens, cfg, pcfg, *, collect_cache, mesh=Non
     """The teacher-forced decoder → (x, ys): with ``collect_cache``, ys is
     ((k, v), (cross_k, cross_v)), each stacked over the layers."""
 
-    x = params["embed"][tokens]
+    x = common.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def unit(x, lp):
@@ -201,7 +201,7 @@ def encdec_decode(params, cache: EncDecCache, token, cfg, pcfg, mesh=None):
     self-attention cache is updated in place, ``pos`` advances, and the
     cross-attention K/V are handed on as they are."""
 
-    x = params["embed"][token]
+    x = common.embed(params["embed"], token)
     kv = cache.self_kv
     pos = kv.pos
     for i, lp in enumerate(transformer._units(params["decoder"])):

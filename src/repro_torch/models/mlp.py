@@ -27,18 +27,24 @@ The expert-parallel dispatch (:func:`moe_neighbor` over the router's expert
 graph, :func:`expert_dispatch_graph`) moves token rows between the ranks
 that own the experts with two ``neighbor_alltoallv`` rounds of a
 :class:`~repro_torch.core.topology.DistGraphComm`; each rank calls it with
-its own tokens and its own slice of the experts.  The mesh placement
-``_pin`` is not ported yet (ROADMAP A14 item 4).
+its own tokens and its own slice of the experts.
+
+On DTensor parameters the dispatch's index math (the stable sort, the
+slot of each row) runs on whole rows of each rank's batch shard through
+``local_map``; :func:`_pin` is the reference's sharding constraint as a
+``redistribute`` (:func:`repro_torch.models.common.pin`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate
 
 from repro_torch.core import errors
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
+from repro_torch.sharding.local import is_dtensor, rowwise
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,11 +78,22 @@ def mlp(p: common.Params, x: torch.Tensor, act: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _pin(x: torch.Tensor, dims: tuple, pcfg) -> torch.Tensor:
+    """Constrain a MoE-internal tensor's placement (the identity on a plain
+    tensor or when no mapped dim divides).  ``dims`` entries: 'data' (the
+    ParallelConfig data axes), 'model', 'experts' (model axis iff
+    shard_experts), or None."""
+
+    return common.pin(x, dims, pcfg)
+
+
 def _dispatch_slots(bucket: torch.Tensor, e: int, c: int) -> torch.Tensor:
     """Each row's flat slot ``bucket * c + position in its bucket``, or
     ``e * c`` where the position reaches capacity; positions follow the
     rows' order within a bucket (a stable sort)."""
 
+    if is_dtensor(bucket):
+        return rowwise(lambda b: _dispatch_slots(b, e, c), bucket, n_out=1)
     n = bucket.shape[-1]
     order = torch.argsort(bucket, dim=-1, stable=True)
     sorted_b = torch.gather(bucket, -1, order)
@@ -98,7 +115,7 @@ def _scatter_rows(rows: torch.Tensor, slot: torch.Tensor, e: int, c: int) -> tor
     index = [torch.arange(m, device=rows.device).reshape((-1,) + (1,) * (len(lead) - i))
              for i, m in enumerate(lead)]
     buf = buf.index_put((*index, slot.long()), rows)
-    return buf[..., : e * c, :].unflatten(-2, (e, c))
+    return common.split_dim(buf[..., : e * c, :], -2, (e, c))
 
 
 def _sort_dispatch(rows: torch.Tensor, bucket: torch.Tensor, e: int, c: int):
@@ -147,13 +164,21 @@ def _repeat_rows(x: torch.Tensor, k: int) -> torch.Tensor:
     return x.unsqueeze(-2).expand(*lead, t, k, d).reshape(*lead, t * k, d)
 
 
-def _experts(p, slots: torch.Tensor, act: str) -> torch.Tensor:
-    """The grouped expert FFN: ``slots`` (..., e, c, d) → (..., e, c, d)."""
+def _experts(p, slots: torch.Tensor, act: str, pcfg=None) -> torch.Tensor:
+    """The grouped expert FFN: ``slots`` (..., e, c, d) → (..., e, c, d).
+    With ``pcfg`` (the per-row dispatch's (b, e, c, d) slots) the hidden
+    and output slots are pinned as the reference pins them."""
 
     a = common.activation(act)
     g = torch.matmul(slots, p["w_gate"])
     u = torch.matmul(slots, p["w_up"])
-    return torch.matmul(a(g) * u, p["w_down"])
+    if pcfg is not None:
+        g = _pin(g, ("data", "experts", None, "model"), pcfg)
+        u = _pin(u, ("data", "experts", None, "model"), pcfg)
+    out = torch.matmul(a(g) * u, p["w_down"])
+    if pcfg is not None:
+        out = _pin(out, ("data", "experts", None, None), pcfg)
+    return out
 
 
 def _combine(out_slots: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor, k: int):
@@ -166,7 +191,7 @@ def _combine(out_slots: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor, k
     padded = torch.cat([out_slots, out_slots.new_zeros((*lead, 1, d))], dim=-2)
     idx = slot.long().unsqueeze(-1).expand(*slot.shape, d)
     gathered = torch.gather(padded, -2, idx)
-    weighted = (gathered * gates.unsqueeze(-1).to(gathered.dtype)).unflatten(-2, (-1, k))
+    weighted = common.split_dim(gathered * gates.unsqueeze(-1).to(gathered.dtype), -2, (-1, k))
     y = weighted[..., 0, :]
     for j in range(1, k):
         y = y + weighted[..., j, :]
@@ -176,7 +201,7 @@ def _combine(out_slots: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor, k
 def _aux(logits, probs, top_e, slot, e: int, c: int) -> dict:
     me = probs.reshape(-1, e).mean(0)                          # (e,)
     flat_e = top_e.reshape(-1)
-    ce_frac = torch.zeros(e, device=probs.device).index_add_(
+    ce_frac = torch.zeros(e, device=probs.device).index_add(
         0, flat_e, torch.ones(flat_e.shape, device=probs.device)) / flat_e.numel()
     return {
         "load_balance_loss": e * torch.sum(me * ce_frac),
@@ -196,8 +221,9 @@ def moe_per_row(p: common.Params, x: torch.Tensor, cfg, pcfg=None) -> tuple[torc
     slot = _dispatch_slots(top_e.reshape(b, s * k), e, c)     # (b, s*k)
     rows = _repeat_rows(x, k)                                 # (b, s*k, d)
     slots = _scatter_rows(rows, slot, e, c)                   # (b, e, c, d)
-    out_flat = _experts(p, slots, cfg.act).reshape(b, e * c, d)
-    y = _combine(out_flat, slot, top_p.reshape(b, s * k), k)
+    slots = _pin(slots, ("data", "experts", None, None), pcfg)
+    out_flat = _experts(p, slots, cfg.act, pcfg).reshape(b, e * c, d)
+    y = _pin(_combine(out_flat, slot, top_p.reshape(b, s * k), k), ("data", None, None), pcfg)
     if cfg.num_shared_experts:
         y = y + mlp(p["shared"], x, cfg.act)
     return y, _aux(logits, probs, top_e, slot, e, c)
@@ -394,4 +420,10 @@ def moe(
     y = _combine(out_slots, slot, top_p.reshape(-1), k)
     if cfg.num_shared_experts:
         y = y + mlp(p["shared"], xt, cfg.act)
+    if is_dtensor(y):
+        # the token rows may be split over more ranks than the batch rows
+        # divide: whole before the (b, s) split, then batch over data
+        y = common.pin(y.redistribute(y.device_mesh, [Replicate()] * y.device_mesh.ndim)
+                       .reshape(b, s, d), ("data", None, None), pcfg)
+        return y, _aux(logits, probs, top_e, slot, e, c)
     return y.reshape(b, s, d), _aux(logits, probs, top_e, slot, e, c)

@@ -1,6 +1,11 @@
 """Mamba-2 block (SSD): projections, causal depthwise conv, the SSD scan
 (the CUDA kernel on the card, the chunked form on the CPU), gated RMS norm,
-plus the O(1)-state decode step and its cache — :mod:`repro.models.ssm`."""
+plus the O(1)-state decode step and its cache — :mod:`repro.models.ssm`.
+
+On DTensor parameters the scan's inputs are pinned with their heads over
+the model axis (batch over the data axes) and the kernel runs on this
+rank's heads through ``local_map`` (:func:`repro_torch.sharding.local.
+ssd_heads`)."""
 
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
+from repro_torch.sharding import local as _local
 
 
 @dataclasses.dataclass
@@ -109,14 +115,20 @@ def mamba2_full(p, x, cfg, pcfg, *, conv_history=None, return_cache=False):
     z, xbc, dt = _split_proj(zxbcdt, cfg)
     xbc, new_hist = _causal_conv(xbc, p["conv_w"], p["conv_b"], history=conv_history)
     # x, B and C stay views of the conv output: the kernel reads them by strides
-    xh = xbc[..., :di].unflatten(-1, (nh, hp))
-    B = xbc[..., di : di + g * n].unflatten(-1, (g, n))
-    C = xbc[..., di + g * n :].unflatten(-1, (g, n))
+    xh = common.split_dim(xbc[..., :di], -1, (nh, hp))
+    B = common.split_dim(xbc[..., di : di + g * n], -1, (g, n))
+    C = common.split_dim(xbc[..., di + g * n :], -1, (g, n))
     dt = F.softplus(dt.float() + p["dt_bias"])                  # (B, S, nh)
     A = -torch.exp(p["a_log"])
 
     chunk = min(128, x.shape[1])
-    if return_cache:
+    if _local.is_dtensor(xh):
+        xh = common.pin(xh, ("data", None, "model", None), pcfg)
+        scan = ssd_ops.ssd_scan_with_state if return_cache else ssd_ops.ssd_scan
+        out = _local.ssd_heads(lambda *a: scan(*a, chunk=chunk), xh, dt, A, B, C,
+                               with_state=return_cache)
+        y, final_state = out if return_cache else (out, None)
+    elif return_cache:
         y, final_state = ssd_ops.ssd_scan_with_state(xh, dt, A, B, C, chunk=chunk)
     else:
         y = ssd_ops.ssd_scan(xh, dt, A, B, C, chunk=chunk)
@@ -136,12 +148,12 @@ def mamba2_decode(p, x1, conv_hist, state, cfg, pcfg):
     z, xbc, dt = _split_proj(zxbcdt, cfg)
     xbc, conv_hist = _causal_conv(xbc, p["conv_w"], p["conv_b"], history=conv_hist)
     xs = xbc[:, 0, :di]
-    B = xbc[:, 0, di : di + g * n].unflatten(-1, (g, n))
-    C = xbc[:, 0, di + g * n :].unflatten(-1, (g, n))
+    B = common.split_dim(xbc[:, 0, di : di + g * n], -1, (g, n))
+    C = common.split_dim(xbc[:, 0, di + g * n :], -1, (g, n))
     dt = F.softplus(dt[:, 0].float() + p["dt_bias"])            # (B, nh)
     A = -torch.exp(p["a_log"])
 
-    xh = xs.unflatten(-1, (nh, hp))
+    xh = common.split_dim(xs, -1, (nh, hp))
     y, state = ssd_ops.ssd_decode_step(state, xh, dt, A, B, C)
     out = _gated_out(p, y.float()[:, None], z, xh[:, None], cfg, x1.dtype)
     return out, (conv_hist, state)

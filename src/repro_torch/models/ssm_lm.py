@@ -79,7 +79,7 @@ def _ssm_cache(convs, states, pos, cfg) -> SSMCache:
 
 def ssm_lm_loss(params, batch, cfg, pcfg, mesh=None):
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = common.embed(params["embed"], tokens)
 
     def unit(x, lp):
         return _ssm_layer_full(lp, x, cfg, pcfg)[0]
@@ -97,7 +97,7 @@ def ssm_lm_prefill(params, batch, cfg, pcfg, mesh=None, extra_capacity: int = 0)
     headroom, so ``extra_capacity`` is unused, as in the reference."""
 
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = common.embed(params["embed"], tokens)
     convs, states = [], []
     for i in range(cfg.num_layers):
         x, (conv, state) = _ssm_layer_full(
@@ -110,7 +110,7 @@ def ssm_lm_prefill(params, batch, cfg, pcfg, mesh=None, extra_capacity: int = 0)
 
 
 def ssm_lm_decode(params, cache: SSMCache, token, cfg, pcfg, mesh=None):
-    x = params["embed"][token]
+    x = common.embed(params["embed"], token)
     for i in range(cfg.num_layers):
         x = _ssm_layer_decode(_unit(params["layers"], i), x, cache, i, cfg, pcfg)
     cache = dataclasses.replace(cache, pos=cache.pos + 1)
@@ -184,7 +184,7 @@ def _shared_attn_full(sp, x, cfg, pcfg, *, positions, mesh, collect_cache):
 
 def hybrid_lm_loss(params, batch, cfg, pcfg, mesh=None):
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = common.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     grouped, tail = _ssm_units(params, cfg)
 
@@ -235,7 +235,7 @@ def hybrid_lm_prefill(params, batch, cfg, pcfg, mesh=None, extra_capacity: int =
     ``extra_capacity`` empty slots of decode headroom."""
 
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = common.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     grouped, tail = _ssm_units(params, cfg)
     entries, convs, states = [], [], []
@@ -263,7 +263,7 @@ def hybrid_lm_prefill(params, batch, cfg, pcfg, mesh=None, extra_capacity: int =
 
 
 def hybrid_lm_decode(params, cache: HybridCache, token, cfg, pcfg, mesh=None):
-    x = params["embed"][token]
+    x = common.embed(params["embed"], token)
     pos = cache.pos
     sp = params["shared_attn"]
     grouped, tail = _ssm_units(params, cfg)

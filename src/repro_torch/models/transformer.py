@@ -32,6 +32,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
 from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.common import dense_init
+from repro_torch.sharding.local import is_dtensor, local_map
 
 _AUX = ("load_balance_loss", "router_z_loss", "dropped_fraction")
 
@@ -250,7 +251,7 @@ def init_lm(gen: torch.Generator, cfg) -> common.Params:
 
 
 def _embed(params, tokens, cfg):
-    x = params["embed"][tokens]
+    x = common.embed(params["embed"], tokens)
     if cfg.embed_scale:
         # a fill kernel (capturable in a CUDA graph), rounded to x's dtype as
         # the reference's constant is
@@ -261,8 +262,12 @@ def _embed(params, tokens, cfg):
 def _head(params, x, cfg, pcfg=None):
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"].t())
-    return torch.matmul(x, params["lm_head"])
+        logits = torch.matmul(x, params["embed"].t())
+    else:
+        logits = torch.matmul(x, params["lm_head"])
+    if pcfg is not None:
+        logits = common.constrain(logits, pcfg, logits=True)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +294,7 @@ def lm_forward(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor,
     the stacked units."""
 
     x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
+    x = common.constrain(x, pcfg)
     for i in range(cfg.first_dense_layers):
         x, _, _ = _block_full(
             params[f"dense_{i}"], x, cfg, pcfg, kind="dense", sliding_window=None,
@@ -298,11 +304,13 @@ def lm_forward(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor,
 
     def unit(x, unit_params):
         aux_l = {}
+        x = common.constrain(x, pcfg)
         for name, kind, window in plan:
             x, _, aux = _block_full(
                 unit_params[name], x, cfg, pcfg, kind=kind, sliding_window=window,
                 positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=False,
             )
+            x = common.constrain(x, pcfg)
             for k_, v_ in aux.items():
                 aux_l[k_] = aux_l[k_] + v_ if k_ in aux_l else v_
         return x, aux_l
@@ -378,6 +386,7 @@ def lm_prefill(params, batch: dict, cfg, pcfg, mesh=None, extra_capacity: int = 
     (last-token logits, cache dict)."""
 
     x, positions, prefix_len = _prepare_inputs(params, batch, cfg)
+    x = common.constrain(x, pcfg)
     seq = x.shape[1]
     caches: dict[str, Any] = {}
     for i in range(cfg.first_dense_layers):
@@ -392,11 +401,13 @@ def lm_prefill(params, batch: dict, cfg, pcfg, mesh=None, extra_capacity: int = 
     entries: dict[str, list] = {name: [] for name, _, _ in plan}
     for u in range(_num_units(cfg)):
         unit_params = _unit(params["layers"], u)
+        x = common.constrain(x, pcfg)
         for name, kind, window in plan:
             x, entry, _ = _block_full(
                 unit_params[name], x, cfg, pcfg, kind=kind, sliding_window=window,
                 positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=True,
             )
+            x = common.constrain(x, pcfg)
             entries[name].append(entry)
     pos = torch.tensor(seq, dtype=torch.int32, device=x.device)
     for name, _, window in plan:
@@ -418,6 +429,14 @@ def _pad_seq(arr, extra: int):
 
     if not extra:
         return arr
+    if is_dtensor(arr):
+        # padded on each rank's shard: the sequence is whole there (DTensor's
+        # own padding decomposition fails over a split dim on torch 2.11)
+        from torch.distributed.tensor import Replicate
+
+        pl = [Replicate() if p.is_shard(2) or p.is_partial() else p for p in arr.placements]
+        return local_map(lambda a: _pad_seq(a, extra), out_placements=pl, in_placements=(pl,),
+                         device_mesh=arr.device_mesh, redistribute_inputs=True)(arr)
     return torch.nn.functional.pad(arr, (0, 0) * (arr.dim() - 3) + (0, extra))
 
 
@@ -463,6 +482,7 @@ def lm_decode(params, caches: dict, token: torch.Tensor, cfg, pcfg, mesh=None):
 
     pos = next(iter(caches.values())).pos
     x = _embed(params, token, cfg)
+    x = common.constrain(x, pcfg)
     for i in range(cfg.first_dense_layers):
         slices = tuple(None if a is None else a[0] for a in _cache_xs(caches[f"dense_{i}"]))
         x, _ = _block_decode(

@@ -20,6 +20,16 @@ each piece's payloads are read and written by the int8 row kernels
 (:mod:`repro_torch.kernels.quant`: one dequantize and one quantize a moment
 and piece).  The step direction uses the fp32 moments before they are
 stored quantized, as in the reference.
+
+On DTensor parameters (placed state, :mod:`repro_torch.sharding`) the
+moments are DTensors in their parameter's placement (an int8 moment's
+scales placed as its rows: split like the payload's leading dims, whole
+along the last), and the update runs on each rank's local shards in place:
+elementwise, it gives every element the bits the whole update gives it.
+An int8 moment whose last axis is split takes each row's absmax over the
+whole row: each piece of the fp32 moment (whole rows, at most ``PIECE``
+elements of them) is gathered along the last axis around its quantize,
+and each rank keeps its slice of the payload.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from repro_torch.core import errors
 from repro_torch.core.futures import flatten, unflatten
 from repro_torch.kernels.quant import ops as quant
 from repro_torch.optim.clip import PIECE, pieces
+from repro_torch.sharding.local import is_dtensor, shard_range
 
 Params = Any
 
@@ -73,12 +84,26 @@ def _q8_read(z: _Q8) -> torch.Tensor:
                                       torch.float32).view(z.q.shape)
 
 
+def _row_placements(p) -> list:
+    """A DTensor's placements with its last dim made whole."""
+
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if pl.is_shard(p.ndim - 1) else pl for pl in p.placements]
+
+
 def _q8_zeros(p: torch.Tensor) -> _Q8:
     """The int8 store of a zero moment of ``p``'s shape: zero payloads and
     unit scales, allocated as they are (quantizing fp32 zeros would take a
     temporary four times the payload)."""
 
     shape = tuple(p.shape)
+    if is_dtensor(p):
+        from torch.distributed.tensor import ones
+
+        scale = ones(shape[:-1] + (1,) if shape else (), dtype=torch.float32,
+                     device_mesh=p.device_mesh, placements=_row_placements(p))
+        return _Q8(q=torch.zeros_like(p, dtype=torch.int8), scale=scale)
     return _Q8(q=torch.zeros(shape, dtype=torch.int8, device=p.device),
                scale=torch.ones(shape[:-1] + (1,) if shape else (), dtype=torch.float32,
                                 device=p.device))
@@ -88,12 +113,20 @@ def _read(z) -> torch.Tensor:
     return _q8_read(z) if isinstance(z, _Q8) else z.float()
 
 
-def _store(z, x: torch.Tensor) -> None:
-    """Write the fp32 moment ``x`` into the store ``z`` in place."""
+def _store(z, x: torch.Tensor, whole=None) -> None:
+    """Write the fp32 moment ``x`` into the store ``z`` in place.  An int8
+    store whose rows other ranks hold part of quantizes the whole rows,
+    ``whole(x)`` (the rows gathered, and the slice of this rank's
+    columns)."""
 
     if isinstance(z, _Q8):
-        new = _q8_of(x)
-        z.q.copy_(new.q)
+        if whole is None:
+            new = _q8_of(x)
+            z.q.copy_(new.q)
+        else:
+            rows, cols = whole(x)
+            new = _q8_of(rows)
+            z.q.copy_(new.q[..., cols])
         z.scale.copy_(new.scale)
     else:
         z.copy_(x)
@@ -152,20 +185,28 @@ class AdamW:
         def zeros():
             if dtype == torch.int8:
                 return unflatten(treedef, [_q8_zeros(p) for p in leaves])
-            return unflatten(treedef, [torch.zeros(p.shape, dtype=dtype, device=p.device)
+            return unflatten(treedef, [torch.zeros_like(p, dtype=dtype) if is_dtensor(p)
+                                       else torch.zeros(p.shape, dtype=dtype, device=p.device)
                                        for p in leaves])
 
         device = leaves[0].device if leaves else None
-        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
-                          mu=zeros(), nu=zeros())
+        step = torch.zeros((), dtype=torch.int32, device=device)
+        if leaves and is_dtensor(leaves[0]):
+            from torch.distributed.tensor import Replicate
+            from torch.distributed.tensor import zeros as dzeros
 
-    def _update_piece(self, p, g, mu_z, nu_z, lr, bc1, bc2, decay: bool) -> None:
+            mesh = leaves[0].device_mesh
+            step = dzeros((), dtype=torch.int32, device_mesh=mesh,
+                          placements=[Replicate()] * mesh.ndim)
+        return AdamWState(step=step, mu=zeros(), nu=zeros())
+
+    def _update_piece(self, p, g, mu_z, nu_z, lr, bc1, bc2, decay: bool, whole=None) -> None:
         g = g.float()
         mu = self.b1 * _read(mu_z) + (1 - self.b1) * g
         nu = self.b2 * _read(nu_z) + (1 - self.b2) * g * g
         del g
-        _store(mu_z, mu)
-        _store(nu_z, nu)
+        _store(mu_z, mu, whole)
+        _store(nu_z, nu, whole)
         step_dir = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
         del mu, nu
         pf = p.float()
@@ -181,7 +222,9 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Params, state: AdamWState, params: Params
                ) -> tuple[Params, AdamWState]:
-        step = state.step + 1
+        # a placed (replicated DTensor) counter steps on its local value
+        placed = is_dtensor(state.step)
+        step = (state.step.to_local() if placed else state.step) + 1
         lr = self._lr_at(step)
         stepf = step.float()
         # fills, not host-to-device copies: the step is captured as a CUDA graph
@@ -201,18 +244,72 @@ class AdamW:
         )
         for p, g, mu_z, nu_z in zip(flat_p, flat_g, flat_mu, flat_nu):
             decay = p.ndim >= 1  # decoupled decay on matrices/vectors, not scalars
+            width = p.shape[-1] if p.ndim else 1   # a whole row's, where p is split
+            whole = None
+            if is_dtensor(p):
+                p, g, mu_z, nu_z, whole = _local_leaves(p, g, mu_z, nu_z, is_q8)
             g = g.contiguous()
             if is_q8:
-                # whole rows a piece: a row's scale needs the whole row
-                rows = max(1, PIECE // p.shape[-1]) if p.ndim else 1
+                # whole rows a piece: a row's scale needs the whole row; a
+                # row split over ranks is gathered a piece at a time
+                rows = max(1, PIECE // width)
                 parts = zip(_row_pieces(p, rows), _row_pieces(g, rows),
                             _q8_pieces(mu_z.value, rows), _q8_pieces(nu_z.value, rows))
             else:
                 parts = zip(pieces(p), pieces(g), pieces(mu_z), pieces(nu_z))
             for pp, gp, mp, np_ in parts:
-                self._update_piece(pp, gp, mp, np_, lr, bc1, bc2, decay)
-        state.step = step.to(torch.int32)
+                self._update_piece(pp, gp, mp, np_, lr, bc1, bc2, decay, whole)
+        step = step.to(torch.int32)
+        if placed:
+            from torch.distributed.tensor import DTensor
+
+            step = DTensor.from_local(step, state.step.device_mesh, state.step.placements,
+                                      run_check=False)
+        state.step = step
         return params, state
+
+
+def _local_leaves(p, g, mu_z, nu_z, is_q8: bool):
+    """The local shards of one DTensor leaf's parameter, gradient (placed
+    as the parameter) and moments, and for an int8 leaf whose last axis is
+    split, the whole-row gather of a piece of local rows that
+    :func:`_store` takes (else ``None``).  A moment placed other than its
+    parameter is refused."""
+
+    mesh, place = p.device_mesh, tuple(p.placements)
+    if tuple(g.placements) != place:
+        g = g.redistribute(mesh, place)
+    stores = [z.value.q if is_q8 else z for z in (mu_z, nu_z)]
+    errors.check(
+        all(tuple(z.placements) == place for z in stores),
+        errors.ErrorClass.ERR_DIMS,
+        f"AdamW: a moment placed {[tuple(z.placements) for z in stores]} under a "
+        f"parameter placed {place}: the update runs on matching shards",
+    )
+
+    def local(z):
+        if is_q8:
+            return _Leaf(_Q8(z.value.q.to_local(), z.value.scale.to_local()))
+        return z.to_local()
+
+    last = p.ndim - 1
+    split = is_q8 and any(pl.is_shard(last) and mesh.size(i) > 1 for i, pl in enumerate(place))
+    whole = None
+    if split:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        off, n = shard_range(place, mesh, last, p.shape[-1])
+        # a piece (rows, local columns): the mesh dims that split the last
+        # axis split its columns; the others hold other rows (or the same)
+        piece_pl = [Shard(1) if pl.is_shard(last) else Shard(0) if pl.is_shard() else pl
+                    for pl in place]
+        rows_pl = [Replicate() if pl.is_shard(1) else pl for pl in piece_pl]
+
+        def whole(x):
+            dx = DTensor.from_local(x, mesh, piece_pl, run_check=False)
+            return dx.redistribute(mesh, rows_pl).to_local(), slice(off, off + n)
+
+    return p.to_local(), g.to_local(), local(mu_z), local(nu_z), whole
 
 
 class _Leaf:

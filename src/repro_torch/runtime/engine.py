@@ -127,6 +127,12 @@ class Engine:
             "paged slot table requires linear (uniform) cache layout",
         )
         errors.check(
+            not server.placed,
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            "the engine's slot table and inserts run on whole weights: serve over a "
+            "communicator whose model axis is one rank",
+        )
+        errors.check(
             ecfg.prompt_bucket >= 1 and scfg.max_new_tokens >= 1,
             errors.ErrorClass.ERR_ARG,
             f"need prompt_bucket >= 1 and max_new_tokens >= 1, got "

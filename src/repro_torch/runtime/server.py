@@ -28,12 +28,37 @@ capture, with no eager warm-up, a call).  Keeping the graph would instead
 copy each new cache into the captured one, and keep the old cache alive
 through the next prefill beside the new one.
 
+**Placement** (:mod:`repro_torch.sharding.rules`): on a communicator
+whose ``model`` axis has more than one rank the server places its
+parameters under ``param_specs`` as DTensors on the communicator's
+``device_mesh`` (every rank builds the same weights from the same seed and
+keeps its shard), and the prefill's cache under ``cache_specs`` (batch over
+the data axes, heads or, with ``seq_shard_cache``, the sequence over
+``model``).  DTensor's sharding propagation computes what the unsharded
+model computes, and the kernels see local shards
+(:mod:`repro_torch.sharding.local`).  With ``seq_shard_cache`` and
+``flash_decode_merge`` the decode step gets the communicator, and each
+model shard attends over its slice of the cache.  Every rank runs
+``generate`` on the same requests and returns the same tokens.  A placed
+batch's rows must split over the data axes (``ERR_DIMS`` otherwise, where
+the reference replicates the batch: see
+:func:`~repro_torch.sharding.local.check_rows_split`).
+
+The mesh selects the layout, and no option does.  **A communicator whose
+model axis is one rank keeps plain tensors**, a communicator of one rank
+included: the server draws the whole model on every rank before it places
+it, so a model it serves fits one rank, and placing it over the data axes
+alone would only add a gather of the whole model's data shards to every
+step, and DTensor's per-op host dispatch, for no memory at the step's
+peak.  Each rank then runs the whole model on the whole batch, as the
+data-parallel server did before placement was ported.  Parameters the
+caller placed (``rules.distribute``, as the chip phase does on its mesh of
+one) are served as placed ones.
+
 **Ring attention**: with ``pcfg.ring_attention`` the prefill gets the
 communicator, as the reference's gets its mesh, and shards each eligible
-layer's sequence over the ring (``models/attention.py``).  Every rank builds
-the same weights from the same seed and runs ``generate`` on the same
-requests; decode runs replicated, with no communicator, and every rank
-returns the same tokens.
+layer's sequence over the ring (``models/attention.py``); the ring runs on
+plain (unplaced) parameters.
 
 The continuous-batching engine (:mod:`repro_torch.runtime.engine`) runs
 over a server's persistent prefill and decode requests.
@@ -63,6 +88,8 @@ from repro_torch.core.futures import PersistentRequest, argument_signature, flat
 from repro_torch.core.session import UNDEFINED, Session, default_session
 from repro_torch.launch.mesh import make_host_communicator
 from repro_torch.models import api as model_api
+from repro_torch.sharding import local as sharding_local
+from repro_torch.sharding import rules
 
 tool.pvar_register("trace:prefill_step", "prefill requests built (want 1 per shape bucket)")
 tool.pvar_register("trace:decode_step", "decode requests built (want 1 per shape bucket)")
@@ -97,6 +124,23 @@ def generation_lengths(tokens: np.ndarray, stop_token: int | None) -> np.ndarray
     return np.where(hit.any(axis=1), hit.argmax(axis=1) + 1, n).astype(np.int64)
 
 
+def _mesh_of(tree):
+    """The device mesh of a placed tree (its first leaf a DTensor), else
+    ``None``."""
+
+    leaves, _ = flatten(tree)
+    first = leaves[0] if leaves else None
+    return first.device_mesh if sharding_local.is_dtensor(first) else None
+
+
+def _whole(tree):
+    """Every DTensor leaf of ``tree`` as the whole tensor."""
+
+    leaves, treedef = flatten(tree)
+    return unflatten(treedef, [t.full_tensor() if sharding_local.is_dtensor(t) else t
+                               for t in leaves])
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -129,6 +173,12 @@ class Server:
         gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
         with torch.inference_mode():
             self.params = self.bundle.init(gen)
+            model = dict(zip(self.comm.axis_names, self.comm.shape)).get(pcfg.model_axis, 1)
+            if model > 1 and not pcfg.ring_attention:
+                mesh = self.comm.device_mesh
+                self.params = rules.distribute(
+                    self.params, rules.param_specs(self.params, rules.mesh_shape(mesh), pcfg),
+                    mesh)
         # persistent steps, keyed by argument signature (shape bucket)
         self._prefill_reqs: dict[tuple, PersistentRequest] = {}
         self._decode_reqs: dict[tuple, PersistentRequest] = {}
@@ -155,8 +205,20 @@ class Server:
             # the prefill needs the communicator to fold the cart ring onto
             comm = self.comm if pcfg.ring_attention else None
 
+            cfg = self.cfg
+
+            mesh = _mesh_of(self.params)
+            if mesh is not None:
+                sharding_local.check_rows_split(batch["tokens"].shape[0], mesh, pcfg)
+
             def prefill_step(p, b):
-                return bundle.prefill(p, b, pcfg, comm, extra_capacity=extra)
+                logits, cache = bundle.prefill(p, b, pcfg, comm, extra_capacity=extra)
+                mesh = _mesh_of(p)
+                if mesh is not None:
+                    # the decode loop's layout: donation keeps it fixed
+                    specs = rules.cache_specs(cache, rules.mesh_shape(mesh), pcfg, cfg)
+                    cache = rules.distribute(cache, specs, mesh)
+                return logits, cache
 
             req = PersistentRequest(prefill_step, (self.params, batch))
             self._prefill_reqs[key] = req
@@ -168,9 +230,12 @@ class Server:
         if req is None:
             tool.pvar_count("trace:decode_step")
             bundle, pcfg = self.bundle, self.pcfg
+            # the sequence-sharded decode merges over the model axis
+            comm = (self.comm if pcfg.seq_shard_cache and pcfg.flash_decode_merge
+                    and _mesh_of(self.params) is not None else None)
 
             def decode_step(p, c, t):
-                return bundle.decode(p, c, t, pcfg, None)
+                return bundle.decode(p, c, t, pcfg, comm)
 
             # the cache is updated in place and handed on: donated, as in
             # the reference, so on the card the step replays a CUDA graph
@@ -213,7 +278,15 @@ class Server:
 
     # -- serving ------------------------------------------------------------------
 
+    @property
+    def placed(self) -> bool:
+        """The parameters are DTensors (placed on a device mesh)."""
+
+        return _mesh_of(self.params) is not None
+
     def _sample(self, logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        if sharding_local.is_dtensor(logits):
+            logits = logits.full_tensor()   # every rank samples the same token
         logits = logits[:, -1, : self.cfg.vocab_size]
         if self.scfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -309,8 +382,11 @@ class DisaggregatedServer:
     A rank holds weights only for a group it belongs to: on a rank outside
     the prefill group :attr:`prefill` is ``None``, and likewise
     :attr:`decode`.  Each member runs its group's work on the whole batch
-    (the port's ``Server`` runs replicated), and every rank of the set
-    returns the same tokens: the decode root's, broadcast over the bridge.
+    (each group is a ``(n, 1)`` grid, so its server keeps whole weights),
+    and every rank of the set returns the same tokens: the decode root's,
+    broadcast over the bridge.  The window carries whole cache leaves; on a
+    decode server whose parameters the caller placed, the handoff lands the
+    cache under ``cache_specs``, as the reference's does.
 
     The handoff is a persistent request over the bridge (one per cache
     structure) whose body is chapter-12 RMA: every rank opens a
@@ -486,6 +562,14 @@ class DisaggregatedServer:
             cache = unflatten(treedef, [torch.zeros(shape, dtype=dtype, device=self.device)
                                         for shape, dtype in leaves])
         out = self._transfer_request(cache).start(cache).get()
+        if self.decode is not None and self.decode.placed:
+            # land on the decode mesh under the serving cache rules, as
+            # the reference does: the decode loop's layout
+            srv = self.decode
+            mesh = srv.comm.device_mesh
+            with torch.no_grad():
+                out = rules.distribute(
+                    out, rules.cache_specs(out, rules.mesh_shape(mesh), srv.pcfg, srv.cfg), mesh)
         _synchronize(self.device)
         kv_bytes = int(sum(np.prod(shape, dtype=np.int64) * dtype.itemsize
                            for shape, dtype in leaves))
@@ -513,6 +597,7 @@ class DisaggregatedServer:
         if self.prefill is not None:
             gen = self.prefill._next_generator()
             logits, cache = self.prefill._prefill_request(batch)(self.prefill.params, batch)
+            cache = _whole(cache)   # the window carries whole leaves
             tok = self.prefill._sample(logits, gen)
             del logits
             _synchronize(self.device)

@@ -1,6 +1,6 @@
-"""The Trainer — :class:`repro.runtime.trainer.Trainer` in eager PyTorch,
-with the data-only plan: checkpoint/restart, failure recovery and straggler
-handling.
+"""The Trainer — :class:`repro.runtime.trainer.Trainer` in eager PyTorch:
+the data plan and the placed (FSDP, tensor and expert) plans,
+checkpoint/restart, failure recovery and straggler handling.
 
 The train step is assembled from the port's layers, as the reference's is:
 
@@ -10,13 +10,31 @@ The train step is assembled from the port's layers, as the reference's is:
 * checkpoints from ``repro_torch.checkpoint`` (async, atomic, the
   reference's on-disk format).
 
-**The data plan.**  Every rank holds the whole parameter and optimizer
-state (made from the same seed), takes its block of the global batch and
-averages its gradients over the communicator with one ``allreduce`` per
-dtype group of the gradient tree (the reflected datatype of
-``core/datatypes.py``: one message, not one per leaf) — what GSPMD's data
-plan computes in the reference.  On the card this is a world of one over
-NCCL, which needs no exchange; on the CPU any number of gloo ranks.
+**Placed state** (:mod:`repro_torch.sharding.rules`): on a communicator of
+more than one rank the parameters are DTensors on its ``device_mesh`` under
+``param_specs`` (``fsdp`` is on in every arch's config: the largest weight
+dim over the data axes; heads, ``d_ff`` and the vocabulary over ``model``),
+the moments inherit their parameter's placement by shape
+(:func:`state_specs`) and the global batch is split under
+``batch_spec``.  DTensor's propagation computes the loss of the whole batch
+and its gradients (the backward runs under implicit replication too); each
+gradient is redistributed once to its parameter's placement — the one
+reduction over ``data`` — and clipping, AdamW and checkpoints work on
+local shards.  ``plan.tensor`` (and ``plan.expert``, which rides the same
+axis) > 1 folds the communicator onto ``(data, model)``.  The global
+batch's rows must split over the data axes (``ERR_DIMS`` otherwise:
+:func:`~repro_torch.sharding.local.check_rows_split`).  One rank keeps
+plain tensors, where the layout is the identity; setting
+:attr:`Trainer.placed` before the state is built overrides the choice (the
+chip phase places the state on its mesh of one; a baseline keeps several
+ranks' state whole).
+
+**The data plan** (plain state).  Every rank holds the whole parameter and
+optimizer state (made from the same seed), takes its block of the global
+batch and averages its gradients over the communicator with one
+``allreduce`` per dtype group of the gradient tree (the reflected datatype
+of ``core/datatypes.py``: one message, not one per leaf).  On the card
+this is a world of one over NCCL, which needs no exchange.
 
 **Persistent execution engine** (the only one): the step is built *once* as a
 :class:`~repro_torch.core.futures.PersistentRequest` bound to the
@@ -44,11 +62,9 @@ twice).
 
 **Not ported, each raising ``ERR_UNSUPPORTED_OPERATION``:** the elastic
 shrink and grow (``core/epoch.py``, ROADMAP A15: the trainer holds its
-communicator where the reference holds a ``CommEpoch``); plans that
-re-form the fabric or shard the model — pipeline stages, the ring, tensor
-and expert parallelism (ROADMAP A14), and the reference's deprecated
-``pipeline_stages``/``ring_attention`` knobs that build them; checkpoints
-across several ranks, which wait for sharded state (ROADMAP A14 item 4).
+communicator where the reference holds a ``CommEpoch``); the pipeline and
+ring plans (ROADMAP A14 item 5: the ring's gradient) and the reference's
+deprecated ``pipeline_stages``/``ring_attention`` knobs that build them.
 ``persistent=False`` and ``donate=False`` raise too: the step is always
 the persistent, in-place one.  ``ParallelConfig(moment_dtype="int8")``
 trains with the int8 moments of :mod:`repro_torch.optim.adamw`, inside the
@@ -73,6 +89,9 @@ from repro_torch.data import TokenPipeline
 from repro_torch.launch.mesh import make_host_communicator
 from repro_torch.models import api as model_api
 from repro_torch.optim import AdamW, clip_by_global_norm, cosine_warmup
+from repro_torch.optim.adamw import _Q8
+from repro_torch.sharding import rules
+from repro_torch.sharding.local import check_rows_split, implicit_replication, is_dtensor
 from repro_torch.runtime.faults import (
     FaultInjector,
     RankEvicted,
@@ -156,19 +175,57 @@ def make_train_step(
 
     def train_step(params, opt_state, batch):
         leaves, treedef = flatten(params)
-        loss, metrics = bundle.loss(params, batch, pcfg, mesh)
-        grads = unflatten(treedef, torch.autograd.grad(loss, leaves))
+        placed = is_dtensor(leaves[0])
+        with implicit_replication():
+            loss, metrics = bundle.loss(params, batch, pcfg, mesh)
+            grads = torch.autograd.grad(loss, leaves)
+            if placed:
+                # the loss is the whole batch's: one reduction over data,
+                # to each parameter's own placement, and no data-plan average
+                grads = [g.redistribute(p.device_mesh, p.placements)
+                         for g, p in zip(grads, leaves)]
+        grads = unflatten(treedef, grads)
         del leaves
-        grads = _average(comm, grads)
         metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
-        metrics["loss"] = _average(comm, metrics["loss"])
+        if placed:
+            metrics = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
+        else:
+            grads = _average(comm, grads)
+            metrics["loss"] = _average(comm, metrics["loss"])
         grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
         params, opt_state = opt.update(grads, opt_state, params)
         metrics["grad_norm"] = gnorm
         return params, opt_state, metrics
 
     return train_step
+
+
+def state_specs(params, opt_state, mesh_shape: dict, pcfg):
+    """The optimizer state's specs: a moment inherits the spec of the first
+    parameter of its shape, as the reference's ``_state_shardings`` does;
+    an int8 moment's scales are split as its payload's rows (the reference
+    replicates them); the rest is replicated."""
+
+    pspecs = rules.param_specs(params, mesh_shape, pcfg)
+    by_shape: dict = {}
+    for leaf, spec in zip(flatten(params)[0], rules.spec_leaves(pspecs)):
+        by_shape.setdefault(tuple(leaf.shape), spec)
+
+    def spec(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: spec(v) for k, v in node.items()}
+        if isinstance(node, _Q8):
+            q = by_shape.get(tuple(node.q.shape), (None,) * node.q.ndim)
+            return _Q8(q=q, scale=q[:-1] + (None,) if q else ())
+        if dataclasses.is_dataclass(node):
+            return dataclasses.replace(node, **{
+                f.name: spec(getattr(node, f.name)) for f in dataclasses.fields(node)})
+        return by_shape.get(tuple(node.shape), (None,) * node.ndim)
+
+    return spec(opt_state)
 
 
 def _synchronize(device: torch.device) -> None:
@@ -203,6 +260,8 @@ class Trainer:
         self._comm = comm if comm is not None else make_host_communicator(device=device)
         self._reform_topology()
         self.device = self._comm.device
+        #: the state is placed (DTensors on the communicator's device mesh)
+        self.placed = self._comm.size() > 1
         errors.check(
             tcfg.donate,
             errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
@@ -214,8 +273,6 @@ class Trainer:
             errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
             "the port's step is always a persistent request (TrainerConfig.persistent=True)",
         )
-        if tcfg.checkpoint_dir and self._comm.size() > 1:
-            _not_ported("checkpointing from several ranks (sharded state)", "A14 item 4")
         self.seq_len, self.global_batch = seq_len, global_batch
         self.bundle = model_api.build(cfg)
         self.opt = AdamW(
@@ -233,6 +290,7 @@ class Trainer:
                 keep=tcfg.keep_checkpoints,
                 async_save=tcfg.async_checkpoint,
                 injector=injector,
+                comm=self._comm,
             )
             if tcfg.checkpoint_dir
             else None
@@ -281,11 +339,29 @@ class Trainer:
         if plan.ring > 1 or self.pcfg.ring_attention:
             _not_ported("training with ring attention (the ring's gradient)", "A14 item 5")
         if plan.tensor > 1 or plan.expert > 1:
-            _not_ported("tensor and expert parallel plans (sharded parameters)", "A14 item 4")
+            # the model dim rides the model axis (expert is 1 or equals
+            # tensor); the data axis takes the rest
+            m = max(plan.tensor, plan.expert)
+            size = self._comm.size()
+            errors.check(
+                size % m == 0,
+                errors.ErrorClass.ERR_DIMS,
+                f"{size} ranks do not fold onto plan {plan.slug()!r} "
+                f"(fixed axes need a multiple of {m})",
+            )
+            self._comm = Communicator.from_group(
+                self._comm.group(), tag=self._comm.tag or "train",
+                shape=(size // m, m), axis_names=("data", "model"))
 
     def _batch(self, step: int) -> dict:
-        """This rank's block of the global batch for ``step``."""
+        """This rank's block of the global batch for ``step``; placed, the
+        global batch split under ``batch_spec``."""
 
+        if self.placed:
+            mesh = self._comm.device_mesh
+            batch = self.pipeline.device_batch(step, self.device)
+            return rules.distribute(batch, rules.batch_spec(batch, rules.mesh_shape(mesh),
+                                                            self.pcfg), mesh)
         return self.pipeline.device_batch(step, self.device, self._comm.rank(),
                                           self._comm.size())
 
@@ -298,7 +374,24 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         with torch.no_grad():
             params = self.bundle.init(gen)
-        return self._trainable(params), self.opt.init(params)
+        return self.place_state(params)
+
+    def place_state(self, params):
+        """(parameters, a fresh optimizer state) from whole ``params`` (the
+        same on every rank): placed under the plan's specs when the state
+        is placed, as they are otherwise."""
+
+        with torch.no_grad():
+            if not self.placed:
+                return self._trainable(params), self.opt.init(params)
+            mesh = self._comm.device_mesh
+            check_rows_split(self.global_batch, mesh, self.pcfg)
+            shape = rules.mesh_shape(mesh)
+            params = rules.distribute(params, rules.param_specs(params, shape, self.pcfg), mesh)
+            opt_state = self.opt.init(params)
+            opt_state = rules.distribute(
+                opt_state, state_specs(params, opt_state, shape, self.pcfg), mesh)
+        return self._trainable(params), opt_state
 
     @staticmethod
     def _trainable(params):

@@ -1,0 +1,264 @@
+"""The kernels on local shards: each hand-written kernel sees this rank's
+piece of a DTensor through ``local_map``, as the reference's Pallas calls
+see a device's block under GSPMD.
+
+* :func:`attention_heads` — flash attention over this rank's batch rows and
+  query heads.  A query head keeps its key/value head across the split:
+  where the key/value heads shard like the query heads the kernel takes the
+  local heads as they are; where they cannot (fewer key/value heads than
+  ranks, as paligemma's one) they stay whole and each rank picks the ones
+  its query heads read, by its own head offset.
+* :func:`ssd_heads` — the SSD scan over this rank's batch rows and heads
+  (groups of ``B``/``C`` picked the same way).
+* :func:`rowwise` — a function of whole rows (the int8 quantize and
+  dequantize): any dim but the last may stay sharded.
+
+A placement the call cannot honour (a dim split that does not divide) is
+redistributed to ``Replicate`` first, never handed to the kernel.  Around
+the model: :func:`replicating` runs an entry point under a re-entrant
+:func:`implicit_replication` on the FSDP-gathered parameters
+(:func:`gather_fsdp`), and :func:`check_rows_split` refuses a batch the
+data axes do not split.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import math
+
+import torch
+
+from repro_torch.core import errors
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def shard_range(placements, mesh, dim: int, size: int) -> tuple[int, int]:
+    """(offset, count) of this rank's slice of tensor dim ``dim`` of length
+    ``size`` under ``placements`` (nested chunks, in mesh-dim order)."""
+
+    off = 0
+    for i, pl in enumerate(placements):
+        if pl.is_shard(dim):
+            size //= mesh.size(i)
+            off += mesh.get_local_rank(i) * size
+    return off, size
+
+
+def _pick(x: torch.Tensor, dim: int, needed: list[int]) -> torch.Tensor:
+    """The entries ``needed`` (ascending, with repeats) of dim ``dim``: a
+    narrow when they are a run of distinct heads each repeated equally,
+    else a gather of one per query head."""
+
+    first, distinct = needed[0], sorted(set(needed))
+    rep = len(needed) // len(distinct)
+    if distinct == list(range(first, first + len(distinct))) and \
+            needed == [h for h in distinct for _ in range(rep)]:
+        return x.narrow(dim, first, len(distinct))
+    return x.index_select(dim, torch.tensor(needed, device=x.device))
+
+
+def _native(needed: list[int], groups: int) -> bool:
+    """The kernel's own mapping (query head ``j`` reads group ``j //
+    (heads / groups)``) already gives each local head the group it
+    needs."""
+
+    n = len(needed)
+    return n % groups == 0 and needed == [j // (n // groups) for j in range(n)]
+
+
+def _grouped_placements(x, heads_dim: int, n_heads: int, groups: int):
+    """Per mesh dim: the query-side placement (batch rows ``Shard(0)`` and
+    heads ``Shard(heads_dim)`` kept where they divide, else ``Replicate``)
+    and the group side's (heads split only where the groups divide too)."""
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    qp, gp = [], []
+    for i, pl in enumerate(x.placements):
+        n = mesh.size(i)
+        if pl.is_shard(0) and x.shape[0] % n == 0:
+            qp.append(Shard(0))
+            gp.append(Shard(0))
+        elif pl.is_shard(heads_dim) and n_heads % n == 0:
+            qp.append(Shard(heads_dim))
+            gp.append(Shard(heads_dim) if groups % n == 0 else Replicate())
+        else:
+            qp.append(Replicate())
+            gp.append(Replicate())
+    return tuple(qp), tuple(gp)
+
+
+def _local_groups(mesh, qp, gp, heads_dim, n_heads, groups):
+    """The group indices (into the local group shard) that this rank's
+    query heads read, head by head."""
+
+    q_off, q_n = shard_range(qp, mesh, heads_dim, n_heads)
+    g_off, _ = shard_range(gp, mesh, heads_dim, groups)
+    per = n_heads // groups
+    return [(q_off + j) // per - g_off for j in range(q_n)]
+
+
+def attention_heads(fn, q, k, v):
+    """``fn(q, k, v)`` (B, S, H, D) attention on local shards; the output
+    is placed as the query."""
+
+    mesh = q.device_mesh
+    h, hk = q.shape[2], k.shape[2]
+    qp, kp = _grouped_placements(q, 2, h, hk)
+    needed = _local_groups(mesh, qp, kp, 2, h, hk)
+
+    def body(ql, kl, vl):
+        if not _native(needed, kl.shape[2]):
+            kl, vl = _pick(kl, 2, needed), _pick(vl, 2, needed)
+        return fn(ql, kl, vl)
+
+    return local_map(body, out_placements=list(qp), in_placements=(qp, kp, kp),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def ssd_heads(fn, x, dt, A, B, C, *, with_state: bool):
+    """``fn(x, dt, A, B, C)`` (the SSD scan: x (b, l, h, p), dt (b, l, h),
+    A (h,), B/C (b, l, g, n)) on local shards; y is placed as x, the final
+    state (b, h, p, n) with heads on dim 1."""
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    h, g = x.shape[2], B.shape[2]
+    xp, bp = _grouped_placements(x, 2, h, g)
+    ap = tuple(Shard(0) if pl.is_shard(2) else Replicate() for pl in xp)
+    sp = tuple(Shard(1) if pl.is_shard(2) else pl for pl in xp)
+    needed = _local_groups(mesh, xp, bp, 2, h, g)
+
+    def body(xl, dtl, Al, Bl, Cl):
+        if not _native(needed, Bl.shape[2]):
+            Bl, Cl = _pick(Bl, 2, needed), _pick(Cl, 2, needed)
+        return fn(xl, dtl, Al, Bl, Cl)
+
+    out = (list(xp), list(sp)) if with_state else list(xp)
+    return local_map(body, out_placements=out, in_placements=(xp, xp, ap, bp, bp),
+                     device_mesh=mesh, redistribute_inputs=True)(x, dt, A, B, C)
+
+
+def _row_placements(x):
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, nd = x.device_mesh, x.dim()
+    out = []
+    for i, pl in enumerate(x.placements):
+        keep = pl.is_shard() and pl.dim < nd - 1 and x.shape[pl.dim] % mesh.size(i) == 0
+        out.append(Shard(pl.dim) if keep else Replicate())
+    return tuple(out)
+
+
+def rowwise(fn, x, *rest, n_out: int):
+    """``fn(x, *rest)`` of whole rows of the last dim: ``x`` and every
+    tensor of ``rest`` (the same leading dims) keep their shards on the
+    leading dims; each of the ``n_out`` outputs is placed as ``x``."""
+
+    pl = _row_placements(x)
+    out = list(pl) if n_out == 1 else (list(pl),) * n_out
+    return local_map(fn, out_placements=out, in_placements=(pl,) * (1 + len(rest)),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x, *rest)
+
+
+def local_map(fn, **kw):
+    """``torch.distributed.tensor.experimental.local_map``, imported at the
+    call.  A single output's placements are a list (a tuple stands for one
+    placement sequence per output)."""
+
+    from torch.distributed.tensor.experimental import local_map as _local_map
+
+    return _local_map(fn, **kw)
+
+
+@contextlib.contextmanager
+def implicit_replication():
+    """``torch.distributed.tensor.experimental.implicit_replication``, made
+    re-entrant: a plain tensor meeting a DTensor (positions, masks, the
+    MoE's indices) counts as replicated.  Entered around every model entry
+    point and the trainer's backward; nesting keeps it on until the
+    outermost exit."""
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication as _on
+
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        yield
+        return
+    with _on():
+        yield
+
+
+def gather_fsdp(params, pcfg):
+    """The FSDP gather: every DTensor leaf with its data-axis shards made
+    whole (``redistribute``; a leaf split only over ``model`` is returned
+    as it is).  Under autograd the gather's backward is the reduce-scatter
+    of the gradient over the data axes."""
+
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.core.futures import flatten, unflatten
+
+    leaves, treedef = flatten(params)
+    if not leaves or not is_dtensor(leaves[0]):
+        return params
+    data = set(pcfg.data_axes)
+    out = []
+    for leaf in leaves:
+        names = leaf.device_mesh.mesh_dim_names
+        pl = [Replicate() if names[i] in data and p.is_shard() else p
+              for i, p in enumerate(leaf.placements)]
+        out.append(leaf if pl == list(leaf.placements) else
+                   leaf.redistribute(leaf.device_mesh, pl))
+    return unflatten(treedef, out)
+
+
+def check_rows_split(rows: int, device_mesh, pcfg) -> None:
+    """Refuse a placed batch of ``rows`` rows that the data axes of
+    ``device_mesh`` do not split (``ERR_DIMS``), where the reference drops
+    the batch's mapping and replicates it.
+
+    A mesh axis on which every operand of an op is replicated gives
+    DTensor's strategy search free moves: it may split the op's
+    contraction over that axis to shrink a later exchange, and when two
+    such splits cost the same it takes the first in the iteration order of
+    a set of placements, whose hash (``Partial("sum")``'s string) differs
+    from process to process.  Ranks then issue different collectives: on
+    three gloo ranks serving two rows, one rank all-gathered an uneven
+    split of a width of 64 that another never sent (``op.preamble.length
+    <= op.nbytes``), in five of eight runs of ``serve --mesh 3x1`` placed,
+    and in none with ``PYTHONHASHSEED`` fixed.  A batch split over the data
+    axes leaves the search no free move there."""
+
+    shape = dict(zip(device_mesh.mesh_dim_names, device_mesh.mesh.shape))
+    axes = tuple(a for a in pcfg.data_axes if shape.get(a, 1) > 1)
+    n = math.prod(int(shape[a]) for a in axes)
+    errors.check(
+        rows % n == 0,
+        errors.ErrorClass.ERR_DIMS,
+        f"a batch of {rows} rows on the data axes {axes} ({n} ranks): placed state needs "
+        f"the rows split over them (a replicated batch leaves DTensor's per-rank choice "
+        f"of collectives free)",
+    )
+
+
+def replicating(fn, pcfg_at: int):
+    """``fn(params, *args)``, whose ``args[pcfg_at]`` is the
+    ``ParallelConfig``, run under :func:`implicit_replication` on the
+    FSDP-gathered parameters (:func:`gather_fsdp`: whole over the data axes
+    for the call, as GSPMD gathers an FSDP weight before its use)."""
+
+    @functools.wraps(fn)
+    def run(params, *args, **kwargs):
+        with implicit_replication():
+            return fn(gather_fsdp(params, args[pcfg_at]), *args, **kwargs)
+
+    return run

@@ -544,25 +544,14 @@ def test_trainer_straggler_takes_the_failure_path(tmp_path):
     assert result["restarts"] == 1 and result["final_step"] == 14 and calls["n"] == 16
 
 
-class _TwoRanks:
-    """A communicator's face with two ranks, for a check that raises before
-    any collective runs."""
-
-    device = torch.device("cpu")
-
-    def size(self) -> int:
-        return 2
-
-    def rank(self) -> int:
-        return 0
-
-
 @pytest.mark.parametrize("case", ["evict", "admit", "pipeline", "ring_plan", "ring_pcfg",
                                   "tensor", "plan_auto", "evict_flag",
                                   "no_donation", "not_persistent", "legacy_pipeline_knob",
-                                  "legacy_ring_knob", "pipeline_flag",
-                                  "multi_rank_checkpoint"])
+                                  "legacy_ring_knob", "pipeline_flag"])
 def test_unported_paths_raise(tmp_path, case):
+    """Every path the port does not run raises a typed error; a tensor plan
+    is ported, and on one rank it does not fold (``ERR_DIMS``, as the
+    reference's)."""
     cfg, pcfg = tbase.ModelConfig(**_TINY), tbase.ParallelConfig()
 
     def make(tcfg=None, pcfg=pcfg, injector=None, comm=None):
@@ -587,12 +576,12 @@ def test_unported_paths_raise(tmp_path, case):
         "legacy_ring_knob": lambda: make(TrainerConfig(ring_attention=2)),
         "pipeline_flag": lambda: tlaunch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device",
                                               "cpu", "--pipeline-stages", "2"]),
-        "multi_rank_checkpoint": lambda: make(TrainerConfig(checkpoint_dir=str(tmp_path)),
-                                              comm=_TwoRanks()),
     }
+    expected = {"tensor": terrors.ErrorClass.ERR_DIMS}.get(
+        case, terrors.ErrorClass.ERR_UNSUPPORTED_OPERATION)
     with pytest.raises(terrors.Error) as ei:
         runs[case]()
-    assert ei.value.klass == terrors.ErrorClass.ERR_UNSUPPORTED_OPERATION, ei.value
+    assert ei.value.klass == expected, ei.value
 
 
 def test_launcher_on_the_cpu_and_no_fallback():

@@ -33,6 +33,13 @@ def run_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0) -
     order.  Raises with every rank's output if one fails or the limit
     passes."""
 
+    return finish_ranks(start_ranks(program, world, workdir, timeout))
+
+
+def start_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0) -> tuple:
+    """Start ``program`` on ``world`` ranks without waiting; hand the
+    result to :func:`finish_ranks`."""
+
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
                 "MASTER_PORT"):
@@ -43,7 +50,14 @@ def run_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0) -
                          stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
         for r in range(world)
     ]
-    deadline = time.monotonic() + timeout
+    return program, world, workdir, timeout, time.monotonic() + timeout, logs, procs
+
+
+def finish_ranks(started: tuple) -> list[dict]:
+    """Wait for the ranks :func:`start_ranks` started (killing those still
+    running at its limit); their results, in rank order."""
+
+    program, world, workdir, timeout, deadline, logs, procs = started
     try:
         for p in procs:
             p.wait(timeout=max(0.0, deadline - time.monotonic()))
@@ -280,9 +294,15 @@ def prog_trainer(rank: int, world: int, inputs: dict) -> dict:
                       make_host_communicator(device="cpu"), seq_len=int(inputs["seq"]),
                       global_batch=int(inputs["batch"]), clock=lambda: 0.0)
     result = trainer.run()
-    flat = torch.cat([p.detach().reshape(-1) for p in _leaves(trainer.params)])
+    flat = torch.cat([_whole(p).detach().reshape(-1) for p in _leaves(trainer.params)])
     return {"losses": np.array([m["loss"] for m in result["metrics"]]),
             "params": flat.numpy(), "world": np.array(result["world_size"])}
+
+
+def _whole(t):
+    """A DTensor's whole value; any other tensor as it is."""
+
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def _leaves(tree):
@@ -626,6 +646,246 @@ DISAGG_PVARS = ("trace:kv_transfer", "trace:prefill_step", "trace:decode_step",
                 "rma_fence", "rma_rput", "rma_put", "rma_get")
 
 
+# ---------------------------------------------------------------------------
+# placed (DTensor) serving, training and checkpoints on a 2 x 2 grid
+# ---------------------------------------------------------------------------
+
+SHARDED_ARCHS = ("phi4_mini_3_8b", "deepseek_v2_236b", "mamba2_2_7b")
+
+
+def _prefixed(inputs: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in inputs.items() if k.startswith(prefix)}
+
+
+def prog_sharded_serve(rank: int, world: int, inputs: dict) -> dict:
+    """The dense, MLA + MoE and SSM smoke models in fp32, served by a 2 x 2
+    placed ``Server`` on the reference's weights: tokens and the prefill's
+    last logits; for phi4-mini also the first decode step's logits with the
+    sequence-sharded merged decode, with the fp32 and the int8 cache."""
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+    from repro_torch.sharding import rules
+
+    comm = make_host_communicator(2, 2, device="cpu")
+    mesh = comm.device_mesh
+    out = {}
+    prompts = [inputs["prompt0"], inputs["prompt1"]]
+    for arch in SHARDED_ARCHS:
+        cfg = dataclasses.replace(base.get_smoke_config(arch), dtype="float32")
+        pcfg = base.get_parallel(arch)
+        variants = [("", pcfg)]
+        if arch == "phi4_mini_3_8b":
+            merged = dataclasses.replace(pcfg, seq_shard_cache=True, flash_decode_merge=True)
+            variants += [("merge/", merged),
+                         ("int8/", dataclasses.replace(merged, kv_cache_dtype="int8"))]
+        params = _params(_prefixed(inputs, arch + "/"))
+        for tag, pc in variants:
+            server = Server(cfg, pc, ServerConfig(max_batch=2, max_new_tokens=4), comm)
+            with torch.inference_mode():
+                server.params = rules.distribute(
+                    params, rules.param_specs(params, rules.mesh_shape(mesh), pc), mesh)
+            assert server.placed
+            batch, _ = server._pad_batch([Request(tokens=p.copy()) for p in prompts])
+            with torch.inference_mode():
+                logits, cache = server._prefill_request(batch)(server.params, batch)
+                tok = server._sample(logits, None)[:, None]
+                dec, _ = server._decode_request(cache, tok)(server.params, cache, tok)
+                out[f"{arch}/{tag}prefill"] = logits.full_tensor().numpy()
+                out[f"{arch}/{tag}decode"] = dec.full_tensor().numpy()
+            out[f"{arch}/{tag}tokens"], _ = server.generate(
+                [Request(tokens=p.copy()) for p in prompts])
+    return out
+
+
+def _tiny_cfg():
+    from repro_torch.configs.base import ModelConfig
+
+    return ModelConfig(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
+                       num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128,
+                       dtype="float32")
+
+
+def prog_sharded_train(rank: int, world: int, inputs: dict) -> dict:
+    """The tiny dense model trained 4 steps on 2 x 2 ranks under the plan
+    (data 2, tensor 2), from the reference's init, with fp32 and int8
+    moments; with fp32 moments it checkpoints at step 4 (fragments from
+    every rank)."""
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, ParallelPlan
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    out = {}
+    for moments in ("float32", "int8"):
+        ckpt = inputs["ckpt_dir"].item() if moments == "float32" else None
+        tcfg = TrainerConfig(steps=4, lr=1e-3, warmup_steps=2, log_every=1,
+                             plan=ParallelPlan(data=2, tensor=2), checkpoint_dir=ckpt,
+                             checkpoint_every=4)
+        trainer = Trainer(_tiny_cfg(), dataclasses.replace(
+            ParallelConfig(remat="full"), moment_dtype=moments), tcfg,
+            make_host_communicator(device="cpu"), seq_len=32, global_batch=4,
+            clock=lambda: 0.0)
+        trainer.init_state = lambda t=trainer: t.place_state(_params(inputs))
+        result = trainer.run()
+        out[f"{moments}/losses"] = np.array([m["loss"] for m in result["metrics"]])
+        out[f"{moments}/grad_norms"] = np.array([m["grad_norm"] for m in result["metrics"]])
+        out[f"{moments}/shape"] = np.array(trainer.comm.shape)
+        out[f"{moments}/params"] = torch.cat(
+            [_whole(p).detach().reshape(-1) for p in _leaves(trainer.params)]).numpy()
+        out[f"{moments}/placed"] = np.array(trainer.placed)
+    return out
+
+
+def prog_sharded_restore(rank: int, world: int, inputs: dict) -> dict:
+    """The reference's checkpoint (``ckpt_dir``) restored into the placed
+    state of a 2 x 2 ``Trainer``: each leaf's whole value."""
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, ParallelPlan
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(steps=1, plan=ParallelPlan(data=2, tensor=2),
+                         checkpoint_dir=inputs["ckpt_dir"].item())
+    trainer = Trainer(_tiny_cfg(), ParallelConfig(), tcfg, make_host_communicator(device="cpu"),
+                      seq_len=32, global_batch=4, clock=lambda: 0.0)
+    params, opt_state = trainer.init_state()
+    params, opt_state, step = trainer._restore(params, opt_state)
+    from repro_torch.core.futures import flatten
+
+    leaves = flatten({"params": params, "opt": opt_state})[0]
+    return {"step": np.array(step),
+            "placed": np.array(all(hasattr(t, "full_tensor") for t in leaves)),
+            "values": torch.cat([_whole(t).detach().float().reshape(-1)
+                                 for t in leaves]).numpy()}
+
+
+def prog_rows_split(rank: int, world: int, inputs: dict) -> dict:
+    """Three ranks on a 3 x 1 grid: the ``Server`` the mesh selects (whole
+    weights: the model axis is one rank) serving 2 and 3 prompts; the same
+    weights placed by the caller, refusing the 2 rows the data axis does
+    not split and serving the 3 it does; a placed ``Trainer`` refusing a
+    global batch of 2."""
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.sharding import rules
+
+    comm = make_host_communicator(world, 1, device="cpu")
+    pcfg = ParallelConfig()
+    server = Server(_tiny_cfg(), pcfg, ServerConfig(max_batch=3, max_new_tokens=4), comm)
+    prompts = [Request(tokens=inputs[f"prompt{i}"].copy()) for i in range(3)]
+    out = {"placed_by_mesh": np.array(server.placed)}
+    out["whole2"], _ = server.generate(prompts[:2])
+    out["whole3"], _ = server.generate(prompts[:3])
+    mesh = comm.device_mesh
+    with torch.inference_mode():
+        server.params = rules.distribute(
+            server.params, rules.param_specs(server.params, rules.mesh_shape(mesh), pcfg), mesh)
+    server._prefill_reqs.clear()   # built on the whole weights
+    server._decode_reqs.clear()
+    out["placed"] = np.array(server.placed)
+    out["placed2_error"] = np.array(_err(lambda: server.generate(prompts[:2])))
+    out["placed3"], _ = server.generate(prompts[:3])
+    trainer = Trainer(_tiny_cfg(), pcfg, TrainerConfig(steps=1), make_host_communicator(
+        device="cpu"), seq_len=16, global_batch=2, clock=lambda: 0.0)
+    out["trainer_placed"] = np.array(trainer.placed)
+    out["trainer_error"] = np.array(_err(trainer.init_state))
+    return out
+
+
+def prog_split_rows_update(rank: int, world: int, inputs: dict) -> dict:
+    """AdamW with int8 moments on a leaf whose last axis is split over two
+    ranks (mesh 1 x 2), in pieces of two whole rows (``PIECE`` cut to 32
+    elements): the whole parameter and moments after ``steps`` updates,
+    and the same updates of the whole leaf on this rank alone."""
+
+    import torch
+
+    from repro_torch.core.futures import flatten
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+
+    adamw.PIECE = 32
+    mesh = make_host_communicator(1, world, device="cpu").device_mesh
+    opt = adamw.AdamW(lr=1e-2, moment_dtype="int8")
+    whole = {"w": torch.from_numpy(inputs["w"].copy())}
+    placed = rules.distribute({"w": whole["w"].clone()}, {"w": (None, "model")}, mesh)
+    state_w, state_p = opt.init(whole), opt.init(placed)   # moments placed as "w"
+    for i in range(int(inputs["steps"])):
+        g = torch.from_numpy(inputs[f"g{i}"].copy())
+        opt.update({"w": g}, state_w, whole)
+        opt.update(rules.distribute({"w": g.clone()}, {"w": (None, "model")}, mesh),
+                   state_p, placed)
+    got = [t.full_tensor() if hasattr(t, "full_tensor") else t
+           for t in flatten((placed, state_p))[0]]
+    want = flatten((whole, state_w))[0]
+    return {f"got{i}": t.numpy() for i, t in enumerate(got)} | {
+        f"want{i}": t.numpy() for i, t in enumerate(want)}
+
+
+def prog_overlap(rank: int, world: int, inputs: dict) -> dict:
+    """``merge_partial_attention`` of shard ``rank`` over 4 ranks and, on
+    each line of a 2 x 2 grid, of shard ``rank % 2`` over 2; and the cases
+    of the reference's ``tests/test_overlap.py`` for ``all_gather_matmul``
+    and ``matmul_reduce_scatter`` (4 ranks, fused against plain)."""
+
+    import torch
+
+    from repro_torch.core import collectives, overlap
+    from repro_torch.launch.mesh import make_host_communicator
+
+    ring = make_host_communicator(4, 1, device="cpu").split("data")
+    grid = make_host_communicator(2, 2, device="cpu")
+    pairs = grid.split("model")
+    out = {}
+    for n, comm, shard in ((4, ring, rank), (2, pairs, rank % 2)):
+        o, m, l_ = (torch.from_numpy(inputs[f"{k}{n}"][shard]) for k in "oml")
+        out[f"merge{n}"] = overlap.merge_partial_attention(o, m, l_, comm).numpy()
+    n = 4
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 16 * n), generator=gen)
+    w_shards = torch.randn((n, 16, 8), generator=gen) * torch.arange(1.0, n + 1)[:, None, None]
+    out["agmm"] = overlap.all_gather_matmul(ring, x, w_shards[rank]).numpy()
+    w_full = collectives.allgather(ring, w_shards[rank]).reshape(16 * n, 8)
+    out["agmm_plain"] = (x @ w_full).numpy()
+    x_r = torch.randn((n, 4, 16), generator=gen)[rank] * (rank + 1.0)
+    w_r = torch.randn((n, 16, 8), generator=gen)[rank] * (rank + 1.0)
+    out["mmrs"] = overlap.matmul_reduce_scatter(ring, x_r, w_r).numpy()
+    full = collectives.allreduce(ring, x_r @ w_r)
+    blk = full.shape[-1] // n
+    out["mmrs_plain"] = full[:, rank * blk:(rank + 1) * blk].numpy()
+    # the sp plan's query-block constraint (the chunked form on DTensors,
+    # batch over data): the output's query blocks split over model
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.sharding.local import implicit_replication
+
+    q, k, v = (torch.randn(shape, generator=gen) for shape in
+               ((2, 64, 4, 8), (2, 64, 2, 8), (2, 64, 2, 8)))
+    placed = [distribute_tensor(t, grid.device_mesh, [Shard(0), Replicate()],
+                                src_data_rank=None) for t in (q, k, v)]
+    with implicit_replication():
+        sp = ref.chunked_mha(*placed, q_block=16, k_block=16, q_block_axis="model")
+    out["sp"] = sp.full_tensor().numpy()
+    out["sp_plain"] = ref.mha(q, k, v).numpy()
+    out["sp_placements"] = np.array([str(p) for p in sp.placements])
+    return out
+
+
 def disagg_config(name: str, module):
     """The config of a DISAGG_CASES entry, from ``module`` (either
     package's ``configs.base``): the reference test's tiny fp32 model, or a
@@ -672,6 +932,18 @@ def prog_disagg(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def prog_serve_mesh(rank: int, world: int, inputs: dict) -> dict:
+    """The serve CLI with ``--mesh`` (``inputs["mesh"]``) on every rank:
+    its tokens, and whether its weights are placed."""
+
+    from repro_torch.launch import serve
+
+    server, tokens, _ = serve.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device", "cpu",
+                                   "--mesh", str(inputs["mesh"]), "--requests", "2",
+                                   "--prompt-len", "8", "--new-tokens", "4"])
+    return {"tokens": tokens, "placed": np.array(server.placed)}
+
+
 def prog_serve_fanout(rank: int, world: int, inputs: dict) -> dict:
     """The serve CLI with ``--fanout 1:3`` on every rank: its tokens and
     its stats' keys."""
@@ -688,7 +960,11 @@ PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_s
             "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer,
             "requests": prog_requests, "grad_sync": prog_grad_sync, "rma": prog_rma,
             "neighbors": prog_neighbors, "moe_neighbor": prog_moe_neighbor,
-            "disagg": prog_disagg, "serve_fanout": prog_serve_fanout}
+            "disagg": prog_disagg, "serve_fanout": prog_serve_fanout,
+            "sharded_serve": prog_sharded_serve, "sharded_train": prog_sharded_train,
+            "sharded_restore": prog_sharded_restore, "overlap": prog_overlap,
+            "rows_split": prog_rows_split, "split_rows_update": prog_split_rows_update,
+            "serve_mesh": prog_serve_mesh}
 
 
 def main(argv: list[str]) -> int:

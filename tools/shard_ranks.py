@@ -1,0 +1,312 @@
+#!/usr/bin/env python3
+"""Placed (DTensor) serving and training across cards: the sharding rules
+on four ranks, one card each over NCCL, where ``chip_smoke.py`` runs them
+on a mesh of one.
+
+    python3 tools/shard_ranks.py            # starts 4 ranks (torchrun)
+    python3 tools/shard_ranks.py --device cpu --smoke --prompt-len 16 --seq 32
+                                            # the same on 4 gloo ranks
+
+Needs four CUDA devices and ``nvcc`` (or ``--device cpu``); run on demand,
+apart from ``chip_smoke.py``.  Every rank, in turn:
+
+* serves qwen1.5-32b at TP 4 (mesh 1 x 4; 2 x 4096 prompts, 16 new
+  tokens), whose weights and cache one card does not hold beside each
+  other: the tokens must be the same on every rank; logs ``prefill_s``,
+  ``tokens_per_s`` and the card's peak;
+* serves phi4-mini at TP 4, with and without ``seq_shard_cache`` +
+  ``flash_decode_merge``: the first decode step's logits within 2e-2 of a
+  ``Server`` on a 4 x 1 mesh, whose four ranks each hold the whole model
+  (a model axis of one rank keeps plain tensors); the tokens,
+  ``tokens_per_s`` and peaks of both logged;
+* trains phi4-mini 4 steps (b 4 x 2048) under the data plan, under fsdp
+  (mesh 4 x 1) and under (data 2, tensor 2): the placed runs' losses within
+  1e-3 relative of the data plan's, each card's peak logged; then the data
+  plan and (data 2, tensor 2) again with int8 moments (w_gate/w_up's rows
+  split over model: the whole-row update), held for 2 steps;
+* restores the fsdp run's checkpoint (fragments from four ranks) on rank 0
+  alone, into whole tensors, equal to the run's final parameters.
+
+Rank 0 writes everything, with the card's name and power limit, to
+``artifacts/shard_ranks.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+WORLD = 4
+LOGITS_TOL = 2e-2
+LOSS_RTOL = 1e-3
+
+
+def _args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=4096)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=4)
+    return ap.parse_args(argv)
+
+
+def _peak(device) -> float | None:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+
+
+def _reset(device) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _same_everywhere(x) -> bool:
+    """``x`` (a tensor) is the same on every rank."""
+
+    import torch
+    import torch.distributed as dist
+
+    mine = x.detach().float().reshape(-1)
+    top, low = mine.clone(), mine.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX)
+    dist.all_reduce(low, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(top, low))
+
+
+def _serve_qwen(args, out) -> None:
+    import torch
+
+    import chip_smoke
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    arch = "qwen1_5_32b"
+    cfg = base.get_smoke_config(arch) if args.smoke else base.get_config(arch)
+    _reset(args.device)
+    t0 = time.perf_counter()
+    server = Server(cfg, base.get_parallel(arch),
+                    ServerConfig(max_batch=2, max_new_tokens=args.new_tokens),
+                    make_host_communicator(1, WORLD, device=args.device))
+    init_s = time.perf_counter() - t0
+    init_peak = _peak(args.device)
+    _reset(args.device)
+    chip_smoke.check(server.placed, "qwen: the weights are not placed")
+    reqs = serve.requests(cfg, 2, args.prompt_len)
+    runs = []
+    for _ in range(2):
+        tokens, stats = server.generate(reqs)
+        chip_smoke.check(_same_everywhere(torch.as_tensor(tokens, device=server.device)),
+                         "qwen: the ranks' tokens differ")
+        runs.append({k: stats[k] for k in ("prefill_s", "decode_s", "tokens_per_s")})
+    out["qwen_tp4"] = {"layers": cfg.num_layers, "prompt_len": args.prompt_len,
+                       "init_s": init_s, "runs": runs, "tokens": tokens.tolist(),
+                       "init_peak_gb": init_peak, "serve_peak_gb": _peak(args.device),
+                       "tokens_equal_on_every_rank": True}
+    del server
+
+
+def _first_decode(server, reqs):
+    """The prefill's cache and the first decode step's whole logits."""
+
+    import torch
+
+    batch, _ = server._pad_batch(reqs)
+    with torch.inference_mode():
+        logits, cache = server._prefill_request(batch)(server.params, batch)
+        tok = server._sample(logits, None)[:, None]
+        dec, _ = server._decode_request(cache, tok)(server.params, cache, tok)
+        dec = dec.full_tensor() if hasattr(dec, "full_tensor") else dec
+        server._decode_reqs.clear()
+        return dec.float()
+
+
+def _serve_phi4(args, out) -> None:
+    import numpy as np
+
+    import chip_smoke
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    arch = "phi4_mini_3_8b"
+    cfg = base.get_smoke_config(arch) if args.smoke else base.get_config(arch)
+    pcfg = base.get_parallel(arch)
+    scfg = ServerConfig(max_batch=2, max_new_tokens=args.new_tokens)
+    reqs = serve.requests(cfg, 2, args.prompt_len)
+    comm = make_host_communicator(1, WORLD, device=args.device)
+    _reset(args.device)
+    whole = Server(cfg, pcfg, scfg, make_host_communicator(WORLD, 1, device=args.device))
+    chip_smoke.check(not whole.placed, "phi4: the 4 x 1 server's weights are placed")
+    want = _first_decode(whole, reqs)
+    base_tokens, base_stats = whole.generate(reqs)
+    row = {"replicated": {"tokens": base_tokens.tolist(), "tokens_per_s":
+                          base_stats["tokens_per_s"], "prefill_s": base_stats["prefill_s"],
+                          "peak_gb": _peak(args.device)}}
+    del whole
+    for name, pc in (("tp4", pcfg), ("tp4_merged_decode", dataclasses.replace(
+            pcfg, seq_shard_cache=True, flash_decode_merge=True))):
+        _reset(args.device)
+        server = Server(cfg, pc, scfg, comm)
+        chip_smoke.check(server.placed, f"phi4 {name}: the weights are not placed")
+        got = _first_decode(server, reqs)
+        err = float((got - want).abs().max())
+        chip_smoke.check(err <= LOGITS_TOL * (1 + float(want.abs().max())),
+                         f"phi4 {name}: first decode logits {err} from the replicated Server's")
+        tokens, stats = server.generate(reqs)
+        row[name] = {"max_abs_err_first_decode": err, "tokens": tokens.tolist(),
+                     "tokens_equal_replicated": bool(np.array_equal(tokens, base_tokens)),
+                     "prefill_s": stats["prefill_s"], "tokens_per_s": stats["tokens_per_s"],
+                     "peak_gb": _peak(args.device)}
+        del server
+    out["phi4_serve"] = row
+
+
+def _train(args, out) -> None:
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import base
+    from repro_torch.configs.base import ParallelPlan
+    from repro_torch.core.futures import flatten, unflatten
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.faults import StragglerPolicy
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    arch = "phi4_mini_3_8b"
+    cfg = base.get_smoke_config(arch) if args.smoke else base.get_config(arch)
+    pcfg = base.get_parallel(arch)
+    ckpt = ROOT / "build" / "shard_ranks_ckpt"
+    rows, finals = {}, {}
+    tensor2 = ParallelPlan(data=2, tensor=2)
+    for name, plan, place, moments in (("data_plan", None, False, "float32"),
+                                       ("fsdp_4x1", None, True, "float32"),
+                                       ("fsdp_2x2_tensor2", tensor2, True, "float32"),
+                                       ("data_plan_int8", None, False, "int8"),
+                                       ("fsdp_2x2_tensor2_int8", tensor2, True, "int8")):
+        _reset(args.device)
+        ck = str(ckpt) if name == "fsdp_4x1" else None
+        if ck:
+            if out["rank"] == 0:
+                shutil.rmtree(ck, ignore_errors=True)
+            dist.barrier()   # no rank opens the directory before it is gone
+        tcfg = TrainerConfig(steps=args.steps, lr=3e-4, log_every=1, plan=plan,
+                             checkpoint_dir=ck, checkpoint_every=args.steps)
+        trainer = Trainer(cfg, dataclasses.replace(pcfg, moment_dtype=moments), tcfg,
+                          make_host_communicator(device=args.device),
+                          seq_len=args.seq, global_batch=args.batch,
+                          straggler=StragglerPolicy(deadline_factor=float("inf")))
+        trainer.placed = place   # the data plan's baseline keeps the state whole
+        t0 = time.perf_counter()
+        result = trainer.run()
+        rows[name] = {"mesh": list(trainer.comm.shape), "placed": trainer.placed,
+                      "moments": moments,
+                      "losses": [m["loss"] for m in result["metrics"]],
+                      "grad_norms": [m["grad_norm"] for m in result["metrics"]],
+                      "step_s": [m["duration_s"] for m in result["metrics"]],
+                      "run_s": time.perf_counter() - t0, "peak_gb": _peak(args.device)}
+        if name == "fsdp_4x1":
+            leaves, treedef = flatten(trainer.params)
+            finals = unflatten(treedef, [t.full_tensor().detach().cpu() for t in leaves])
+        del trainer, result
+    # int8 moments are held for the steps before a stored moment is read
+    # back twice (tests/port/test_torch_trainer.py's _int8_trajectory_held)
+    for name, base_run, held in (("fsdp_4x1", "data_plan", args.steps),
+                                 ("fsdp_2x2_tensor2", "data_plan", args.steps),
+                                 ("fsdp_2x2_tensor2_int8", "data_plan_int8", 2)):
+        want = rows[base_run]["losses"][:held]
+        for got, ref in zip(rows[name]["losses"][:held], want):
+            chip_smoke.check(abs(got - ref) <= LOSS_RTOL * abs(ref),
+                             f"{name}: losses {rows[name]['losses']} against the data "
+                             f"plan's {want}")
+    if out["rank"] == 0:
+        leaves, treedef = flatten(finals)
+        template = {"params": unflatten(treedef, [torch.zeros_like(t) for t in leaves])}
+        restored, step = CheckpointManager(str(ckpt)).restore(template)
+        same = all(torch.equal(a, b) for a, b in zip(flatten(restored["params"])[0], leaves))
+        chip_smoke.check(step == args.steps and same,
+                         "the four ranks' checkpoint restored on one rank differs")
+        rows["checkpoint_4_ranks_restored_on_1"] = True
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["train"] = rows
+
+
+def _rank_main(args) -> int:
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.core.communicator import world
+
+    comm = world(device_type=args.device)
+    chip_smoke.check(comm.size() == WORLD, f"{comm.size()} ranks, want {WORLD}")
+    card = ""
+    if args.device == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+    out = {"card": card, "world": WORLD, "rank": comm.rank()}
+    t0 = time.perf_counter()
+    _serve_qwen(args, out)
+    _serve_phi4(args, out)
+    _train(args, out)
+    out["run_s"] = time.perf_counter() - t0
+    chip_smoke.log(f"rank {comm.rank()}: " + json.dumps(out))
+    if comm.rank() == 0:
+        path = ROOT / "artifacts" / "shard_ranks.json"
+        path.parent.mkdir(exist_ok=True)
+        path.write_text(json.dumps(out, indent=1))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def main(argv=None) -> int:
+    args = _args(argv)
+    if "RANK" in os.environ:
+        return _rank_main(args)
+    if args.device == "cuda":
+        import chip_smoke
+
+        mods = chip_smoke._kernel_modules()  # first: nvcc's users import it through the core
+        from repro_torch.kernels import nvcc
+
+        # once, before the ranks load the libraries
+        nvcc.build_all(m.LIBRARY for m in mods)
+    # qwen's whole model is drawn on each card before it is placed leaf by
+    # leaf: every placed leaf's shard is allocated beside ~70 GB, which a
+    # fragmented cache cannot give
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={WORLD}", __file__, *(argv if argv is not None else sys.argv[1:])]
+    return subprocess.run(cmd, env=env, cwd=str(ROOT), timeout=1800).returncode
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -98,6 +98,12 @@ def _build(node: Any, it) -> Any:
     return kind(**{f: _build(c, it) for f, c in zip(names, children)})
 
 
+def _capturing() -> bool:
+    """This thread's current CUDA stream is capturing a graph."""
+
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def _sync(tree: Any) -> None:
     devices = {
         leaf.device for leaf in _leaves(tree)
@@ -121,11 +127,14 @@ class Future:
         if self._works is None:
             _sync(self._value)
             return
+        capturing = _capturing()
         for w in self._works:
             # a work another future already waited (a when_all join, a
             # window's fence) is complete: gloo would wait for a second
-            # transfer on it
-            if not w.is_completed():
+            # transfer on it.  Under CUDA graph capture an NCCL work's
+            # completion cannot be queried (it is recorded, not run): its
+            # wait only makes the stream wait, which the graph records
+            if capturing or not w.is_completed():
                 w.wait()
         self._works = []
 

@@ -30,10 +30,12 @@ Contents:
 * :func:`merge_partial_attention` — the exact softmax merge of attention
   over a sequence-sharded KV cache (the sharded decode of
   :mod:`repro_torch.models.attention`).
+* :func:`halo_exchange` — the cart stencil's boundary exchange.
+* :func:`pipeline_spmd` — the microbatch schedule over a cart ``stage``
+  dim, under the trainer's pipeline plan; differentiable.
 
 Not ported yet, each with its callers (``ROADMAP.md`` A14):
-``ring_all_gather``, ``halo_exchange``, ``pipeline_spmd`` and the
-partitioned ring schedules.
+``ring_all_gather`` and the partitioned ring schedules.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import math
 
 import torch
 
-from repro_torch.core import collectives, errors
+from repro_torch.core import collectives, errors, topology
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.compress import BLOCK
 from repro_torch.core.descriptors import CollectiveSpec, Compression, ReduceOp
@@ -313,3 +315,125 @@ def merge_partial_attention(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     num = collectives.allreduce(comm, o * w)
     den = collectives.allreduce(comm, w)
     return num / torch.clamp(den, min=1e-30)
+
+
+# ---------------------------------------------------------------------------
+# cart schedules: the halo exchange and the pipeline
+# ---------------------------------------------------------------------------
+
+
+def halo_exchange(cart, x: torch.Tensor, *, dim: int = 0, axis: int = 0,
+                  width: int = 1) -> Future:
+    """Cartesian halo exchange (the ch. 8 stencil idiom): send the ``width``
+    boundary slices of ``x`` (tensor dimension ``axis``) to the ∓ neighbors
+    along cart dimension ``dim``; a :class:`Future` over ``(from_minus,
+    from_plus)`` — the neighbor boundary slices this rank receives (zeros
+    beyond a non-periodic edge, the :data:`~repro_torch.core.topology.
+    PROC_NULL` convention).  Both exchanges are issued before it returns,
+    so interior compute queued before ``get()`` overlaps them."""
+
+    errors.check(
+        0 < width <= x.shape[axis],
+        errors.ErrorClass.ERR_COUNT,
+        f"halo width {width} invalid for array dim of size {x.shape[axis]}",
+    )
+    hi = x.narrow(axis, x.shape[axis] - width, width)
+    lo = x.narrow(axis, 0, width)
+    # my high boundary travels +1 and becomes the + rank's from_minus
+    from_minus = cart.shift_exchange(hi, dim, 1)
+    from_plus = cart.shift_exchange(lo, dim, -1)
+    return when_all([from_minus, from_plus])
+
+
+class _Join(torch.autograd.Function):
+    """``a`` itself, with ``b`` joined to its autograd graph: ``b`` gets a
+    zero cotangent.  It keeps a rank's stage-boundary shifts on the graph
+    its backward walks (see :func:`pipeline_spmd`)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.b_meta = (b.shape, b.dtype, b.device)
+        return a.view_as(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.b_meta
+        return g, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def pipeline_spmd(cart, *, stage_dim: int, num_microbatches: int, inject, stage_fn,
+                  extract) -> list:
+    """Pipeline-parallel microbatch schedule over a cart ``stage`` dim.
+
+    At tick ``t`` this stage applies its layers to the microbatch in flight
+    (microbatch ``t - stage``, when there is one), then the activation
+    moves one stage down through the ``cart_shift(+1)`` exchange (the
+    first stage's source is :data:`~repro_torch.core.topology.PROC_NULL`).
+    Microbatch ``m`` enters stage 0 at tick ``m`` and drains from stage
+    ``S-1`` at tick ``m + S - 1``: ``M + S - 1`` ticks, the ``S-1``-tick
+    bubble of a forward pipeline.  Every rank calls the shift at every
+    tick, as the reference's loop does, so that no send waits for a
+    receive never posted; a stage with no microbatch in flight skips its
+    compute (the reference computes on values that never reach a result).
+
+    * ``inject(m)`` → the stage-0 input for microbatch ``m`` (called on
+      stage 0; the other stages call ``inject(0)`` once, for the
+      activation's shape);
+    * ``stage_fn(state, t)`` → this stage's layers on the activation;
+    * ``extract(m, state, is_last)`` → called once per drained microbatch,
+      on every rank, with ``is_last`` a host bool (this rank is the final
+      stage); its results are returned in microbatch order.  Callers
+      return a zero where ``is_last`` is false and sum over the stage axis.
+
+    Differentiable (the shift is :func:`~repro_torch.core.topology.
+    shift_differentiable`): the backward walks the ticks in reverse on
+    every rank, each shift sending its cotangent one stage back.  For every
+    rank to take each shift's backward, in the same order, the activation
+    is one autograd chain through the ticks: a later stage's first state is
+    a zero joined to ``inject(0)``, stage 0 joins each received (zero)
+    state to the microbatch it injects, and the last state joins the last
+    result.
+    """
+
+    dims = cart.dims
+    errors.check(
+        0 <= stage_dim < len(dims),
+        errors.ErrorClass.ERR_DIMS,
+        f"stage_dim {stage_dim} out of range for cart dims {dims}",
+    )
+    errors.check(
+        num_microbatches >= 1,
+        errors.ErrorClass.ERR_COUNT,
+        f"pipeline needs >= 1 microbatch, got {num_microbatches}",
+    )
+    errors.check(
+        not cart.periods[stage_dim],
+        errors.ErrorClass.ERR_TOPOLOGY,
+        "the pipeline stage dim must be non-periodic (activations drain at "
+        "the last stage; a periodic shift would wrap them into stage 0)",
+    )
+    s = dims[stage_dim]
+    stage = cart.cart_coords(cart.rank())[stage_dim]
+    is_first, is_last = stage == 0, stage == s - 1
+    m = num_microbatches
+    grad = torch.is_grad_enabled()
+
+    def join(a, b):
+        return _Join.apply(a, b) if grad and b.requires_grad else a
+
+    state = inject(0)
+    if not is_first:
+        state = join(torch.zeros_like(state), state)
+    outs = []
+    for t in range(m + s - 1):
+        if is_first and 0 < t < m:
+            state = join(inject(t), state)
+        if 0 <= t - stage < m:
+            state = stage_fn(state, t)
+        out_t = t - (s - 1)
+        if out_t >= 0:
+            outs.append(extract(out_t, state, is_last))
+        if t < m + s - 2:
+            state = topology.shift_differentiable(cart, state, stage_dim, 1)
+    outs[-1] = join(outs[-1], state) if isinstance(outs[-1], torch.Tensor) else outs[-1]
+    return outs

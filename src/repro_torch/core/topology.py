@@ -754,6 +754,34 @@ class DistGraphComm(_NeighborComm):
 # ---------------------------------------------------------------------------
 
 
+class _Shift(torch.autograd.Function):
+    """The differentiable cart shift: forward, ``cart.shift_exchange``;
+    backward, the cotangent sent back by ``-disp`` (zeros where the
+    backward's source is :data:`PROC_NULL`), as a ``ppermute`` transposes
+    to the reverse permutation."""
+
+    @staticmethod
+    def forward(ctx, x, cart, dim, disp):
+        ctx.cart, ctx.dim, ctx.disp = cart, dim, disp
+        return cart.shift_exchange(x, dim, disp).get()
+
+    @staticmethod
+    def backward(ctx, g):
+        back = ctx.cart.shift_exchange(g.contiguous(), ctx.dim, -ctx.disp).get()
+        return back, None, None, None
+
+
+def shift_differentiable(cart: "CartComm", x: torch.Tensor, dim: int, disp: int = 1
+                         ) -> torch.Tensor:
+    """``cart.shift_exchange(x, dim, disp).get()`` of one tensor, on the
+    autograd graph: the received tensor's gradient goes back to the rank
+    that sent it (a shift by ``-disp``).  Every rank of the dimension calls
+    it in the same order, forward and backward, as it calls any exchange;
+    the ring's recompute and the pipeline's stage boundary run on it."""
+
+    return _Shift.apply(x, cart, dim, disp)
+
+
 def cart_create(
     comm_or_group: Communicator | Group,
     dims: Sequence[int],

@@ -16,12 +16,17 @@ Uneven global lengths: the caller pads the global sequence to ``n × shard``
 the per-source valid-row table that masks padded columns out of the online
 softmax inside the kernel.  On the card the schedule's scalars
 ``(q_offset, k_offset, kv_len)`` of every step are one int32 table copied to
-the device once per call, so no step copies a host scalar.
+the device once per ``(spec, rank, device)`` and kept, so no step copies a
+host scalar and a captured step (a CUDA graph) copies none either.
 
-The gradient is not ported: the reference's ``custom_vjp`` recomputes
-through the plain ring, and the torch equivalent needs a differentiable
-rotation; both wait for ROADMAP A14 item 5.  Until then a call whose
-inputs require grad raises ``ERR_UNSUPPORTED_OPERATION``.
+Gradients: a ``torch.autograd.Function`` with the reference's
+``custom_vjp`` convention.  The forward runs the kernel and keeps ``q, k,
+v``; the backward recomputes the whole ring through the plain step
+(``ref.ring_step_ref``, never the kernel's wrapper) with each rotation a
+differentiable shift (:func:`repro_torch.core.topology.
+shift_differentiable`, whose backward sends the cotangent one rank back),
+and returns the recompute's gradient.  No per-step scores outlive the
+forward.
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import errors, overlap
+from repro_torch.core import errors, overlap, topology
+from repro_torch.core.futures import Future
 from repro_torch.kernels.ring_attention import kernel as _kernel
+from repro_torch.kernels.ring_attention import ref as _ref
 
 NEG_INF = _kernel.NEG_INF
 
@@ -87,11 +94,27 @@ def _schedule(spec: RingSpec, idx: int) -> list[tuple[int, int, int]]:
     return rows
 
 
-def _forward(q, k, v, spec: RingSpec, cart, dim: int):
+#: each ring position's schedule on the device, built once outside any
+#: capture: (spec, position, device) -> int32 (n, 3)
+_TABLES: dict = {}
+
+
+def _table(spec: RingSpec, idx: int, device) -> torch.Tensor:
+    key = (spec, idx, str(device))
+    table = _TABLES.get(key)
+    if table is None:
+        table = _TABLES[key] = torch.tensor(_schedule(spec, idx), dtype=torch.int32,
+                                            device=device)
+    return table
+
+
+def _forward(q, k, v, spec: RingSpec, cart, dim: int, *, plain: bool = False):
     """The fused ring loop on this rank.
 
     q: (b, sq, h, d); k/v: (b, sk, hk, d) — the local shards.  Returns the
-    local output shard (b, sq, h, d) in q's dtype.
+    local output shard (b, sq, h, d) in q's dtype.  ``plain`` runs each
+    step through ``ref.ring_step_ref`` and each rotation through the
+    differentiable shift: the backward's recompute.
     """
 
     b, sq, h, d = q.shape
@@ -111,24 +134,55 @@ def _forward(q, k, v, spec: RingSpec, cart, dim: int):
     m = torch.full((b, h, sqp, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, sqp, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, h, sqp, d), dtype=torch.float32, device=dev)
-    table = torch.tensor(_schedule(spec, idx), dtype=torch.int32, device=dev)
 
-    def rotate(buf):
-        # the cart_shift(+1) exchange of the *stacked* KV buffer: one per
-        # ring step, issued before the step's compute
-        return cart.shift_exchange(buf, dim, 1)
+    if plain:
+        rows = _schedule(spec, idx)
 
-    def step_fn(carry, buf, step):
-        m, l, acc = carry
-        return _kernel.ring_step_fwd(
-            qt, buf[0], buf[1], m, l, acc, info=table[step],
-            scale=spec.scale, causal=spec.causal,
-        )
+        def rotate(buf):
+            return Future(topology.shift_differentiable(cart, buf, dim, 1), works=())
+
+        def step_fn(carry, buf, step):
+            q_off, k_off, kv_len = rows[step]
+            return _ref.ring_step_ref(qt, buf[0], buf[1], *carry, q_offset=q_off,
+                                      k_offset=k_off, kv_len=kv_len, scale=spec.scale,
+                                      causal=spec.causal)
+    else:
+        table = _table(spec, idx, dev)
+
+        def rotate(buf):
+            # the cart_shift(+1) exchange of the *stacked* KV buffer: one
+            # per ring step, issued before the step's compute
+            return cart.shift_exchange(buf, dim, 1)
+
+        def step_fn(carry, buf, step):
+            return _kernel.ring_step_fwd(qt, buf[0], buf[1], *carry, info=table[step],
+                                         scale=spec.scale, causal=spec.causal)
 
     m, l, acc = overlap.ring_rotate_compute(rotate, kv, spec.n, step_fn, (m, l, acc))
     out = acc / l.clamp_min(1e-30)                                  # (b, h, sqp, d)
     out = out.transpose(1, 2).to(q.dtype)
     return out[:, :sq] if sqp != sq else out
+
+
+class _Ring(torch.autograd.Function):
+    """The reference's ``_ring`` / ``_fwd`` / ``_bwd``: the kernel forward,
+    and a backward that recomputes the ring through the plain step under
+    autograd and returns the recompute's vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, spec, cart, dim):
+        ctx.save_for_backward(q, k, v)
+        ctx.spec, ctx.cart, ctx.dim = spec, cart, dim
+        return _forward(q, k, v, spec, cart, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True) for t in saved)
+            out = _forward(q, k, v, ctx.spec, ctx.cart, ctx.dim, plain=True)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
 
 
 def ring_attention(
@@ -150,7 +204,8 @@ def ring_attention(
     Per-rank entry point: ``q`` (b, sq, h, d), ``k``/``v`` (b, sk, hk, d)
     are this rank's shards of a sequence padded to ``n × shard``;
     ``global_len`` (default ``n × sq``) is the unpadded length.  Exact (fp32
-    state) against the dense flash reference.
+    state) against the dense flash reference; differentiable, with the
+    backward recomputed through the plain ring.
     """
 
     errors.check(
@@ -179,12 +234,6 @@ def ring_attention(
         errors.ErrorClass.ERR_COUNT,
         f"global_len {global_len} inconsistent with {n} shards of {shard}",
     )
-    errors.check(
-        not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))),
-        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        "ring attention's gradient is not ported yet: it waits for ROADMAP A14 item 5 "
-        "(a differentiable rotation and a recompute backward through the plain ring)",
-    )
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     shift = cart.cart_shift(dim, 1)
@@ -200,4 +249,4 @@ def ring_attention(
         block_q=int(block_q),
         block_k=int(block_k),
     )
-    return _forward(q, k, v, spec, cart, dim)
+    return _Ring.apply(q, k, v, spec, cart, dim)

@@ -1,5 +1,6 @@
 """Training launcher: the port's Trainer (checkpoint/restart, straggler
-guard, fault injection) with the data, FSDP, tensor and expert plans.
+guard, fault injection) with the data, FSDP, tensor, expert, ring and
+pipeline plans.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi4_mini_3_8b \\
         --steps 4 --batch 2 --seq 2048
@@ -12,17 +13,22 @@ selects the reduced same-family config.  ``--mesh DxM`` folds the process
 world onto a (data, model) grid; on more than one rank the state is placed
 on it (``repro_torch.sharding.rules``: FSDP over data, heads, ``d_ff`` and
 the vocabulary over model) and the batch split over data.  ``--plan``
-takes data plans and ``tensor``/``expert`` > 1, which fold the world onto
-(data, model).  Several CPU ranks run under ``torchrun`` (gloo), as the
-serve launcher's do::
+takes the reference's specs: ``tensor``/``expert`` > 1 fold the world onto
+(data, model), ``ring=N`` onto a (data, model) cart whose model dim is the
+attention ring, ``stage=S,micro=M`` onto a (data, stage) cart that streams
+M microbatches through S pipeline stages.  ``--pipeline-stages`` (with
+``--pipeline-microbatches``) and ``--ring-attention`` are the reference's
+aliases for ``stage=``/``micro=`` and ``ring=``.  Several CPU ranks run
+under ``torchrun`` (gloo), as the serve launcher's do::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch phi4_mini_3_8b --smoke --device cpu --steps 4 --batch 4 --plan data=2,tensor=2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch phi4_mini_3_8b --smoke --device cpu --steps 4 --batch 8 --plan stage=2,micro=2
 
 Not ported yet, each raising ``ERR_UNSUPPORTED_OPERATION``: ``--plan auto``
-(the tuner, ROADMAP A15), the pipeline and ring plans
-(``--pipeline-stages``, ``--ring-attention``; A14 item 5), and the elastic
-drills ``--evict-at`` / ``--admit-at`` (A15).
+(the tuner, ROADMAP A15) and the elastic drills ``--evict-at`` /
+``--admit-at`` (A15).
 """
 
 from __future__ import annotations
@@ -33,22 +39,31 @@ import logging
 
 
 def resolve_plan(args, devices):
-    """The ``--plan`` spec, or ``None`` (pure data plan) without one.  The
-    deprecated ``--pipeline-stages``/``--ring-attention`` flags go to
-    :class:`TrainerConfig`'s int knobs as they are, where values above 1
-    raise."""
+    """One parser for every layout flag: ``--plan`` wins; the deprecated
+    ``--pipeline-stages``/``--ring-attention`` flags are aliases that build
+    the equivalent spec and route through
+    :func:`repro_torch.configs.base.parse_plan`.  Returns ``None`` (pure
+    data plan) when nothing asked for a fold."""
 
     from repro_torch.configs import base
     from repro_torch.core import errors
 
-    if not args.plan:
-        return None
-    errors.check(
-        args.plan != "auto",
-        errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-        "--plan auto (the parallelism tuner) is not ported yet: it waits for ROADMAP A15",
-    )
-    return base.parse_plan(args.plan, devices=devices)
+    if args.plan:
+        errors.check(
+            args.plan != "auto",
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            "--plan auto (the parallelism tuner) is not ported yet: it waits for ROADMAP A15",
+        )
+        return base.parse_plan(args.plan, devices=devices)
+    parts = []
+    if args.pipeline_stages > 1:
+        parts.append(f"stage={args.pipeline_stages}")
+        parts.append(f"micro={args.pipeline_microbatches}")
+    if args.ring_attention > 1:
+        parts.append(f"ring={args.ring_attention}")
+    if parts:
+        return base.parse_plan(",".join(parts), devices=devices)
+    return None
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -70,11 +85,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="checkpoint writes overlap the next steps "
                          "(--no-async-checkpoint joins each save)")
     ap.add_argument("--plan", default=None,
-                    help="the parallelism plan: data, tensor and expert dims (pipeline "
-                         "and ring plans are not ported yet)")
-    ap.add_argument("--pipeline-stages", type=int, default=0, help="not ported yet")
-    ap.add_argument("--pipeline-microbatches", type=int, default=2)
-    ap.add_argument("--ring-attention", type=int, default=0, help="not ported yet")
+                    help="the parallelism plan: key=value pairs such as "
+                         "'data=2,tensor=2', 'ring=2' or 'stage=2,micro=2' ('auto' is "
+                         "not ported yet)")
+    ap.add_argument("--pipeline-stages", type=int, default=0,
+                    help="alias for --plan stage=N (with --pipeline-microbatches)")
+    ap.add_argument("--pipeline-microbatches", type=int, default=2,
+                    help="alias for --plan micro=N (with --pipeline-stages)")
+    ap.add_argument("--ring-attention", type=int, default=0,
+                    help="alias for --plan ring=N: a periodic cart ring on the model axis")
     ap.add_argument("--inject-failure-at", type=int, default=None)
     ap.add_argument("--evict-at", default=None, metavar="STEP:RANK", help="not ported yet")
     ap.add_argument("--admit-at", default=None, metavar="STEP[:COUNT]", help="not ported yet")
@@ -123,9 +142,6 @@ def run(argv=None):
         async_checkpoint=args.async_checkpoint,
         log_every=args.log_every,
         plan=plan,
-        pipeline_stages=args.pipeline_stages,
-        pipeline_microbatches=args.pipeline_microbatches,
-        ring_attention=args.ring_attention,
     )
     injector = None
     if args.inject_failure_at is not None:

@@ -28,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import collectives, errors, overlap, topology
+from repro_torch.core import collectives, datatypes, errors, overlap, topology
 from repro_torch.core.descriptors import CollectiveSpec
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -307,14 +307,63 @@ def attention_full(
     return _out(_attend(q, k, v, cfg, pcfg, sliding_window, prefix_len, mesh), p["wo"])
 
 
+class _Blocks(torch.autograd.Function):
+    """This rank's ``(rows, seq)`` block of tensors every rank of ``comm``
+    holds whole; the backward scatters each block's cotangent into zeros
+    and sums over ``comm`` (the blocks tile the whole), so every rank ends
+    with the whole tensors' gradients, as the sharded step's transpose
+    gives them."""
+
+    @staticmethod
+    def forward(ctx, comm, rows, seq, *xs):
+        ctx.comm, ctx.rows, ctx.seq = comm, rows, seq
+        ctx.shapes = [x.shape for x in xs]
+        return tuple(x[rows, seq].contiguous() for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        whole = []
+        for g, shape in zip(gs, ctx.shapes):
+            z = g.new_zeros(shape)
+            z[ctx.rows, ctx.seq] = g
+            whole.append(z)
+        if ctx.comm.size() > 1:
+            whole = datatypes.apply_packed(ctx.comm.allreduce, tuple(whole))
+        return (None, None, None, *whole)
+
+
+class _Gathered(torch.autograd.Function):
+    """The output blocks all-gathered over the ring (sequence, dim 1), then
+    over each data axis (rows, dim 0); the backward takes this rank's block
+    of the cotangent, which is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, out, cart, lines, rows, seq):
+        ctx.rows, ctx.seq = rows, seq
+        if cart.size() > 1:
+            out = collectives.allgather(cart, out, spec=CollectiveSpec(axis=1))
+        for line in lines:
+            out = collectives.allgather(line, out, spec=CollectiveSpec(axis=0))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rows, ctx.seq].contiguous(), None, None, None, None
+
+
 def _ring_attention_sharded(q, k, v, pcfg, comm, *, scale, causal=True):
-    """Sequence parallelism for long prefill: this rank takes its batch rows
-    by its coordinate on ``pcfg.data_axes`` and its sequence shard by its
+    """Sequence parallelism for training and long prefill: this rank takes
+    its batch rows by its coordinate on the data axes of ``comm`` (those of
+    ``pcfg.data_axes`` it has) and its sequence shard by its
     ``pcfg.model_axis`` coordinate (the reference's ``P(data_axes, axis)``
     spec), runs the fused ring (``kernels/ring_attention``) on a periodic
     cart over the model axis, and all-gathers the output over both.  Global
     lengths that do not divide the ring are padded here (the kernel masks
-    the tail) and sliced back."""
+    the tail) and sliced back.  Differentiable: every rank of ``comm`` ends
+    with the whole ``q, k, v``'s gradients (``_Blocks``, ``_Gathered``).
+
+    The server hands it its whole communicator (a replicated batch); the
+    trainer, whose ranks hold their data blocks, the ring's line alone."""
 
     axis = pcfg.model_axis
     n = comm.axis_size(axis)
@@ -325,7 +374,7 @@ def _ring_attention_sharded(q, k, v, pcfg, comm, *, scale, causal=True):
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
     shard = (s + pad) // n
     coords = dict(zip(comm.axis_names, comm.coords()))
-    data_axes = tuple(pcfg.data_axes)
+    data_axes = tuple(a for a in pcfg.data_axes if a in comm.axis_names)
     data = math.prod(comm.axis_size(a) for a in data_axes)
     b = q.shape[0]
     errors.check(
@@ -338,12 +387,10 @@ def _ring_attention_sharded(q, k, v, pcfg, comm, *, scale, causal=True):
         row = row * comm.axis_size(a) + coords[a]
     rows = slice(row * (b // data), (row + 1) * (b // data))
     seq = slice(coords[axis] * shard, (coords[axis] + 1) * shard)
-    out = ring_ops.ring_attention(
-        cart, q[rows, seq], k[rows, seq], v[rows, seq], causal=causal, scale=scale, global_len=s,
-    )
-    out = collectives.allgather(cart, out, spec=CollectiveSpec(axis=1))
-    for a in reversed(data_axes):
-        out = collectives.allgather(comm.split(a), out, spec=CollectiveSpec(axis=0))
+    ql, kl, vl = _Blocks.apply(comm, rows, seq, q, k, v)
+    out = ring_ops.ring_attention(cart, ql, kl, vl, causal=causal, scale=scale, global_len=s)
+    lines = [comm.split(a) for a in reversed(data_axes) if comm.axis_size(a) > 1]
+    out = _Gathered.apply(out, cart, lines, rows, seq)
     return out[:, :s] if pad else out
 
 

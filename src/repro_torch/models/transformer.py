@@ -1,8 +1,8 @@
 """Decoder-only LM trunk: dense (qwen/phi4/granite), gemma-2's local-global
 alternation with softcaps, MoE (grok-1), MLA + MoE with a leading dense
 layer (deepseek-v2) and the prefix-LM VLM (paligemma), with forward / loss /
-prefill / decode entry points — :mod:`repro.models.transformer` but its
-pipeline decomposition.
+prefill / decode entry points and the pipeline's stage decomposition
+(:func:`pipeline_stage_fns`) — :mod:`repro.models.transformer`.
 
 The parameter tree is the reference's: ``params["layers"][name]`` stacks
 every leaf of one sub-layer along a leading unit dimension.  The reference
@@ -13,8 +13,7 @@ image embeddings through ``mm_proj`` and puts them before the text, a
 bidirectional prefix of ``num_image_tokens`` under ``prefix_lm``.  The
 ``first_dense_layers`` blocks (``params["dense_{i}"]``) run before the
 stack, unstacked and not rematted, as in the reference; the MoE blocks'
-aux metrics are summed over the stacked units.  Not ported yet: the
-pipeline decomposition.
+aux metrics are summed over the stacked units.
 """
 
 from __future__ import annotations
@@ -343,6 +342,73 @@ def lm_loss(params, batch: dict, cfg, pcfg, mesh=None) -> tuple[torch.Tensor, di
         loss = loss + 1e-2 * aux["load_balance_loss"] + 1e-3 * aux["router_z_loss"]
     metrics = {"loss": loss, **{k: torch.as_tensor(v) for k, v in aux.items()}}
     return loss, metrics
+
+
+# -- pipeline-parallel stage decomposition (MPI 4.0 ch. 8 fabric) -------------
+
+
+def pipeline_stage_fns(cfg, pcfg):
+    """Decompose the LM into the three pieces the pipeline schedule
+    (:func:`repro_torch.core.overlap.pipeline_spmd`) streams microbatches
+    through: ``embed_mb`` (stage-0 injection), ``apply_units`` (each stage's
+    local slice of the stacked layers), ``loss_mb`` (last-stage head + CE).
+
+    They run on this rank's local tensors (the stage's slice of
+    ``params['layers']``, the replicated leaves whole), so the model's
+    sharding constraints are neutralised (``data_axes=()``), as the
+    reference's are inside ``shard_map``.  Requires the fully stacked
+    layout (``first_dense_layers == 0``): the stage split is a slice of the
+    stacked ``params['layers']`` leading dim."""
+
+    errors.check(
+        cfg.first_dense_layers == 0,
+        errors.ErrorClass.ERR_TOPOLOGY,
+        "pipeline stages require a fully-scanned layer stack "
+        f"(first_dense_layers={cfg.first_dense_layers})",
+    )
+    errors.check(
+        cfg.family in ("dense", "moe"),
+        errors.ErrorClass.ERR_TOPOLOGY,
+        f"pipeline stage decomposition supports dense/moe LMs, not {cfg.family!r}",
+    )
+    local_pcfg = dataclasses.replace(pcfg, data_axes=())
+    plan = _unit_plan(cfg)
+
+    def embed_mb(params, tokens_mb):
+        """(mb, T) tokens → (mb, T, D) stage-0 activations."""
+
+        return _embed(params, tokens_mb, cfg)
+
+    def apply_units(layers_local, x):
+        """Apply this stage's local stacked units to the in-flight
+        activation (positions are full-sequence — microbatches split the
+        batch dim, never the sequence)."""
+
+        positions = torch.arange(x.shape[1], device=x.device)
+
+        def unit(x, unit_params):
+            for name, kind, window in plan:
+                x, _, _ = _block_full(
+                    unit_params[name], x, cfg, local_pcfg, kind=kind,
+                    sliding_window=window, positions=positions, prefix_len=None,
+                    mesh=None, collect_cache=False,
+                )
+            return x
+
+        unit = _maybe_remat(unit, local_pcfg)
+        for unit_params in _units(layers_local):
+            x = unit(x, unit_params)
+        return x
+
+    def loss_mb(params, x, tokens_mb):
+        """Last-stage head + token-mean CE for one microbatch."""
+
+        logits = _head(params, x, cfg, None)
+        return common.cross_entropy(
+            logits[:, :-1], tokens_mb[:, 1:], softcap_val=cfg.final_logit_softcap
+        )
+
+    return embed_mb, apply_units, loss_mb
 
 
 # -- caches -------------------------------------------------------------------

@@ -40,9 +40,9 @@ model computes, and the kernels see local shards
 ``flash_decode_merge`` the decode step gets the communicator, and each
 model shard attends over its slice of the cache.  Every rank runs
 ``generate`` on the same requests and returns the same tokens.  A placed
-batch's rows must split over the data axes (``ERR_DIMS`` otherwise, where
-the reference replicates the batch: see
-:func:`~repro_torch.sharding.local.check_rows_split`).
+batch whose rows the data axes do not split is replicated over them, as
+the reference replicates it: each step then runs off the data axes
+(:func:`~repro_torch.sharding.local.replicating`).
 
 The mesh selects the layout, and no option does.  **A communicator whose
 model axis is one rank keeps plain tensors**, a communicator of one rank
@@ -206,10 +206,6 @@ class Server:
             comm = self.comm if pcfg.ring_attention else None
 
             cfg = self.cfg
-
-            mesh = _mesh_of(self.params)
-            if mesh is not None:
-                sharding_local.check_rows_split(batch["tokens"].shape[0], mesh, pcfg)
 
             def prefill_step(p, b):
                 logits, cache = bundle.prefill(p, b, pcfg, comm, extra_capacity=extra)

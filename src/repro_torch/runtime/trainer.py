@@ -1,6 +1,7 @@
 """The Trainer — :class:`repro.runtime.trainer.Trainer` in eager PyTorch:
-the data plan and the placed (FSDP, tensor and expert) plans,
-checkpoint/restart, failure recovery and straggler handling.
+the data plan, the placed (FSDP, tensor and expert) plans, the ring plan
+and the pipeline plan, checkpoint/restart, failure recovery and straggler
+handling.
 
 The train step is assembled from the port's layers, as the reference's is:
 
@@ -21,9 +22,10 @@ and its gradients (the backward runs under implicit replication too); each
 gradient is redistributed once to its parameter's placement — the one
 reduction over ``data`` — and clipping, AdamW and checkpoints work on
 local shards.  ``plan.tensor`` (and ``plan.expert``, which rides the same
-axis) > 1 folds the communicator onto ``(data, model)``.  The global
-batch's rows must split over the data axes (``ERR_DIMS`` otherwise:
-:func:`~repro_torch.sharding.local.check_rows_split`).  One rank keeps
+axis) > 1 folds the communicator onto ``(data, model)``.  A global batch
+whose rows the data axes do not split is replicated over them, as the
+reference replicates it, and the step runs off the data axes
+(:func:`~repro_torch.sharding.local.replicating`).  One rank keeps
 plain tensors, where the layout is the identity; setting
 :attr:`Trainer.placed` before the state is built overrides the choice (the
 chip phase places the state on its mesh of one; a baseline keeps several
@@ -60,11 +62,34 @@ goes on from device state.  One deviation: the run's final save is skipped
 when the periodic save just covered the same step (the reference writes it
 twice).
 
+**The ring plan** (``plan.ring > 1``, or ``pcfg.ring_attention`` on a
+communicator with a ``model`` axis): the communicator folds onto a
+``(data, model)`` cart, periodic on ``model``, and the loss gets the
+ring's line: each eligible layer shards its sequence over the ring kernel
+(``models/attention.py``), whose gradient recomputes through the plain
+ring.  Every ring rank holds the whole state and its data row's block of
+the batch, ends the backward with the same gradients, and the gradients
+average over ``data`` as the data plan's do.  On the card a ring of one
+(a world of one) runs the kernel with no exchange.
+
+**The pipeline plan** (``plan.stage > 1``): the communicator folds onto a
+``(data, stage)`` cart, not periodic on ``stage``; ``params["layers"]`` is
+placed ``Shard(0)`` on ``stage`` and the rest replicated
+(:func:`_pipeline_param_specs`), and :func:`make_pipeline_train_step`
+streams ``plan.microbatches`` microbatches of each rank's data block
+through :func:`~repro_torch.core.overlap.pipeline_spmd` on local tensors.
+The deprecated ``pipeline_stages``/``ring_attention`` knobs build the same
+plans (:meth:`TrainerConfig.resolved_plan`).
+
+On the card a plan whose ring or stages span more than one rank is
+refused at the step's build (``ERR_UNSUPPORTED_OPERATION``): its NCCL
+point-to-point exchanges hung inside the captured step on four H100s,
+and the trainer does not switch to eager steps; the step functions run
+eagerly (``tools/shard_ranks.py`` trains both plans so).
+
 **Not ported, each raising ``ERR_UNSUPPORTED_OPERATION``:** the elastic
 shrink and grow (``core/epoch.py``, ROADMAP A15: the trainer holds its
-communicator where the reference holds a ``CommEpoch``); the pipeline and
-ring plans (ROADMAP A14 item 5: the ring's gradient) and the reference's
-deprecated ``pipeline_stages``/``ring_attention`` knobs that build them.
+communicator where the reference holds a ``CommEpoch``).
 ``persistent=False`` and ``donate=False`` raise too: the step is always
 the persistent, in-place one.  ``ParallelConfig(moment_dtype="int8")``
 trains with the int8 moments of :mod:`repro_torch.optim.adamw`, inside the
@@ -76,22 +101,24 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import warnings
 from typing import Callable
 
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ParallelPlan
-from repro_torch.core import datatypes, errors, tool
+from repro_torch.core import datatypes, errors, overlap, tool, topology
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.futures import PersistentRequest, flatten, unflatten
 from repro_torch.data import TokenPipeline
 from repro_torch.launch.mesh import make_host_communicator
 from repro_torch.models import api as model_api
+from repro_torch.models import transformer
 from repro_torch.optim import AdamW, clip_by_global_norm, cosine_warmup
 from repro_torch.optim.adamw import _Q8
 from repro_torch.sharding import rules
-from repro_torch.sharding.local import check_rows_split, implicit_replication, is_dtensor
+from repro_torch.sharding.local import implicit_replication, is_dtensor
 from repro_torch.runtime.faults import (
     FaultInjector,
     RankEvicted,
@@ -103,13 +130,31 @@ from repro_torch.runtime.faults import (
 log = logging.getLogger("repro_torch.trainer")
 
 tool.pvar_register("trace:train_step", "train-step requests built (want exactly 1 per run)")
-# registered as the reference registers it; the legacy knobs it counts raise
-# here (see TrainerConfig), so nothing counts it
 tool.pvar_register(
     "config:deprecated_knob",
     "TrainerConfig layouts built through the deprecated "
     "pipeline_stages/ring_attention int knobs instead of a ParallelPlan",
 )
+
+_deprecated_knob_warned = False
+
+
+def _warn_deprecated_knobs() -> None:
+    """One DeprecationWarning per process for the legacy int knobs; the pvar
+    still counts every shimmed construction."""
+
+    global _deprecated_knob_warned
+    tool.pvar_count("config:deprecated_knob")
+    if _deprecated_knob_warned:
+        return
+    _deprecated_knob_warned = True
+    warnings.warn(
+        "TrainerConfig.pipeline_stages/pipeline_microbatches/ring_attention "
+        "are deprecated; pass plan=ParallelPlan(stage=..., ring=..., "
+        "microbatches=...) instead",
+        DeprecationWarning,
+        stacklevel=3,
+    )
 
 
 def _not_ported(what: str, item: str) -> None:
@@ -138,13 +183,38 @@ class TrainerConfig:
     # checkpoint writes ride the I/O request engine and overlap the next
     # step; False joins each save before the next step starts
     async_checkpoint: bool = True
-    # the unified layout; None = a pure data plan
+    # the unified layout; None = a pure data plan, unless the deprecated
+    # knobs below ask for a fold
     plan: ParallelPlan | None = None
-    # the reference's deprecated pipeline/ring int knobs: the plans they
-    # build are not ported, so values above 1 raise
+    # the reference's deprecated pipeline/ring int knobs, shimmed through
+    # resolved_plan()
     pipeline_stages: int = 0
     pipeline_microbatches: int = 2
     ring_attention: int = 0
+
+    def resolved_plan(self) -> ParallelPlan:
+        """The one layout truth: ``plan`` when set, else the deprecated int
+        knobs shimmed through :meth:`ParallelPlan.from_legacy` (warning
+        once), else the pure data plan."""
+
+        legacy = self.pipeline_stages > 1 or self.ring_attention > 1
+        if self.plan is not None:
+            errors.check(
+                not legacy,
+                errors.ErrorClass.ERR_ARG,
+                "TrainerConfig.plan and the deprecated pipeline_stages/"
+                "ring_attention knobs are both set; the plan is the only "
+                "layout input — drop the legacy knobs",
+            )
+            return self.plan
+        if legacy:
+            _warn_deprecated_knobs()
+            return ParallelPlan.from_legacy(
+                pipeline_stages=self.pipeline_stages,
+                pipeline_microbatches=self.pipeline_microbatches,
+                ring_attention=self.ring_attention,
+            )
+        return ParallelPlan()
 
 
 def _average(comm: Communicator | None, tree):
@@ -201,13 +271,139 @@ def make_train_step(
     return train_step
 
 
-def state_specs(params, opt_state, mesh_shape: dict, pcfg):
+def _pipeline_param_specs(params, stages: int):
+    """Pipeline placement: the stacked ``layers`` leading (unit) dim is
+    sharded over the cart ``stage`` axis — each stage holds its slice of
+    the layer stack; embedding, head and norms replicate."""
+
+    for leaf in flatten(params["layers"])[0]:
+        errors.check(
+            leaf.shape[0] % stages == 0,
+            errors.ErrorClass.ERR_DIMS,
+            f"{leaf.shape[0]} scanned units do not split over {stages} pipeline stages",
+        )
+
+    def specs(node, stacked: bool):
+        if isinstance(node, dict):
+            return {k: specs(v, stacked) for k, v in node.items()}
+        if not stacked:
+            return (None,) * node.ndim
+        return ("stage",) + (None,) * (node.ndim - 1)
+
+    return {k: specs(v, k == "layers") for k, v in params.items()}
+
+
+def _stage_flags(params) -> list[bool]:
+    """Per leaf of ``params`` (in :func:`flatten` order): whether it lies
+    under ``layers``, the stack the stages split."""
+
+    return [k == "layers" for k in sorted(params) for _ in flatten(params[k])[0]]
+
+
+def _sum_over(comm: Communicator | None, tree):
+    """The sum of ``tree`` over ``comm``: one allreduce per dtype group;
+    nothing to do on one rank."""
+
+    if comm is None or comm.size() == 1:
+        return tree
+    return datatypes.apply_packed(comm.allreduce, tree)
+
+
+def make_pipeline_train_step(
+    cfg: ModelConfig,
+    pcfg: ParallelConfig,
+    tcfg: TrainerConfig,
+    opt: AdamW,
+    cart,
+    plan: ParallelPlan | None = None,
+):
+    """Pipeline-parallel train step over a ``(data, stage)`` Cartesian
+    topology (MPI 4.0 ch. 8 as the pipeline fabric), updating ``params``
+    and ``opt_state`` in place.
+
+    Each rank takes its local tensors (the stage's slice of
+    ``params['layers']`` and the replicated leaves, DTensors or not) and
+    its data block of the batch, and
+    :func:`repro_torch.core.overlap.pipeline_spmd` streams
+    ``plan.microbatches`` microbatches through the stages — every stage
+    boundary is one differentiable ``cart_shift(+1)`` exchange along
+    ``stage``, never a world collective.  The backward walks the schedule
+    in reverse, each shift sending its cotangent one stage back.  Then the
+    reference's ``shard_map`` transpose by hand: the replicated leaves'
+    gradients (the embedding's on stage 0, the head's on the last stage)
+    sum over ``stage``, every gradient averages over ``data``, and the
+    loss is the sum over (data, stage) divided by the data size."""
+
+    embed_mb, apply_units, loss_mb = transformer.pipeline_stage_fns(cfg, pcfg)
+    plan = plan if plan is not None else tcfg.resolved_plan()
+    m = max(1, plan.microbatches)
+    data_axis, stage_axis = cart.axis_names
+    data_line, stage_line = cart.split(data_axis), cart.split(stage_axis)
+
+    def train_step(params, opt_state, batch):
+        leaves, treedef = flatten(params)
+        stacked = _stage_flags(params)
+        local = [(p.to_local() if is_dtensor(p) else p).detach().requires_grad_(True)
+                 for p in leaves]
+        lp = unflatten(treedef, local)
+        tokens = batch["tokens"]
+        errors.check(
+            tokens.shape[0] % m == 0,
+            errors.ErrorClass.ERR_COUNT,
+            f"local batch {tokens.shape[0]} does not split into {m} microbatches",
+        )
+        toks = tokens.reshape(m, tokens.shape[0] // m, tokens.shape[1])
+        losses = overlap.pipeline_spmd(
+            cart,
+            stage_dim=1,
+            num_microbatches=m,
+            inject=lambda i: embed_mb(lp, toks[i]),
+            stage_fn=lambda state, t: apply_units(lp["layers"], state),
+            extract=lambda i, state, is_last: (
+                loss_mb(lp, state, toks[i]) if is_last
+                else torch.zeros((), dtype=torch.float32, device=state.device)),
+        )
+        loss = sum(losses) / m
+        grads = torch.autograd.grad(loss, local, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, local)]
+        del lp, local, losses
+        # only the last stage's loss is nonzero: the stage sum replicates it
+        # and the data average averages the blocks' token means
+        loss = _average(data_line, _sum_over(stage_line, loss.detach()))
+        replicated = _sum_over(stage_line, [g for g, st in zip(grads, stacked) if not st])
+        it = iter(replicated)
+        grads = _average(data_line, [g if st else next(it) for g, st in zip(grads, stacked)])
+        grads = unflatten(treedef, [
+            _placed_as(g, p) for g, p in zip(grads, leaves)])
+        del leaves
+        grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The local gradient ``g`` as a DTensor placed as ``p`` (``g`` holds
+    the placement's value: summed where ``p`` is replicated)."""
+
+    if not is_dtensor(p):
+        return g
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(g, p.device_mesh, p.placements, run_check=False,
+                              shape=p.shape, stride=p.stride())
+
+
+def state_specs(params, opt_state, mesh_shape: dict, pcfg, pspecs=None):
     """The optimizer state's specs: a moment inherits the spec of the first
     parameter of its shape, as the reference's ``_state_shardings`` does;
     an int8 moment's scales are split as its payload's rows (the reference
-    replicates them); the rest is replicated."""
+    replicates them); the rest is replicated.  ``pspecs`` are the
+    parameters' specs (by default ``rules.param_specs``)."""
 
-    pspecs = rules.param_specs(params, mesh_shape, pcfg)
+    if pspecs is None:
+        pspecs = rules.param_specs(params, mesh_shape, pcfg)
     by_shape: dict = {}
     for leaf, spec in zip(flatten(params)[0], rules.spec_leaves(pspecs)):
         by_shape.setdefault(tuple(leaf.shape), spec)
@@ -260,8 +456,9 @@ class Trainer:
         self._comm = comm if comm is not None else make_host_communicator(device=device)
         self._reform_topology()
         self.device = self._comm.device
-        #: the state is placed (DTensors on the communicator's device mesh)
-        self.placed = self._comm.size() > 1
+        #: the state is placed (DTensors on the communicator's device mesh);
+        #: under the ring every rank holds the whole state
+        self.placed = self._comm.size() > 1 and not self.pcfg.ring_attention
         errors.check(
             tcfg.donate,
             errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
@@ -322,41 +519,68 @@ class Trainer:
         return self._comm
 
     def _reform_topology(self) -> None:
-        """Resolve the plan: the port runs the pure data plan (the
-        communicator's own shape); a plan that re-forms the fabric or
-        shards the model raises."""
+        """The one place the trainer shapes its fabric: resolve the plan and
+        fold the communicator onto it — a ``(data, model)`` cart, periodic
+        on ``model``, for the ring (which sets ``pcfg.ring_attention``); a
+        ``(data, stage)`` cart, not periodic, for the pipeline; a ``(data,
+        model)`` grid for the tensor and expert plans; the communicator's
+        own shape for the data plan."""
 
-        if self.tcfg.pipeline_stages > 1:
-            _not_ported("the pipeline plan (TrainerConfig.pipeline_stages > 1)", "A14 item 5")
-        if self.tcfg.ring_attention > 1:
-            _not_ported("training with ring attention (TrainerConfig.ring_attention > 1)",
-                        "A14 item 5")
-        self.plan = plan = self.tcfg.plan or ParallelPlan()
+        self.plan = plan = self.tcfg.resolved_plan()
         if plan.remat is not None:
             self.pcfg = dataclasses.replace(self.pcfg, remat=plan.remat)
-        if plan.stage > 1:
-            _not_ported("the pipeline plan (stage > 1)", "A14 item 5")
-        if plan.ring > 1 or self.pcfg.ring_attention:
-            _not_ported("training with ring attention (the ring's gradient)", "A14 item 5")
-        if plan.tensor > 1 or plan.expert > 1:
-            # the model dim rides the model axis (expert is 1 or equals
-            # tensor); the data axis takes the rest
-            m = max(plan.tensor, plan.expert)
+        if plan.reforms_fabric:
             size = self._comm.size()
             errors.check(
-                size % m == 0,
+                size % plan.fixed_size == 0,
                 errors.ErrorClass.ERR_DIMS,
                 f"{size} ranks do not fold onto plan {plan.slug()!r} "
-                f"(fixed axes need a multiple of {m})",
+                f"(fixed axes need a multiple of {plan.fixed_size})",
             )
-            self._comm = Communicator.from_group(
-                self._comm.group(), tag=self._comm.tag or "train",
-                shape=(size // m, m), axis_names=("data", "model"))
+            dims = (size // plan.fixed_size,) + plan.fold_dims()[1:]
+            if plan.ring > 1:
+                # the periodic ring dim rides the model axis: attention
+                # shards the sequence over the ring and rotates KV by
+                # cart_shift(+1) exchanges
+                self.pcfg = dataclasses.replace(self.pcfg, ring_attention=True)
+            if plan.fold_periods() is not None:
+                self._comm = topology.cart_create(
+                    self._comm, dims, plan.fold_periods(), axis_names=plan.fold_axes(),
+                    tag=f"{self._comm.tag or 'train'}/cart/{'x'.join(map(str, dims))}")
+            else:
+                self._comm = Communicator.from_group(
+                    self._comm.group(), tag=self._comm.tag or "train", shape=dims,
+                    axis_names=plan.fold_axes())
+        # the ring's line, and the data line its ranks average over
+        self._ring_line = self._data_line = None
+        if self.pcfg.ring_attention or plan.stage > 1:
+            names = self._comm.axis_names
+            errors.check(
+                "data" in names and (plan.stage > 1 or self.pcfg.model_axis in names),
+                errors.ErrorClass.ERR_TOPOLOGY,
+                f"the ring and pipeline plans need a data axis and a "
+                f"{'stage' if plan.stage > 1 else self.pcfg.model_axis!r} axis, "
+                f"got {names}",
+            )
+            self._data_line = self._comm.split("data")
+            if self.pcfg.ring_attention:
+                self._ring_line = self._comm.split(self.pcfg.model_axis)
+
+    @property
+    def _average_over(self) -> Communicator:
+        """The ranks the data plan's gradients average over: the data line
+        under the ring, else the whole communicator."""
+
+        return self._data_line if self._ring_line is not None else self._comm
 
     def _batch(self, step: int) -> dict:
         """This rank's block of the global batch for ``step``; placed, the
-        global batch split under ``batch_spec``."""
+        global batch split under ``batch_spec``; under the ring and the
+        pipeline, its data row's block."""
 
+        if self._data_line is not None:
+            return self.pipeline.device_batch(step, self.device, self._data_line.rank(),
+                                              self._data_line.size())
         if self.placed:
             mesh = self._comm.device_mesh
             batch = self.pipeline.device_batch(step, self.device)
@@ -385,12 +609,13 @@ class Trainer:
             if not self.placed:
                 return self._trainable(params), self.opt.init(params)
             mesh = self._comm.device_mesh
-            check_rows_split(self.global_batch, mesh, self.pcfg)
             shape = rules.mesh_shape(mesh)
-            params = rules.distribute(params, rules.param_specs(params, shape, self.pcfg), mesh)
+            pspecs = (_pipeline_param_specs(params, self.plan.stage) if self.plan.stage > 1
+                      else rules.param_specs(params, shape, self.pcfg))
+            params = rules.distribute(params, pspecs, mesh)
             opt_state = self.opt.init(params)
             opt_state = rules.distribute(
-                opt_state, state_specs(params, opt_state, shape, self.pcfg), mesh)
+                opt_state, state_specs(params, opt_state, shape, self.pcfg, pspecs), mesh)
         return self._trainable(params), opt_state
 
     @staticmethod
@@ -409,8 +634,28 @@ class Trainer:
 
     def _build_step(self, params, opt_state):
         tool.pvar_count("trace:train_step")
-        # no mesh for the loss: the ring, its one user, is not ported for training
-        base_step = make_train_step(self.cfg, self.pcfg, self.tcfg, self.opt, comm=self._comm)
+        # on the card the step is a CUDA graph from start 2; a step of four
+        # H100s whose ring exchanged point to point over NCCL hung once
+        # captured (all-reduces, as the data plan's, capture), so such a
+        # step is refused, never run otherwise
+        exchanges = self.plan.stage > 1 or (self._ring_line is not None
+                                            and self._ring_line.size() > 1)
+        errors.check(
+            not (exchanges and self.device.type == "cuda"),
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            f"plan {self.plan.slug()!r} exchanges point to point over NCCL inside its step, "
+            f"which the trainer captures as a CUDA graph, and such a capture hangs: it is "
+            f"refused on the card (the step functions, make_train_step and "
+            f"make_pipeline_train_step, run eagerly)",
+        )
+        if self.plan.stage > 1:
+            base_step = make_pipeline_train_step(self.cfg, self.pcfg, self.tcfg, self.opt,
+                                                 self._comm, plan=self.plan)
+        else:
+            # under the ring the loss gets the ring's line, whose ranks end
+            # with the same gradients: they average over the data line
+            base_step = make_train_step(self.cfg, self.pcfg, self.tcfg, self.opt,
+                                        mesh=self._ring_line, comm=self._average_over)
         self._request = PersistentRequest(base_step, (params, opt_state, self._batch(0)),
                                           donate_argnums=(0, 1))
         return self._request

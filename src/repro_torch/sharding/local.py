@@ -17,8 +17,8 @@ A placement the call cannot honour (a dim split that does not divide) is
 redistributed to ``Replicate`` first, never handed to the kernel.  Around
 the model: :func:`replicating` runs an entry point under a re-entrant
 :func:`implicit_replication` on the FSDP-gathered parameters
-(:func:`gather_fsdp`), and :func:`check_rows_split` refuses a batch the
-data axes do not split.
+(:func:`gather_fsdp`), off the data axes where they do not split the
+batch (:class:`_DataFree`).
 """
 
 from __future__ import annotations
@@ -28,8 +28,6 @@ import functools
 import math
 
 import torch
-
-from repro_torch.core import errors
 
 
 def is_dtensor(x) -> bool:
@@ -221,44 +219,119 @@ def gather_fsdp(params, pcfg):
     return unflatten(treedef, out)
 
 
-def check_rows_split(rows: int, device_mesh, pcfg) -> None:
-    """Refuse a placed batch of ``rows`` rows that the data axes of
-    ``device_mesh`` do not split (``ERR_DIMS``), where the reference drops
-    the batch's mapping and replicates it.
+def rows_split(rows: int, device_mesh, pcfg) -> bool:
+    """Whether the data axes of ``device_mesh`` split a batch of ``rows``
+    rows (as the reference's ``batch_spec`` keeps the mapping)."""
+
+    shape = dict(zip(device_mesh.mesh_dim_names, device_mesh.mesh.shape))
+    return rows % math.prod(int(shape.get(a, 1)) for a in pcfg.data_axes) == 0
+
+
+class _DataFree:
+    """The view of a placed call whose batch the data axes do not split:
+    the reference replicates that batch, so every data rank computes the
+    same values, and the call runs on the submesh of the other axes (plain
+    tensors where none is left), each leaf replicated over the data axes.
 
     A mesh axis on which every operand of an op is replicated gives
     DTensor's strategy search free moves: it may split the op's
-    contraction over that axis to shrink a later exchange, and when two
-    such splits cost the same it takes the first in the iteration order of
-    a set of placements, whose hash (``Partial("sum")``'s string) differs
-    from process to process.  Ranks then issue different collectives: on
-    three gloo ranks serving two rows, one rank all-gathered an uneven
-    split of a width of 64 that another never sent (``op.preamble.length
-    <= op.nbytes``), in five of eight runs of ``serve --mesh 3x1`` placed,
-    and in none with ``PYTHONHASHSEED`` fixed.  A batch split over the data
-    axes leaves the search no free move there."""
+    contraction over that axis, and it breaks ties between equal-cost
+    moves in the iteration order of a set of placements, whose hash
+    (``Partial("sum")``'s string) differs from process to process.  Ranks
+    then issue different collectives: on three gloo ranks serving two rows
+    placed on a 3 x 1 mesh, one rank all-gathered an uneven split that
+    another never sent.  Without the data axes in the mesh the search has
+    no such move to make."""
 
-    shape = dict(zip(device_mesh.mesh_dim_names, device_mesh.mesh.shape))
-    axes = tuple(a for a in pcfg.data_axes if shape.get(a, 1) > 1)
-    n = math.prod(int(shape[a]) for a in axes)
-    errors.check(
-        rows % n == 0,
-        errors.ErrorClass.ERR_DIMS,
-        f"a batch of {rows} rows on the data axes {axes} ({n} ranks): placed state needs "
-        f"the rows split over them (a replicated batch leaves DTensor's per-rank choice "
-        f"of collectives free)",
-    )
+    def __init__(self, device_mesh, pcfg):
+        from torch.distributed.tensor import Replicate
+
+        self.mesh = device_mesh
+        names = tuple(device_mesh.mesh_dim_names)
+        self.data = [n in pcfg.data_axes for n in names]
+        keep = tuple(n for n, d in zip(names, self.data) if not d)
+        self.sub = device_mesh[keep] if keep else None
+        self._rep = Replicate()
+
+    def onto(self, tree):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.core.futures import flatten, unflatten
+
+        def view(leaf):
+            if not is_dtensor(leaf) or leaf.device_mesh != self.mesh:
+                return leaf
+            pl = [self._rep if d else p for p, d in zip(leaf.placements, self.data)]
+            if pl != list(leaf.placements):
+                leaf = leaf.redistribute(self.mesh, pl)
+            local = leaf.to_local()
+            if self.sub is None:
+                return local
+            return DTensor.from_local(local, self.sub,
+                                      [p for p, d in zip(pl, self.data) if not d],
+                                      run_check=False, shape=leaf.shape, stride=leaf.stride())
+
+        leaves, treedef = flatten(tree)
+        return unflatten(treedef, [view(x) for x in leaves])
+
+    def back(self, tree):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.core.futures import flatten, unflatten
+
+        def place(leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            placed = is_dtensor(leaf)
+            rest = iter(leaf.placements if placed else ())
+            pl = [self._rep if d else next(rest, self._rep) for d in self.data]
+            return DTensor.from_local(leaf.to_local() if placed else leaf, self.mesh, pl,
+                                      run_check=False, shape=leaf.shape, stride=leaf.stride())
+
+        leaves, treedef = flatten(tree)
+        return unflatten(treedef, [place(x) for x in leaves])
+
+
+def _rows(node) -> int | None:
+    """The leading dim of the first tensor of ``node`` (the batch's rows)."""
+
+    from repro_torch.core.futures import flatten
+
+    for leaf in flatten(node)[0]:
+        if isinstance(leaf, torch.Tensor) and leaf.dim() > 0:
+            return int(leaf.shape[0])
+    return None
 
 
 def replicating(fn, pcfg_at: int):
     """``fn(params, *args)``, whose ``args[pcfg_at]`` is the
-    ``ParallelConfig``, run under :func:`implicit_replication` on the
-    FSDP-gathered parameters (:func:`gather_fsdp`: whole over the data axes
-    for the call, as GSPMD gathers an FSDP weight before its use)."""
+    ``ParallelConfig`` and ``args[pcfg_at - 1]`` the batch (or the decode's
+    token), run under :func:`implicit_replication` on the FSDP-gathered
+    parameters (:func:`gather_fsdp`: whole over the data axes for the call,
+    as GSPMD gathers an FSDP weight before its use).  A batch the data
+    axes do not split runs off them (:class:`_DataFree`), its outputs
+    placed back on the whole mesh, replicated over the data axes."""
 
     @functools.wraps(fn)
     def run(params, *args, **kwargs):
+        pcfg = args[pcfg_at]
         with implicit_replication():
-            return fn(gather_fsdp(params, args[pcfg_at]), *args, **kwargs)
+            params = gather_fsdp(params, pcfg)
+            first = _first_dtensor(params)
+            rows = _rows(args[pcfg_at - 1])
+            if first is None or rows is None or rows_split(rows, first.device_mesh, pcfg):
+                return fn(params, *args, **kwargs)
+            view = _DataFree(first.device_mesh, pcfg)
+            args = tuple(a if i == pcfg_at else view.onto(a) for i, a in enumerate(args))
+            return view.back(fn(view.onto(params), *args, **kwargs))
 
     return run
+
+
+def _first_dtensor(tree):
+    """The first leaf of a placed tree, else ``None``."""
+
+    from repro_torch.core.futures import flatten
+
+    leaves = flatten(tree)[0]
+    return leaves[0] if leaves and is_dtensor(leaves[0]) else None

@@ -131,17 +131,6 @@ def test_non_periodic_ring_raises_topology_error():
     assert ei.value.klass == errors.ErrorClass.ERR_TOPOLOGY
 
 
-def test_ring_under_grad_raises_unsupported():
-    cart = topology.cart_create(world(device_type="cpu"), (1,), (True,), tag="ring-of-one")
-    x = torch.zeros((1, 8, 2, 4), requires_grad=True)
-    with pytest.raises(errors.Error) as ei:
-        tring.ring_attention(cart, x, x, x)
-    assert ei.value.klass == errors.ErrorClass.ERR_UNSUPPORTED_OPERATION
-    assert "A14 item 5" in str(ei.value)  # the item of ROADMAP the gradient waits for
-    with torch.no_grad():
-        tring.ring_attention(cart, x, x, x)
-
-
 def test_bad_global_len_raises_count_error():
     cart = topology.cart_create(world(device_type="cpu"), (1,), (True,), tag="ring-of-one")
     x = torch.zeros((1, 8, 2, 4))

@@ -549,9 +549,10 @@ def test_trainer_straggler_takes_the_failure_path(tmp_path):
                                   "no_donation", "not_persistent", "legacy_pipeline_knob",
                                   "legacy_ring_knob", "pipeline_flag"])
 def test_unported_paths_raise(tmp_path, case):
-    """Every path the port does not run raises a typed error; a tensor plan
-    is ported, and on one rank it does not fold (``ERR_DIMS``, as the
-    reference's)."""
+    """Every path the port does not run raises a typed error; the tensor,
+    ring and pipeline plans are ported, and on one rank they do not fold
+    (``ERR_DIMS``, as the reference's); a ring of one (``ring_pcfg``)
+    trains, as the data plan does."""
     cfg, pcfg = tbase.ModelConfig(**_TINY), tbase.ParallelConfig()
 
     def make(tcfg=None, pcfg=pcfg, injector=None, comm=None):
@@ -577,8 +578,17 @@ def test_unported_paths_raise(tmp_path, case):
         "pipeline_flag": lambda: tlaunch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device",
                                               "cpu", "--pipeline-stages", "2"]),
     }
-    expected = {"tensor": terrors.ErrorClass.ERR_DIMS}.get(
-        case, terrors.ErrorClass.ERR_UNSUPPORTED_OPERATION)
+    if case == "ring_pcfg":
+        trainer = runs[case]()
+        assert trainer.pcfg.ring_attention and trainer._ring_line.size() == 1
+        ring = [(m["loss"], m["grad_norm"]) for m in trainer.run()["metrics"]]
+        data = [(m["loss"], m["grad_norm"]) for m in make().run()["metrics"]]
+        np.testing.assert_allclose(ring, data, rtol=2e-2)   # bf16: the ring rounds apart
+        return
+    folds = ("tensor", "pipeline", "ring_plan", "legacy_pipeline_knob", "legacy_ring_knob",
+             "pipeline_flag")
+    expected = (terrors.ErrorClass.ERR_DIMS if case in folds
+                else terrors.ErrorClass.ERR_UNSUPPORTED_OPERATION)
     with pytest.raises(terrors.Error) as ei:
         runs[case]()
     assert ei.value.klass == expected, ei.value

@@ -28,17 +28,20 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def run_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0) -> list[dict]:
+def run_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0,
+              envs: list[dict] | None = None) -> list[dict]:
     """Run ``program`` on ``world`` ranks; the per-rank results, in rank
     order.  Raises with every rank's output if one fails or the limit
     passes."""
 
-    return finish_ranks(start_ranks(program, world, workdir, timeout))
+    return finish_ranks(start_ranks(program, world, workdir, timeout, envs))
 
 
-def start_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0) -> tuple:
+def start_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0,
+                envs: list[dict] | None = None) -> tuple:
     """Start ``program`` on ``world`` ranks without waiting; hand the
-    result to :func:`finish_ranks`."""
+    result to :func:`finish_ranks`.  ``envs[r]``, where given, adds to rank
+    ``r``'s environment (a ``PYTHONHASHSEED`` of its own, say)."""
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
@@ -47,7 +50,8 @@ def start_ranks(program: str, world: int, workdir: Path, timeout: float = 150.0)
     logs = [open(workdir / f"rank{r}.log", "w+") for r in range(world)]
     procs = [
         subprocess.Popen([sys.executable, __file__, program, str(r), str(world), str(workdir)],
-                         stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+                         stdout=logs[r], stderr=subprocess.STDOUT,
+                         env={**env, **(envs[r] if envs else {})}, cwd=str(ROOT))
         for r in range(world)
     ]
     return program, world, workdir, timeout, time.monotonic() + timeout, logs, procs
@@ -217,6 +221,73 @@ def prog_ring(rank: int, world: int, inputs: dict) -> dict:
         if s == q.shape[1]:
             out[f"{name}:plain"] = overlap.ring_attention(
                 cart, q[:, rows], k[:, rows], v[:, rows], causal=causal).numpy()
+    return out
+
+
+def prog_ring_grad(rank: int, world: int, inputs: dict) -> dict:
+    """The fused ring's gradient on this rank's shards for each case of the
+    inputs (the cotangent ``g`` sliced as the output), and the gradient of
+    a differentiable cart shift by +1 on a periodic ring and on a line:
+    ``x`` is this rank's row, the loss ``sum(shift(x) * w)``."""
+
+    import torch
+
+    from repro_torch.core import topology
+    from repro_torch.core.communicator import world as world_comm
+    from repro_torch.kernels.ring_attention import ops as ring_ops
+
+    comm = world_comm(device_type="cpu")
+    ring = topology.cart_create(comm, (world,), (True,), axis_names=("ring",))
+    out = {}
+    for name in sorted({k.split(":")[0] for k in inputs if ":" in k}):
+        q, k, v, g = (torch.from_numpy(inputs[f"{name}:{t}"]) for t in "qkvg")
+        s, causal = int(inputs[f"{name}:S"]), bool(inputs[f"{name}:causal"])
+        shard = q.shape[1] // world
+        rows = slice(rank * shard, (rank + 1) * shard)
+        ql, kl, vl = (t[:, rows].clone().requires_grad_(True) for t in (q, k, v))
+        o = ring_ops.ring_attention(ring, ql, kl, vl, causal=causal, global_len=s,
+                                    block_q=16, block_k=16)
+        for t, d in zip("qkv", torch.autograd.grad(o, (ql, kl, vl), g[:, rows])):
+            out[f"{name}:d{t}"] = d.numpy()
+    x = torch.from_numpy(inputs["shift_x"][rank].copy()).requires_grad_(True)
+    w = torch.from_numpy(inputs["shift_w"][rank].copy())
+    line = topology.cart_create(comm, (world,), (False,), axis_names=("line",))
+    for label, cart in (("ring", ring), ("line", line)):
+        y = topology.shift_differentiable(cart, x, 0, 1)
+        out[f"shift_{label}:y"] = y.detach().numpy()
+        (out[f"shift_{label}:dx"],) = (d.numpy() for d in torch.autograd.grad(
+            (y * w).sum(), x))
+    return out
+
+
+def prog_pipeline_schedule(rank: int, world: int, inputs: dict) -> dict:
+    """The reference's ``PIPELINE_CODE`` on this rank: the halo exchange of
+    width 2 on a line and on a ring, and a 3-microbatch pipeline whose
+    stage ``s`` multiplies by ``s + 1``, its drained values summed over the
+    stages."""
+
+    import torch
+
+    from repro_torch.core import overlap, topology
+    from repro_torch.core.communicator import world as world_comm
+
+    comm = world_comm(device_type="cpu")
+    out = {}
+    for label, periodic in (("line", False), ("ring", True)):
+        cart = topology.cart_create(comm, (world,), (periodic,), tag=f"halo-{label}")
+        x = torch.zeros(4) + float(cart.rank())
+        lo, hi = overlap.halo_exchange(cart, x, dim=0, axis=0, width=2).get()
+        out[f"halo_{label}"] = torch.stack([lo, hi]).numpy()
+    cart = topology.cart_create(comm, (world,), (False,), tag="pipeline")
+    stage = cart.cart_coords(cart.rank())[0]
+    xs = torch.from_numpy(inputs["xs"])
+    outs = overlap.pipeline_spmd(
+        cart, stage_dim=0, num_microbatches=xs.shape[0],
+        inject=lambda i: xs[i],
+        stage_fn=lambda state, t: state * (stage + 1.0),
+        extract=lambda i, state, is_last: state if is_last else torch.zeros_like(state),
+    )
+    out["pipeline"] = torch.stack([cart.allreduce(o) for o in outs]).numpy()
     return out
 
 
@@ -742,6 +813,125 @@ def prog_sharded_train(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def prog_int8_plans(rank: int, world: int, inputs: dict) -> dict:
+    """The tiny dense model with int8 moments from the seed's init,
+    ``steps`` steps on 2 x 2 ranks under the plan (data 2, tensor 2) and,
+    on the same ranks, under the data plan (whole state on every rank):
+    after each step, each plan's gradients (clipping's input) and stored
+    moments (int8 payloads and fp32 scales), whole, and which leaves have
+    their last axis split under the first plan."""
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, ParallelPlan
+    from repro_torch.core.futures import flatten
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime import trainer as trainer_mod
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    steps = int(inputs["steps"])
+    clip = trainer_mod.clip_by_global_norm
+    out = {}
+    for name, plan in (("tensor", ParallelPlan(data=2, tensor=2)), ("data", None)):
+        tcfg = TrainerConfig(steps=steps, lr=1e-3, warmup_steps=2, log_every=1, plan=plan)
+        trainer = Trainer(_tiny_cfg(), ParallelConfig(remat="full", moment_dtype="int8"), tcfg,
+                          make_host_communicator(device="cpu"), seq_len=32, global_batch=4,
+                          clock=lambda: 0.0)
+        trainer.placed = plan is not None
+        grads, moments = [], []
+
+        def record_grads(g, norm, grads=grads):
+            grads.append([_whole(x).detach().clone() for x in flatten(g)[0]])
+            return clip(g, norm)
+
+        def record_update(g, state, params, update=trainer.opt.update, moments=moments):
+            params, state = update(g, state, params)
+            moments.append([_whole(x).detach().clone() for x in flatten((state.mu, state.nu))[0]])
+            return params, state
+
+        trainer_mod.clip_by_global_norm = record_grads
+        object.__setattr__(trainer.opt, "update", record_update)
+        try:
+            result = trainer.run()
+        finally:
+            trainer_mod.clip_by_global_norm = clip
+        out[f"{name}/grad_norms"] = np.array([m["grad_norm"] for m in result["metrics"]])
+        for i in range(steps):
+            for j, g in enumerate(grads[i]):
+                out[f"{name}/{i}/g{j}"] = g.numpy()
+            for j, z in enumerate(moments[i]):
+                out[f"{name}/{i}/z{j}"] = z.numpy()
+        if plan is not None:
+            leaves = flatten(trainer.params)[0]
+            out["split"] = np.array([
+                any(pl.is_shard(p.ndim - 1) and p.device_mesh.size(d) > 1
+                    for d, pl in enumerate(p.placements)) for p in leaves])
+    return out
+
+
+#: the plans of the ring and pipeline trainer tests: (seq, global batch,
+#: ParallelPlan kwargs, model config kwargs); the ring's model is the
+#: reference's ``TRAINER_RING`` one, the pipeline's its pipeline trainer's
+TRAIN_PLANS = {
+    "ring": (96, 8, dict(ring=2), dict(num_kv_heads=4, vocab_size=256)),
+    "pipeline": (64, 8, dict(stage=2, microbatches=2), dict(num_kv_heads=2, vocab_size=128)),
+}
+
+
+def train_plan_cfg(name: str):
+    """The port's model config of a :data:`TRAIN_PLANS` entry."""
+
+    from repro_torch.configs.base import ModelConfig
+
+    return ModelConfig(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
+                       head_dim=16, d_ff=128, dtype="float32", **TRAIN_PLANS[name][3])
+
+
+def prog_train_plans(rank: int, world: int, inputs: dict) -> dict:
+    """The ring plan (data 2, ring 2) and the pipeline plan (data 2, stage
+    2, micro 2) of the port's ``Trainer`` on 4 ranks, 3 steps each from the
+    reference's init (``<plan>/param/...``): losses, grad norms, the
+    folded communicator and the parameters after the last step, whole; the
+    pipeline checkpoints its last step (fragments from every rank) into
+    ``ckpt_dir``.  Then the error of building the plan's step for a CUDA
+    device (its capture is refused)."""
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, ParallelPlan
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    out = {}
+    for name, (seq, batch, plan, _) in TRAIN_PLANS.items():
+        ckpt = inputs["ckpt_dir"].item() if name == "pipeline" else None
+        tcfg = TrainerConfig(steps=3, log_every=1, plan=ParallelPlan(**plan),
+                             checkpoint_dir=ckpt, checkpoint_every=3)
+        trainer = Trainer(train_plan_cfg(name), ParallelConfig(), tcfg,
+                          make_host_communicator(device="cpu"), seq_len=seq,
+                          global_batch=batch, clock=lambda: 0.0)
+        trainer.init_state = lambda t=trainer, n=name: t.place_state(
+            _params(_prefixed(inputs, n + "/")))
+        result = trainer.run()
+        out[f"{name}/losses"] = np.array([m["loss"] for m in result["metrics"]])
+        out[f"{name}/grad_norms"] = np.array([m["grad_norm"] for m in result["metrics"]])
+        out[f"{name}/dims"] = np.array(trainer.comm.shape)
+        out[f"{name}/axes"] = np.array(trainer.comm.axis_names)
+        out[f"{name}/periods"] = np.array(trainer.comm.periods)
+        out[f"{name}/ring_attention"] = np.array(trainer.pcfg.ring_attention)
+        out[f"{name}/placed"] = np.array(trainer.placed)
+        out[f"{name}/params"] = torch.cat(
+            [_whole(p).detach().reshape(-1) for p in _leaves(trainer.params)]).numpy()
+        # the same plan's step, as the card would capture it, is refused
+        card = Trainer(train_plan_cfg(name), ParallelConfig(), TrainerConfig(
+            steps=1, plan=ParallelPlan(**plan)), make_host_communicator(device="cpu"),
+            seq_len=seq, global_batch=batch)
+        state = card.init_state()
+        card.device = torch.device("cuda")
+        out[f"{name}/card_error"] = np.array(_err(lambda: card.compile(*state)))
+    return out
+
+
 def prog_sharded_restore(rank: int, world: int, inputs: dict) -> dict:
     """The reference's checkpoint (``ckpt_dir``) restored into the placed
     state of a 2 x 2 ``Trainer``: each leaf's whole value."""
@@ -770,9 +960,9 @@ def prog_sharded_restore(rank: int, world: int, inputs: dict) -> dict:
 def prog_rows_split(rank: int, world: int, inputs: dict) -> dict:
     """Three ranks on a 3 x 1 grid: the ``Server`` the mesh selects (whole
     weights: the model axis is one rank) serving 2 and 3 prompts; the same
-    weights placed by the caller, refusing the 2 rows the data axis does
-    not split and serving the 3 it does; a placed ``Trainer`` refusing a
-    global batch of 2."""
+    weights placed by the caller, serving the 2 rows the data axis does not
+    split (replicated over it) and the 3 it does; a placed ``Trainer`` at a
+    global batch of 2, its losses and grad norms."""
 
     import torch
 
@@ -796,12 +986,15 @@ def prog_rows_split(rank: int, world: int, inputs: dict) -> dict:
     server._prefill_reqs.clear()   # built on the whole weights
     server._decode_reqs.clear()
     out["placed"] = np.array(server.placed)
-    out["placed2_error"] = np.array(_err(lambda: server.generate(prompts[:2])))
+    out["placed2"], _ = server.generate(prompts[:2])
     out["placed3"], _ = server.generate(prompts[:3])
-    trainer = Trainer(_tiny_cfg(), pcfg, TrainerConfig(steps=1), make_host_communicator(
-        device="cpu"), seq_len=16, global_batch=2, clock=lambda: 0.0)
+    trainer = Trainer(_tiny_cfg(), pcfg, TrainerConfig(steps=2, lr=1e-3, log_every=1),
+                      make_host_communicator(device="cpu"), seq_len=16, global_batch=2,
+                      clock=lambda: 0.0)
+    result = trainer.run()
     out["trainer_placed"] = np.array(trainer.placed)
-    out["trainer_error"] = np.array(_err(trainer.init_state))
+    out["trainer_losses"] = np.array([m["loss"] for m in result["metrics"]])
+    out["trainer_grad_norms"] = np.array([m["grad_norm"] for m in result["metrics"]])
     return out
 
 
@@ -963,7 +1156,7 @@ PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_s
             "disagg": prog_disagg, "serve_fanout": prog_serve_fanout,
             "sharded_serve": prog_sharded_serve, "sharded_train": prog_sharded_train,
             "sharded_restore": prog_sharded_restore, "overlap": prog_overlap,
-            "rows_split": prog_rows_split, "split_rows_update": prog_split_rows_update,
+            "rows_split": prog_rows_split, "pipeline_schedule": prog_pipeline_schedule, "train_plans": prog_train_plans, "ring_grad": prog_ring_grad, "int8_plans": prog_int8_plans, "split_rows_update": prog_split_rows_update,
             "serve_mesh": prog_serve_mesh}
 
 

@@ -25,7 +25,26 @@ apart from ``chip_smoke.py``.  Every rank, in turn:
   plan and (data 2, tensor 2) again with int8 moments (w_gate/w_up's rows
   split over model: the whole-row update), held for 2 steps;
 * restores the fsdp run's checkpoint (fragments from four ranks) on rank 0
-  alone, into whole tensors, equal to the run's final parameters.
+  alone, into whole tensors, equal to the run's final parameters;
+* trains phi4-mini under the plans that re-form the fabric, where the
+  exchanges run on cards: the ring plan (ring 4, b 1 x ``--ring-seq``;
+  each card holds the whole state, runs every layer's other work on the
+  whole sequence and a quarter of it in every attention layer, the KV
+  rotating over NVLink; at b 2 x 8192 the fp32 logits of 16,384 tokens
+  and their gradient, 12.2 GiB each, ask past a card's 80 GB beside the
+  whole state, with fp32 or int8 moments) and the pipeline plan
+  (stage 4, micro 4, b ``--batch`` x ``--seq``: 8 layers a card,
+  microbatches of one row), ``--steps`` steps each, eagerly through the
+  trainer's step; then through the ``Trainer``, which on the card refuses
+  to capture a step with these exchanges (its NCCL point-to-point calls
+  hung inside the captured graph: the refusal is logged), and on gloo
+  ranks takes the eager steps' losses bit for bit.  The pipeline's losses are held within
+  ``LOSS_RTOL`` of the data plan's above (the same batch); the ring's
+  first loss within ``RING_LOSS_RTOL`` of the data plan's forward on the
+  same weights and batch (forward only: the data plan's backward
+  recomputes each layer's attention through (b, 24, 8192, 8192) fp32
+  scores, 6.4 GB a tensor at b 1).  Each card's peak and the step times
+  are logged.
 
 Rank 0 writes everything, with the card's name and power limit, to
 ``artifacts/shard_ranks.json``.
@@ -38,6 +57,7 @@ import dataclasses
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -50,6 +70,12 @@ sys.path.insert(0, str(ROOT / "src"))
 WORLD = 4
 LOGITS_TOL = 2e-2
 LOSS_RTOL = 1e-3
+# the ring's kernel and the data plan's flash round bf16 activations in
+# another order (the repo's bf16 tolerance)
+RING_LOSS_RTOL = 2e-2
+# the longest a trainer's run under the ring or pipeline plan may take (its
+# init, an eager step, a capture and the replays)
+CAPTURED_RUN_LIMIT_S = 300
 
 
 def _args(argv=None):
@@ -61,6 +87,9 @@ def _args(argv=None):
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--ring-seq", type=int, default=8192)
+    ap.add_argument("--skip-serve", action="store_true",
+                    help="train only (the serving runs take about half the time)")
     return ap.parse_args(argv)
 
 
@@ -185,6 +214,19 @@ def _serve_phi4(args, out) -> None:
     out["phi4_serve"] = row
 
 
+def _train_cfg(args):
+    """phi4-mini's config and parallel config; the smoke model at a layer a
+    pipeline stage."""
+
+    from repro_torch.configs import base
+
+    arch = "phi4_mini_3_8b"
+    cfg = base.get_config(arch)
+    if args.smoke:
+        cfg = dataclasses.replace(base.get_smoke_config(arch), num_layers=WORLD)
+    return cfg, base.get_parallel(arch)
+
+
 def _train(args, out) -> None:
     import torch
     import torch.distributed as dist
@@ -198,9 +240,7 @@ def _train(args, out) -> None:
     from repro_torch.runtime.faults import StragglerPolicy
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    arch = "phi4_mini_3_8b"
-    cfg = base.get_smoke_config(arch) if args.smoke else base.get_config(arch)
-    pcfg = base.get_parallel(arch)
+    cfg, pcfg = _train_cfg(args)
     ckpt = ROOT / "build" / "shard_ranks_ckpt"
     rows, finals = {}, {}
     tensor2 = ParallelPlan(data=2, tensor=2)
@@ -254,6 +294,136 @@ def _train(args, out) -> None:
         rows["checkpoint_4_ranks_restored_on_1"] = True
         shutil.rmtree(ckpt, ignore_errors=True)
     out["train"] = rows
+    _train_plans(args, out, rows)
+
+
+def _dump(out) -> None:
+    """Rank 0 writes ``out`` to ``artifacts/shard_ranks.json`` (also as it
+    goes, so that a run cut short leaves what it measured)."""
+
+    if out["rank"] == 0:
+        path = ROOT / "artifacts" / "shard_ranks.json"
+        path.parent.mkdir(exist_ok=True)
+        path.write_text(json.dumps(out, indent=1))
+
+
+def _eager_steps(trainer, step, args) -> dict:
+    """``args.steps`` eager calls of ``step`` from ``trainer``'s init and
+    batches: losses, grad norms, step times and the card's peak."""
+
+    import torch
+
+    params, opt_state = trainer.init_state()
+    losses, norms, times = [], [], []
+    for i in range(args.steps):
+        batch = trainer._batch(i)
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "peak_gb": _peak(args.device)}
+
+
+def _train_plans(args, out, rows) -> None:
+    import torch
+
+    import chip_smoke
+    from repro_torch.configs import base
+    from repro_torch.configs.base import ParallelPlan
+    from repro_torch.core import errors
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.faults import StragglerPolicy
+    from repro_torch.runtime.trainer import (
+        Trainer,
+        TrainerConfig,
+        make_pipeline_train_step,
+        make_train_step,
+    )
+
+    cfg, pcfg = _train_cfg(args)
+    plans = {}
+    for name, plan, seq, batch, moments in (
+            ("ring4", ParallelPlan(ring=WORLD), args.ring_seq, 1, "float32"),
+            ("stage4_micro4", ParallelPlan(stage=WORLD, microbatches=WORLD), args.seq,
+             args.batch, "float32")):
+
+        def trainer(plan=plan, seq=seq, batch=batch, moments=moments):
+            tcfg = TrainerConfig(steps=args.steps, lr=3e-4, log_every=1, plan=plan)
+            return Trainer(cfg, dataclasses.replace(pcfg, moment_dtype=moments), tcfg,
+                           make_host_communicator(device=args.device), seq_len=seq,
+                           global_batch=batch,
+                           straggler=StragglerPolicy(deadline_factor=float("inf")))
+
+        _reset(args.device)
+        t = trainer()
+        if plan.stage > 1:
+            step = make_pipeline_train_step(t.cfg, t.pcfg, t.tcfg, t.opt, t.comm, plan=t.plan)
+        else:
+            step = make_train_step(t.cfg, t.pcfg, t.tcfg, t.opt, mesh=t._ring_line,
+                                   comm=t._average_over)
+        row = {"plan": plan.slug(), "cart": list(t.comm.shape),
+               "periods": list(t.comm.periods), "seq": seq, "batch": batch,
+               "moments": moments,
+               "eager": _eager_steps(t, step, args)}
+        plans[name] = row
+        _dump(out | {"train_plans": plans})
+        del t, step
+        _reset(args.device)
+        t = trainer()
+        # should a captured step's exchanges hang, this rank would block in
+        # the device's synchronise, where no Python handler runs: SIGALRM's
+        # default action ends the process, and torchrun the others
+        signal.alarm(CAPTURED_RUN_LIMIT_S)
+        try:
+            result = t.run()
+        except errors.Error as e:
+            row["trainer_error"] = str(e)
+        else:
+            row.update(losses=[m["loss"] for m in result["metrics"]],
+                       grad_norms=[m["grad_norm"] for m in result["metrics"]],
+                       step_s=[m["duration_s"] for m in result["metrics"]],
+                       captures=t._request.captured, peak_gb=_peak(args.device))
+            row["graph_equals_eager"] = (row["losses"] == row["eager"]["losses"] and
+                                         row["grad_norms"] == row["eager"]["grad_norms"])
+        finally:
+            signal.alarm(0)
+        del t
+        _dump(out | {"train_plans": plans})
+    # the ring's baseline: the data plan's loss on the same weights and
+    # first batch, forward only
+    _reset(args.device)
+    t = Trainer(cfg, pcfg, TrainerConfig(steps=1), make_host_communicator(device=args.device),
+                seq_len=args.ring_seq, global_batch=plans["ring4"]["batch"])
+    t.placed = False
+    params, _ = t.init_state()
+    with torch.no_grad():
+        loss, _ = t.bundle.loss(params, t._batch(0), t.pcfg, None)
+    ring = plans["ring4"]
+    ring["data_plan_first_loss_forward"] = float(loss)
+    del t, params, loss
+    out["train_plans"] = plans
+    first = ring["eager"]["losses"][0]
+    chip_smoke.check(abs(first - ring["data_plan_first_loss_forward"])
+                     <= RING_LOSS_RTOL * abs(first),
+                     f"ring4: first loss {first} against the data plan's "
+                     f"{ring['data_plan_first_loss_forward']}")
+    pipe = plans["stage4_micro4"]
+    for got, ref in zip(pipe["eager"]["losses"], rows["data_plan"]["losses"]):
+        chip_smoke.check(abs(got - ref) <= LOSS_RTOL * abs(ref),
+                         f"stage4_micro4: losses {pipe['eager']['losses']} against the data "
+                         f"plan's {rows['data_plan']['losses']}")
+    for name, row in plans.items():
+        chip_smoke.check(all(x == x for x in row["eager"]["losses"]), f"{name}: {row}")
+        chip_smoke.check(("trainer_error" in row) is (args.device == "cuda"),
+                         f"{name}: the trainer's run on {args.device}: {row}")
+        if "trainer_error" not in row:
+            chip_smoke.check(row["graph_equals_eager"],
+                             f"{name}: the trainer's steps {row['losses']} differ from the "
+                             f"eager steps' {row['eager']['losses']}")
 
 
 def _rank_main(args) -> int:
@@ -272,15 +442,13 @@ def _rank_main(args) -> int:
         ).stdout.strip().splitlines()[0]
     out = {"card": card, "world": WORLD, "rank": comm.rank()}
     t0 = time.perf_counter()
-    _serve_qwen(args, out)
-    _serve_phi4(args, out)
+    if not args.skip_serve:
+        _serve_qwen(args, out)
+        _serve_phi4(args, out)
     _train(args, out)
     out["run_s"] = time.perf_counter() - t0
     chip_smoke.log(f"rank {comm.rank()}: " + json.dumps(out))
-    if comm.rank() == 0:
-        path = ROOT / "artifacts" / "shard_ranks.json"
-        path.parent.mkdir(exist_ok=True)
-        path.write_text(json.dumps(out, indent=1))
+    _dump(out)
     dist.barrier()
     dist.destroy_process_group()
     return 0

@@ -205,7 +205,16 @@ any failure.  In order:
     ``train_checkpoint``: phi4-mini at full width and 2 layers (b 2 x 2048)
     saves at steps 2 and 4 through the async manager under ``build/``, and a
     fresh ``Trainer`` restored from step 2 takes steps 3 and 4 bit for bit
-    as the uninterrupted run did; then the full phi4-mini (32 layers) and
+    as the uninterrupted run did; ``elastic`` (``core/epoch.py`` on the NCCL
+    world of one, the same model and batch, 4 steps): the eager
+    ``Trainer(persistent=False)`` bit for bit the graph ``Trainer``, flash
+    launched 2 x layers a step; one epoch transition (a grow by no members)
+    revokes the old epoch (``ERR_REVOKED``), releases its graph (device
+    memory after the successor's capture within 1% of before), builds the
+    step once more (``trace:train_step`` 2, one capture each) and keeps the
+    steps bit for bit the uninterrupted run's; evicting the only rank (and
+    ``train --evict-at 2:0``) raises ``ERR_PROC_FAILED`` with no graph left;
+    then the full phi4-mini (32 layers) and
     mamba2-2.7b (64 layers) train 4 steps at b 2 x 2048 (remat full, fp32
     moments), after the same steps run eagerly through ``make_train_step``
     from the same seed: the trainer's steps (step 1 eager, then one graph
@@ -250,6 +259,9 @@ any failure.  In order:
     bit-equal; the call and its error-feedback share timed;
 13. the ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
     last.
+
+Every phase prints its wall time on a line of its own, ``{"phase": ...,
+"wall_s": ...}``, as it ends; the run's total is ``run_s`` in the JSON.
 
 Also writes everything it prints as JSON to ``artifacts/chip_smoke.json``.
 """
@@ -3303,6 +3315,175 @@ def phase_train_checkpoint():
     _free()
 
 
+# the elastic phase: phi4-mini at full width and ELASTIC_LAYERS layers (a
+# full-depth fp32 state would write ~46 GB a save), b TRAIN_BATCH x
+# TRAIN_SEQ, ELASTIC_STEPS steps; the epoch transition (a grow by no
+# members) before step ELASTIC_GROW_AT + 1, the eviction before step
+# ELASTIC_EVICT_AT + 1; memory after the transition within
+# ELASTIC_MEMORY_RTOL of before it
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_GROW_AT, ELASTIC_EVICT_AT = 2, 4, 2, 2
+ELASTIC_MEMORY_RTOL = 0.01
+
+
+def _memory() -> dict:
+    """Device memory allocated and reserved, the cache's free blocks
+    returned first (what a graph's released pool gives back shows)."""
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved()}
+
+
+def phase_elastic():
+    """The elastic epochs on the NCCL world of one (``core/epoch.py``),
+    phi4-mini at full width and 2 layers, b 2 x 2048, fp32 moments, with
+    PyTorch's deterministic algorithms:
+
+    (a) ``Trainer(persistent=False)``, 4 eager steps, bit for bit the graph
+        ``Trainer``'s (losses and grad norms), flash launched 2 x layers a
+        step, no step request;
+    (b) one epoch transition of the graph ``Trainer``, a grow by no members
+        before step 3 (``CommEpoch.grow`` of an empty group advances the
+        generation over the same pool): the old epoch raises
+        ``ERR_REVOKED``, its graph is released, device memory (allocated
+        and reserved, the cache emptied) after the successor's capture is
+        within 1% of before the transition, ``trace:train_step`` counts 2
+        builds and the successor captures once; the losses are the
+        uninterrupted run's, bit for bit.  The transition's own time and
+        the two capturing steps' times are logged;
+    (c) ``FaultInjector.evict_rank(2, 0)``, the only rank evicted before
+        step 3, raises ``ERR_PROC_FAILED`` with the step's graph released
+        and the epoch revoked; so does ``train --evict-at 2:0`` on the
+        smoke model;
+    (d) the phase's wall time, steps and peak beside the card."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.core import errors, tool
+    from repro_torch.launch import train as launch
+    from repro_torch.runtime.faults import FaultInjector
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(base.get_config("phi4_mini_3_8b"), num_layers=ELASTIC_LAYERS)
+    pcfg = base.get_parallel("phi4_mini_3_8b")
+    kw = dict(steps=ELASTIC_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graph = _trainer(cfg, pcfg, "cuda", **kw)
+        uninterrupted = [(m["loss"], m["grad_norm"]) for m in graph.run()["metrics"]]
+        capture_s = graph.metrics_history[1]["duration_s"]
+        check(graph._request.captured == 1, f"elastic: {graph._request.captured} captures")
+        del graph
+        _free()
+
+        # (a) the eager step
+        _reset_launches()
+        eager = _trainer(cfg, pcfg, "cuda", persistent=False, **kw)
+        eager_result = eager.run()
+        launches = _launches()
+        eager_losses = [(m["loss"], m["grad_norm"]) for m in eager_result["metrics"]]
+        check(eager._request is None, "elastic: the eager trainer built a step request")
+        check(eager_losses == uninterrupted,
+              f"elastic: eager steps {eager_losses} != the graph steps {uninterrupted}")
+        for k, n in launches.items():
+            want = 2 * ELASTIC_LAYERS * ELASTIC_STEPS if k == "flash_attention_fwd" else 0
+            check(n == want, f"elastic: eager {k} launches {n}, want {want}")
+        del eager
+        _free()
+
+        # (b) one transition: a grow by no members
+        seen = {}
+        moved = _trainer(cfg, pcfg, "cuda",
+                         injector=FaultInjector().admit_rank(ELASTIC_GROW_AT), **kw)
+
+        def grow(count, params, opt_state):
+            seen["old"], seen["request"] = moved.epoch, moved._request
+            seen["before"] = _memory()
+            t0 = time.perf_counter()
+            out = moved._admit((), params, opt_state)
+            seen["transition_s"] = time.perf_counter() - t0
+            return out
+
+        moved._grow = grow
+        builds = tool.pvar_read()["trace:train_step"]
+        moved_result = moved.run()
+        builds = tool.pvar_read()["trace:train_step"] - builds
+        after = _memory()
+        moved_losses = [(m["loss"], m["grad_norm"]) for m in moved_result["metrics"]]
+        old, old_request = seen["old"], seen["request"]
+        try:
+            old.comm
+            revoked = False
+        except errors.RevokedError:
+            revoked = True
+        before = seen["before"]
+        drift = {k: after[k] / before[k] - 1 for k in before}
+        row = {"config": f"phi4_mini_3_8b {ELASTIC_LAYERS} layers", "seq": TRAIN_SEQ,
+               "batch": TRAIN_BATCH, "steps": ELASTIC_STEPS, "losses": moved_losses,
+               "eager_equal_graph_bitwise": True, "eager_step_s":
+               [m["duration_s"] for m in eager_result["metrics"]],
+               "graph_step_s": [m["duration_s"] for m in moved_result["metrics"]],
+               "epoch_0_capture_step_s": capture_s,
+               "epoch_1_capture_step_s": moved.metrics_history[ELASTIC_GROW_AT + 1]["duration_s"],
+               "transition_s": seen["transition_s"], "builds": builds,
+               "epoch": moved_result["epoch"], "old_epoch_revoked": revoked,
+               "old_graph_released": old_request._graph is None,
+               "memory_before_b": before, "memory_after_b": after, "memory_drift": drift,
+               "launches_eager": launches}
+        check(revoked, "elastic: the old epoch's communicator is still live")
+        check(old_request._graph is None, "elastic: the old epoch's graph was not released")
+        check(moved_result["epoch"] == 1 and builds == 2 and moved._request is not old_request
+              and moved._request.captured == 1 and old_request.captured == 1,
+              f"elastic: epoch {moved_result['epoch']}, {builds} builds, captures "
+              f"{old_request.captured} + {moved._request.captured}")
+        check(all(abs(d) <= ELASTIC_MEMORY_RTOL for d in drift.values()),
+              f"elastic: device memory {after} after the transition, {before} before it")
+        check(moved_losses == uninterrupted,
+              f"elastic: steps across the transition {moved_losses} != {uninterrupted}")
+        del moved, old, old_request, seen
+        _free()
+
+        # (c) evicting the only rank
+        evicted = _trainer(cfg, pcfg, "cuda",
+                           injector=FaultInjector().evict_rank(ELASTIC_EVICT_AT, 0), **kw)
+        klass = None
+        try:
+            evicted.run()
+        except errors.Error as e:
+            klass = e.klass
+        check(klass is errors.ErrorClass.ERR_PROC_FAILED,
+              f"elastic: evicting the only rank raised {klass}")
+        check(evicted.epoch.revoked and evicted._request.captured == 1
+              and evicted._request._graph is None,
+              "elastic: the evicted rank's step graph is still alive")
+        del evicted
+        _free()
+        cli = None
+        try:
+            launch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--steps", "3", "--batch", "2",
+                        "--seq", "64", "--evict-at", f"{ELASTIC_EVICT_AT}:0"])
+        except errors.Error as e:
+            cli = e.klass
+        check(cli is errors.ErrorClass.ERR_PROC_FAILED,
+              f"elastic: train --evict-at {ELASTIC_EVICT_AT}:0 raised {cli}")
+        _free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    row.update(evict_only_rank="ERR_PROC_FAILED", cli_evict="ERR_PROC_FAILED",
+               phase_s=time.perf_counter() - t_phase,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               device=RESULTS["device"]["nvidia_smi"])
+    log_row(row)
+    RESULTS["elastic"] = row
+    return "elastic", launches
+
+
 def _moment_pieces(params) -> int:
     """The int8 moments' pieces of whole rows in one AdamW update of
     ``params`` (``optim.adamw``: at most ``PIECE`` elements, at least one
@@ -3713,38 +3894,53 @@ def _kernel_line(name, source, replaces, max_abs_err, main_case, launches):
     }
 
 
+def _phase(fn, *args, **kwargs):
+    """Run the phase ``fn(*args, **kwargs)`` and print its wall time as a
+    line of its own, ``{"phase": ..., "wall_s": ...}``."""
+
+    name = ":".join([fn.__name__.removeprefix("phase_")]
+                    + [str(a) for a in args
+                       if isinstance(a, (str, int)) and not isinstance(a, bool)]
+                    + [k for k, v in kwargs.items() if v])
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    row = {"phase": name, "wall_s": time.perf_counter() - t0}
+    RESULTS.setdefault("phase_wall_s", []).append(row)
+    print(json.dumps(row), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
     import repro_torch.kernels.flash_attention.kernel  # noqa: F401  (the port is here)
 
-    phase_device()
-    phase_clock()
-    phase_build()
-    phase_nccl()
-    phase_kernels()
-    phase_ssd()
-    phase_quant()
-    phase_ring()
-    launches = dict(phase_serve(*spec) for spec in SERVES)
+    t_run = time.perf_counter()
+    for phase in (phase_device, phase_clock, phase_build, phase_nccl, phase_kernels,
+                  phase_ssd, phase_quant, phase_ring):
+        _phase(phase)
+    launches = dict(_phase(phase_serve, *spec) for spec in SERVES)
     for arch in ("gemma2_9b", "mamba2_2_7b", "zamba2_7b", "paligemma_3b",
                  "seamless_m4t_large_v2", "grok_1_314b", "deepseek_v2_236b"):
-        phase_small_model(arch)
+        _phase(phase_small_model, arch)
     for arch in ("gemma2_9b", "zamba2_7b"):
-        phase_small_model(arch, "int8")
-    phase_small_model("phi4_mini_3_8b", ring=True)
-    launches.update(phase_engine())
+        _phase(phase_small_model, arch, "int8")
+    _phase(phase_small_model, "phi4_mini_3_8b", ring=True)
+    launches.update(_phase(phase_engine))
     for arch in ENGINE_SMALL:
-        phase_engine_small(arch)
-    launches.update(phase_disaggregate(kv) for kv in ("bfloat16", "int8"))
-    launches.update([phase_shard()])
-    phase_moe_neighbor()
+        _phase(phase_engine_small, arch)
+    launches.update(_phase(phase_disaggregate, kv) for kv in ("bfloat16", "int8"))
+    launches.update([_phase(phase_shard)])
+    _phase(phase_moe_neighbor)
     for spec in TRAIN_SMALL:
-        phase_train_small(*spec)
-    phase_train_checkpoint()
-    launches.update(phase_train(*spec) for spec in TRAIN_FULL)
-    launches.update([phase_train(*TRAIN_FULL[0], ring=True), phase_train_pipeline()])
-    launches.update([phase_grad_sync()])
+        _phase(phase_train_small, *spec)
+    _phase(phase_train_checkpoint)
+    launches.update([_phase(phase_elastic)])
+    launches.update(_phase(phase_train, *spec) for spec in TRAIN_FULL)
+    launches.update([_phase(phase_train, *TRAIN_FULL[0], ring=True),
+                     _phase(phase_train_pipeline)])
+    launches.update([_phase(phase_grad_sync)])
+    RESULTS["run_s"] = time.perf_counter() - t_run
 
     flash, ssd = RESULTS["kernel_cases"], RESULTS["ssd_cases"]
     quant, dequant = RESULTS["quant_cases"], RESULTS["dequant_cases"]

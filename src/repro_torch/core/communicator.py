@@ -8,15 +8,30 @@ RankDevice`, one process each) folded onto a named grid (``shape`` /
 groups behind it: one over the whole communicator and, for every axis, one
 per line of ranks along it.  Every rank of the process world creates the
 same groups in the same order at construction (``new_group`` is collective
-over the world), members or not; a line of one rank needs no group.
+over the world), members or not; a line of one rank needs no group.  A
+process group orders its ranks by global rank, so one group serves every
+order of the same members (the collectives map communicator ranks onto
+it).
 :meth:`Communicator.from_group` stays the one canonical constructor
 (``MPI_Comm_create_from_group``); :func:`world` is a shim over the default
-session's ``repro://world`` pset.  The collectives are bound as methods by
+session's ``repro://world`` pset, :meth:`Communicator.create` wraps its
+devices in a group first, and :meth:`~Communicator.split` and
+:meth:`~Communicator.dup` derive their results from the parent's group.
+
+Groups are shared through one cache, keyed by their members, unless they
+are made under a :func:`group_scope`: then they belong to that scope's
+owner, are never handed to anyone else, and :func:`release_groups` destroys
+them (NCCL communicators included) and forgets them — the elastic epochs
+(:mod:`repro_torch.core.epoch`) build each generation's fabric so and
+release it when they revoke it.  The default group is shared by everyone
+and never destroyed here.  The collectives are bound as methods by
 :mod:`repro_torch.core._methods`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 from typing import Any, Sequence
 
@@ -28,6 +43,7 @@ from repro_torch.core import errors
 from repro_torch.core.session import (
     GROUP_TIMEOUT,
     UNDEFINED,
+    WORLD_PSET,
     Group,
     RankDevice,
     default_session,
@@ -43,30 +59,101 @@ def _axis_name_from_tag(tag: str) -> str:
     return name or "ranks"
 
 
-# the default group → its subgroups by their global ranks, shared by every
-# communicator: all ranks construct the same communicators in the same
+# the default group → its subgroups by (owner, members in global-rank
+# order[, "local"]): all ranks construct the same communicators in the same
 # order, so the cache holds the same groups on every rank
-_PROCESS_GROUPS: dict[Any, dict[tuple[int, ...], Any]] = {}
+_PROCESS_GROUPS: dict[Any, dict[tuple, Any]] = {}
+# the owners whose groups the communicators constructed now create
+# (group_scope), innermost last: (owner, whether the default group serves
+# a communicator over the whole world)
+_SCOPES: list[tuple[Any, bool]] = []
+_DUPS = itertools.count()
 
 
-def _process_group(ranks: tuple[int, ...]):
-    """The process group over ``ranks`` (global ranks): the default group
-    when they are the whole world in order, ``None`` for a single rank
-    outside a world of one (nothing to talk to), else a new group — which
-    every rank of the world must ask for, in the same order."""
-
-    world = dist.get_world_size()
-    if ranks == tuple(range(world)):
-        return dist.group.WORLD
-    if len(ranks) == 1:
-        return None
+def _groups() -> dict[tuple, Any]:
     if dist.group.WORLD not in _PROCESS_GROUPS:
         _PROCESS_GROUPS.clear()  # a new default group: the old subgroups are gone
         _PROCESS_GROUPS[dist.group.WORLD] = {}
-    groups = _PROCESS_GROUPS[dist.group.WORLD]
-    if ranks not in groups:
-        groups[ranks] = dist.new_group(list(ranks), timeout=GROUP_TIMEOUT)
-    return groups[ranks]
+    return _PROCESS_GROUPS[dist.group.WORLD]
+
+
+def _process_group(ranks: tuple[int, ...], owner: Any = None, *, local: bool = False,
+                   share_world: bool = True):
+    """The process group over ``ranks`` (global ranks, any order): the
+    default group when they are the whole world (unless ``share_world`` is
+    off), ``None`` for a single rank outside a world of one (nothing to
+    talk to), else ``owner``'s group over them — which every rank of the
+    world must ask for, in the same order, or with ``local`` only the
+    members (``use_local_synchronization``)."""
+
+    world = dist.get_world_size()
+    members = tuple(sorted(ranks))
+    if share_world and members == tuple(range(world)):
+        return dist.group.WORLD
+    if len(members) == 1 and world > 1:
+        return None
+    key = (owner, members, "local") if local else (owner, members)
+    groups = _groups()
+    if key not in groups:
+        groups[key] = dist.new_group(list(members), timeout=GROUP_TIMEOUT,
+                                     use_local_synchronization=local)
+    return groups[key]
+
+
+def _group_of_one(rank: int, owner: Any = None):
+    """A group of ``rank`` alone, made by it alone: a device mesh needs a
+    group for each of its dims, a line of one rank included."""
+
+    key = (owner, (rank,), "local")
+    groups = _groups()
+    if key not in groups:
+        groups[key] = dist.new_group([rank], timeout=GROUP_TIMEOUT,
+                                     use_local_synchronization=True)
+    return groups[key]
+
+
+@contextlib.contextmanager
+def group_scope(owner: Any, *, share_world: bool = True):
+    """Communicators constructed inside make their process groups as
+    ``owner``'s: apart from every other owner's, and destroyed together by
+    :func:`release_groups`.  ``share_world=False`` gives a communicator over
+    the whole world a group of its own too."""
+
+    _SCOPES.append((owner, share_world))
+    try:
+        yield
+    finally:
+        _SCOPES.pop()
+
+
+def release_groups(owner: Any) -> list:
+    """Destroy every process group ``owner`` made, in the order it made
+    them (every member destroys a group at the same point, as it made it),
+    and forget them: the cache never hands out a destroyed group.  Returns
+    the destroyed groups."""
+
+    if owner is None or not dist.is_initialized():
+        return []
+    groups = _groups()
+    out = []
+    for key in [k for k in groups if k[0] == owner]:
+        pg = groups.pop(key)
+        if pg is not None and pg is not dist.GroupMember.NON_GROUP_MEMBER:
+            dist.destroy_process_group(pg)
+            out.append(pg)
+    return out
+
+
+_TOKENS: dict[Any, int] = {}
+
+
+def _mesh_token(owner: Any) -> int:
+    """A number of ``owner``'s own, which its device meshes carry where
+    ``DeviceMesh`` keeps a thread id (negative: a thread id is not)."""
+
+    if owner not in _TOKENS:
+        _TOKENS[owner] = -1 - len(_TOKENS)
+    return _TOKENS[owner]
 
 
 def _lines(shape: tuple[int, ...], axis: int) -> list[list[int]]:
@@ -101,6 +188,8 @@ class Communicator:
         self.axis_names = tuple(axis_names)
         self.managed = managed
         self.tag = tag
+        # the owner of the groups this communicator makes (group_scope)
+        self._owner, self._share_world = _SCOPES[-1] if _SCOPES else (None, True)
         if process_groups is None:
             process_groups = self._create_process_groups()
         self._pg, self._axis_groups = process_groups
@@ -110,12 +199,13 @@ class Communicator:
         if ranks is None or not dist.is_initialized():
             return None, {}  # members without a process behind them: one process
         me = self.rank()
-        whole = _process_group(ranks)
+        kw = dict(owner=self._owner, share_world=self._share_world)
+        whole = _process_group(ranks, **kw)
         axis_groups = {}
         for axis, name in enumerate(self.axis_names):
             for line in _lines(self.shape, axis):
                 line_ranks = tuple(ranks[i] for i in line)
-                pg = _process_group(line_ranks)
+                pg = _process_group(line_ranks, **kw)
                 if me in line:
                     axis_groups[name] = (pg, line_ranks)
         return whole, axis_groups
@@ -167,10 +257,35 @@ class Communicator:
         )
         return cls(group, shape, axis_names, managed=True, tag=tag)
 
+    @classmethod
+    def create(cls, shape: Sequence[int], axis_names: Sequence[str], devices=None):
+        """Managed constructor: wraps ``devices[:prod(shape)]`` (by default
+        the default session's world) in a group and routes through
+        :meth:`from_group`."""
+
+        if devices is None:
+            devices = default_session().pset(WORLD_PSET)
+        n = math.prod(shape)
+        errors.check(
+            n <= len(devices),
+            errors.ErrorClass.ERR_DIMS,
+            f"mesh of {n} devices requested, {len(devices)} available",
+        )
+        return cls.from_group(Group(devices[:n]), shape=shape, axis_names=tuple(axis_names))
+
+    def dup(self) -> "Communicator":
+        """``MPI_Comm_dup`` (the only sanctioned copy): a new handle over the
+        same group and grid (``MPI_IDENT``) with process groups of its own, a
+        communication context apart from this one's.  Collective over the
+        process world, as :meth:`from_group` is."""
+
+        with group_scope(("dup", next(_DUPS)), share_world=False):
+            return Communicator(self._group, self.shape, self.axis_names, tag=self.tag)
+
     def __copy__(self):  # copy ctor is "deleted"
         errors.fail(
             errors.ErrorClass.ERR_COMM,
-            "communicators are not copyable",
+            "communicators are not copyable; use .dup() (MPI_Comm_dup)",
         )
 
     __deepcopy__ = __copy__
@@ -243,7 +358,9 @@ class Communicator:
         per-axis process groups), on which DTensor places a tree
         (:mod:`repro_torch.sharding.rules`).  A line of one rank, which has
         no group among the communicator's, gets a group of its own, made by
-        this rank alone.  Built once per communicator."""
+        this rank alone.  Built once per communicator; the mesh of a
+        communicator made under a :func:`group_scope` equals no mesh made
+        outside it."""
 
         mesh = getattr(self, "_device_mesh", None)
         if mesh is None:
@@ -260,43 +377,63 @@ class Communicator:
             for name in self.axis_names:
                 pg = self.axis_group(name)
                 if pg is None:
-                    pg = dist.new_group([ranks[self._member_rank()]],
-                                        use_local_synchronization=True)
+                    pg = _group_of_one(ranks[self._member_rank()], self._owner)
                 groups.append(pg)
             dev = self.device
             mesh = self._device_mesh = DeviceMesh.from_group(
                 groups, dev.type, mesh=torch.tensor(ranks).reshape(self.shape),
                 mesh_dim_names=self.axis_names)
+            if self._owner is not None:
+                # DTensor caches its sharding decisions keyed by meshes that
+                # compare equal by layout, names and thread id: a decision
+                # made on a mesh whose groups are destroyed would be handed
+                # to a later mesh over the same ranks (in every thread that
+                # ran one, the autograd engine's included).  An owner's
+                # meshes compare equal to no one else's.
+                mesh._thread_id = _mesh_token(self._owner)
         return mesh
 
     def split(self, *axis_names: str) -> "Communicator":
-        """``MPI_Comm_split`` along topology axes: the communicator over
-        this rank's line (one axis) or over all of this communicator's
-        axes, reusing the process groups that already exist."""
+        """``MPI_Comm_split`` along topology axes: the communicator over the
+        sub-grid through this rank that spans ``axis_names`` (in that order,
+        row-major), the other axes fixed at this rank's coordinates (the
+        color).  One axis, or all of them, reuses the process groups that
+        exist; a sub-grid of several axes gets a group of its own, made by
+        its members alone."""
 
         for name in axis_names:
             self.axis_size(name)
+        errors.check(
+            len(set(axis_names)) == len(axis_names) > 0,
+            errors.ErrorClass.ERR_TOPOLOGY,
+            f"split axes {axis_names} must be distinct axes of {self.axis_names}",
+        )
         if tuple(axis_names) == self.axis_names:
             return Communicator(self._group, self.shape, self.axis_names, tag=self.tag,
                                 process_groups=(self._pg, dict(self._axis_groups)))
-        errors.check(
-            len(axis_names) == 1,
-            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-            f"split over {axis_names} of {self.axis_names}: only one axis, or all of "
-            f"them, is ported",
-        )
-        (name,) = axis_names
-        axis = self.axis_names.index(name)
+        axes = [self.axis_names.index(name) for name in axis_names]
         coords = list(self.coords())
         flat = []
-        for i in range(self.shape[axis]):
-            coords[axis] = i
+        for idx in np.ndindex(*(self.shape[a] for a in axes)):
+            for a, i in zip(axes, idx):
+                coords[a] = i
             flat.append(int(np.ravel_multi_index(tuple(coords), self.shape)))
         sub = self._group.incl(flat)
-        entry = self._axis_groups.get(name)
-        return Communicator(sub, (self.shape[axis],), (name,), tag=self.tag,
-                            process_groups=(entry[0] if entry else None,
-                                            {name: entry} if entry else {}))
+        shape = tuple(self.shape[a] for a in axes)
+        axis_groups = {name: self._axis_groups[name] for name in axis_names
+                       if name in self._axis_groups}
+        if len(axes) == 1:
+            (name,) = axis_names
+            entry = axis_groups.get(name)
+            whole = entry[0] if entry else None
+        elif len(axes) == len(self.axis_names):
+            whole = self._pg   # the same members in another order
+        else:
+            ranks = tuple(m.rank for m in sub.devices) if self._pg is not None else None
+            whole = (_process_group(ranks, self._owner, local=True)
+                     if ranks is not None else None)
+        return Communicator(sub, shape, tuple(axis_names), tag=self.tag,
+                            process_groups=(whole, axis_groups))
 
     def _member_rank(self) -> int:
         r = self.rank()
@@ -335,3 +472,10 @@ def world(refresh: bool = False, device_type: str = "cuda") -> Communicator:
             sess.group("repro://world"), tag="repro://world"
         )
     return comm
+
+
+def local_ranks(comm: Communicator) -> np.ndarray:
+    """Host-side rank layout (for tests and IO): the rank each grid
+    position holds."""
+
+    return np.arange(math.prod(comm.shape)).reshape(comm.shape)

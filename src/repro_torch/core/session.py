@@ -26,6 +26,7 @@ import enum
 import os
 from typing import Any, Iterable, Mapping, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -302,25 +303,10 @@ class Session:
         info: Mapping | None = None,
         device_type: str = "cuda",
     ):
+        self.device_type = device_type
         self._local: RankDevice | None = None
         if devices is None:
-            errors.check(
-                len(platform_devices(device_type)) > 0,
-                errors.ErrorClass.ERR_SESSION,
-                f"no {device_type} device is visible; pass device='cpu' "
-                f"(--device cpu) to run on the CPU",
-            )
-            rank, world = process_world(device_type)
-            devices = tuple(RankDevice(r, _rank_device(device_type, r, world))
-                            for r in range(world))
-            self._local = _LOCAL[device_type] = devices[rank]
-            errors.check(
-                self._local.device.type == "cpu"
-                or self._local.device.index < torch.cuda.device_count(),
-                errors.ErrorClass.ERR_SESSION,
-                f"rank {rank} computes on {self._local.device}, but this process sees "
-                f"{torch.cuda.device_count()} CUDA devices",
-            )
+            devices = self._world_members()
         self._devices = tuple(devices)
         errors.check(
             len(self._devices) > 0,
@@ -346,9 +332,34 @@ class Session:
 
     # -- platform enumeration ----------------------------------------------
 
+    def _world_members(self) -> tuple[RankDevice, ...]:
+        """Every rank of the process world (initialised here if need be),
+        one :class:`RankDevice` each; this process's own is ``_local``."""
+
+        device_type = self.device_type
+        errors.check(
+            len(platform_devices(device_type)) > 0,
+            errors.ErrorClass.ERR_SESSION,
+            f"no {device_type} device is visible; pass device='cpu' "
+            f"(--device cpu) to run on the CPU",
+        )
+        rank, world = process_world(device_type)
+        devices = tuple(RankDevice(r, _rank_device(device_type, r, world))
+                        for r in range(world))
+        self._local = _LOCAL[device_type] = devices[rank]
+        errors.check(
+            self._local.device.type == "cpu"
+            or self._local.device.index < torch.cuda.device_count(),
+            errors.ErrorClass.ERR_SESSION,
+            f"rank {rank} computes on {self._local.device}, but this process sees "
+            f"{torch.cuda.device_count()} CUDA devices",
+        )
+        return devices
+
     def _enumerate(self) -> None:
         self._psets[WORLD_PSET] = self._devices
-        self._psets[SELF_PSET] = (self._local,) if self._local else self._devices
+        self._psets[SELF_PSET] = ((self._local,) if self._local in self._devices
+                                  else self._devices)
         local_world = _local_world_size(len(self._devices))
         by_host: dict[int, list[Any]] = {}
         by_platform: dict[str, list[Any]] = {}
@@ -363,6 +374,29 @@ class Session:
             self._psets[f"{_SCHEME}platform/{platform}"] = tuple(devs)
 
     # -- lifecycle ---------------------------------------------------------
+
+    def refresh(self, devices: Sequence[Any] | None = None) -> "Session":
+        """Re-enumerate the world (elastic resize): the builtin process sets
+        are rebuilt from the current members; user-registered sets keep
+        only the members that are still there, and a set whose members all
+        vanished is dropped (a pset naming a rank that is gone is a stale
+        handle, the bug ULFM's revoke exists to prevent).
+
+        ``devices`` overrides the enumeration (by default every rank of the
+        process world), so that a test can model members that disappear
+        and reappear between refreshes."""
+
+        self._live()
+        user = {k: v for k, v in self._psets.items() if not _is_builtin_pset(k)}
+        self._devices = tuple(self._world_members() if devices is None else devices)
+        self._psets = {}
+        self._enumerate()
+        alive = set(self._devices)
+        for name, members in user.items():
+            survivors = tuple(d for d in members if d in alive)
+            if survivors:
+                self._psets[name] = survivors
+        return self
 
     @property
     def finalized(self) -> bool:
@@ -453,6 +487,23 @@ class Session:
         self._psets[key] = devices
         return key
 
+    def register_mesh_psets(self, comm, *, prefix: str = _SCHEME + "mesh") -> list[str]:
+        """Expose a communicator's sub-grids as process sets: for each axis
+        ``a`` and index ``i``, ``<prefix>/<a>/<i>`` holds the members of the
+        sub-grid with ``a`` fixed to ``i`` (row-major over the other axes) —
+        the session-native spelling of "the i-th data-parallel replica" /
+        "the i-th pipeline stage".  The reference takes a mesh; the port's
+        communicator is its members folded onto a named grid."""
+
+        self._live()
+        grid = np.arange(len(comm.group().devices)).reshape(comm.shape)
+        names = []
+        for axis_pos, axis in enumerate(comm.axis_names):
+            for i in range(comm.shape[axis_pos]):
+                sub = comm.group().incl(grid.take(i, axis=axis_pos).reshape(-1).tolist())
+                names.append(self.register_pset(f"{prefix}/{axis}/{i}", sub))
+        return names
+
     def __repr__(self) -> str:
         state = "finalized" if self._finalized else f"{len(self._psets)} psets"
         return f"Session(devices={len(self._devices)}, {state})"
@@ -463,9 +514,12 @@ _DEFAULT: dict[str, Session] = {}
 
 def default_session(refresh: bool = False, device_type: str = "cuda") -> Session:
     """The process-default session of one device type.  ``refresh=True``
-    re-enumerates the platform; a finalized default is replaced."""
+    re-enumerates the world in place (elastic resize; user process sets
+    are pruned, not dropped); a finalized default is replaced."""
 
     sess = _DEFAULT.get(device_type)
-    if sess is None or sess.finalized or refresh:
+    if sess is None or sess.finalized:
         sess = _DEFAULT[device_type] = Session.init(device_type=device_type)
+    elif refresh:
+        sess.refresh()
     return sess

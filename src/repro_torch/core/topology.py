@@ -865,6 +865,47 @@ def cart_create(
     return CartComm(base, axis_names, dims=dims, periods=periods, managed=True, tag=tag)
 
 
+def cart_refold(
+    cart: CartComm,
+    group: Group,
+    *,
+    elastic_axis: int = 0,
+    session=None,
+    tag: str | None = None,
+) -> CartComm:
+    """Re-fold an existing Cartesian topology onto an *arbitrary* survivor
+    (or grown) group — the ULFM shrink/grow rebuild step for carts.
+
+    The grid keeps every dim except ``elastic_axis`` (the data axis by
+    convention), which re-resolves to ``group.size() // prod(fixed)``; the
+    leading ``prod(dims)`` members fold row-major and any excess idles
+    (``MPI_COMM_NULL``).  Periods and axis names carry over.  Pass an
+    explicit ``tag``: across epochs the same dims can bind different
+    members, which the dims-keyed default tag refuses by design.  Collective
+    over the process world, as :func:`cart_create` is.
+    """
+
+    fixed = math.prod(d for i, d in enumerate(cart.dims) if i != elastic_axis)
+    errors.check(
+        group.size() >= fixed,
+        errors.ErrorClass.ERR_DIMS,
+        f"{group.size()} survivors cannot fold onto {cart.dims} "
+        f"(needs at least {fixed})",
+    )
+    dims = tuple(
+        group.size() // fixed if i == elastic_axis else d
+        for i, d in enumerate(cart.dims)
+    )
+    return cart_create(
+        group,
+        dims,
+        cart.periods,
+        axis_names=cart.axis_names,
+        session=session,
+        tag=tag,
+    )
+
+
 def dist_graph_create_adjacent(
     comm: Communicator,
     sources: Sequence[Sequence[int]],

@@ -26,9 +26,18 @@ under ``torchrun`` (gloo), as the serve launcher's do::
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch phi4_mini_3_8b --smoke --device cpu --steps 4 --batch 8 --plan stage=2,micro=2
 
-Not ported yet, each raising ``ERR_UNSUPPORTED_OPERATION``: ``--plan auto``
-(the tuner, ROADMAP A15) and the elastic drills ``--evict-at`` /
-``--admit-at`` (A15).
+The elastic drills: ``--evict-at STEP:RANK`` evicts a rank at a step (the
+trainer revokes its epoch, shrinks to the survivors, restores the last
+committed manifest and goes on, with no job restart), ``--admit-at
+STEP[:COUNT]`` hot-joins spare ranks (the world's ranks outside the epoch)
+at a step; every rank runs the same schedule::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch phi4_mini_3_8b --smoke --device cpu --steps 8 --batch 12 \
+        --checkpoint-dir /tmp/ck --checkpoint-every 2 --evict-at 3:1 --admit-at 6
+
+Not ported yet, raising ``ERR_UNSUPPORTED_OPERATION``: ``--plan auto``
+(the tuner, ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -95,8 +104,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ring-attention", type=int, default=0,
                     help="alias for --plan ring=N: a periodic cart ring on the model axis")
     ap.add_argument("--inject-failure-at", type=int, default=None)
-    ap.add_argument("--evict-at", default=None, metavar="STEP:RANK", help="not ported yet")
-    ap.add_argument("--admit-at", default=None, metavar="STEP[:COUNT]", help="not ported yet")
+    ap.add_argument("--evict-at", default=None, metavar="STEP:RANK",
+                    help="elastic fault drill: evict RANK at STEP; the trainer shrinks its "
+                         "epoch to the survivors, restores the last committed manifest and "
+                         "continues — no job restart")
+    ap.add_argument("--admit-at", default=None, metavar="STEP[:COUNT]",
+                    help="elastic grow drill: hot-join COUNT spare ranks (default 1) at STEP, "
+                         "re-folding the data axis")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default=None, help="write metrics history JSON here")
     return ap
@@ -114,13 +128,6 @@ def run(argv=None):
     from repro_torch.runtime.faults import FaultInjector
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    for flag in ("evict_at", "admit_at"):
-        errors.check(
-            getattr(args, flag) is None,
-            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-            f"--{flag.replace('_', '-')} (elastic epochs) is not ported yet: it waits for "
-            f"ROADMAP A15",
-        )
     try:
         cfg = base.get_smoke_config(args.arch) if args.smoke else base.get_config(args.arch)
         pcfg = base.get_parallel(args.arch)
@@ -146,6 +153,12 @@ def run(argv=None):
     injector = None
     if args.inject_failure_at is not None:
         injector = FaultInjector(fail_at_steps=(args.inject_failure_at,))
+    if args.evict_at is not None:
+        step, _, rank = args.evict_at.partition(":")
+        injector = (injector or FaultInjector()).evict_rank(int(step), int(rank or 0))
+    if args.admit_at is not None:
+        step, _, count = args.admit_at.partition(":")
+        injector = (injector or FaultInjector()).admit_rank(int(step), int(count or 1))
     trainer = Trainer(cfg, pcfg, tcfg, comm, seq_len=args.seq, global_batch=args.batch,
                       injector=injector)
     return trainer, trainer.run()

@@ -89,12 +89,13 @@ class PartitionedGradSync:
     @classmethod
     def for_epoch(cls, epoch, *, compression: Compression = Compression.NONE,
                   mean: bool = True, key: str = "grad_sync") -> "PartitionedGradSync":
-        """The epoch-derived sync of the reference, cached in a
-        ``CommEpoch``: the elastic epochs are not ported (ROADMAP A15)."""
+        """The epoch-derived sync: one instance per
+        :class:`~repro_torch.core.epoch.CommEpoch`, held in the epoch's cache
+        so a shrink or grow re-initialises the buckets against the
+        successor's fabric on first use (the revoked epoch raises
+        ``ERR_REVOKED`` instead of reducing over ranks that are gone)."""
 
-        errors.fail(errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-                    "PartitionedGradSync.for_epoch is not ported yet: the communication "
-                    "epochs (core/epoch.py) wait for ROADMAP A15")
+        return epoch.cached(key, lambda ep: cls(ep.comm, compression=compression, mean=mean))
 
     def _reduce_bucket(self, index: int, buf: torch.Tensor) -> torch.Tensor:
         if self.outer is None:

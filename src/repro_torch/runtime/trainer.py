@@ -38,20 +38,45 @@ batch and averages its gradients over the communicator with one
 of ``core/datatypes.py``: one message, not one per leaf).  On the card
 this is a world of one over NCCL, which needs no exchange.
 
-**Persistent execution engine** (the only one): the step is built *once* as a
-:class:`~repro_torch.core.futures.PersistentRequest` bound to the
-signature of its arguments (``ERR_REQUEST`` on drift); ``trace:train_step``
-counts one build, and every step is a ``persistent_start``.  The step updates
-the parameters and the optimizer state in place and donates them
-(``donate_argnums=(0, 1)``, as in the reference), so on the card it is a
-CUDA graph: step 1 runs eagerly, step 2 captures the step (forward,
-backward and AdamW) and replays it, later steps replay it, each with its
-batch copied into the graph's own batch buffer.  A step that captures is
-exempt from the straggler deadline (known one-time work).  Since the state
-is updated in place, a straggler cannot be re-dispatched
-(``retry_safe=False``) and goes straight to the failure path, which drops
-the failed state and the graph before the restore builds the next state
-(so the state is never held twice) and captures again on the restored one.
+**Persistent execution engine** (default): the step is built *once* per
+epoch as a :class:`~repro_torch.core.futures.PersistentRequest` bound to
+the signature of its arguments (``ERR_REQUEST`` on drift);
+``trace:train_step`` counts one build, and every step is a
+``persistent_start``.  The step updates the parameters and the optimizer
+state in place and donates them (``donate_argnums=(0, 1)``, as in the
+reference), so on the card it is a CUDA graph: step 1 runs eagerly, step 2
+captures the step (forward, backward and AdamW) and replays it, later steps
+replay it, each with its batch copied into the graph's own batch buffer.  A
+step that captures is exempt from the straggler deadline (known one-time
+work).  Since the state is updated in place, a straggler cannot be
+re-dispatched (``retry_safe=False``) and goes straight to the failure path,
+which drops the failed state and the graph before the restore builds the
+next state (so the state is never held twice) and captures again on the
+restored one.  ``TrainerConfig(persistent=False)`` runs the step eagerly at
+every iteration, with no graph; ``trace:train_step`` still counts one build
+per epoch.  It keeps the donation (the in-place update), where the
+reference's eager path drops it: a card holds the state once (the ring
+plan's whole phi4-mini state at b 1 x 8192 peaks at 73 GB of the H100's 80
+with one copy), so a straggler still takes the failure path.
+``donate=False`` is the reference's step without donation: it runs on
+copies of the state, the caller's stays valid, and a straggler is
+re-dispatched (``retry_safe=True``).
+
+**Elastic epochs** (:mod:`repro_torch.core.epoch`): the trainer holds a
+:class:`~repro_torch.core.epoch.CommEpoch`, and everything comm-shaped
+reads through it.  An eviction (``FaultInjector.evict_rank``, ``train
+--evict-at``) revokes the epoch — releasing the step's CUDA graph and the
+epoch's process groups — shrinks the pool to the survivors, re-folds the
+data axis, restores the last committed manifest and goes on; an admission
+(``admit_rank``, ``--admit-at``) grows the pool by the spare ranks and
+carries the live state over, restoring nothing.  Ranks are processes, and
+every process runs the same schedule: an evicted rank leaves the epoch but
+not the world, and it, like a survivor the fold leaves over, idles — it
+walks the schedule without computing and takes part in every transition
+(each builds its generation's groups on every rank of the world) — until
+the run ends or a grow folds it in; the joiners then receive the live
+parameters and moments, broadcast from the first member of the grown pool
+(a survivor), placed on the new mesh.
 
 **Async checkpointing** (default): ``ckpt.save`` copies the state to the
 host synchronously and runs the file writes as I/O requests overlapping the
@@ -81,19 +106,13 @@ through :func:`~repro_torch.core.overlap.pipeline_spmd` on local tensors.
 The deprecated ``pipeline_stages``/``ring_attention`` knobs build the same
 plans (:meth:`TrainerConfig.resolved_plan`).
 
-On the card a plan whose ring or stages span more than one rank is
-refused at the step's build (``ERR_UNSUPPORTED_OPERATION``): its NCCL
-point-to-point exchanges hung inside the captured step on four H100s,
-and the trainer does not switch to eager steps; the step functions run
-eagerly (``tools/shard_ranks.py`` trains both plans so).
-
-**Not ported, each raising ``ERR_UNSUPPORTED_OPERATION``:** the elastic
-shrink and grow (``core/epoch.py``, ROADMAP A15: the trainer holds its
-communicator where the reference holds a ``CommEpoch``).
-``persistent=False`` and ``donate=False`` raise too: the step is always
-the persistent, in-place one.  ``ParallelConfig(moment_dtype="int8")``
-trains with the int8 moments of :mod:`repro_torch.optim.adamw`, inside the
-same graph.
+On the card a captured step of a plan whose ring or stages span more than
+one rank is refused at the step's build (``ERR_UNSUPPORTED_OPERATION``):
+its NCCL point-to-point exchanges hung inside the captured step on four
+H100s.  The trainer does not switch to eager steps on its own: the caller
+asks for them with ``TrainerConfig(persistent=False)``.
+``ParallelConfig(moment_dtype="int8")`` trains with the int8 moments of
+:mod:`repro_torch.optim.adamw`, inside the same graph.
 """
 
 from __future__ import annotations
@@ -108,8 +127,9 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ParallelPlan
-from repro_torch.core import datatypes, errors, overlap, tool, topology
+from repro_torch.core import datatypes, errors, overlap, tool
 from repro_torch.core.communicator import Communicator
+from repro_torch.core.epoch import CommEpoch, TopologySpec
 from repro_torch.core.futures import PersistentRequest, flatten, unflatten
 from repro_torch.data import TokenPipeline
 from repro_torch.launch.mesh import make_host_communicator
@@ -129,7 +149,11 @@ from repro_torch.runtime.faults import (
 
 log = logging.getLogger("repro_torch.trainer")
 
-tool.pvar_register("trace:train_step", "train-step requests built (want exactly 1 per run)")
+tool.pvar_register("trace:train_step", "train-step requests built (want exactly 1 per epoch)")
+tool.pvar_register(
+    "elastic:recovery_steps",
+    "steps replayed per eviction (restore point back to eviction point)",
+)
 tool.pvar_register(
     "config:deprecated_knob",
     "TrainerConfig layouts built through the deprecated "
@@ -157,11 +181,6 @@ def _warn_deprecated_knobs() -> None:
     )
 
 
-def _not_ported(what: str, item: str) -> None:
-    errors.fail(errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-                f"{what} is not ported yet: it waits for ROADMAP {item}")
-
-
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
@@ -176,8 +195,9 @@ class TrainerConfig:
     log_every: int = 10
     max_restarts: int = 3
     # persistent execution engine: bind the step once, MPI_Start it every
-    # iteration; the step always updates its state in place (donate).  The
-    # port runs only this engine: persistent=False raises
+    # iteration (a CUDA graph on the card); persistent=False runs it eagerly.
+    # donate lets the step update params/opt-state in place; donate=False
+    # runs it on copies, which a straggler may re-dispatch
     persistent: bool = True
     donate: bool = True
     # checkpoint writes ride the I/O request engine and overlap the next
@@ -429,11 +449,44 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _copied(tree):
+    """``tree`` with every tensor leaf copied (detached)."""
+
+    leaves, treedef = flatten(tree)
+    return unflatten(treedef, [x.detach().clone() if isinstance(x, torch.Tensor) else x
+                               for x in leaves])
+
+
+def _out_of_place(step: Callable) -> Callable:
+    """``step`` run on copies of the parameters and the optimizer state:
+    the caller's stay as they were, so the step may be dispatched again on
+    them (the reference's step without donation returns new buffers)."""
+
+    def fresh(params, opt_state, batch):
+        with torch.no_grad():
+            params, opt_state = Trainer._trainable(_copied(params)), _copied(opt_state)
+        return step(params, opt_state, batch)
+
+    return fresh
+
+
+def _whole(tree):
+    """``tree`` with every DTensor leaf gathered whole (collective over its
+    mesh); plain leaves as they are."""
+
+    leaves, treedef = flatten(tree)
+    with torch.no_grad():
+        return unflatten(treedef, [x.full_tensor().detach() if is_dtensor(x) else x
+                                   for x in leaves])
+
+
 class Trainer:
     """``comm`` picks the device (this rank's) and the data plan's ranks;
     without one, a host communicator over ``device`` (``"cuda"`` unless
-    ``"cpu"`` is asked).  After :meth:`run`, ``params`` and ``opt_state``
-    hold the final state."""
+    ``"cpu"`` is asked).  The trainer folds it into generation 0 of its
+    :class:`~repro_torch.core.epoch.CommEpoch`.  After :meth:`run`,
+    ``params`` and ``opt_state`` hold the final state (``None`` on a rank
+    the last epoch left idle)."""
 
     def __init__(
         self,
@@ -451,25 +504,12 @@ class Trainer:
     ):
         self.cfg, self.pcfg, self.tcfg = cfg, pcfg, tcfg
         self.injector = injector
-        # the reference holds a CommEpoch (the elastic fabric); the port holds
-        # its communicator directly until core/epoch.py lands (ROADMAP A15)
-        self._comm = comm if comm is not None else make_host_communicator(device=device)
-        self._reform_topology()
-        self.device = self._comm.device
-        #: the state is placed (DTensors on the communicator's device mesh);
-        #: under the ring every rank holds the whole state
-        self.placed = self._comm.size() > 1 and not self.pcfg.ring_attention
-        errors.check(
-            tcfg.donate,
-            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-            "the port's step always updates params and optimizer state in place "
-            "(TrainerConfig.donate=True)",
-        )
-        errors.check(
-            tcfg.persistent,
-            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-            "the port's step is always a persistent request (TrainerConfig.persistent=True)",
-        )
+        comm = comm if comm is not None else make_host_communicator(device=device)
+        #: this rank's device, kept through the epochs in which it idles
+        self.device = comm.device
+        self._placed: bool | None = None
+        self.ckpt = None
+        self._adopt(self._reform_topology(comm))
         self.seq_len, self.global_batch = seq_len, global_batch
         self.bundle = model_api.build(cfg)
         self.opt = AdamW(
@@ -487,7 +527,7 @@ class Trainer:
                 keep=tcfg.keep_checkpoints,
                 async_save=tcfg.async_checkpoint,
                 injector=injector,
-                comm=self._comm,
+                comm=self.comm,
             )
             if tcfg.checkpoint_dir
             else None
@@ -507,71 +547,100 @@ class Trainer:
         )
         self._compiled = None
         self._request: PersistentRequest | None = None
+        #: the revoked epochs (their graphs and process groups released)
+        self.retired: list[CommEpoch] = []
         self.metrics_history: list[dict] = []
         self.restarts = 0
         self.evictions = 0
         self.joins = 0
 
-    # -- the fabric ------------------------------------------------------------
+    # -- the fabric: everything comm-shaped reads through the current epoch ---
+
+    @property
+    def epoch(self) -> CommEpoch:
+        return self._epoch
 
     @property
     def comm(self) -> Communicator:
-        return self._comm
+        return self._epoch.comm
 
-    def _reform_topology(self) -> None:
-        """The one place the trainer shapes its fabric: resolve the plan and
-        fold the communicator onto it — a ``(data, model)`` cart, periodic
-        on ``model``, for the ring (which sets ``pcfg.ring_attention``); a
-        ``(data, stage)`` cart, not periodic, for the pipeline; a ``(data,
-        model)`` grid for the tensor and expert plans; the communicator's
-        own shape for the data plan."""
+    @property
+    def placed(self) -> bool:
+        """The state is placed (DTensors on the communicator's device
+        mesh): on more than one rank, except under the ring, where every
+        rank holds the whole state.  Setting it before the state is built
+        overrides the choice for every epoch."""
+
+        if self._placed is not None:
+            return self._placed
+        return self.comm.size() > 1 and not self.pcfg.ring_attention
+
+    @placed.setter
+    def placed(self, value: bool) -> None:
+        self._placed = bool(value)
+
+    def _reform_topology(self, comm: Communicator) -> CommEpoch:
+        """The one place the trainer shapes its fabric: resolve the plan,
+        derive the epoch's :class:`TopologySpec` from it and bundle it with
+        the communicator's group into generation 0 — a ``(data, model)``
+        cart, periodic on ``model``, for the ring (which sets
+        ``pcfg.ring_attention``); a ``(data, stage)`` cart, not periodic,
+        for the pipeline; a ``(data, model)`` grid for the tensor and
+        expert plans; the communicator itself, adopted, for the data plan.
+        The data axis is the elastic dim — a shrink or grow re-folds it;
+        the plan's stage, ring and tensor dims are fixed."""
 
         self.plan = plan = self.tcfg.resolved_plan()
         if plan.remat is not None:
             self.pcfg = dataclasses.replace(self.pcfg, remat=plan.remat)
+        spec = None   # adopt the communicator's own shape
         if plan.reforms_fabric:
-            size = self._comm.size()
+            size = comm.size()
             errors.check(
                 size % plan.fixed_size == 0,
                 errors.ErrorClass.ERR_DIMS,
                 f"{size} ranks do not fold onto plan {plan.slug()!r} "
                 f"(fixed axes need a multiple of {plan.fixed_size})",
             )
-            dims = (size // plan.fixed_size,) + plan.fold_dims()[1:]
+            spec = TopologySpec.from_plan(plan)
             if plan.ring > 1:
                 # the periodic ring dim rides the model axis: attention
                 # shards the sequence over the ring and rotates KV by
                 # cart_shift(+1) exchanges
                 self.pcfg = dataclasses.replace(self.pcfg, ring_attention=True)
-            if plan.fold_periods() is not None:
-                self._comm = topology.cart_create(
-                    self._comm, dims, plan.fold_periods(), axis_names=plan.fold_axes(),
-                    tag=f"{self._comm.tag or 'train'}/cart/{'x'.join(map(str, dims))}")
-            else:
-                self._comm = Communicator.from_group(
-                    self._comm.group(), tag=self._comm.tag or "train", shape=dims,
-                    axis_names=plan.fold_axes())
+        return CommEpoch.create(comm, spec, name="train")
+
+    def _adopt(self, epoch: CommEpoch) -> None:
+        """Make ``epoch`` the trainer's fabric: its communicator (built
+        here, collectively over the process world), the lines derived from
+        it and the ranks the checkpoints are saved with.  A rank the epoch
+        leaves idle derives no line."""
+
+        self._epoch = epoch
+        comm = self.comm
+        if self.ckpt is not None:
+            self.ckpt.comm = comm if comm.size() > 1 and epoch.member else None
         # the ring's line, and the data line its ranks average over
         self._ring_line = self._data_line = None
-        if self.pcfg.ring_attention or plan.stage > 1:
-            names = self._comm.axis_names
+        if epoch.member and (self.pcfg.ring_attention or self.plan.stage > 1):
+            names = comm.axis_names
             errors.check(
-                "data" in names and (plan.stage > 1 or self.pcfg.model_axis in names),
+                "data" in names and (self.plan.stage > 1 or self.pcfg.model_axis in names),
                 errors.ErrorClass.ERR_TOPOLOGY,
                 f"the ring and pipeline plans need a data axis and a "
-                f"{'stage' if plan.stage > 1 else self.pcfg.model_axis!r} axis, "
+                f"{'stage' if self.plan.stage > 1 else self.pcfg.model_axis!r} axis, "
                 f"got {names}",
             )
-            self._data_line = self._comm.split("data")
+            self._data_line = comm.split("data")
             if self.pcfg.ring_attention:
-                self._ring_line = self._comm.split(self.pcfg.model_axis)
+                self._ring_line = comm.split(self.pcfg.model_axis)
 
     @property
     def _average_over(self) -> Communicator:
         """The ranks the data plan's gradients average over: the data line
         under the ring, else the whole communicator."""
 
-        return self._data_line if self._ring_line is not None else self._comm
+        return self._data_line if self._ring_line is not None else self.comm
 
     def _batch(self, step: int) -> dict:
         """This rank's block of the global batch for ``step``; placed, the
@@ -582,12 +651,12 @@ class Trainer:
             return self.pipeline.device_batch(step, self.device, self._data_line.rank(),
                                               self._data_line.size())
         if self.placed:
-            mesh = self._comm.device_mesh
+            mesh = self.comm.device_mesh
             batch = self.pipeline.device_batch(step, self.device)
             return rules.distribute(batch, rules.batch_spec(batch, rules.mesh_shape(mesh),
                                                             self.pcfg), mesh)
-        return self.pipeline.device_batch(step, self.device, self._comm.rank(),
-                                          self._comm.size())
+        return self.pipeline.device_batch(step, self.device, self.comm.rank(),
+                                          self.comm.size())
 
     # -- assembly -------------------------------------------------------------
 
@@ -600,20 +669,23 @@ class Trainer:
             params = self.bundle.init(gen)
         return self.place_state(params)
 
-    def place_state(self, params):
-        """(parameters, a fresh optimizer state) from whole ``params`` (the
-        same on every rank): placed under the plan's specs when the state
-        is placed, as they are otherwise."""
+    def place_state(self, params, opt_state=None):
+        """(parameters, optimizer state) from whole ``params`` and
+        ``opt_state`` (by default a fresh one; the same on every rank):
+        placed under the plan's specs when the state is placed, as they are
+        otherwise."""
 
         with torch.no_grad():
             if not self.placed:
-                return self._trainable(params), self.opt.init(params)
-            mesh = self._comm.device_mesh
+                return self._trainable(params), (
+                    self.opt.init(params) if opt_state is None else opt_state)
+            mesh = self.comm.device_mesh
             shape = rules.mesh_shape(mesh)
             pspecs = (_pipeline_param_specs(params, self.plan.stage) if self.plan.stage > 1
                       else rules.param_specs(params, shape, self.pcfg))
             params = rules.distribute(params, pspecs, mesh)
-            opt_state = self.opt.init(params)
+            if opt_state is None:
+                opt_state = self.opt.init(params)
             opt_state = rules.distribute(
                 opt_state, state_specs(params, opt_state, shape, self.pcfg, pspecs), mesh)
         return self._trainable(params), opt_state
@@ -625,83 +697,101 @@ class Trainer:
         return params
 
     def compile(self, params, opt_state):
-        """The persistent step request, built lazily exactly once:
-        ``trace:train_step`` is 1 per run."""
+        """The epoch's step, built lazily exactly once per epoch
+        (``epoch.cached``): a shrink or grow revokes the old epoch — and
+        with it the step request, whose CUDA graph it releases — so the
+        successor builds its own here on first use: ``trace:train_step`` is
+        1 per epoch."""
 
-        if self._compiled is None:
-            self._compiled = self._build_step(params, opt_state)
+        self._compiled = self._epoch.cached(
+            "train_step", lambda _ep: self._build_step(params, opt_state))
         return self._compiled
 
     def _build_step(self, params, opt_state):
         tool.pvar_count("trace:train_step")
-        # on the card the step is a CUDA graph from start 2; a step of four
-        # H100s whose ring exchanged point to point over NCCL hung once
-        # captured (all-reduces, as the data plan's, capture), so such a
-        # step is refused, never run otherwise
+        # on the card a persistent, donating step is a CUDA graph from start
+        # 2; a step of four H100s whose ring exchanged point to point over
+        # NCCL hung once captured (all-reduces, as the data plan's,
+        # capture), so such a step is refused, never run otherwise
+        captures = self.tcfg.persistent and self.tcfg.donate
         exchanges = self.plan.stage > 1 or (self._ring_line is not None
                                             and self._ring_line.size() > 1)
         errors.check(
-            not (exchanges and self.device.type == "cuda"),
+            not (exchanges and captures and self.device.type == "cuda"),
             errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
             f"plan {self.plan.slug()!r} exchanges point to point over NCCL inside its step, "
             f"which the trainer captures as a CUDA graph, and such a capture hangs: it is "
-            f"refused on the card (the step functions, make_train_step and "
-            f"make_pipeline_train_step, run eagerly)",
+            f"refused on the card; TrainerConfig(persistent=False) runs the step eagerly",
         )
         if self.plan.stage > 1:
             base_step = make_pipeline_train_step(self.cfg, self.pcfg, self.tcfg, self.opt,
-                                                 self._comm, plan=self.plan)
+                                                 self.comm, plan=self.plan)
         else:
             # under the ring the loss gets the ring's line, whose ranks end
             # with the same gradients: they average over the data line
             base_step = make_train_step(self.cfg, self.pcfg, self.tcfg, self.opt,
                                         mesh=self._ring_line, comm=self._average_over)
+        if not self.tcfg.donate:
+            base_step = _out_of_place(base_step)
+        if not self.tcfg.persistent:
+            self._request = None
+            return base_step
         self._request = PersistentRequest(base_step, (params, opt_state, self._batch(0)),
-                                          donate_argnums=(0, 1))
+                                          donate_argnums=(0, 1) if self.tcfg.donate else ())
         return self._request
 
     # -- the loop --------------------------------------------------------------
 
     def run(self, steps: int | None = None) -> dict:
         steps = steps if steps is not None else self.tcfg.steps
-        params, opt_state = self.init_state()
+        params = opt_state = None
         start = 0
-        if self.ckpt is not None and self.ckpt.latest_step() is not None:
-            params, opt_state, start = self._restore(params, opt_state)
-        self.compile(params, opt_state)
+        if self._epoch.member:
+            params, opt_state = self.init_state()
+            if self.ckpt is not None and self.ckpt.latest_step() is not None:
+                params, opt_state, start = self._restore(params, opt_state)
+            self.compile(params, opt_state)
 
         step = start
         while step < steps:
             try:
-                params, opt_state, step = self._run_span(params, opt_state, step, steps)
+                if self._epoch.member:
+                    params, opt_state, step = self._run_span(params, opt_state, step, steps)
+                else:
+                    params, opt_state, step = self._idle_span(step, steps)
                 continue
             except RankEvicted as e:
                 self.evictions += 1
                 if self.evictions + self.restarts > self.tcfg.max_restarts:
                     raise
                 log.warning("rank %d evicted at step %d; shrinking", e.rank, e.step)
-                params, opt_state, step = self._shrink(e)
-                continue
+                # the traceback holds the failed span's frames (and state)
+                evicted = e.with_traceback(None)
             except WorkerFailure as e:
                 self.restarts += 1
                 if self.restarts > self.tcfg.max_restarts:
                     raise
                 log.warning("worker failure at step %d (%s); restarting", step, e)
-            # outside the handler, whose traceback holds the failed span's
-            # frames: the failed state is dropped before the restore builds
-            # the next one
+                evicted = None
+            # outside the handler: the failed state is dropped before the
+            # restore builds the next one
             params = opt_state = None
-            params, opt_state, step = self._recover()
-        if self.ckpt is not None:
+            if evicted is not None:
+                params, opt_state, step = self._shrink(evicted)
+            else:
+                params, opt_state, step = self._recover()
+        if self.ckpt is not None and self._epoch.member:
             self._checkpoint(step, params, opt_state, join=True)
+        if self._epoch.generation > 0:
+            self._epoch.barrier()   # an idle rank's run ends with the others'
         self.params, self.opt_state = params, opt_state
         return {
             "final_step": step,
             "restarts": self.restarts,
             "evictions": self.evictions,
             "joins": self.joins,
-            "epoch": 0,
-            "world_size": self._comm.size(),
+            "epoch": self._epoch.generation,
+            "world_size": self.comm.size(),
             "ckpt_failures": self.ckpt_failures,
             "metrics": self.metrics_history,
         }
@@ -725,7 +815,9 @@ class Trainer:
                 step,
                 {"params": params, "opt": opt_state},
                 extra={"step": step},
-                meta={"epoch": 0, "world_size": self._comm.size()},
+                # manifests carry the fabric they were written under, so an
+                # elastic restore knows it is resharding across world sizes
+                meta={"epoch": self._epoch.generation, "world_size": self.comm.size()},
             )
             self._saved_step = step
             if join:
@@ -740,9 +832,10 @@ class Trainer:
         log.warning("checkpoint save failed at step %d: %s", step, e)
 
     def _run_span(self, params, opt_state, step, steps):
-        # the step updates its state in place (donated buffers): a straggler
-        # cannot be re-dispatched and takes the failure path
-        retry_safe = False
+        # a donated step updates its state in place: a straggler cannot be
+        # re-dispatched and takes the failure path (the reference's eager
+        # step gives up donation, the port's keeps it: one copy of the state)
+        retry_safe = not self.tcfg.donate
         while step < steps:
             if self.injector is not None:
                 joiners = self.injector.take_admissions(step)
@@ -764,7 +857,7 @@ class Trainer:
                 # or capturing the CUDA graph, is slow from known work, not
                 # from worker sickness
                 exempt=(self.ckpt is not None and self.ckpt.pending())
-                or not self._request.settled,
+                or (self._request is not None and not self._request.settled),
             )
             step += 1
             if step % self.tcfg.log_every == 0 or step == steps:
@@ -793,18 +886,125 @@ class Trainer:
                 self._checkpoint(step, params, opt_state)
         return params, opt_state, step
 
+    def _idle_span(self, step, steps):
+        """A rank outside the epoch's active group (evicted, or left over
+        by the fold) computes nothing: it walks the schedule, step by step,
+        and takes part in each transition as the members do — until a grow
+        folds it in (then it returns the state it received) or the run
+        ends.  Other failures are the members' to handle."""
+
+        while step < steps:
+            if self.injector is not None:
+                joiners = self.injector.take_admissions(step)
+                if joiners:
+                    params, opt_state = self._grow(joiners, None, None)
+                    if self._epoch.member:
+                        return params, opt_state, step
+                try:
+                    self.injector.check(step)
+                except RankEvicted:
+                    raise
+                except WorkerFailure:
+                    pass
+            step += 1
+        return None, None, step
+
     # -- recovery ---------------------------------------------------------------
 
-    def _shrink(self, evt: RankEvicted):
-        """The ULFM shrink of the reference (revoke → shrink the group →
-        rebuild → restore) needs ``core/epoch.py``."""
+    def _retire(self) -> None:
+        """Before a transition: no checkpoint save of this epoch's ranks is
+        left in flight (a restore reads the newest complete manifest)."""
 
-        _not_ported(f"the elastic shrink (rank {evt.rank} evicted at step {evt.step})", "A15")
+        if self.ckpt is not None:
+            try:
+                self.ckpt.wait()
+            except errors.IoError as e:
+                self._note_ckpt_failure(-1, e)
+        self.retired.append(self._epoch)
+
+    def _shrink(self, evt: RankEvicted):
+        """The ULFM recovery loop, one method: revoke (the step's CUDA
+        graph and the epoch's process groups released) → ``Group.difference``
+        shrink → ``Communicator.from_group`` / cart re-fold rebuild →
+        restore from the last committed manifest → continue on the
+        survivors.  Every rank of the world runs it, the evicted one
+        included; a rank the successor leaves idle returns no state and
+        goes on walking the schedule from the eviction's step."""
+
+        self._retire()
+        self._adopt(self._epoch.shrink([evt.rank]))
+        log.warning(
+            "epoch %d: %s survivors fold onto %s",
+            self._epoch.generation, self._epoch.pool.size(), self._epoch.dims,
+        )
+        if not self._epoch.member:
+            return None, None, evt.step
+        params, opt_state = self.init_state()
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            params, opt_state, step = self._restore(params, opt_state)
+        else:
+            step = 0
+        tool.pvar_add("elastic:recovery_steps", max(0, evt.step - step))
+        self.compile(params, opt_state)
+        return params, opt_state, step
 
     def _grow(self, count: int, params, opt_state):
-        """The reference's hot-join of spare ranks needs ``core/epoch.py``."""
+        """The reverse path: hot-join up to ``count`` spare ranks (the
+        world minus the epoch's pool), re-fold the elastic data axis, and
+        carry the *live* state onto the grown fabric — growing loses no
+        steps, so nothing is restored."""
 
-        _not_ported(f"the elastic grow ({count} rank(s) offered)", "A15")
+        spares = (
+            self._epoch.session.group("repro://world")
+            .difference(self._epoch.pool)
+            .devices[:count]
+        )
+        if not spares:
+            log.warning("admission requested but no spare ranks; continuing")
+            return params, opt_state
+        self.joins += len(spares)
+        tool.pvar_count("elastic:joins")
+        return self._admit(spares, params, opt_state)
+
+    def _admit(self, members, params, opt_state):
+        """Grow the epoch by ``members`` (none is legal: the generation
+        advances over the same pool) and carry the live state over: the
+        old members gather their state whole; if the successor folds in a
+        rank that held none, the first member of its pool (a survivor)
+        broadcasts the whole state over the new communicator; then the
+        state is placed on
+        the new fabric and the successor's step is built.  Returns (params,
+        opt_state), ``None`` on a rank the successor leaves idle."""
+
+        old = self._epoch
+        live = set(old.active.devices)
+        whole = None
+        if old.member:
+            whole = _whole({"params": params, "opt": opt_state})
+        params = opt_state = None
+        self._retire()
+        self._adopt(old.grow(members))
+        epoch = self._epoch
+        log.warning("epoch %d: %d rank(s) joined, folding onto %s",
+                    epoch.generation, len(members), epoch.dims)
+        if not epoch.member:
+            return None, None
+        if any(m not in live for m in epoch.active.devices):
+            if whole is None:
+                gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+                with torch.no_grad():
+                    template = self.bundle.init(gen)
+                whole = {"params": template, "opt": self.opt.init(template)}
+            source = epoch.pool.device(0).rank   # a survivor: its state is live
+            with torch.no_grad():
+                for leaf in flatten(whole)[0]:
+                    if isinstance(leaf, torch.Tensor):
+                        torch.distributed.broadcast(leaf, src=source,
+                                                    group=self.comm.process_group())
+        params, opt_state = self.place_state(whole["params"], whole["opt"])
+        del whole
+        self.compile(params, opt_state)
+        return params, opt_state
 
     def _recover(self):
         """Restart protocol: restore the newest complete checkpoint and
@@ -812,7 +1012,8 @@ class Trainer:
         holds the failed state, is dropped first; the next step captures
         again on the restored state."""
 
-        self._request.release()
+        if self._request is not None:
+            self._request.release()
         if self.ckpt is not None:
             # join the in-flight save first (tolerantly), so that a save
             # mid-commit is seen by latest_step()

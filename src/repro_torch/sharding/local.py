@@ -251,6 +251,10 @@ class _DataFree:
         self.data = [n in pcfg.data_axes for n in names]
         keep = tuple(n for n, d in zip(names, self.data) if not d)
         self.sub = device_mesh[keep] if keep else None
+        if self.sub is not None:
+            # a submesh equals its parent's kin only (core/communicator.py's
+            # device_mesh: an epoch's meshes equal no one else's)
+            self.sub._thread_id = device_mesh._thread_id
         self._rep = Replicate()
 
     def onto(self, tree):

@@ -143,13 +143,28 @@ def test_partitioned_pvars_match_the_reference():
 
 @pytest.mark.parametrize("case", ["for_epoch"])
 def test_unported_grad_sync_paths_raise(case):
-    """The epoch-derived sync waits for the elastic epochs (ROADMAP A15)."""
+    """The epoch-derived sync (``tests/test_epoch.py``'s last case): one
+    per epoch, over the epoch's communicator; a shrink revokes it
+    (``ERR_REVOKED``) and the successor builds its own, whose gradients
+    reduce over the survivors (a world of one: the gradients themselves)."""
 
-    runs = {"for_epoch": lambda: PartitionedGradSync.for_epoch(object())}
+    from repro_torch.core.epoch import CommEpoch, TopologySpec
+    from repro_torch.core.session import default_session
+
+    world = default_session(device_type="cpu").group("repro://world")
+    epoch = CommEpoch.create(world, TopologySpec((-1,), ("data",)), name="gs_" + case)
+    sync = PartitionedGradSync.for_epoch(epoch)
+    assert sync.inner is epoch.comm and PartitionedGradSync.for_epoch(epoch) is sync
+    survivors = epoch.shrink([])
     with pytest.raises(errors.Error) as ei:
-        runs[case]()
-    assert ei.value.klass == errors.ErrorClass.ERR_UNSUPPORTED_OPERATION
-    assert "A15" in str(ei.value)
+        PartitionedGradSync.for_epoch(epoch)
+    assert ei.value.klass == errors.ErrorClass.ERR_REVOKED
+    rebuilt = PartitionedGradSync.for_epoch(survivors)
+    assert rebuilt is not sync and rebuilt.inner is survivors.comm
+    grads = {"w": torch.arange(6.0).reshape(2, 3), "b": torch.ones(3, dtype=torch.bfloat16)}
+    synced, _ = rebuilt(grads)
+    for k in grads:
+        assert torch.equal(synced[k], grads[k])
 
 
 # ---------------------------------------------------------------------------

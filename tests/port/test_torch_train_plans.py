@@ -16,7 +16,9 @@ the plans only reorder sums); the pipeline's parameters after the last
 step hold within 1e-5 of the data plan's, and its checkpoint, written from
 the 4 ranks' fragments, restores on one rank and in the reference's
 manager.  On the card the trainer refuses to capture a step with these
-exchanges (``ERR_UNSUPPORTED_OPERATION`` at the step's build).  The CLI
+exchanges (``ERR_UNSUPPORTED_OPERATION`` at the step's build, naming
+``persistent=False``); through the eager step (``persistent=False``) both
+plans take the persistent step's losses bit for bit.  The CLI
 builds the reference's plans from ``--plan`` and the
 ``--pipeline-stages``/``--ring-attention`` aliases.
 """
@@ -143,8 +145,12 @@ def test_plan_on_four_ranks_holds_the_reference_and_the_data_plan(plans, name):
             np.testing.assert_allclose(got, [m[metric] for m in data_metrics],
                                        rtol=RTOL, atol=0)
         np.testing.assert_array_equal(r[f"{name}/params"], ranks[0][f"{name}/params"])
-        # on the card its exchanges would be captured in a CUDA graph: refused
+        # on the card its exchanges would be captured in a CUDA graph: refused,
+        # naming the eager step as the way; the eager step trains the same
         assert str(r[f"{name}/card_error"]) == "ERR_UNSUPPORTED_OPERATION"
+        assert "persistent=False" in str(r[f"{name}/card_message"])
+        assert bool(r[f"{name}/eager_request"])
+        np.testing.assert_array_equal(r[f"{name}/eager_losses"], r[f"{name}/losses"])
 
 
 def test_pipeline_parameters_hold_the_data_plan(plans):

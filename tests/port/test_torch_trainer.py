@@ -30,9 +30,11 @@
   CUDA graph path (capture and replay stood in for on the CPU by
   ``graph_stub``) it gives the eager run's losses and parameters bit for
   bit, and after a restore it captures again and resumes bit for bit.
-* What is not ported raises ``ERR_UNSUPPORTED_OPERATION``; the launcher
-  runs here with ``--device cpu`` and, on a machine with no card, raises
-  ``ERR_SESSION`` without it.
+* What is not ported raises ``ERR_UNSUPPORTED_OPERATION``; evicting the
+  only rank raises ``ERR_PROC_FAILED`` (as the reference's); the eager
+  steps (``persistent=False``, ``donate=False``) equal the default's; the
+  launcher runs here with ``--device cpu`` and, on a machine with no card,
+  raises ``ERR_SESSION`` without it.
 """
 
 from __future__ import annotations
@@ -552,7 +554,12 @@ def test_unported_paths_raise(tmp_path, case):
     """Every path the port does not run raises a typed error; the tensor,
     ring and pipeline plans are ported, and on one rank they do not fold
     (``ERR_DIMS``, as the reference's); a ring of one (``ring_pcfg``)
-    trains, as the data plan does."""
+    trains, as the data plan does.  The elastic paths are ported: evicting
+    the only rank (``evict``, ``evict_flag``) leaves no survivor
+    (``ERR_PROC_FAILED``, as the reference's trainer raises), an admission
+    with no spare rank (``admit``) trains on; the eager steps
+    (``no_donation``, ``not_persistent``) take the default step's losses
+    and grad norms bit for bit."""
     cfg, pcfg = tbase.ModelConfig(**_TINY), tbase.ParallelConfig()
 
     def make(tcfg=None, pcfg=pcfg, injector=None, comm=None):
@@ -562,7 +569,7 @@ def test_unported_paths_raise(tmp_path, case):
 
     runs = {
         "evict": lambda: make(injector=FaultInjector().evict_rank(1, 0)).run(),
-        "admit": lambda: make(injector=FaultInjector().admit_rank(1)).run(),
+        "admit": lambda: make(injector=FaultInjector().admit_rank(1)),
         "pipeline": lambda: make(TrainerConfig(plan=tbase.ParallelPlan(stage=2))),
         "ring_plan": lambda: make(TrainerConfig(plan=tbase.ParallelPlan(ring=2))),
         "ring_pcfg": lambda: make(pcfg=dataclasses.replace(pcfg, ring_attention=True)),
@@ -571,8 +578,8 @@ def test_unported_paths_raise(tmp_path, case):
                                           "cpu", "--plan", "auto"]),
         "evict_flag": lambda: tlaunch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device",
                                            "cpu", "--evict-at", "2:0"]),
-        "no_donation": lambda: make(TrainerConfig(donate=False)),
-        "not_persistent": lambda: make(TrainerConfig(persistent=False)),
+        "no_donation": lambda: make(TrainerConfig(steps=3, log_every=1, donate=False)),
+        "not_persistent": lambda: make(TrainerConfig(steps=3, log_every=1, persistent=False)),
         "legacy_pipeline_knob": lambda: make(TrainerConfig(pipeline_stages=2)),
         "legacy_ring_knob": lambda: make(TrainerConfig(ring_attention=2)),
         "pipeline_flag": lambda: tlaunch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device",
@@ -585,13 +592,35 @@ def test_unported_paths_raise(tmp_path, case):
         data = [(m["loss"], m["grad_norm"]) for m in make().run()["metrics"]]
         np.testing.assert_allclose(ring, data, rtol=2e-2)   # bf16: the ring rounds apart
         return
+    if case in ("admit", "no_donation", "not_persistent"):
+        trainer = runs[case]()
+        result = trainer.run()
+        assert result["final_step"] == 3 and result["epoch"] == 0 and result["joins"] == 0
+        got = [(m["loss"], m["grad_norm"]) for m in result["metrics"]]
+        want = [(m["loss"], m["grad_norm"]) for m in make().run()["metrics"]]
+        assert got == want
+        if case != "admit":
+            assert trainer._request is None or trainer._request.donate_argnums == ()
+        return
     folds = ("tensor", "pipeline", "ring_plan", "legacy_pipeline_knob", "legacy_ring_knob",
              "pipeline_flag")
     expected = (terrors.ErrorClass.ERR_DIMS if case in folds
+                else terrors.ErrorClass.ERR_PROC_FAILED if case.startswith("evict")
                 else terrors.ErrorClass.ERR_UNSUPPORTED_OPERATION)
     with pytest.raises(terrors.Error) as ei:
         runs[case]()
     assert ei.value.klass == expected, ei.value
+    if case == "evict":
+        from repro.core import errors as jerrors
+        from repro.runtime.faults import FaultInjector as JFaultInjector
+
+        jcfg = jbase.ModelConfig(**_TINY)
+        jt = JTrainer(jcfg, jbase.ParallelConfig(), JTrainerConfig(steps=3, log_every=1),
+                      make_host_mesh(), seq_len=16, global_batch=2,
+                      injector=JFaultInjector().evict_rank(1, 0), clock=lambda: 0.0)
+        with pytest.raises(jerrors.Error) as jei:
+            jt.run()
+        assert jei.value.klass.name == ei.value.klass.name
 
 
 def test_launcher_on_the_cpu_and_no_fallback():

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import os
 import subprocess
 import sys
@@ -894,7 +895,8 @@ def prog_train_plans(rank: int, world: int, inputs: dict) -> dict:
     folded communicator and the parameters after the last step, whole; the
     pipeline checkpoints its last step (fragments from every rank) into
     ``ckpt_dir``.  Then the error of building the plan's step for a CUDA
-    device (its capture is refused)."""
+    device (its capture is refused) and its message, and the plan's losses
+    through the eager step (``persistent=False``)."""
 
     import torch
 
@@ -929,6 +931,19 @@ def prog_train_plans(rank: int, world: int, inputs: dict) -> dict:
         state = card.init_state()
         card.device = torch.device("cuda")
         out[f"{name}/card_error"] = np.array(_err(lambda: card.compile(*state)))
+        try:
+            card.compile(*state)
+        except Exception as e:  # noqa: BLE001  (the message is what is held)
+            out[f"{name}/card_message"] = np.array(str(e))
+        # the eager step (persistent=False), the plan's way on the card
+        eager = Trainer(train_plan_cfg(name), ParallelConfig(), dataclasses.replace(
+            tcfg, checkpoint_dir=None, persistent=False), make_host_communicator(device="cpu"),
+            seq_len=seq, global_batch=batch, clock=lambda: 0.0)
+        eager.init_state = lambda t=eager, n=name: t.place_state(
+            _params(_prefixed(inputs, n + "/")))
+        result = eager.run()
+        out[f"{name}/eager_losses"] = np.array([m["loss"] for m in result["metrics"]])
+        out[f"{name}/eager_request"] = np.array(eager._request is None)
     return out
 
 
@@ -1149,6 +1164,209 @@ def prog_serve_fanout(rank: int, world: int, inputs: dict) -> dict:
     return {"tokens": tokens, "keys": np.array(sorted(stats))}
 
 
+#: the splits of the (pod 2, data 2, model 1) grid that the session test
+#: holds against the reference's: proper subsets, one axis, all axes in
+#: another order
+SPLIT_AXES = (("data", "model"), ("model", "pod"), ("pod", "data"), ("pod",),
+              ("model", "pod", "data"))
+
+
+def prog_session_calls(rank: int, world: int, inputs: dict) -> dict:
+    """The session and communicator calls of ``tests/test_session.py``
+    that the elastic epochs build on: ``split`` over one axis and over
+    subsets of a 3-axis grid (this rank's color, its shape and an allreduce
+    over it), ``register_mesh_psets``, ``create``, ``dup`` (its own process
+    group, an allreduce over it), ``local_ranks``, ``Session.refresh`` with
+    members that appear and vanish, and ``default_session(refresh=True)``
+    in place."""
+
+    import torch
+
+    from repro_torch.core.communicator import Communicator, local_ranks
+    from repro_torch.core.session import (
+        Group,
+        GroupComparison,
+        RankDevice,
+        Session,
+        default_session,
+    )
+
+    out = {}
+    sess = default_session(device_type="cpu")
+    wg = sess.group("repro://world")
+    comm = Communicator.from_group(wg, tag="repro://grid", shape=(2, 2),
+                                   axis_names=("data", "model"))
+    out["split_model"] = np.array(comm.split("model").global_ranks())
+    names = sess.register_mesh_psets(comm)
+    out["mesh_psets"] = np.array(names)
+    for name in names:
+        out[f"pset/{name}"] = np.array([m.rank for m in sess.pset(name)])
+    grid3 = Communicator.from_group(wg, tag="repro://grid3", shape=(2, 2, 1),
+                                    axis_names=("pod", "data", "model"))
+    for axes in SPLIT_AXES:
+        sub = grid3.split(*axes)
+        key = "/".join(axes)
+        out[f"split3/{key}/ranks"] = np.array(sub.global_ranks())
+        out[f"split3/{key}/shape"] = np.array(sub.shape)
+        out[f"split3/{key}/axes"] = np.array(sub.axis_names)
+        out[f"split3/{key}/sum"] = sub.allreduce(torch.tensor([float(rank)])).numpy()
+    created = Communicator.create((1,), ("w",), devices=sess.pset("repro://world"))
+    out["create"] = np.array([created.managed, created.group().size(),
+                              created.group().devices[0].rank])
+    dup = comm.dup()
+    out["dup"] = np.array([dup.group().compare(comm.group()) is GroupComparison.IDENT,
+                           dup.managed, dup.process_group() is not comm.process_group(),
+                           dup.shape == comm.shape])
+    out["dup_sum"] = dup.allreduce(torch.tensor([rank + 1.0])).numpy()
+    out["local_ranks"] = local_ranks(comm)
+    # members that appear, then vanish: the builtin sets re-derive, the
+    # user sets are pruned
+    other = Session.init(device_type="cpu")
+    real = other.pset("repro://world")
+    fakes = tuple(RankDevice(world + i, torch.device("meta")) for i in range(2))
+    other.refresh(devices=real + fakes)
+    grown = [other.group().size(), other.group("repro://platform/meta").size()]
+    other.register_pset("repro://doomed", Group(fakes))
+    other.register_pset("repro://mixed", Group([real[0], fakes[0]]))
+    other.register_pset("repro://stable", Group([real[0]]))
+    other.refresh()
+    out["refresh"] = np.array(grown + [
+        other.group().size(), "repro://platform/meta" in other.psets(),
+        "repro://doomed" in other.psets(), len(other.pset("repro://mixed")),
+        len(other.pset("repro://stable")), other.pset("repro://mixed") == (real[0],)])
+    sess.register_pset("repro://user", wg.incl([0, 1]))
+    again = default_session(refresh=True, device_type="cpu")
+    out["in_place"] = np.array([again is sess, "repro://user" in again.psets()])
+    return out
+
+
+#: the elastic tests' model: the reference's ``tests/test_elastic_runtime.py``
+#: tiny dense config, in fp32
+ELASTIC_CFG = dict(name="tiny", family="dense", num_layers=1, d_model=32, num_heads=2,
+                   num_kv_heads=2, head_dim=16, d_ff=64, vocab_size=64, dtype="float32")
+#: the scenarios on a (data 2, model 2) grid: (steps, evictions as (step,
+#: rank), admissions as (step, count))
+ELASTIC_SCENARIOS = {
+    "shrink": (8, ((5, 2),), ()),
+    "grow": (10, ((5, 1),), ((8, 1),)),
+}
+
+
+def prog_elastic(rank: int, world: int, inputs: dict) -> dict:
+    """The reference's ``SHRINK_CODE``, ``GROW_CODE`` and ``RESHARD_CODE``
+    on 4 ranks as a (data 2, model 2) grid, from the reference's init
+    (``param/...``): each scenario's result, losses, ``trace:train_step``
+    builds and ``elastic:recovery_steps`` on this rank, its manifests'
+    tags, and whether the revoked epochs' process groups are gone; the
+    shrink's control (a fresh run to step 4, then a fresh trainer on the
+    survivors' fold restored from it); a step on a fresh fabric laid out as
+    a revoked one; a checkpoint written on the 2 x 2 fabric restored on a
+    1 x 2 one."""
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.core import tool
+    from repro_torch.core.communicator import Communicator
+    from repro_torch.core.session import default_session
+    from repro_torch.runtime.faults import FaultInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.sharding import rules
+
+    cfg = ModelConfig(**ELASTIC_CFG)
+    work = Path(str(inputs["work"]))
+    world_group = default_session(device_type="cpu").group("repro://world")
+
+    def comm_for(group, data):
+        return Communicator.from_group(group, tag="repro://train", shape=(data, 2),
+                                       axis_names=("data", "model"))
+
+    def trainer(ckpt, steps, comm, injector=None):
+        tcfg = TrainerConfig(steps=steps, lr=1e-3, checkpoint_dir=str(work / ckpt),
+                             checkpoint_every=2, log_every=1, seed=7)
+        t = Trainer(cfg, ParallelConfig(), tcfg, comm, seq_len=32, global_batch=12,
+                    injector=injector, clock=lambda: 0.0)
+        t.init_state = lambda t=t: t.place_state(_params(inputs))
+        return t
+
+    def pvar(name):
+        return tool.pvar_read().get(name, 0)
+
+    out = {}
+    for name, (steps, evictions, admissions) in ELASTIC_SCENARIOS.items():
+        injector = FaultInjector()
+        for step, r in evictions:
+            injector.evict_rank(step, r)
+        for step, count in admissions:
+            injector.admit_rank(step, count)
+        traces, recovery = pvar("trace:train_step"), pvar("elastic:recovery_steps")
+        t = trainer(name, steps, comm_for(world_group, 2), injector)
+        res = t.run()
+        for key in ("final_step", "evictions", "joins", "restarts", "epoch", "world_size"):
+            out[f"{name}/{key}"] = np.array(res[key])
+        out[f"{name}/member"] = np.array(t.epoch.member)
+        out[f"{name}/comm_ranks"] = np.array(t.comm.global_ranks())
+        out[f"{name}/traces"] = np.array(pvar("trace:train_step") - traces)
+        out[f"{name}/recovery_steps"] = np.array(pvar("elastic:recovery_steps") - recovery)
+        out[f"{name}/steps"] = np.array([m["step"] for m in res["metrics"]])
+        out[f"{name}/losses"] = np.array([m["loss"] for m in res["metrics"]])
+        out[f"{name}/retired"] = np.array([e.generation for e in t.retired])
+        destroyed = [pg for e in t.retired for pg in e.destroyed]
+        out[f"{name}/destroyed"] = np.array(len(destroyed))
+        out[f"{name}/destroyed_gone"] = np.array(
+            all(pg not in dist.distributed_c10d._world.pg_map for pg in destroyed))
+        out[f"{name}/meta"] = np.array(json.dumps(
+            {s: t.ckpt.manifest_meta(s) for s in t.ckpt.steps()}))
+        if t.params is not None:
+            out[f"{name}/params"] = torch.cat(
+                [_whole(p).detach().reshape(-1) for p in _leaves(t.params)]).numpy()
+        del t
+
+    # a fresh trainer on the layout of the grow's revoked generation (the
+    # (1, 2) fold of ranks 0 and 2, whose groups are destroyed): DTensor's
+    # cached sharding decisions must not hand back the destroyed mesh
+    comm = comm_for(world_group.incl([0, 2]), 1)
+    if comm.rank() >= 0:
+        t = Trainer(cfg, ParallelConfig(), TrainerConfig(steps=1, lr=1e-3, seed=7), comm,
+                    seq_len=32, global_batch=12, clock=lambda: 0.0)
+        out["after_revoke/loss"] = np.array(t.run()["metrics"][0]["loss"])
+        del t
+
+    # the shrink's control: a fresh run to the same manifest, then a fresh
+    # trainer restored from it on the survivors' fold (rank 2 evicted)
+    pre = trainer("control", 4, comm_for(world_group, 2))
+    pre.run()
+    del pre
+    folded = world_group.excl([2]).incl(range(2))
+    comm = comm_for(folded, 1)
+    if comm.rank() >= 0:
+        res = trainer("control", 8, comm).run()
+        out["control/steps"] = np.array([m["step"] for m in res["metrics"]])
+        out["control/losses"] = np.array([m["loss"] for m in res["metrics"]])
+
+    # a checkpoint written under the 2 x 2 fabric restores onto a 1 x 2 one
+    big = comm_for(world_group, 2)
+    specs = {"w": ("data", "model"), "b": ()}
+    w = torch.arange(96, dtype=torch.float32).reshape(12, 8)
+    tree = rules.distribute({"w": w.clone(), "b": torch.tensor(3.0)}, specs, big.device_mesh)
+    manager = CheckpointManager(str(work / "reshard"), async_save=False, comm=big)
+    manager.save(1, tree, meta={"epoch": 0, "world_size": 4})
+    manager.wait()
+    out["reshard/meta"] = np.array(json.dumps(manager.manifest_meta()))
+    small = comm_for(world_group.excl([1, 3]), 1)
+    if small.rank() >= 0:
+        template = rules.distribute({"w": torch.zeros(12, 8), "b": torch.tensor(0.0)}, specs,
+                                    small.device_mesh)
+        got, step = CheckpointManager(str(work / "reshard"), comm=small).restore(template)
+        out["reshard/step"] = np.array(step)
+        out["reshard/w"] = got["w"].full_tensor().numpy()
+        out["reshard/b"] = np.array(float(got["b"].full_tensor()))
+        out["reshard/data"] = np.array(got["w"].device_mesh.size(0))
+    return out
+
+
 PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_server,
             "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer,
             "requests": prog_requests, "grad_sync": prog_grad_sync, "rma": prog_rma,
@@ -1157,7 +1375,8 @@ PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_s
             "sharded_serve": prog_sharded_serve, "sharded_train": prog_sharded_train,
             "sharded_restore": prog_sharded_restore, "overlap": prog_overlap,
             "rows_split": prog_rows_split, "pipeline_schedule": prog_pipeline_schedule, "train_plans": prog_train_plans, "ring_grad": prog_ring_grad, "int8_plans": prog_int8_plans, "split_rows_update": prog_split_rows_update,
-            "serve_mesh": prog_serve_mesh}
+            "serve_mesh": prog_serve_mesh, "session_calls": prog_session_calls,
+            "elastic": prog_elastic}
 
 
 def main(argv: list[str]) -> int:

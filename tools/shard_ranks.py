@@ -6,6 +6,8 @@ on a mesh of one.
     python3 tools/shard_ranks.py            # starts 4 ranks (torchrun)
     python3 tools/shard_ranks.py --device cpu --smoke --prompt-len 16 --seq 32
                                             # the same on 4 gloo ranks
+    python3 tools/shard_ranks.py --elastic  # the elastic drill and the
+                                            # plans' eager trainer only
 
 Needs four CUDA devices and ``nvcc`` (or ``--device cpu``); run on demand,
 apart from ``chip_smoke.py``.  Every rank, in turn:
@@ -35,16 +37,35 @@ apart from ``chip_smoke.py``.  Every rank, in turn:
   whole state, with fp32 or int8 moments) and the pipeline plan
   (stage 4, micro 4, b ``--batch`` x ``--seq``: 8 layers a card,
   microbatches of one row), ``--steps`` steps each, eagerly through the
-  trainer's step; then through the ``Trainer``, which on the card refuses
-  to capture a step with these exchanges (its NCCL point-to-point calls
-  hung inside the captured graph: the refusal is logged), and on gloo
-  ranks takes the eager steps' losses bit for bit.  The pipeline's losses are held within
+  trainer's step; then through ``Trainer(persistent=False)``, whose eager
+  steps must take the step functions' losses bit for bit (the default
+  ``Trainer`` refuses to capture a step with these exchanges on the card —
+  its NCCL point-to-point calls hung inside the captured graph — and the
+  refusal, which names ``persistent=False``, is logged).  The pipeline's losses are held within
   ``LOSS_RTOL`` of the data plan's above (the same batch); the ring's
   first loss within ``RING_LOSS_RTOL`` of the data plan's forward on the
   same weights and batch (forward only: the data plan's backward
   recomputes each layer's attention through (b, 24, 8192, 8192) fp32
   scores, 6.4 GB a tensor at b 1).  Each card's peak and the step times
   are logged.
+
+With ``--elastic`` (instead of the serving and data-plan runs above), the
+elastic drill comes first: phi4-mini at full width and 2 layers, b 12 x
+2048 (the global batch divides by 3 and 4), fp32 moments, the data plan
+placed over 4 x 1, saves every 2 steps, 8 steps, PyTorch's deterministic
+algorithms.  Rank 1 is evicted before step 4: the 3 survivors fold onto
+(3, 1) and restore step 2; before step 7 one rank is admitted (the evicted
+one, which idled meanwhile) and the grid is (4, 1) again, the live state
+broadcast to it.  It must show one step build and one capture per epoch
+(3), the revoked generations' process groups (NCCL communicators
+included) destroyed on every card, and steps 3 to 6 bit for bit those of
+a fresh 3-rank trainer restored from the drill's step-2 manifest on the
+survivors, steps 7 and 8 those of a fresh 4-rank trainer restored from its
+step-6 manifest (the state the grow carried over live), both eager
+(``persistent=False``: no graph pool beside the drill's cached blocks);
+each card's peak, the memory still allocated after the drill's trainer is
+gone, and the step times are logged.  Then
+the two plans above.
 
 Rank 0 writes everything, with the card's name and power limit, to
 ``artifacts/shard_ranks.json``.
@@ -74,8 +95,8 @@ LOSS_RTOL = 1e-3
 # another order (the repo's bf16 tolerance)
 RING_LOSS_RTOL = 2e-2
 # the longest a trainer's run under the ring or pipeline plan may take (its
-# init, an eager step, a capture and the replays)
-CAPTURED_RUN_LIMIT_S = 300
+# init and its eager steps)
+TRAINER_RUN_LIMIT_S = 300
 
 
 def _args(argv=None):
@@ -90,6 +111,11 @@ def _args(argv=None):
     ap.add_argument("--ring-seq", type=int, default=8192)
     ap.add_argument("--skip-serve", action="store_true",
                     help="train only (the serving runs take about half the time)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="the elastic drill, then the ring and pipeline plans' trainers "
+                         "(no serving, no data-plan runs)")
+    ap.add_argument("--part", choices=ELASTIC_PARTS, default=None,
+                    help="one part of --elastic (each runs in processes of its own)")
     return ap.parse_args(argv)
 
 
@@ -97,6 +123,12 @@ def _peak(device) -> float | None:
     import torch
 
     return torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+
+
+def _allocated(device) -> float | None:
+    import torch
+
+    return torch.cuda.memory_allocated() / 1e9 if device == "cuda" else None
 
 
 def _reset(device) -> None:
@@ -297,12 +329,181 @@ def _train(args, out) -> None:
     _train_plans(args, out, rows)
 
 
+#: the elastic drill: layers, global batch, steps, saves every, the
+#: eviction (step, rank) and the admission step
+ELASTIC_LAYERS, ELASTIC_BATCH, ELASTIC_STEPS, ELASTIC_SAVE_EVERY = 2, 12, 8, 2
+ELASTIC_EVICT, ELASTIC_ADMIT = (3, 1), 6
+ELASTIC_DIR = ROOT / "build" / "shard_ranks_elastic"
+#: the parts of ``--elastic``, each in processes of its own
+ELASTIC_PARTS = ("drill", "controls", "plans")
+
+
+def _control(args, cfg, pcfg, ckpt, step, comm, steps) -> list | None:
+    """A fresh ``Trainer`` on ``comm`` restored from the manifest of
+    ``step`` in ``ckpt`` and run to ``steps``: its (step, loss, grad norm)
+    records, or ``None`` on a rank outside ``comm``."""
+
+    from repro_torch.runtime.faults import StragglerPolicy
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    if comm.rank() < 0:
+        return None
+    # eager steps (bit for bit the graph's): no graph pool beside the drill's
+    # cached blocks
+    tcfg = TrainerConfig(steps=steps, lr=3e-4, log_every=1, checkpoint_dir=str(ckpt),
+                         persistent=False)
+    t = Trainer(cfg, pcfg, tcfg, comm, seq_len=args.seq, global_batch=ELASTIC_BATCH,
+                straggler=StragglerPolicy(deadline_factor=float("inf")))
+    tree, _ = t.ckpt.restore(dict(zip(("params", "opt"), t.init_state())), step=step)
+    params, opt_state = t._trainable(tree["params"]), tree["opt"]
+    del tree
+    t.compile(params, opt_state)
+    t._run_span(params, opt_state, step, steps)
+    return [(m["step"], m["loss"], m["grad_norm"]) for m in t.metrics_history]
+
+
+def _elastic_config(args):
+    from repro_torch.configs import base
+
+    arch = "phi4_mini_3_8b"
+    cfg = base.get_smoke_config(arch) if args.smoke else base.get_config(arch)
+    return dataclasses.replace(cfg, num_layers=ELASTIC_LAYERS), base.get_parallel(arch)
+
+
+def _elastic_drill(args, out) -> None:
+    """The elastic drill (the module's docstring): rank 1 evicted, the
+    survivors' fold restored, a rank admitted back.  Each rank leaves its
+    records beside the drill's manifests for :func:`_elastic_controls`."""
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.core import tool
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.faults import FaultInjector, StragglerPolicy
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg, pcfg = _elastic_config(args)
+    if out["rank"] == 0:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    dist.barrier()   # no rank opens the directory before it is gone
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _reset(args.device)
+    tcfg = TrainerConfig(steps=ELASTIC_STEPS, lr=3e-4, log_every=1,
+                         checkpoint_dir=str(ELASTIC_DIR / "drill"),
+                         checkpoint_every=ELASTIC_SAVE_EVERY, keep_checkpoints=ELASTIC_STEPS)
+    injector = FaultInjector().evict_rank(*ELASTIC_EVICT).admit_rank(ELASTIC_ADMIT)
+    t = Trainer(cfg, pcfg, tcfg, make_host_communicator(device=args.device),
+                seq_len=args.seq, global_batch=ELASTIC_BATCH, injector=injector,
+                straggler=StragglerPolicy(deadline_factor=float("inf")))
+    built = []
+    build = t._build_step
+
+    def counted(params, opt_state):
+        built.append(build(params, opt_state))
+        return built[-1]
+
+    t._build_step = counted
+    builds = tool.pvar_read()["trace:train_step"]
+    t0 = time.perf_counter()
+    result = t.run()
+    run_s = time.perf_counter() - t0
+    destroyed = [pg for e in t.retired for pg in e.destroyed]
+    row = {"config": f"{cfg.name} {ELASTIC_LAYERS} layers", "seq": args.seq,
+           "batch": ELASTIC_BATCH, "steps": ELASTIC_STEPS, "evict": list(ELASTIC_EVICT),
+           "admit": ELASTIC_ADMIT, "epoch": result["epoch"],
+           "world_size": result["world_size"], "evictions": result["evictions"],
+           "joins": result["joins"],
+           "records": [(m["step"], m["loss"], m["grad_norm"]) for m in result["metrics"]],
+           "step_s": [m["duration_s"] for m in result["metrics"]], "run_s": run_s,
+           "builds": tool.pvar_read()["trace:train_step"] - builds,
+           "captures": [r.captured for r in built],
+           "retired": [e.generation for e in t.retired],
+           "destroyed_groups": [len(e.destroyed) for e in t.retired],
+           "destroyed_gone": all(pg not in dist.distributed_c10d._world.pg_map
+                                 for pg in destroyed),
+           "manifests": {s: t.ckpt.manifest_meta(s) for s in t.ckpt.steps()},
+           "peak_gb": _peak(args.device)}
+    torch.use_deterministic_algorithms(False)
+    # the trainer (in a cycle with ``counted``) and its last graph go before
+    # the process group does: a live graph holds NCCL kernels of the groups
+    # that destroy_process_group shuts down
+    del t, built, build, counted
+    _reset(args.device)
+    (ELASTIC_DIR / f"drill_rank{out['rank']}.json").write_text(json.dumps(row))
+    out["elastic_drill"] = row
+    chip_smoke.log(f"rank {out['rank']} elastic drill: " + json.dumps(row))
+    member_throughout = out["rank"] != ELASTIC_EVICT[1]
+    chip_smoke.check(result["epoch"] == 2 and result["world_size"] == WORLD
+                     and result["evictions"] == 1 and result["joins"] == 1,
+                     f"elastic drill: {row}")
+    chip_smoke.check(row["builds"] == (3 if member_throughout else 2)
+                     and row["captures"] == [int(args.device == "cuda")] * row["builds"],
+                     f"elastic drill: builds {row['builds']}, captures {row['captures']}")
+    chip_smoke.check(row["retired"] == [0, 1] and row["destroyed_gone"],
+                     f"elastic drill: retired {row['retired']}, groups {row['destroyed_groups']}")
+    chip_smoke.check(row["manifests"][2] == {"epoch": 0, "world_size": WORLD}
+                     and row["manifests"][4] == {"epoch": 1, "world_size": WORLD - 1}
+                     and row["manifests"][ELASTIC_STEPS] == {"epoch": 2, "world_size": WORLD},
+                     f"elastic drill: manifests {row['manifests']}")
+
+
+def _elastic_controls(args, out) -> None:
+    """Fresh trainers from the drill's step-2 manifest on the survivors'
+    fold and from its step-6 manifest on all four ranks, in a process of
+    their own: their steps must be the drill's, bit for bit."""
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.core.communicator import Communicator
+    from repro_torch.core.session import default_session
+    from repro_torch.launch.mesh import make_host_communicator
+
+    cfg, pcfg = _elastic_config(args)
+    drill = json.loads((ELASTIC_DIR / f"drill_rank{out['rank']}.json").read_text())["records"]
+    world = default_session(device_type=args.device).group("repro://world")
+    survivors = world.excl([ELASTIC_EVICT[1]])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _reset(args.device)
+    shrunk = _control(args, cfg, pcfg, ELASTIC_DIR / "drill", 2,
+                      Communicator.from_group(survivors, tag="repro://world",
+                                              shape=(survivors.size(), 1),
+                                              axis_names=("data", "model")), ELASTIC_ADMIT)
+    _reset(args.device)
+    grown = _control(args, cfg, pcfg, ELASTIC_DIR / "drill", ELASTIC_ADMIT,
+                     make_host_communicator(device=args.device), ELASTIC_STEPS)
+    torch.use_deterministic_algorithms(False)
+    last = {s: (loss, norm) for s, loss, norm in drill}
+    row = {"control_grow_records": grown, "peak_gb": _peak(args.device),
+           "grow_equals_restored_control": all(last[s] == (loss, norm)
+                                               for s, loss, norm in grown)}
+    if shrunk is not None:
+        row["shrink_equals_restored_control"] = all(
+            last[s] == (loss, norm) for s, loss, norm in shrunk)
+        row["control_shrink_records"] = shrunk
+    out["elastic_controls"] = row
+    chip_smoke.log(f"rank {out['rank']} elastic controls: " + json.dumps(row))
+    chip_smoke.check(row.get("shrink_equals_restored_control", True)
+                     and (shrunk is not None) is (out["rank"] != ELASTIC_EVICT[1]),
+                     f"elastic drill: steps 3-6 {drill} against {shrunk}")
+    chip_smoke.check(row["grow_equals_restored_control"],
+                     f"elastic drill: steps 7-8 {drill} against {grown}")
+    dist.barrier()
+    if out["rank"] == 0:
+        shutil.rmtree(ELASTIC_DIR / "drill", ignore_errors=True)
+
+
 def _dump(out) -> None:
-    """Rank 0 writes ``out`` to ``artifacts/shard_ranks.json`` (also as it
-    goes, so that a run cut short leaves what it measured)."""
+    """Rank 0 writes ``out`` to ``artifacts/shard_ranks.json`` (an
+    ``--elastic`` part to ``shard_ranks_elastic_<part>.json``), also as it
+    goes, so that a run cut short leaves what it measured."""
 
     if out["rank"] == 0:
-        path = ROOT / "artifacts" / "shard_ranks.json"
+        name = f"shard_ranks_elastic_{out['part']}" if out.get("part") else "shard_ranks"
+        path = ROOT / "artifacts" / f"{name}.json"
         path.parent.mkdir(exist_ok=True)
         path.write_text(json.dumps(out, indent=1))
 
@@ -351,8 +552,9 @@ def _train_plans(args, out, rows) -> None:
             ("stage4_micro4", ParallelPlan(stage=WORLD, microbatches=WORLD), args.seq,
              args.batch, "float32")):
 
-        def trainer(plan=plan, seq=seq, batch=batch, moments=moments):
-            tcfg = TrainerConfig(steps=args.steps, lr=3e-4, log_every=1, plan=plan)
+        def trainer(plan=plan, seq=seq, batch=batch, moments=moments, persistent=True):
+            tcfg = TrainerConfig(steps=args.steps, lr=3e-4, log_every=1, plan=plan,
+                                 persistent=persistent)
             return Trainer(cfg, dataclasses.replace(pcfg, moment_dtype=moments), tcfg,
                            make_host_communicator(device=args.device), seq_len=seq,
                            global_batch=batch,
@@ -374,23 +576,27 @@ def _train_plans(args, out, rows) -> None:
         del t, step
         _reset(args.device)
         t = trainer()
-        # should a captured step's exchanges hang, this rank would block in
+        try:
+            t.compile(None, None)   # the default, captured step: refused on the card
+        except errors.Error as e:
+            row["captured_step_error"] = str(e)
+        del t
+        _reset(args.device)
+        t = trainer(persistent=False)
+        # should an eager step's exchanges hang, this rank would block in
         # the device's synchronise, where no Python handler runs: SIGALRM's
         # default action ends the process, and torchrun the others
-        signal.alarm(CAPTURED_RUN_LIMIT_S)
+        signal.alarm(TRAINER_RUN_LIMIT_S)
         try:
             result = t.run()
-        except errors.Error as e:
-            row["trainer_error"] = str(e)
-        else:
-            row.update(losses=[m["loss"] for m in result["metrics"]],
-                       grad_norms=[m["grad_norm"] for m in result["metrics"]],
-                       step_s=[m["duration_s"] for m in result["metrics"]],
-                       captures=t._request.captured, peak_gb=_peak(args.device))
-            row["graph_equals_eager"] = (row["losses"] == row["eager"]["losses"] and
-                                         row["grad_norms"] == row["eager"]["grad_norms"])
         finally:
             signal.alarm(0)
+        row.update(losses=[m["loss"] for m in result["metrics"]],
+                   grad_norms=[m["grad_norm"] for m in result["metrics"]],
+                   step_s=[m["duration_s"] for m in result["metrics"]],
+                   step_request=t._request is not None, peak_gb=_peak(args.device))
+        row["trainer_equals_eager"] = (row["losses"] == row["eager"]["losses"] and
+                                       row["grad_norms"] == row["eager"]["grad_norms"])
         del t
         _dump(out | {"train_plans": plans})
     # the ring's baseline: the data plan's loss on the same weights and
@@ -412,18 +618,18 @@ def _train_plans(args, out, rows) -> None:
                      f"ring4: first loss {first} against the data plan's "
                      f"{ring['data_plan_first_loss_forward']}")
     pipe = plans["stage4_micro4"]
-    for got, ref in zip(pipe["eager"]["losses"], rows["data_plan"]["losses"]):
+    for got, ref in zip(pipe["eager"]["losses"], rows.get("data_plan", {}).get("losses", [])):
         chip_smoke.check(abs(got - ref) <= LOSS_RTOL * abs(ref),
                          f"stage4_micro4: losses {pipe['eager']['losses']} against the data "
                          f"plan's {rows['data_plan']['losses']}")
     for name, row in plans.items():
         chip_smoke.check(all(x == x for x in row["eager"]["losses"]), f"{name}: {row}")
-        chip_smoke.check(("trainer_error" in row) is (args.device == "cuda"),
-                         f"{name}: the trainer's run on {args.device}: {row}")
-        if "trainer_error" not in row:
-            chip_smoke.check(row["graph_equals_eager"],
-                             f"{name}: the trainer's steps {row['losses']} differ from the "
-                             f"eager steps' {row['eager']['losses']}")
+        refused = "persistent=False" in row.get("captured_step_error", "")
+        chip_smoke.check(refused is (args.device == "cuda"),
+                         f"{name}: the captured step's build on {args.device}: {row}")
+        chip_smoke.check(not row["step_request"] and row["trainer_equals_eager"],
+                         f"{name}: the eager trainer's steps {row['losses']} differ from the "
+                         f"step function's {row['eager']['losses']}")
 
 
 def _rank_main(args) -> int:
@@ -440,15 +646,20 @@ def _rank_main(args) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()[0]
-    out = {"card": card, "world": WORLD, "rank": comm.rank()}
+    out = {"card": card, "world": WORLD, "rank": comm.rank(), "part": args.part}
     t0 = time.perf_counter()
-    if not args.skip_serve:
-        _serve_qwen(args, out)
-        _serve_phi4(args, out)
-    _train(args, out)
+    if args.elastic:
+        {"drill": _elastic_drill, "controls": _elastic_controls,
+         "plans": lambda a, o: _train_plans(a, o, {})}[args.part](args, out)
+    else:
+        if not args.skip_serve:
+            _serve_qwen(args, out)
+            _serve_phi4(args, out)
+        _train(args, out)
     out["run_s"] = time.perf_counter() - t0
     chip_smoke.log(f"rank {comm.rank()}: " + json.dumps(out))
     _dump(out)
+    _reset(args.device)   # no trainer's graph outlives the groups below
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -473,7 +684,14 @@ def main(argv=None) -> int:
            "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={WORLD}", __file__, *(argv if argv is not None else sys.argv[1:])]
-    return subprocess.run(cmd, env=env, cwd=str(ROOT), timeout=1800).returncode
+    # the elastic parts run in processes of their own: a placed trainer that
+    # followed the drill's in one process ran out of memory (PERF.md §7)
+    for part in ELASTIC_PARTS if args.elastic and args.part is None else (None,):
+        rc = subprocess.run(cmd + (["--part", part] if part else []), env=env,
+                            cwd=str(ROOT), timeout=1800).returncode
+        if rc:
+            return rc
+    return 0
 
 
 if __name__ == "__main__":

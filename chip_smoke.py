@@ -119,8 +119,10 @@ any failure.  In order:
    ``F.scaled_dot_product_attention`` (causal, GQA), a yardstick;
 8. serve: ``repro_torch.launch.serve`` on the full gemma2-9b config (42
    layers, 2 requests of 4608 tokens, over the 4096 window), the full
-   mamba2-2.7b (64 layers, 2 x 4096) and the full zamba2-7b (81 layers,
-   2 x 4096), random weights from a seed, 16 new tokens each; then
+   mamba2-2.7b (64 layers, 2 x 4096) and zamba2-7b at full width, its
+   depth cut to 27 of 81 layers (``SERVE_LAYERS``: 4 shared-attention
+   applications and the 3 tail layers, through ``Server``; 2 x 4096),
+   random weights from a seed, 16 new tokens each; then
    gemma2-9b and zamba2-7b again with the int8 KV cache, through
    ``Server`` with ``kv_cache_dtype="int8"`` (the CLI has no flag for it),
    with the same weights and prompts.  Launch counts are zeroed just before
@@ -191,9 +193,14 @@ any failure.  In order:
     decode step; with int8 the quantize 2 a prefill and 64 a step, the
     dequantize 64 a step), the decode step captured once a generate; the
     phases' times and the handoff's GB/s logged beside its bytes bound.
-    Then ``moe_neighbor`` over ``expert_dispatch_graph`` on the grok-1
-    smoke model in fp32, equal to ``mlp.moe`` on the same inputs, card
-    against CPU;
+    Then the placement phase (``shard``, ``phase_shard``): placed serving
+    and training on the mesh of one, bit for bit the plain path, and on the
+    full phi4-mini's placed weights the ring prefill (2 x 8192, the ring
+    step 32 a prefill), the engine (bf16 and int8, flash 32 an admission
+    prefill) and the ring plan's placed state at 2 layers (the ring step 8
+    in 2 steps), each against its plain run; then ``moe_neighbor`` over
+    ``expert_dispatch_graph`` on the grok-1 smoke model in fp32, equal to
+    ``mlp.moe`` on the same inputs, card against CPU;
 11. train: ``repro_torch.runtime.trainer.Trainer`` on the card.
     ``train_small``: tests/test_trainer.py's tiny dense model and the mamba2
     smoke model in fp32, 40 steps, every loss within 1e-4 relative of the
@@ -215,7 +222,8 @@ any failure.  In order:
     steps bit for bit the uninterrupted run's; evicting the only rank (and
     ``train --evict-at 2:0``) raises ``ERR_PROC_FAILED`` with no graph left;
     then the full phi4-mini (32 layers) and
-    mamba2-2.7b (64 layers) train 4 steps at b 2 x 2048 (remat full, fp32
+    mamba2-2.7b at full width and 32 of its 64 layers (``TRAIN_LAYERS``)
+    train 4 steps at b 2 x 2048 (remat full, fp32
     moments), after the same steps run eagerly through ``make_train_step``
     from the same seed: the trainer's steps (step 1 eager, then one graph
     captured and replayed) must give the eager steps' losses and grad norms
@@ -224,8 +232,9 @@ any failure.  In order:
     step (the forward and remat's recompute), step time, tokens/s and peak
     memory of both runs logged beside the card, and one warm step (a
     replay) profiled.  With int8 moments (``TRAIN_FULL``): phi4-mini again,
-    its step time and peak beside the fp32 run's, and granite-3-8b (40
-    layers, whose fp32 moments do not fit), the quantize and the
+    its step time and peak beside the fp32 run's, and granite-3-8b (at 20
+    of its 40 layers, ``TRAIN_LAYERS``; its fp32 moments do not fit at
+    40), the quantize and the
     dequantize launched exactly twice a moment piece and step; and
     ``train_small``'s tiny model with int8 moments, held to the CPU run for
     its first ``TRAIN_SMALL_INT8_HELD`` steps (the reference's int8 moments
@@ -261,13 +270,15 @@ any failure.  In order:
     last.
 
 Every phase prints its wall time on a line of its own, ``{"phase": ...,
-"wall_s": ...}``, as it ends; the run's total is ``run_s`` in the JSON.
+"wall_s": ...}``, as it ends, and the run's total, ``{"run_s": ...}``,
+before the ``kernels`` line.
 
 Also writes everything it prints as JSON to ``artifacts/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -313,18 +324,18 @@ RING_CARRY_RTOL = 1e-5
 # kernel launches per prefill and per decode step (a kernel not named
 # launches none): gemma2 quantizes k and v of its local and global stacks
 # once each per prefill, and k_new, v_new and reads the cache in each of 42
-# layers per step; zamba2 does the same for its one stack of 13
-# shared-attention layers; phi4-mini's ring of one launches the ring step
+# layers per step; zamba2 does the same for its one stack of shared-
+# attention layers (4 at the 27 layers SERVE_LAYERS cuts it to); phi4-mini's ring of one launches the ring step
 # once in each of its 32 layers and decodes with no kernel
 SERVES = [
     ("gemma2_9b", 42, 3584, 4608, "bfloat16", False, {"flash_attention_fwd": 42}, {}),
     ("mamba2_2_7b", 64, 2560, 4096, "bfloat16", False, {"ssd_scan_fwd": 64}, {}),
-    ("zamba2_7b", 81, 3584, 4096, "bfloat16", False,
-     {"flash_attention_fwd": 13, "ssd_scan_fwd": 81}, {}),
+    ("zamba2_7b", 27, 3584, 4096, "bfloat16", False,
+     {"flash_attention_fwd": 4, "ssd_scan_fwd": 27}, {}),
     ("gemma2_9b", 42, 3584, 4608, "int8", False, {"flash_attention_fwd": 42, QUANT: 4},
      {QUANT: 84, DEQUANT: 84}),
-    ("zamba2_7b", 81, 3584, 4096, "int8", False,
-     {"flash_attention_fwd": 13, "ssd_scan_fwd": 81, QUANT: 2}, {QUANT: 26, DEQUANT: 26}),
+    ("zamba2_7b", 27, 3584, 4096, "int8", False,
+     {"flash_attention_fwd": 4, "ssd_scan_fwd": 27, QUANT: 2}, {QUANT: 8, DEQUANT: 8}),
     ("phi4_mini_3_8b", 32, 3072, 8192, "bfloat16", True, {RING: 32}, {}),
     # the two dense archs served nowhere else; qwen1.5-32b's bf16 weights
     # are 70.4 GB of the card's 80 and its cache 1.31 MB a token (64 layers,
@@ -347,10 +358,12 @@ SERVES = [
     ("grok_1_314b", 4, 6144, 4096, "bfloat16", False, {"flash_attention_fwd": 4}, {}),
     ("deepseek_v2_236b", 5, 5120, 4096, "bfloat16", False, {"flash_attention_fwd": 5}, {}),
 ]
-# the serves whose depth is cut (of grok-1's 64 layers and deepseek-v2's 60):
-# they go through ``Server`` with ``replace(cfg, num_layers=...)``, the
+# the serves whose depth is cut (of grok-1's 64 layers and deepseek-v2's 60
+# to fit the card; of zamba2-7b's 81 to keep the run inside its time, at
+# 4 shared-attention applications of 6 layers and the 3 tail layers): they
+# go through ``Server`` with ``replace(cfg, num_layers=...)``, the
 # launcher's config, seed and prompts otherwise
-SERVE_LAYERS = {"grok_1_314b": 4, "deepseek_v2_236b": 5}
+SERVE_LAYERS = {"grok_1_314b": 4, "deepseek_v2_236b": 5, "zamba2_7b": 27}
 
 # the port's kernel bodies, as the profiler names them
 PORT_KERNELS = ("fwd_kernel<", "ssd_kernel<", "quant_kernel<", "quant_vec_kernel<",
@@ -1311,7 +1324,7 @@ def phase_quant():
 
     bf16, fp32 = torch.bfloat16, torch.float32
     gemma2_prefill = 21 * 2 * (4608 + NEW_TOKENS) * 8   # global stack, k or v
-    zamba2_prefill = 13 * 2 * (4096 + NEW_TOKENS) * 32  # shared-attention stack
+    zamba2_prefill = 13 * 2 * (4096 + NEW_TOKENS) * 32  # the full 81 layers' shared stack
     vec, warp = qk.VECTOR_BODY, qk.WARP_BODY
     cases = [
         _quant_case("gemma2_global_prefill", randn(gemma2_prefill, 256, bf16), reps=20, body=vec),
@@ -2557,21 +2570,45 @@ SHARD_FOLDS = ((("data", "model"), (16, 16)), (("pod", "data", "model"), (2, 16,
                (("data", "model"), (1, 4)))
 SHARD_ARCH = "phi4_mini_3_8b"
 SHARD_PROMPT = 4096
-SHARD_SSM_LAYERS = 8
+SHARD_SSM_LAYERS = 4
+# the placed serve's own checks run phi4-mini at full width and 16 of its
+# 32 layers (the placed calls' time is DTensor's host dispatch, a layer at
+# a time); the ring prefill and the engine over the placed server run all
+# 32
+SHARD_SERVE_LAYERS = 16
 # the sequence-sharded merged decode's merge (o·l/l over the mesh of one)
 # may round apart from the plain decode, so it is held by its first decode
 # step's logits against the plain path's: within this share of (1 + their
 # largest magnitude), the limit tools/shard_ranks.py holds tensor
 # parallelism to
 MERGED_LOGITS_TOL = 2e-2
-# per generate (16 new tokens, 15 decode steps): flash 32 a prefill; with
-# the int8 cache the quantize 2 a prefill and 64 a step, the dequantize 64
-# a step; mamba2 at 8 layers: the SSD scan 8 a prefill (decode is plain)
-SHARD_LAUNCHES = {
-    "bfloat16": ({"flash_attention_fwd": 32}, {}),
-    "int8": ({"flash_attention_fwd": 32, QUANT: 2}, {QUANT: 64, DEQUANT: 64}),
-    "ssm": ({"ssd_scan_fwd": SHARD_SSM_LAYERS}, {}),
-}
+
+
+def _shard_launches(kind: str, layers: int) -> tuple[dict, dict]:
+    """(per prefill, per decode step) launches of a generate (16 new
+    tokens, 15 decode steps) over ``layers`` layers: flash one a layer of
+    the prefill; with the int8 cache the quantize 2 a prefill and 2 a layer
+    and step, the dequantize 2 a layer and step; mamba2: the SSD scan one a
+    layer of the prefill (decode is plain); the ring prefill: the ring
+    step once a layer (a ring of one), no flash."""
+
+    return {"bfloat16": ({"flash_attention_fwd": layers}, {}),
+            "int8": ({"flash_attention_fwd": layers, QUANT: 2},
+                     {QUANT: 2 * layers, DEQUANT: 2 * layers}),
+            "ssm": ({"ssd_scan_fwd": layers}, {}),
+            "ring": ({RING: layers}, {})}[kind]
+# (a) the ring prefill on placed weights: the full phi4-mini, 2 x 8192
+SHARD_RING_PROMPT = 8192
+# (b) the ring plan's placed state: phi4-mini at full width, 2 layers, b 2
+# x 2048, 2 steps (the ring step 2 a layer and step: the forward and
+# remat's recompute); held to the plain ring plan within the placed
+# trainer tests' limit (tests/port/test_torch_sharded.py)
+SHARD_RING_TRAIN_LAYERS, SHARD_RING_TRAIN_STEPS = 2, 2
+SHARD_RING_TRAIN_RTOL = 1e-4
+# (c) the engine over the placed server: 4 slots, prompts of 64-512 tokens
+# in a 512 bucket, budgets of 4-16, blocks of 16, no pool cap
+SHARD_ENGINE_SLOTS, SHARD_ENGINE_BUCKET, SHARD_ENGINE_REQUESTS = 4, 512, 6
+SHARD_ENGINE_BUDGETS = (4, 16)
 
 
 def _meta_params(cfg):
@@ -2661,20 +2698,23 @@ def _placed(tree, device_mesh, pcfg):
 
 
 def _shard_generate(path, server, reqs, kind, want_tokens, generates,
-                    bitwise: bool = True) -> dict:
+                    bitwise: bool = True, keep: list | None = None) -> dict:
     """One placed generate: its tokens against ``want_tokens`` bit for bit
-    (else counted), its launches exact, one more decode capture."""
+    (else counted), its launches exact, one more decode capture; the
+    tokens appended to ``keep``, where given."""
 
     import numpy as np
     import torch
 
-    per_prefill, per_step = SHARD_LAUNCHES[kind]
+    per_prefill, per_step = _shard_launches(kind, server.cfg.num_layers)
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tokens, stats = server.generate(reqs)
     wall = time.perf_counter() - t0
     launches = _launches()
+    if keep is not None:
+        keep.append(tokens)
     steps = NEW_TOKENS - 1
     for name in set(launches) | set(per_prefill) | set(per_step):
         want = per_prefill.get(name, 0) + per_step.get(name, 0) * steps
@@ -2757,7 +2797,8 @@ def _decode_replays(server, reqs) -> dict:
 
 
 def _shard_serve(results) -> dict:
-    """The full phi4-mini (32 layers, 2 x 4096, 16 new tokens): plain
+    """phi4-mini at full width, ``SHARD_SERVE_LAYERS`` of its 32 layers (2
+    x 4096, 16 new tokens): plain
     tokens with the bf16 and the int8 cache, then the same weights placed
     on the mesh of one give them bit for bit.  The sequence-sharded merged
     decode (its merge's arithmetic and all-reduces run over the mesh of
@@ -2775,8 +2816,9 @@ def _shard_serve(results) -> dict:
     from repro_torch.runtime.server import Request, Server, ServerConfig
     from repro_torch.sharding.local import is_dtensor
 
-    cfg = base.get_config(SHARD_ARCH)
-    check(cfg.num_layers == 32 and cfg.d_model == 3072, "not the phi4-mini config")
+    full = base.get_config(SHARD_ARCH)
+    check(full.num_layers == 32 and full.d_model == 3072, "not the phi4-mini config")
+    cfg = dataclasses.replace(full, num_layers=SHARD_SERVE_LAYERS)
     pcfg = base.get_parallel(SHARD_ARCH)
     reqs = serve.requests(cfg, 2, SHARD_PROMPT)
     server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS),
@@ -2842,10 +2884,161 @@ def _shard_serve(results) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _capture_times():
+    """Every CUDA graph capture made inside, timed (ms, the device
+    synchronised on both sides): ``futures._graph_capture`` wrapped."""
+
+    import torch
+
+    from repro_torch.core import futures
+
+    base, times = futures._graph_capture, []
+
+    def timed(fn, args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = base(fn, args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    futures._graph_capture = timed
+    try:
+        yield times
+    finally:
+        futures._graph_capture = base
+
+
+def _case_line(case: str, row: dict) -> None:
+    """A shard case's wall time, peak memory and capture times, on a line
+    of its own."""
+
+    print(json.dumps({"case": case, **{k: row[k] for k in ("wall_s", "peak_gb", "capture_ms")}}),
+          flush=True)
+
+
+def _shard_ring_generate(path, server, reqs, want_tokens, keep=None) -> dict:
+    """One ring-prefill generate (``ring_attention`` on the server's
+    communicator, a ring of one): launches exact, the ring step 32 a
+    prefill; its tokens against ``want_tokens`` bit for bit (none for the
+    plain run, whose tokens go to ``keep``)."""
+
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    with _capture_times() as caps:
+        row = _shard_generate(
+            path, server, reqs, "ring",
+            want_tokens if want_tokens is not None else np.zeros((len(reqs), NEW_TOKENS)),
+            1, bitwise=want_tokens is not None, keep=keep)
+    row["capture_ms"] = caps
+    _case_line(path, row)
+    return row
+
+
+def _shard_engine_requests(vocab):
+    """(prompts, budgets) of the placed engine case, from one generator."""
+
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    lens = rng.integers(SHARD_ENGINE_BUCKET // 8, SHARD_ENGINE_BUCKET + 1,
+                        size=SHARD_ENGINE_REQUESTS)
+    prompts = [rng.integers(1, vocab, size=(int(m),), dtype=np.int32) for m in lens]
+    budgets = rng.integers(SHARD_ENGINE_BUDGETS[0], SHARD_ENGINE_BUDGETS[1] + 1,
+                           size=SHARD_ENGINE_REQUESTS)
+    return prompts, [int(b) for b in budgets]
+
+
+def _shard_engine(path, server, kv, prompts, budgets) -> tuple[list, dict]:
+    """One ``Engine.run`` over ``server``'s weights with a ``kv`` cache
+    (``_engine_run``: launches exact, flash 32 an admission prefill, one
+    decode capture): each request's tokens and the run's row."""
+
+    import torch
+
+    from repro_torch.runtime.engine import EngineConfig
+
+    srv = _server_like(server, kv, max(budgets), max_batch=SHARD_ENGINE_SLOTS)
+    torch.cuda.reset_peak_memory_stats()
+    with _capture_times() as caps:
+        handles, eng, row = _engine_run(path, srv, EngineConfig(
+            prompt_bucket=SHARD_ENGINE_BUCKET, block_tokens=16), prompts, budgets)
+    row.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, capture_ms=caps,
+               useful_tokens_per_s=sum(budgets) / row["wall_s"])
+    tokens = [list(h.generated) for h in handles]
+    del handles, eng, srv
+    _case_line(path, row)
+    return tokens, row
+
+
+def _shard_ring_engine(results) -> dict:
+    """The full phi4-mini (32 layers) on the plain weights, then on the
+    same weights placed on the mesh of one: (a) the ring prefill at 2 x
+    ``SHARD_RING_PROMPT`` (the ring step 32 a prefill), the placed run's
+    tokens the plain ring server's bit for bit; (c) the engine with the
+    bf16 and the int8 cache, each request's tokens the plain engine's bit
+    for bit (flash 32 an admission prefill, one decode capture a run).
+    Returns the placed runs' launches."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg, pcfg = base.get_config(SHARD_ARCH), base.get_parallel(SHARD_ARCH)
+    ring_pcfg = dataclasses.replace(pcfg, ring_attention=True)
+    server = Server(cfg, ring_pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS),
+                    device="cuda")
+    ring_reqs = serve.requests(cfg, 2, SHARD_RING_PROMPT)
+    engine_reqs = _shard_engine_requests(cfg.vocab_size)
+
+    def use(pc):
+        # the ring prefill's configuration, or the engine's (without the
+        # ring: its admissions run flash); the engines' servers copy it
+        server.pcfg = pc
+        server._prefill_reqs.clear()
+        server._decode_reqs.clear()
+
+    kept = []
+    plain_ring = _shard_ring_generate("shard_ring_prefill_plain", server, ring_reqs, None, kept)
+    use(pcfg)
+    plain_engine = {kv: _shard_engine(f"shard_engine_plain_{kv}", server, kv, *engine_reqs)
+                    for kv in ("bfloat16", "int8")}
+    with torch.inference_mode():
+        server.params = _placed(server.params, server.comm.device_mesh, pcfg)
+    check(server.placed, "shard: the ring server's params are not placed")
+    # (a) the ring prefill on the placed weights
+    use(ring_pcfg)
+    ring = _shard_ring_generate("shard_ring_prefill_placed", server, ring_reqs, kept[0])
+    results["ring_prefill"] = {"plain": plain_ring, "placed": ring,
+                               "prompt_len": SHARD_RING_PROMPT}
+    # (c) the engine over the placed server
+    use(pcfg)
+    engine, launches = {}, dict(ring["launches"])
+    for kv in ("bfloat16", "int8"):
+        tokens, row = _shard_engine(f"shard_engine_placed_{kv}", server, kv, *engine_reqs)
+        check(tokens == plain_engine[kv][0],
+              f"shard_engine_placed_{kv}: tokens {tokens} != the plain engine's "
+              f"{plain_engine[kv][0]}")
+        engine[kv] = {"plain": plain_engine[kv][1], "placed": row, "tokens_equal": True}
+        for name, n in row["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    results["engine_placed"] = engine
+    del server
+    _free()
+    return launches
+
+
 def _shard_ssm(results) -> dict:
-    """mamba2-2.7b at full width, 8 of 64 layers (2 x 4096): the placed
-    model's tokens bit for bit the plain model's, the SSD scan run through
-    ``local_map`` 8 times a prefill."""
+    """mamba2-2.7b at full width, ``SHARD_SSM_LAYERS`` of 64 layers (2 x
+    4096): the placed model's tokens bit for bit the plain model's, the SSD
+    scan run through ``local_map`` once a layer of a prefill."""
 
     import dataclasses
 
@@ -2865,8 +3058,8 @@ def _shard_ssm(results) -> dict:
         server.params = _placed(server.params, server.comm.device_mesh, pcfg)
     server._prefill_reqs.clear()
     server._decode_reqs.clear()
-    results["mamba2_8_layers"] = _shard_generate("shard_mamba2", server, reqs, "ssm", plain, 1)
-    launches = results["mamba2_8_layers"]["launches"]
+    results["mamba2_layers"] = _shard_generate("shard_mamba2", server, reqs, "ssm", plain, 1)
+    launches = results["mamba2_layers"]["launches"]
     del server
     _free()
     return launches
@@ -2948,15 +3141,81 @@ def _shard_train(results, moments, cross: bool) -> dict:
     return {}
 
 
+def _shard_ring_train(results) -> dict:
+    """(b) The ring plan's placed state: phi4-mini at full width and
+    ``SHARD_RING_TRAIN_LAYERS`` layers, b 2 x 2048, ``ring_attention`` on
+    the world of one (a ring of one), ``SHARD_RING_TRAIN_STEPS`` steps
+    (step 1 eager, step 2 captured and replayed): the plain ring plan, then
+    the same with ``placed`` set; the ring step 2 a layer and step and no
+    flash, every leaf of the placed state a DTensor, the losses and grad
+    norms within ``SHARD_RING_TRAIN_RTOL`` of the plain run's."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.core.futures import flatten
+    from repro_torch.sharding.local import is_dtensor
+
+    cfg = dataclasses.replace(base.get_config(SHARD_ARCH), num_layers=SHARD_RING_TRAIN_LAYERS)
+    pcfg = dataclasses.replace(base.get_parallel(SHARD_ARCH), ring_attention=True)
+    steps = SHARD_RING_TRAIN_STEPS
+    runs, launches = {}, {}
+    for kind in ("plain", "placed"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _capture_times() as caps:
+            trainer = _trainer(cfg, pcfg, "cuda", steps=steps, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+            trainer.placed = kind == "placed"
+            _reset_launches()
+            result = trainer.run()
+            torch.cuda.synchronize()
+            launches = _launches()
+        wall = time.perf_counter() - t0
+        path = f"shard_ring_train_{kind}"
+        check(trainer._ring_line is not None and trainer._ring_line.size() == 1,
+              f"{path}: not the ring of one")
+        leaves = flatten((trainer.params, trainer.opt_state))[0]
+        check(all(is_dtensor(t) for t in leaves) == (kind == "placed"),
+              f"{path}: the {kind} state's leaves")
+        want = 2 * SHARD_RING_TRAIN_LAYERS * steps
+        check(launches.get(RING, 0) == want and not launches.get("flash_attention_fwd"),
+              f"{path}: launches {launches}, want the ring step {want} and no flash")
+        runs[kind] = {"losses": [(m["loss"], m["grad_norm"]) for m in result["metrics"]],
+                      "step_s": [m["duration_s"] for m in result["metrics"]],
+                      "launches": launches, "wall_s": wall, "capture_ms": caps,
+                      "captured": trainer._request.captured,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        _case_line(path, runs[kind])
+        del trainer, result, leaves
+        _free()
+    for (lp, gp), (lq, gq) in zip(runs["plain"]["losses"], runs["placed"]["losses"]):
+        check(abs(lq - lp) <= SHARD_RING_TRAIN_RTOL * abs(lp)
+              and abs(gq - gp) <= SHARD_RING_TRAIN_RTOL * abs(gp),
+              f"shard_ring_train: placed {runs['placed']['losses']} against plain "
+              f"{runs['plain']['losses']}")
+    results["ring_train"] = {**runs, "layers": SHARD_RING_TRAIN_LAYERS, "steps": steps,
+                             "equal_bitwise": runs["plain"]["losses"] == runs["placed"]["losses"]}
+    return runs["placed"]["launches"]
+
+
 def phase_shard():
     """The sharding rules on the card: every arch's placements at the folds
     (16, 16), (2, 16, 16) and (1, 4), logged; then on the NCCL world of
     one and its device mesh of one (``rules.distribute`` called here), the
-    full phi4-mini served from DTensor weights (bf16 and int8 cache),
-    mamba2 at 8 layers, and phi4-mini trained at 2 layers with fp32 and
+    phi4-mini (full width, ``SHARD_SERVE_LAYERS`` layers) served from
+    DTensor weights (bf16 and int8 cache), mamba2 at
+    ``SHARD_SSM_LAYERS`` layers, and phi4-mini trained at 2 layers with fp32 and
     int8 moments: all bit for bit the plain path's, launches exact, one
     decode capture a generate, the checkpoints crossing both ways; the
-    sequence-sharded merged decode held by its first decode logits."""
+    sequence-sharded merged decode held by its first decode logits.  Then
+    the full phi4-mini (32 layers), plain and then placed: (a) the ring
+    prefill at 2 x 8192 (the ring step 32 a prefill, the plain ring
+    server's tokens), (c) the engine with
+    the bf16 and the int8 cache (each request's tokens the plain engine's);
+    and (b) the ring plan's placed state at 2 layers against the plain ring
+    plan.  Each case prints its wall time, peak and capture times."""
 
     results = {"card": RESULTS["device"]["nvidia_smi"]}
     t0 = time.perf_counter()
@@ -2964,8 +3223,9 @@ def phase_shard():
     results["placements_s"] = time.perf_counter() - t0
     launches = dict.fromkeys(_launches(), 0)
     t1 = time.perf_counter()
-    for name, n in list(_shard_serve(results).items()) + list(_shard_ssm(results).items()):
-        launches[name] += n
+    for part in (_shard_serve, _shard_ring_engine, _shard_ssm):
+        for name, n in part(results).items():
+            launches[name] += n
     results["serve_s"] = time.perf_counter() - t1
     t2 = time.perf_counter()
     for moments in ("float32", "int8"):
@@ -2973,6 +3233,8 @@ def phase_shard():
         # and row-split scales are the placed state's every kind of leaf,
         # at a quarter of the fp32 state's 8 GB of writes
         _shard_train(results, moments, cross=moments == "int8")
+    for name, n in _shard_ring_train(results).items():
+        launches[name] += n
     results["train_s"] = time.perf_counter() - t2
     results["phase_s"] = time.perf_counter() - t0
     log("shard: " + json.dumps({k: v for k, v in results.items() if k != "placements"}))
@@ -3058,8 +3320,8 @@ TRAIN_SMALL_INT8_HELD = 2
 # (65.4 GB) do not fit beside its weights and grads: it trains with int8 only
 TRAIN_FULL = (("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd", "float32"),
               ("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd", "int8"),
-              ("mamba2_2_7b", 64, 2560, "ssd_scan_fwd", "float32"),
-              ("granite_3_8b", 40, 4096, "flash_attention_fwd", "int8"),
+              ("mamba2_2_7b", 32, 2560, "ssd_scan_fwd", "float32"),
+              ("granite_3_8b", 20, 4096, "flash_attention_fwd", "int8"),
               ("paligemma_3b", 18, 2048, "flash_attention_fwd", "float32"),
               ("seamless_m4t_large_v2", 24, 1024, "flash_attention_fwd", "float32"),
               ("grok_1_314b", 1, 6144, "flash_attention_fwd", "int8"),
@@ -3068,8 +3330,11 @@ TRAIN_FULL = (("phi4_mini_3_8b", 32, 3072, "flash_attention_fwd", "float32"),
 # untied embedding and head included; 2 layers, 11.5 B, would not fit even
 # with int8 moments), deepseek-v2 at dense_0 and 1 MoE layer (5.4 B): at 3
 # layers (9.3 B) the plain attention's recompute in the backward (fp32
-# scores of 128 heads, 4 GiB each) asks past the card's 80 GB
-TRAIN_LAYERS = {"grok_1_314b": 1, "deepseek_v2_236b": 2}
+# scores of 128 heads, 4 GiB each) asks past the card's 80 GB; mamba2-2.7b
+# at 32 of 64 layers and granite-3-8b at 20 of 40, to keep the run inside
+# its time
+TRAIN_LAYERS = {"grok_1_314b": 1, "deepseek_v2_236b": 2, "mamba2_2_7b": 32,
+                "granite_3_8b": 20}
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 2, 4
 # the ring plan's and the pipeline's phi4-mini against its flash / data-plan
 # run on the same weights and batches: bf16 activations rounded in another
@@ -3840,10 +4105,10 @@ def _eager_train(cfg, pcfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
     trainer = _trainer(cfg, pcfg, "cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
     params, opt_state = trainer.init_state()
-    # the trainer's own step: with the ring, its line for the loss and the
-    # data line for the average
+    # the trainer's own step: with the ring, the communicator for the loss
     step = make_train_step(trainer.cfg, trainer.pcfg, trainer.tcfg, trainer.opt,
-                           mesh=trainer._ring_line, comm=trainer._average_over)
+                           mesh=trainer.comm if trainer._ring_line is not None else None,
+                           comm=trainer.comm)
     losses, step_s = [], []
     for i in range(TRAIN_STEPS):
         batch = trainer._batch(i)
@@ -3941,6 +4206,7 @@ def main() -> int:
                      _phase(phase_train_pipeline)])
     launches.update([_phase(phase_grad_sync)])
     RESULTS["run_s"] = time.perf_counter() - t_run
+    print(json.dumps({"run_s": RESULTS["run_s"]}), flush=True)
 
     flash, ssd = RESULTS["kernel_cases"], RESULTS["ssd_cases"]
     quant, dequant = RESULTS["quant_cases"], RESULTS["dequant_cases"]

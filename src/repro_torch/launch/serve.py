@@ -27,9 +27,12 @@ As in the reference, the CLI has no ring flag: the ring is
 ``--continuous-batching`` serves the requests through the paged-KV
 :class:`~repro_torch.runtime.engine.Engine` instead of one fixed batch, on
 ``min(requests, 4)`` slots with a bucket of ``--prompt-len``; it prints each
-request's generated length and the engine's stats.  The engine runs on
-whole weights, so with ``--mesh DxM``, M > 1, it raises
-``ERR_UNSUPPORTED_OPERATION``.
+request's generated length and the engine's stats.  With ``--mesh DxM``,
+M > 1, it runs over the placed server: its slot table is the placed
+prefill's cache, e.g. on the CPU::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch phi4_mini_3_8b --smoke --device cpu --mesh 1x2 --continuous-batching
 
 ``--disaggregate`` splits the serving process set into prefill and decode
 worker groups (``<pset>/prefill`` / ``<pset>/decode``, the leading

@@ -15,8 +15,11 @@ on it (``repro_torch.sharding.rules``: FSDP over data, heads, ``d_ff`` and
 the vocabulary over model) and the batch split over data.  ``--plan``
 takes the reference's specs: ``tensor``/``expert`` > 1 fold the world onto
 (data, model), ``ring=N`` onto a (data, model) cart whose model dim is the
-attention ring, ``stage=S,micro=M`` onto a (data, stage) cart that streams
-M microbatches through S pipeline stages.  ``--pipeline-stages`` (with
+attention ring (the state placed as under ``tensor=N``: each eligible
+layer's projections go to this rank's sequence block for the ring kernel,
+and the head's logits stay split over the vocabulary), ``stage=S,micro=M``
+onto a (data, stage) cart that streams M microbatches through S pipeline
+stages.  ``--pipeline-stages`` (with
 ``--pipeline-microbatches``) and ``--ring-attention`` are the reference's
 aliases for ``stage=``/``micro=`` and ``ring=``.  Several CPU ranks run
 under ``torchrun`` (gloo), as the serve launcher's do::

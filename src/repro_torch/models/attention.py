@@ -18,7 +18,9 @@ flash over the local batch rows and heads, the int8 quantize and
 dequantize over whole rows.  With ``seq_shard_cache`` and
 ``flash_decode_merge`` and a communicator, decode attends over this rank's
 slice of a sequence-sharded cache and merges the partial softmaxes
-(:func:`_flash_decode_sharded`)."""
+(:func:`_flash_decode_sharded`).  The ring on placed projections
+(:func:`_ring_attention_placed`) moves them from heads to this rank's
+sequence block over ``model`` for the kernel and back."""
 
 from __future__ import annotations
 
@@ -158,6 +160,14 @@ def _row_update_sharded(layer, new, write_pos) -> None:
         errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
         f"a sequence-sharded cache takes one token a row, got {new.shape[1]}",
     )
+    # a plain position is the server's shared scalar, every rank's whole
+    # one; the engine's per-row vector comes as a replicated DTensor
+    # (``engine._positions``), split here as the layer's rows are
+    errors.check(
+        _local.is_dtensor(write_pos) or write_pos.dim() == 0,
+        errors.ErrorClass.ERR_DIMS,
+        f"a placed cache takes per-row positions as a DTensor, got {tuple(write_pos.shape)}",
+    )
     new_pl = [Replicate() if p.is_shard(1) else p for p in pl]
     pos_pl = [Shard(0) if p.is_shard(0) and write_pos.dim() == 1 else Replicate() for p in pl]
 
@@ -273,7 +283,8 @@ def _flash(q, k, v, pcfg, **kw):
 def _attend(q, k, v, cfg, pcfg, sliding_window, prefix_len, mesh):
     if pcfg.ring_attention and mesh is not None and not cfg.attn_logit_softcap and \
             sliding_window is None and prefix_len is None:
-        return _ring_attention_sharded(q, k, v, pcfg, mesh, scale=_scale(cfg))
+        ring = _ring_attention_placed if _local.is_dtensor(q) else _ring_attention_sharded
+        return ring(q, k, v, pcfg, mesh, scale=_scale(cfg))
     return _flash(
         q,
         k,
@@ -362,8 +373,8 @@ def _ring_attention_sharded(q, k, v, pcfg, comm, *, scale, causal=True):
     the tail) and sliced back.  Differentiable: every rank of ``comm`` ends
     with the whole ``q, k, v``'s gradients (``_Blocks``, ``_Gathered``).
 
-    The server hands it its whole communicator (a replicated batch); the
-    trainer, whose ranks hold their data blocks, the ring's line alone."""
+    The server and the trainer hand it their whole communicator and a
+    replicated batch (the trainer's whole state only on a world of one)."""
 
     axis = pcfg.model_axis
     n = comm.axis_size(axis)
@@ -392,6 +403,67 @@ def _ring_attention_sharded(q, k, v, pcfg, comm, *, scale, causal=True):
     lines = [comm.split(a) for a in reversed(data_axes) if comm.axis_size(a) > 1]
     out = _Gathered.apply(out, cart, lines, rows, seq)
     return out[:, :s] if pad else out
+
+
+def _ring_attention_placed(q, k, v, pcfg, comm, *, scale, causal=True):
+    """:func:`_ring_attention_sharded` on DTensor projections (placed
+    weights): ``q, k, v`` (B, S, H, D) come sharded by heads over the model
+    axis (``tp_heads``) and by rows over the data axes.  They are
+    redistributed to this rank's sequence block of every head (an
+    all-to-all over ``model``), the ring kernel runs on the local blocks
+    (rows as the data axes split them) over the cart's model line, and the
+    output goes back to the query's placement, the one the following
+    ``wo`` projection expects.  A global length that does not divide the
+    ring is padded first (the kernel masks the tail).  Differentiable
+    through the redistributions and the ring's own backward."""
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    axis = pcfg.model_axis
+    n = comm.axis_size(axis)
+    cart = topology.CartComm(comm, (axis,), dims=(n,), periods=(True,), tag="ring-attn")
+    dm = q.device_mesh
+    names = dm.mesh_dim_names
+    errors.check(
+        axis in names and dm.size(names.index(axis)) == n,
+        errors.ErrorClass.ERR_TOPOLOGY,
+        f"placed ring attention needs the {axis!r} axis of {n} ranks in the tensors' mesh "
+        f"{dict(zip(names, dm.mesh.shape))}",
+    )
+    s = q.shape[1]
+    pad = (-s) % n
+    if pad:
+        q, k, v = (_pad_sequence(t, pad) for t in (q, k, v))
+    blocks = tuple(
+        Shard(1) if name == axis else
+        (Shard(0) if p.is_shard(0) and q.shape[0] % dm.size(i) == 0 else Replicate())
+        for i, (name, p) in enumerate(zip(names, q.placements)))
+
+    def body(ql, kl, vl):
+        return ring_ops.ring_attention(cart, ql, kl, vl, causal=causal, scale=scale,
+                                       global_len=s)
+
+    out = _local.local_map(body, out_placements=list(blocks), in_placements=(blocks,) * 3,
+                           device_mesh=dm, redistribute_inputs=True)(q, k, v)
+    # the query's placement, a pending sum (DTensor's choice on an axis of
+    # one rank) taken as done
+    back = [Replicate() if p.is_partial() else p for p in q.placements]
+    out = out.redistribute(dm, back)
+    return out[:, :s] if pad else out
+
+
+def _pad_sequence(t, pad: int):
+    """A DTensor (B, S, ...) whose sequence is not split, padded by ``pad``
+    zero positions at its end, in each rank's shard."""
+
+    errors.check(
+        not any(p.is_shard(1) for p in t.placements),
+        errors.ErrorClass.ERR_DIMS,
+        f"a ring over a split sequence ({tuple(t.placements)}) cannot be padded",
+    )
+    pl = list(t.placements)
+    return _local.local_map(lambda x: F.pad(x, (0, 0, 0, 0, 0, pad)), out_placements=pl,
+                            in_placements=(pl,), device_mesh=t.device_mesh)(t)
 
 
 def attention_prefill(

@@ -90,11 +90,34 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     from repro_torch.sharding.local import is_dtensor
 
     if is_dtensor(x) and any(p.is_partial() for p in x.placements):
-        from torch.distributed.tensor import Replicate
-
-        x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
-                                           for p in x.placements])
+        x = _WholeGradient.apply(_reduced(x))
     return x
+
+
+def _reduced(x):
+    """A DTensor with its pending sums (partial placements) done."""
+
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
+
+
+class _WholeGradient(torch.autograd.Function):
+    """The identity, whose backward completes a pending sum in the
+    gradient: the gradient of the reduced embedding rows can come back as
+    a partial sum (over four model ranks it does), which DTensor cannot
+    carry back to the lookup's masked partial."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.sharding.local import is_dtensor
+
+        return _reduced(g) if is_dtensor(g) else g
 
 
 # -- norms -----------------------------------------------------------------------
@@ -220,8 +243,80 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *, softcap_val=Non
     logits = logits.float()
     if softcap_val is not None:
         logits = softcap(logits, softcap_val)
+    if _vocab_split(logits):
+        return torch.mean(_vocab_parallel_token_ce(logits, labels))
     logz = torch.logsumexp(logits, dim=-1, keepdim=True)
     # the gathered column keeps its trailing dim: over a vocabulary sharded
     # on ``model`` the gather is a masked partial, which a view cannot drop
     gold = torch.gather(logits, -1, labels[..., None].long())
     return torch.mean(logz - gold)
+
+
+def _vocab_split(logits) -> list[int]:
+    """The mesh dims over which a DTensor's vocabulary (its last dim) is
+    split across more than one rank; none for a plain tensor."""
+
+    from repro_torch.sharding.local import is_dtensor
+
+    if not is_dtensor(logits):
+        return []
+    last, dm = logits.dim() - 1, logits.device_mesh
+    return [i for i, p in enumerate(logits.placements) if p.is_shard(last) and dm.size(i) > 1]
+
+
+class _SumOver(torch.autograd.Function):
+    """A local partial summed over process groups; the result is the same
+    on every rank of them, so its gradient reaches each partial as it is."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+
+        x = x.clone()
+        for g in groups:
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _vocab_parallel_token_ce(logits, labels):
+    """Per-token CE of fp32 DTensor logits whose vocabulary is split over
+    ``model`` (the tied embedding's placement), on local shards: the max,
+    the sum of exponentials and the gold logit are reduced over the
+    vocabulary's ranks, so no rank holds the whole (tokens, vocab) logits,
+    which DTensor's ``logsumexp`` would gather.  The output (labels' shape)
+    is placed as the logits' leading dims."""
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.sharding import local
+
+    dm, last = logits.device_mesh, logits.dim() - 1
+    split = _vocab_split(logits)
+    groups = [dm.get_group(i) for i in split]
+    pl = tuple(p if p.is_shard() and (p.dim < last or i in split) else Replicate()
+               for i, p in enumerate(logits.placements))
+    token_pl = tuple(Replicate() if p.is_shard(last) else p for p in pl)
+    off, _ = local.shard_range(pl, dm, last, logits.shape[-1])
+    if not local.is_dtensor(labels):   # a plain tensor meeting DTensors is replicated
+        from torch.distributed.tensor import DTensor
+
+        labels = DTensor.from_local(labels, dm, [Replicate()] * dm.ndim, run_check=False)
+
+    def body(lg, y):
+        m = lg.detach().amax(-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        z = _SumOver.apply(torch.exp(lg - m).sum(-1, keepdim=True), groups)
+        col = y.long()[..., None] - off
+        held = (col >= 0) & (col < lg.shape[-1])
+        gold = torch.gather(lg, -1, col.clamp(0, lg.shape[-1] - 1))
+        gold = _SumOver.apply(torch.where(held, gold, torch.zeros_like(gold)), groups)
+        return (m + torch.log(z) - gold)[..., 0]
+
+    return local.local_map(body, out_placements=list(token_pl), in_placements=(pl, token_pl),
+                           device_mesh=dm, redistribute_inputs=True)(logits, labels)

@@ -46,6 +46,16 @@ resume depth) would pin a graph pool of its own.  In place, an admission
 or a preemption neither copies the slot table nor recaptures the decode
 step.  ``trace:insert_row`` still counts one per signature.
 
+**Placed server** (a communicator whose model axis has more than one
+rank, or parameters the caller placed): the slot table is the placed
+prefill's cache under ``cache_specs``, with a per-row position vector
+every rank holds whole (replicated); the decode graph is captured over the
+placed step, and an admitted row is copied between local shards where the
+batch axis is not split, through a redistribution of the side batch's
+rows where it is (:func:`_insert_placed`).  The reference's engine raises
+on a grid whose data axis splits the slot table (ROADMAP C19); the port's
+serves it.
+
 Sampling above temperature 0 draws from one ``torch.Generator`` seeded
 from ``scfg.seed`` and advanced by every draw; the reference folds the step
 into a JAX key, so the two packages agree on determinism, not on samples.
@@ -66,6 +76,7 @@ from repro_torch.core import errors, tool
 from repro_torch.core.futures import PersistentRequest, argument_signature, flatten
 from repro_torch.runtime.kvpool import KVBlockPool
 from repro_torch.runtime.server import Request, Server, _synchronize
+from repro_torch.sharding.local import is_dtensor, shard_range
 
 tool.pvar_register("engine:admit", "requests admitted into a running decode batch")
 tool.pvar_register("engine:retire", "requests retired from the continuous batch")
@@ -127,12 +138,6 @@ class Engine:
             "paged slot table requires linear (uniform) cache layout",
         )
         errors.check(
-            not server.placed,
-            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-            "the engine's slot table and inserts run on whole weights: serve over a "
-            "communicator whose model axis is one rank",
-        )
-        errors.check(
             ecfg.prompt_bucket >= 1 and scfg.max_new_tokens >= 1,
             errors.ErrorClass.ERR_ARG,
             f"need prompt_bucket >= 1 and max_new_tokens >= 1, got "
@@ -162,17 +167,14 @@ class Engine:
         self._generated_total = 0
 
         # the slot-table cache: a throwaway prefill at the bucket shape gives
-        # the exact tree/dtypes the decode loop will carry, then the scalar
+        # the exact tree/dtypes (and, on a placed server, the placements
+        # under cache_specs) the decode loop will carry, then the scalar
         # position becomes the per-row (all-empty) position vector
         batch = {"tokens": torch.zeros((self.num_slots, ecfg.prompt_bucket), dtype=torch.int32,
                                        device=server.device)}
         _, cache = server._prefill_request(batch)(server.params, batch)
-        self.cache = {
-            k: dataclasses.replace(
-                v, pos=torch.zeros((self.num_slots,), dtype=torch.int32, device=server.device)
-            )
-            for k, v in cache.items()
-        }
+        self.cache = {k: dataclasses.replace(v, pos=_positions(flatten(v)[0][0], self.num_slots))
+                      for k, v in cache.items()}
         self.tok = torch.zeros((self.num_slots, 1), dtype=torch.int32, device=server.device)
 
     # -- submission -----------------------------------------------------------
@@ -238,9 +240,14 @@ class Engine:
             tool.pvar_count("trace:insert_row")
         for cd, cs in zip(flatten(self.cache)[0], flatten(pcache)[0]):
             if cd.dim() == 1:   # the position vector vs the scalar pos
-                cd[dst] = cs
+                (cd.to_local() if is_dtensor(cd) else cd)[dst] = (
+                    cs.to_local() if is_dtensor(cs) else cs)
+            elif is_dtensor(cd):
+                _insert_placed(cd, cs, dst, src)
             else:
                 cd[:, dst].copy_(cs[:, src])
+        # a fill from a host int, eager: the decode graph, captured apart,
+        # reads the pending-token buffer in place and never records this
         self.tok[dst, 0] = t
 
     def _admit(self, now: float) -> None:
@@ -426,6 +433,39 @@ class Engine:
             "pool_live_blocks": self.pool.live_blocks,
             "pool_budget_blocks": self.pool.budget_blocks,
         }
+
+
+def _positions(like, slots: int):
+    """The slot table's all-empty per-row position vector: a DTensor every
+    rank holds whole where the cache is placed (``like`` a DTensor), so the
+    decode step takes and returns it in one layout."""
+
+    pos = torch.zeros((slots,), dtype=torch.int32, device=like.device)
+    if not is_dtensor(like):
+        return pos
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(pos, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _insert_placed(cd, cs, dst: int, src: int) -> None:
+    """Row ``src`` of the side batch's placed cache leaf ``cs`` into slot
+    ``dst`` of the slot table's leaf ``cd`` (both (L, B, ...) DTensors
+    under ``cache_specs``), in place in ``cd``'s local shard: ``cs`` is
+    brought to ``cd``'s placements with its rows whole (nothing moves
+    where neither batch axis is split: the copy is between local shards),
+    and the rank whose rows of ``cd`` hold ``dst`` copies the row."""
+
+    from torch.distributed.tensor import Replicate
+
+    mesh = cd.device_mesh
+    rows = [Replicate() if p.is_shard(1) else p for p in cd.placements]
+    if list(cs.placements) != rows:
+        cs = cs.redistribute(mesh, rows)
+    off, count = shard_range(cd.placements, mesh, 1, cd.shape[1])
+    if off <= dst < off + count:
+        cd.to_local()[:, dst - off].copy_(cs.to_local()[:, src])
 
 
 def make_engine(server: Server, ecfg: EngineConfig | None = None) -> Engine:

@@ -57,8 +57,12 @@ one) are served as placed ones.
 
 **Ring attention**: with ``pcfg.ring_attention`` the prefill gets the
 communicator, as the reference's gets its mesh, and shards each eligible
-layer's sequence over the ring (``models/attention.py``); the ring runs on
-plain (unplaced) parameters.
+layer's sequence over the ring (``models/attention.py``).  The parameters
+are placed as without the ring: on placed weights the projections come
+sharded by heads, and each eligible layer redistributes them to this
+rank's sequence block of every head for the ring kernel, then back for
+``wo``.  The prefill's cache is placed under ``cache_specs`` and the decode
+runs on it as on any placed cache.
 
 The continuous-batching engine (:mod:`repro_torch.runtime.engine`) runs
 over a server's persistent prefill and decode requests.
@@ -174,7 +178,7 @@ class Server:
         with torch.inference_mode():
             self.params = self.bundle.init(gen)
             model = dict(zip(self.comm.axis_names, self.comm.shape)).get(pcfg.model_axis, 1)
-            if model > 1 and not pcfg.ring_attention:
+            if model > 1:
                 mesh = self.comm.device_mesh
                 self.params = rules.distribute(
                     self.params, rules.param_specs(self.params, rules.mesh_shape(mesh), pcfg),

@@ -17,8 +17,8 @@ more than one rank the parameters are DTensors on its ``device_mesh`` under
 dim over the data axes; heads, ``d_ff`` and the vocabulary over ``model``),
 the moments inherit their parameter's placement by shape
 (:func:`state_specs`) and the global batch is split under
-``batch_spec``.  DTensor's propagation computes the loss of the whole batch
-and its gradients (the backward runs under implicit replication too); each
+``batch_spec`` (the ring plan's state too, below).  DTensor's propagation
+computes the loss of the whole batch and its gradients (the backward runs under implicit replication too); each
 gradient is redistributed once to its parameter's placement — the one
 reduction over ``data`` — and clipping, AdamW and checkpoints work on
 local shards.  ``plan.tensor`` (and ``plan.expert``, which rides the same
@@ -57,7 +57,8 @@ every iteration, with no graph; ``trace:train_step`` still counts one build
 per epoch.  It keeps the donation (the in-place update), where the
 reference's eager path drops it: a card holds the state once (the ring
 plan's whole phi4-mini state at b 1 x 8192 peaks at 73 GB of the H100's 80
-with one copy), so a straggler still takes the failure path.
+with one copy; placed, each card holds its shard of it), so a straggler
+still takes the failure path.
 ``donate=False`` is the reference's step without donation: it runs on
 copies of the state, the caller's stays valid, and a straggler is
 re-dispatched (``retry_safe=True``).
@@ -89,13 +90,22 @@ twice).
 
 **The ring plan** (``plan.ring > 1``, or ``pcfg.ring_attention`` on a
 communicator with a ``model`` axis): the communicator folds onto a
-``(data, model)`` cart, periodic on ``model``, and the loss gets the
-ring's line: each eligible layer shards its sequence over the ring kernel
-(``models/attention.py``), whose gradient recomputes through the plain
-ring.  Every ring rank holds the whole state and its data row's block of
-the batch, ends the backward with the same gradients, and the gradients
-average over ``data`` as the data plan's do.  On the card a ring of one
-(a world of one) runs the kernel with no exchange.
+``(data, model)`` cart, periodic on ``model``, and each eligible layer
+shards its sequence over the ring kernel (``models/attention.py``), whose
+gradient recomputes through the plain ring.  On more than one rank the
+state is placed as the reference places it (``rules.param_specs`` on the
+cart, the moments by shape): the loss gets the whole communicator and the
+placed global batch, as the tensor plan's does; each eligible layer takes
+its projections, split by heads over ``model``, to this rank's sequence
+block of every head for the kernel and back; the head's logits stay split
+over the vocabulary (``common.cross_entropy`` reduces over it); the
+gradients reduce over ``data`` to their parameters' placements; setting
+``placed`` false there is refused (``ERR_UNSUPPORTED_OPERATION``).  On a
+world of one the state is whole unless ``placed`` is set, and on the card
+that ring of one runs the kernel with no exchange.  The elastic shrink and grow carry the placed ring state as they carry the
+tensor plan's: the data axis re-folds (ranks the fixed ring dim leaves
+over idle), the shrink restores the manifest onto the new cart, the grow
+gathers the live state whole and places it again.
 
 **The pipeline plan** (``plan.stage > 1``): the communicator folds onto a
 ``(data, stage)`` cart, not periodic on ``stage``; ``params["layers"]`` is
@@ -567,17 +577,27 @@ class Trainer:
     @property
     def placed(self) -> bool:
         """The state is placed (DTensors on the communicator's device
-        mesh): on more than one rank, except under the ring, where every
-        rank holds the whole state.  Setting it before the state is built
-        overrides the choice for every epoch."""
+        mesh): on more than one rank, under the ring too.  Setting it
+        before the state is built overrides the choice for every epoch,
+        except that the ring on more than one rank refuses ``False``."""
 
-        if self._placed is not None:
-            return self._placed
-        return self.comm.size() > 1 and not self.pcfg.ring_attention
+        if self._placed is None:
+            return self.comm.size() > 1
+        self._check_placed(self._placed)
+        return self._placed
 
     @placed.setter
     def placed(self, value: bool) -> None:
+        self._check_placed(bool(value))
         self._placed = bool(value)
+
+    def _check_placed(self, placed: bool) -> None:
+        errors.check(
+            placed or not self.pcfg.ring_attention or self.comm.size() == 1,
+            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
+            f"the ring plan places its state on {self.comm.size()} ranks, as the "
+            f"reference does: placed=False is refused",
+        )
 
     def _reform_topology(self, comm: Communicator) -> CommEpoch:
         """The one place the trainer shapes its fabric: resolve the plan,
@@ -620,7 +640,8 @@ class Trainer:
         comm = self.comm
         if self.ckpt is not None:
             self.ckpt.comm = comm if comm.size() > 1 and epoch.member else None
-        # the ring's line, and the data line its ranks average over
+        # the ring's line, and the data line the pipeline's ranks read
+        # their batch blocks by
         self._ring_line = self._data_line = None
         if epoch.member and (self.pcfg.ring_attention or self.plan.stage > 1):
             names = comm.axis_names
@@ -631,20 +652,14 @@ class Trainer:
                 f"{'stage' if self.plan.stage > 1 else self.pcfg.model_axis!r} axis, "
                 f"got {names}",
             )
-            self._data_line = comm.split("data")
             if self.pcfg.ring_attention:
                 self._ring_line = comm.split(self.pcfg.model_axis)
-
-    @property
-    def _average_over(self) -> Communicator:
-        """The ranks the data plan's gradients average over: the data line
-        under the ring, else the whole communicator."""
-
-        return self._data_line if self._ring_line is not None else self.comm
+            else:
+                self._data_line = comm.split("data")
 
     def _batch(self, step: int) -> dict:
-        """This rank's block of the global batch for ``step``; placed, the
-        global batch split under ``batch_spec``; under the ring and the
+        """This rank's block of the global batch for ``step``; placed (the
+        ring's too), the global batch split under ``batch_spec``; under the
         pipeline, its data row's block."""
 
         if self._data_line is not None:
@@ -727,10 +742,11 @@ class Trainer:
             base_step = make_pipeline_train_step(self.cfg, self.pcfg, self.tcfg, self.opt,
                                                  self.comm, plan=self.plan)
         else:
-            # under the ring the loss gets the ring's line, whose ranks end
-            # with the same gradients: they average over the data line
-            base_step = make_train_step(self.cfg, self.pcfg, self.tcfg, self.opt,
-                                        mesh=self._ring_line, comm=self._average_over)
+            # the ring's loss gets the whole communicator; placed, its
+            # gradients reduce over data to their parameters' placements
+            base_step = make_train_step(
+                self.cfg, self.pcfg, self.tcfg, self.opt,
+                mesh=self.comm if self._ring_line is not None else None, comm=self.comm)
         if not self.tcfg.donate:
             base_step = _out_of_place(base_step)
         if not self.tcfg.persistent:

@@ -7,14 +7,18 @@ see a device's block under GSPMD.
   where the key/value heads shard like the query heads the kernel takes the
   local heads as they are; where they cannot (fewer key/value heads than
   ranks, as paligemma's one) they stay whole and each rank picks the ones
-  its query heads read, by its own head offset.
+  its query heads read, by its own head offset; their gradient is then
+  summed over the ranks that split the query heads (each read a part).
 * :func:`ssd_heads` — the SSD scan over this rank's batch rows and heads
   (groups of ``B``/``C`` picked the same way).
 * :func:`rowwise` — a function of whole rows (the int8 quantize and
   dequantize): any dim but the last may stay sharded.
 
 A placement the call cannot honour (a dim split that does not divide) is
-redistributed to ``Replicate`` first, never handed to the kernel.  Around
+redistributed to ``Replicate`` first, never handed to the kernel.  On
+import, DTensor's partial placements get hashes that are the same in
+every process (:func:`_stable_placement_hashes`), so every rank breaks
+DTensor's strategy ties alike.  Around
 the model: :func:`replicating` runs an entry point under a re-entrant
 :func:`implicit_replication` on the FSDP-gathered parameters
 (:func:`gather_fsdp`), off the data axes where they do not split the
@@ -34,6 +38,33 @@ def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(x, DTensor)
+
+
+def _stable_placement_hashes() -> None:
+    """Give DTensor's partial placements a hash that is the same in every
+    process.  ``Partial`` hashes its reduce op's string, which Python
+    salts per process, and DTensor's strategy search breaks ties between
+    equal-cost strategies in the iteration order of sets of placements:
+    ranks with different salts can choose different strategies for one op
+    (a redistribution of one operand on one rank, of the other on another)
+    and wait on each other's collectives (ROADMAP C16, C21).  Done when
+    this module is imported, before any placement is hashed."""
+
+    import zlib
+
+    from torch.distributed.tensor import placement_types as pt
+
+    def digest(*parts) -> int:
+        return zlib.crc32(repr(parts).encode())
+
+    pt.Partial.__hash__ = lambda self: 1 + digest(self.reduce_op)
+    masked = getattr(pt, "MaskPartial", None) or getattr(pt, "_MaskPartial", None)
+    if masked is not None:
+        masked.__hash__ = lambda self: 1 + digest(self.reduce_op, tuple(self.offset_shape or ()),
+                                                  self.offset_dim)
+
+
+_stable_placement_hashes()
 
 
 def shard_range(placements, mesh, dim: int, size: int) -> tuple[int, int]:
@@ -103,6 +134,36 @@ def _local_groups(mesh, qp, gp, heads_dim, n_heads, groups):
     return [(q_off + j) // per - g_off for j in range(q_n)]
 
 
+class _SummedGradient(torch.autograd.Function):
+    """The identity on a local tensor every rank of ``groups`` holds whole
+    (a ``Replicate`` input of ``local_map``) but reads only in part (the
+    groups its query heads read): the backward sums the parts' gradients
+    over ``groups``, so each rank returns the whole gradient its
+    placement says it holds."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+def _read_in_part(mesh, qp, gp, heads_dim) -> list:
+    """The process groups of the mesh dims that split the query's heads
+    but not the groups'."""
+
+    return [mesh.get_group(i) for i, (a, b) in enumerate(zip(qp, gp))
+            if a.is_shard(heads_dim) and not b.is_shard(heads_dim) and mesh.size(i) > 1]
+
+
 def attention_heads(fn, q, k, v):
     """``fn(q, k, v)`` (B, S, H, D) attention on local shards; the output
     is placed as the query."""
@@ -111,8 +172,11 @@ def attention_heads(fn, q, k, v):
     h, hk = q.shape[2], k.shape[2]
     qp, kp = _grouped_placements(q, 2, h, hk)
     needed = _local_groups(mesh, qp, kp, 2, h, hk)
+    partly = _read_in_part(mesh, qp, kp, 2)
 
     def body(ql, kl, vl):
+        if partly and torch.is_grad_enabled():
+            kl, vl = _SummedGradient.apply(kl, partly), _SummedGradient.apply(vl, partly)
         if not _native(needed, kl.shape[2]):
             kl, vl = _pick(kl, 2, needed), _pick(vl, 2, needed)
         return fn(ql, kl, vl)
@@ -134,8 +198,11 @@ def ssd_heads(fn, x, dt, A, B, C, *, with_state: bool):
     ap = tuple(Shard(0) if pl.is_shard(2) else Replicate() for pl in xp)
     sp = tuple(Shard(1) if pl.is_shard(2) else pl for pl in xp)
     needed = _local_groups(mesh, xp, bp, 2, h, g)
+    partly = _read_in_part(mesh, xp, bp, 2)
 
     def body(xl, dtl, Al, Bl, Cl):
+        if partly and torch.is_grad_enabled():
+            Bl, Cl = _SummedGradient.apply(Bl, partly), _SummedGradient.apply(Cl, partly)
         if not _native(needed, Bl.shape[2]):
             Bl, Cl = _pick(Bl, 2, needed), _pick(Cl, 2, needed)
         return fn(xl, dtl, Al, Bl, Cl)

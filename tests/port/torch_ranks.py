@@ -1152,6 +1152,65 @@ def prog_serve_mesh(rank: int, world: int, inputs: dict) -> dict:
     return {"tokens": tokens, "placed": np.array(server.placed)}
 
 
+def prog_serve_cb_mesh(rank: int, world: int, inputs: dict) -> dict:
+    """The serve CLI with ``--continuous-batching`` and ``--mesh``
+    (``inputs["mesh"]``) on every rank: each request's generated tokens,
+    and whether the server's weights are placed."""
+
+    from repro_torch.launch import serve
+
+    server, tokens, _ = serve.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device", "cpu",
+                                   "--mesh", str(inputs["mesh"]), "--continuous-batching",
+                                   "--requests", "6", "--prompt-len", "8",
+                                   "--new-tokens", "4"])
+    return {"lengths": np.array([len(t) for t in tokens]), "tokens": np.array(tokens),
+            "placed": np.array(server.placed)}
+
+
+def prog_ring_placed_elastic(rank: int, world: int, inputs: dict) -> dict:
+    """The ring plan (ring 2) with its state placed on 4 ranks through an
+    eviction (rank 1 before step 3: the 3 survivors fold one ring of 2, the
+    third idles, and the step-2 manifest is restored onto it) and an
+    admission (before step 5: back to (2, 2), the live state gathered and
+    placed again), 6 steps: the run's result, losses and final state."""
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, ParallelPlan
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.faults import FaultInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    seq, batch, plan, _ = TRAIN_PLANS["ring"]
+    tcfg = TrainerConfig(steps=6, log_every=1, plan=ParallelPlan(**plan),
+                         checkpoint_dir=inputs["ckpt_dir"].item(), checkpoint_every=2)
+    t = Trainer(train_plan_cfg("ring"), ParallelConfig(), tcfg,
+                make_host_communicator(device="cpu"), seq_len=seq, global_batch=batch,
+                injector=FaultInjector().evict_rank(3, 1).admit_rank(5), clock=lambda: 0.0)
+    t.init_state = lambda: t.place_state(_params(inputs))
+    res = t.run()
+    out = {k: np.array(res[k]) for k in ("final_step", "evictions", "joins", "epoch",
+                                         "world_size")}
+    out["steps"] = np.array([m["step"] for m in res["metrics"]])
+    out["losses"] = np.array([m["loss"] for m in res["metrics"]])
+    out["dims"] = np.array(t.comm.shape)
+    out["placed"] = np.array(all(hasattr(p, "device_mesh") for p in _leaves(t.params)))
+    out["params"] = torch.cat([_whole(p).detach().reshape(-1) for p in _leaves(t.params)]).numpy()
+    return out
+
+
+def prog_train_cli(rank: int, world: int, inputs: dict) -> dict:
+    """The train CLI with ``inputs["argv"]`` on every rank: its losses and
+    grad norms, the folded grid, and whether the state is placed."""
+
+    from repro_torch.launch import train
+
+    trainer, result = train.run([str(a) for a in inputs["argv"]])
+    return {"losses": np.array([m["loss"] for m in result["metrics"]]),
+            "grad_norms": np.array([m["grad_norm"] for m in result["metrics"]]),
+            "dims": np.array(trainer.comm.shape), "placed": np.array(trainer.placed)}
+
+
 def prog_serve_fanout(rank: int, world: int, inputs: dict) -> dict:
     """The serve CLI with ``--fanout 1:3`` on every rank: its tokens and
     its stats' keys."""
@@ -1367,6 +1426,220 @@ def prog_elastic(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the ring over placed weights, and the engine over a placed server
+# ---------------------------------------------------------------------------
+
+#: the reference's ``SERVER_RING`` model (``tests/test_ring_attention.py``)
+RING_SERVE_CFG = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=4, head_dim=16, d_ff=128, vocab_size=256, dtype="float32")
+
+
+def _specs_of(tree) -> list:
+    """Per leaf of ``tree``: its placements as a spec, the mesh axes that
+    split each dim (``None`` for a whole dim); ``"plain"`` for a tensor
+    that is not a DTensor."""
+
+    from repro_torch.core.futures import flatten
+
+    out = []
+    for leaf in flatten(tree)[0]:
+        if not hasattr(leaf, "device_mesh"):
+            out.append("plain")
+            continue
+        names = leaf.device_mesh.mesh_dim_names
+        dims = [[] for _ in range(leaf.dim())]
+        for name, pl in zip(names, leaf.placements):
+            if pl.is_shard():
+                dims[pl.dim].append(name)
+        out.append(repr(tuple(tuple(d) if d else None for d in dims)))
+    return out
+
+
+def prog_ring_placed_serve(rank: int, world: int, inputs: dict) -> dict:
+    """The ``SERVER_RING`` model with the ring on a ``dims`` grid: the
+    server's own parameters (placed, their specs), then the reference's
+    weights placed under ``param_specs``: greedy tokens, with the ring and
+    without, and the prefill cache's placements."""
+
+    import torch
+
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+    from repro_torch.sharding import rules
+
+    comm = make_host_communicator(*[int(d) for d in inputs["dims"]], device="cpu")
+    mesh = comm.device_mesh
+    cfg = ModelConfig(**RING_SERVE_CFG)
+    params = _params(inputs)
+    prompts = [Request(tokens=inputs[f"prompt{i}"].copy()) for i in range(2)]
+    out = {}
+    for tag, pcfg in (("ring", dataclasses.replace(ParallelConfig(), ring_attention=True)),
+                      ("base", ParallelConfig())):
+        server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=4), comm)
+        out[f"{tag}/placed"] = np.array(server.placed)
+        out[f"{tag}/specs"] = np.array(_specs_of(server.params))
+        with torch.inference_mode():
+            server.params = rules.distribute(
+                params, rules.param_specs(params, rules.mesh_shape(mesh), pcfg), mesh)
+        out[f"{tag}/tokens"], _ = server.generate(prompts)
+        if tag == "ring":
+            batch, _ = server._pad_batch(prompts)
+            with torch.inference_mode():
+                _, cache = server._prefill_request(batch)(server.params, batch)
+            out["ring/cache_specs"] = np.array(_specs_of(cache))
+    return out
+
+
+def prog_ring_placed_train(rank: int, world: int, inputs: dict) -> dict:
+    """The ring plan (data 2, ring 2) of the port's ``Trainer`` with its
+    state placed, from the reference's init (``TRAIN_PLANS["ring"]``), 3
+    steps, checkpointing the last (fragments from every rank): losses, grad
+    norms, each parameter's and moment's spec, the parameters whole; then
+    the same through the eager step."""
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, ParallelPlan
+    from repro_torch.core import errors
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    seq, batch, plan, _ = TRAIN_PLANS["ring"]
+    out = {}
+    for tag, persistent in (("", True), ("eager/", False)):
+        tcfg = TrainerConfig(steps=3, log_every=1, plan=ParallelPlan(**plan),
+                             persistent=persistent, checkpoint_every=3,
+                             checkpoint_dir=inputs["ckpt_dir"].item() if persistent else None)
+        trainer = Trainer(train_plan_cfg("ring"), ParallelConfig(), tcfg,
+                          make_host_communicator(device="cpu"), seq_len=seq,
+                          global_batch=batch, clock=lambda: 0.0)
+        trainer.init_state = lambda t=trainer: t.place_state(_params(inputs))
+        if not tag:
+            try:   # the whole state on every ring rank is refused
+                trainer.placed = False
+            except errors.Error as e:
+                out["unplaced_refused"] = np.array(int(e.klass))
+        result = trainer.run()
+        out[f"{tag}losses"] = np.array([m["loss"] for m in result["metrics"]])
+        out[f"{tag}grad_norms"] = np.array([m["grad_norm"] for m in result["metrics"]])
+        out[f"{tag}placed"] = np.array(trainer.placed)
+        if not tag:
+            out["dims"] = np.array(trainer.comm.shape)
+            out["ring_attention"] = np.array(trainer.pcfg.ring_attention)
+            out["param_specs"] = np.array(_specs_of(trainer.params))
+            state = trainer.opt_state
+            out["moment_specs"] = np.array(_specs_of((state.mu, state.nu)))
+            out["params"] = torch.cat(
+                [_whole(p).detach().reshape(-1) for p in _leaves(trainer.params)]).numpy()
+    return out
+
+
+#: phi4-mini's smoke model in fp32 (a tied embedding split four ways, 4
+#: query heads over 2 key/value heads) and its parallel config, on a 1 x 4
+#: grid: seq, global batch, steps
+FOUR_MODEL_RANKS = (64, 2, 3)
+
+
+def four_model_ranks_cfg():
+    """The port's fp32 phi4-mini smoke config and parallel config."""
+
+    from repro_torch.configs import base
+
+    arch = "phi4_mini_3_8b"
+    return (dataclasses.replace(base.get_smoke_config(arch), dtype="float32"),
+            base.get_parallel(arch))
+
+
+def prog_four_model_ranks(rank: int, world: int, inputs: dict) -> dict:
+    """The ring plan (ring 4) and the tensor plan (tensor 4) of the port's
+    ``Trainer`` on 1 x 4 ranks from the reference's init, fp32: losses and
+    grad norms; then the ring server on the same grid on the reference's
+    weights, placed under ``param_specs``: its greedy tokens."""
+
+    import torch
+
+    from repro_torch.configs.base import ParallelPlan
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.sharding import rules
+
+    cfg, pcfg = four_model_ranks_cfg()
+    seq, batch, steps = FOUR_MODEL_RANKS
+    out = {}
+    for name, plan in (("ring", ParallelPlan(ring=4)), ("tensor", ParallelPlan(tensor=4))):
+        trainer = Trainer(cfg, pcfg, TrainerConfig(steps=steps, log_every=1, plan=plan),
+                          make_host_communicator(device="cpu"), seq_len=seq,
+                          global_batch=batch, clock=lambda: 0.0)
+        trainer.init_state = lambda t=trainer: t.place_state(_params(inputs))
+        result = trainer.run()
+        out[f"{name}/losses"] = np.array([m["loss"] for m in result["metrics"]])
+        out[f"{name}/grad_norms"] = np.array([m["grad_norm"] for m in result["metrics"]])
+        out[f"{name}/dims"] = np.array(trainer.comm.shape)
+        out[f"{name}/placed"] = np.array(trainer.placed)
+        del trainer, result
+    comm = make_host_communicator(1, 4, device="cpu")
+    mesh = comm.device_mesh
+    pcfg = dataclasses.replace(pcfg, ring_attention=True)
+    server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=4), comm)
+    params = _params(inputs)
+    with torch.inference_mode():
+        server.params = rules.distribute(
+            params, rules.param_specs(params, rules.mesh_shape(mesh), pcfg), mesh)
+    out["serve/placed"] = np.array(server.placed)
+    out["serve/tokens"], _ = server.generate(
+        [Request(tokens=inputs[f"prompt{i}"].copy()) for i in range(2)])
+    return out
+
+
+#: ``tests/test_engine.py``'s tiny model and its ragged-admission case
+ENGINE_CFG = dict(name="tiny", family="dense", num_layers=2, d_model=32, num_heads=2,
+                  num_kv_heads=1, head_dim=16, d_ff=64, vocab_size=64, dtype="float32")
+ENGINE_BUDGETS = (6, 3, 5, 2, 4, 6)
+
+
+def prog_engine_placed(rank: int, world: int, inputs: dict) -> dict:
+    """The engine over a server placed on a ``dims`` grid (its weights the
+    reference's, placed under ``param_specs``), bf16 and int8 caches: the
+    ragged-admission requests' tokens, the slot table's specs, and the
+    decode requests built."""
+
+    import torch
+
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.core.futures import flatten
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.engine import EngineConfig, make_engine
+    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.sharding import rules
+
+    comm = make_host_communicator(*[int(d) for d in inputs["dims"]], device="cpu")
+    mesh = comm.device_mesh
+    cfg = ModelConfig(**ENGINE_CFG)
+    params = _params(inputs)
+    prompts = [inputs[f"prompt{i}"] for i in range(len(ENGINE_BUDGETS))]
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        pcfg = ParallelConfig(kv_cache_dtype=kv)
+        server = Server(cfg, pcfg, ServerConfig(max_batch=4, max_new_tokens=6), comm)
+        out[f"{kv}/placed"] = np.array(server.placed)
+        with torch.inference_mode():
+            server.params = rules.distribute(
+                params, rules.param_specs(params, rules.mesh_shape(mesh), pcfg), mesh)
+        eng = make_engine(server, EngineConfig(prompt_bucket=8, block_tokens=4))
+        out[f"{kv}/cache_specs"] = np.array(
+            _specs_of([t for t in flatten(eng.cache)[0] if t.dim() > 1]))
+        handles = [eng.submit(p, max_new=b) for p, b in zip(prompts, ENGINE_BUDGETS)]
+        eng.run()
+        for i, h in enumerate(handles):
+            out[f"{kv}/tokens{i}"] = np.array(h.generated)
+        out[f"{kv}/steps"] = np.array(eng.stats()["steps"])
+        out[f"{kv}/decode_requests"] = np.array(len(server._decode_reqs))
+    return out
+
+
 PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_server,
             "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer,
             "requests": prog_requests, "grad_sync": prog_grad_sync, "rma": prog_rma,
@@ -1376,7 +1649,11 @@ PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_s
             "sharded_restore": prog_sharded_restore, "overlap": prog_overlap,
             "rows_split": prog_rows_split, "pipeline_schedule": prog_pipeline_schedule, "train_plans": prog_train_plans, "ring_grad": prog_ring_grad, "int8_plans": prog_int8_plans, "split_rows_update": prog_split_rows_update,
             "serve_mesh": prog_serve_mesh, "session_calls": prog_session_calls,
-            "elastic": prog_elastic}
+            "elastic": prog_elastic, "ring_placed_serve": prog_ring_placed_serve,
+            "ring_placed_train": prog_ring_placed_train, "engine_placed": prog_engine_placed,
+            "serve_cb_mesh": prog_serve_cb_mesh,
+            "ring_placed_elastic": prog_ring_placed_elastic, "train_cli": prog_train_cli,
+            "four_model_ranks": prog_four_model_ranks}
 
 
 def main(argv: list[str]) -> int:

@@ -8,6 +8,9 @@ on a mesh of one.
                                             # the same on 4 gloo ranks
     python3 tools/shard_ranks.py --elastic  # the elastic drill and the
                                             # plans' eager trainer only
+    python3 tools/shard_ranks.py --elastic --ring-engine
+                                            # and the placed ring prefill
+                                            # and the engine at TP 4
 
 Needs four CUDA devices and ``nvcc`` (or ``--device cpu``); run on demand,
 apart from ``chip_smoke.py``.  Every rank, in turn:
@@ -29,25 +32,24 @@ apart from ``chip_smoke.py``.  Every rank, in turn:
 * restores the fsdp run's checkpoint (fragments from four ranks) on rank 0
   alone, into whole tensors, equal to the run's final parameters;
 * trains phi4-mini under the plans that re-form the fabric, where the
-  exchanges run on cards: the ring plan (ring 4, b 1 x ``--ring-seq``;
-  each card holds the whole state, runs every layer's other work on the
+  exchanges run on cards: the ring plan (ring 4, b 2 x ``--ring-seq``,
+  its state placed as the tensor plan's: each card holds a quarter of the
+  heads, ``d_ff`` and vocabulary, runs every layer's other work on the
   whole sequence and a quarter of it in every attention layer, the KV
-  rotating over NVLink; at b 2 x 8192 the fp32 logits of 16,384 tokens
-  and their gradient, 12.2 GiB each, ask past a card's 80 GB beside the
-  whole state, with fp32 or int8 moments) and the pipeline plan
-  (stage 4, micro 4, b ``--batch`` x ``--seq``: 8 layers a card,
-  microbatches of one row), ``--steps`` steps each, eagerly through the
-  trainer's step; then through ``Trainer(persistent=False)``, whose eager
-  steps must take the step functions' losses bit for bit (the default
-  ``Trainer`` refuses to capture a step with these exchanges on the card —
-  its NCCL point-to-point calls hung inside the captured graph — and the
-  refusal, which names ``persistent=False``, is logged).  The pipeline's losses are held within
-  ``LOSS_RTOL`` of the data plan's above (the same batch); the ring's
-  first loss within ``RING_LOSS_RTOL`` of the data plan's forward on the
-  same weights and batch (forward only: the data plan's backward
+  rotating over NVLink; the head's logits stay split over the
+  vocabulary) and the pipeline plan (stage 4, micro 4, b ``--batch`` x
+  ``--seq``: 8 layers a card, microbatches of one row), ``--steps`` steps
+  each, eagerly through the eager trainer's step function; then through
+  ``Trainer(persistent=False)``, whose steps must take the step
+  function's losses bit for bit (the default ``Trainer`` refuses to
+  capture a step with these exchanges on the card — its NCCL
+  point-to-point calls hung inside the captured graph — and the refusal,
+  which names ``persistent=False``, is logged).  The pipeline's losses are
+  held within ``LOSS_RTOL`` of the data plan's above (the same batch); the
+  ring's first loss within ``RING_LOSS_RTOL`` of the data plan's forward
+  on the same weights and batch (forward only: the data plan's backward
   recomputes each layer's attention through (b, 24, 8192, 8192) fp32
-  scores, 6.4 GB a tensor at b 1).  Each card's peak and the step times
-  are logged.
+  scores).  Each card's peak and the step times are logged.
 
 With ``--elastic`` (instead of the serving and data-plan runs above), the
 elastic drill comes first: phi4-mini at full width and 2 layers, b 12 x
@@ -66,6 +68,16 @@ step-6 manifest (the state the grow carried over live), both eager
 each card's peak, the memory still allocated after the drill's trainer is
 gone, and the step times are logged.  Then
 the two plans above.
+
+With ``--ring-engine`` (after the ``--elastic`` parts when both are
+given): the ring prefill on placed weights, phi4-mini at TP 4 with
+``ring_attention`` on ``--ring-requests`` x ``--ring-seq`` prompts, its
+first decode logits within ``LOGITS_TOL`` of the ring of one on a 4 x 1
+mesh (whole weights on every card) and the tokens compared; then
+``serve --continuous-batching`` over qwen1.5-32b at TP 4 (8 requests of
+``--engine-prompt-len`` tokens on 4 slots): every request its
+``--new-tokens``, the same on every card, useful tokens/s, each card's
+peak and the slot table's bytes on a card against the whole table's.
 
 Rank 0 writes everything, with the card's name and power limit, to
 ``artifacts/shard_ranks.json``.
@@ -97,6 +109,15 @@ RING_LOSS_RTOL = 2e-2
 # the longest a trainer's run under the ring or pipeline plan may take (its
 # init and its eager steps)
 TRAINER_RUN_LIMIT_S = 300
+# the longest one torchrun (a part, or the whole run) may take
+PART_LIMIT_S = 900
+# the ring plan's global batch: b 2 x --ring-seq, the shape whose whole
+# state and logits ran a card out of memory before the state was placed
+RING_BATCH = 2
+# the placed ring prefill: phi4-mini, --ring-requests x --ring-seq prompts
+# the engine over qwen1.5-32b at TP 4: requests, slots, prompt bucket, budget
+ENGINE_ARCH = "qwen1_5_32b"
+ENGINE_REQUESTS, ENGINE_SLOTS = 8, 4
 
 
 def _args(argv=None):
@@ -114,8 +135,14 @@ def _args(argv=None):
     ap.add_argument("--elastic", action="store_true",
                     help="the elastic drill, then the ring and pipeline plans' trainers "
                          "(no serving, no data-plan runs)")
-    ap.add_argument("--part", choices=ELASTIC_PARTS, default=None,
-                    help="one part of --elastic (each runs in processes of its own)")
+    ap.add_argument("--ring-engine", action="store_true",
+                    help="the ring prefill on placed weights and the engine over qwen1.5-32b "
+                         "at TP 4 (after the --elastic parts, with it)")
+    ap.add_argument("--ring-requests", type=int, default=4)
+    ap.add_argument("--engine-prompt-len", type=int, default=2048)
+    ap.add_argument("--part", choices=ELASTIC_PARTS + PLACED_PARTS, default=None,
+                    help="one part of --elastic or --ring-engine (each runs in processes of "
+                         "its own)")
     return ap.parse_args(argv)
 
 
@@ -336,6 +363,8 @@ ELASTIC_EVICT, ELASTIC_ADMIT = (3, 1), 6
 ELASTIC_DIR = ROOT / "build" / "shard_ranks_elastic"
 #: the parts of ``--elastic``, each in processes of its own
 ELASTIC_PARTS = ("drill", "controls", "plans")
+#: the parts of ``--ring-engine``
+PLACED_PARTS = ("ring_prefill", "engine")
 
 
 def _control(args, cfg, pcfg, ckpt, step, comm, steps) -> list | None:
@@ -502,7 +531,9 @@ def _dump(out) -> None:
     goes, so that a run cut short leaves what it measured."""
 
     if out["rank"] == 0:
-        name = f"shard_ranks_elastic_{out['part']}" if out.get("part") else "shard_ranks"
+        part = out.get("part")
+        name = ("shard_ranks" if not part else f"shard_ranks_elastic_{part}"
+                if part in ELASTIC_PARTS else f"shard_ranks_{part}")
         path = ROOT / "artifacts" / f"{name}.json"
         path.parent.mkdir(exist_ok=True)
         path.write_text(json.dumps(out, indent=1))
@@ -538,17 +569,12 @@ def _train_plans(args, out, rows) -> None:
     from repro_torch.core import errors
     from repro_torch.launch.mesh import make_host_communicator
     from repro_torch.runtime.faults import StragglerPolicy
-    from repro_torch.runtime.trainer import (
-        Trainer,
-        TrainerConfig,
-        make_pipeline_train_step,
-        make_train_step,
-    )
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     cfg, pcfg = _train_cfg(args)
     plans = {}
     for name, plan, seq, batch, moments in (
-            ("ring4", ParallelPlan(ring=WORLD), args.ring_seq, 1, "float32"),
+            ("ring4", ParallelPlan(ring=WORLD), args.ring_seq, RING_BATCH, "float32"),
             ("stage4_micro4", ParallelPlan(stage=WORLD, microbatches=WORLD), args.seq,
              args.batch, "float32")):
 
@@ -561,15 +587,13 @@ def _train_plans(args, out, rows) -> None:
                            straggler=StragglerPolicy(deadline_factor=float("inf")))
 
         _reset(args.device)
-        t = trainer()
-        if plan.stage > 1:
-            step = make_pipeline_train_step(t.cfg, t.pcfg, t.tcfg, t.opt, t.comm, plan=t.plan)
-        else:
-            step = make_train_step(t.cfg, t.pcfg, t.tcfg, t.opt, mesh=t._ring_line,
-                                   comm=t._average_over)
+        # the step function the eager trainer runs (its state placed, the
+        # ring's too), called here step by step
+        t = trainer(persistent=False)
+        step = t._build_step(None, None)
         row = {"plan": plan.slug(), "cart": list(t.comm.shape),
                "periods": list(t.comm.periods), "seq": seq, "batch": batch,
-               "moments": moments,
+               "moments": moments, "placed": t.placed,
                "eager": _eager_steps(t, step, args)}
         plans[name] = row
         _dump(out | {"train_plans": plans})
@@ -605,12 +629,17 @@ def _train_plans(args, out, rows) -> None:
     t = Trainer(cfg, pcfg, TrainerConfig(steps=1), make_host_communicator(device=args.device),
                 seq_len=args.ring_seq, global_batch=plans["ring4"]["batch"])
     t.placed = False
-    params, _ = t.init_state()
+    # the seed's weights alone: no optimizer state beside the forward's
+    # fp32 logits
+    gen = torch.Generator(device=t.device).manual_seed(t.tcfg.seed)
     with torch.no_grad():
+        params = t.bundle.init(gen)
         loss, _ = t.bundle.loss(params, t._batch(0), t.pcfg, None)
     ring = plans["ring4"]
     ring["data_plan_first_loss_forward"] = float(loss)
     del t, params, loss
+    chip_smoke.check(ring["placed"] and plans["stage4_micro4"]["placed"],
+                     "the plans' state is not placed")
     out["train_plans"] = plans
     first = ring["eager"]["losses"][0]
     chip_smoke.check(abs(first - ring["data_plan_first_loss_forward"])
@@ -632,6 +661,120 @@ def _train_plans(args, out, rows) -> None:
                          f"step function's {row['eager']['losses']}")
 
 
+def _ring_prefill(args, out) -> None:
+    """The ring prefill on placed weights: phi4-mini at TP 4 (mesh 1 x 4,
+    ``ring_attention``; each layer's projections go to this card's quarter
+    of the sequence for the ring kernel, the KV rotating over NVLink),
+    ``--ring-requests`` x ``--ring-seq`` prompts, against the same requests
+    on a 4 x 1 mesh, whose cards each hold the whole model and run the ring
+    of one on their rows: the first decode step's logits within
+    ``LOGITS_TOL``, the tokens compared; ``prefill_s``, ``tokens_per_s``
+    and each card's peak logged."""
+
+    import numpy as np
+
+    import chip_smoke
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    arch = "phi4_mini_3_8b"
+    cfg = base.get_smoke_config(arch) if args.smoke else base.get_config(arch)
+    pcfg = dataclasses.replace(base.get_parallel(arch), ring_attention=True)
+    scfg = ServerConfig(max_batch=args.ring_requests, max_new_tokens=args.new_tokens)
+    reqs = serve.requests(cfg, args.ring_requests, args.ring_seq)
+    row = {"requests": args.ring_requests, "prompt_len": args.ring_seq}
+    firsts = {}
+    for name, dims in (("ring_of_one_4x1", (WORLD, 1)), ("placed_ring_1x4", (1, WORLD))):
+        _reset(args.device)
+        server = Server(cfg, pcfg, scfg, make_host_communicator(*dims, device=args.device))
+        chip_smoke.check(server.placed is (dims[1] > 1), f"ring prefill {name}: placed")
+        firsts[name] = _first_decode(server, reqs)
+        runs = []
+        for _ in range(2):
+            tokens, stats = server.generate(reqs)
+            runs.append({k: stats[k] for k in ("prefill_s", "decode_s", "tokens_per_s")})
+        row[name] = {"tokens": tokens.tolist(), "runs": runs, "peak_gb": _peak(args.device)}
+        del server
+    want, got = firsts["ring_of_one_4x1"], firsts["placed_ring_1x4"]
+    err = float((got - want).abs().max())
+    a, b = (np.array(row[k]["tokens"]) for k in ("ring_of_one_4x1", "placed_ring_1x4"))
+    row.update(max_abs_err_first_decode=err, tokens_equal=bool(np.array_equal(a, b)),
+               tokens_equal_count=int((a == b).sum()), tokens_count=int(a.size))
+    out["ring_prefill"] = row
+    chip_smoke.log(f"rank {out['rank']} ring prefill: " + json.dumps(row))
+    chip_smoke.check(err <= LOGITS_TOL * (1 + float(want.abs().max())),
+                     f"ring prefill: first decode logits {err} from the ring of one's")
+
+
+def _engine(args, out) -> None:
+    """``serve --continuous-batching`` over qwen1.5-32b at TP 4 (mesh 1 x
+    4): ``ENGINE_REQUESTS`` requests of ``--engine-prompt-len`` tokens on
+    ``ENGINE_SLOTS`` slots, ``--new-tokens`` each; useful tokens/s, each
+    card's peak at the server's init and while serving, and the slot
+    table's bytes on a card against the whole table's (what one card would
+    hold beside the whole weights)."""
+
+    import torch
+
+    import chip_smoke
+    from repro_torch.core.futures import flatten
+    from repro_torch.launch import serve
+
+    _reset(args.device)
+    argv = ["--arch", ENGINE_ARCH, "--device", args.device, "--mesh", f"1x{WORLD}",
+            "--continuous-batching", "--requests", str(ENGINE_REQUESTS),
+            "--prompt-len", str(args.engine_prompt_len), "--new-tokens", str(args.new_tokens)]
+    if args.smoke:
+        argv.append("--smoke")
+    engines, init_peak = [], []
+    from repro_torch.runtime import engine as engine_mod
+
+    base_init = engine_mod.Engine.__init__
+
+    def kept(self, *a, **k):   # the CLI's engine, for its slot table
+        # the server's init (the whole model drawn on each card, then
+        # placed) peaks apart from the serving
+        init_peak.append(_peak(args.device))
+        if args.device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        base_init(self, *a, **k)
+        engines.append(self)
+
+    engine_mod.Engine.__init__ = kept
+    try:
+        t0 = time.perf_counter()
+        server, tokens, stats = serve.run(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod.Engine.__init__ = base_init
+    leaves = [t for t in flatten(engines[0].cache)[0] if t.dim() > 1]
+    local = sum(t.to_local().numel() * t.element_size() for t in leaves)
+    whole = sum(t.numel() * t.element_size() for t in leaves)
+    weights = sum(t.numel() * t.element_size() for t in flatten(server.params)[0])
+    local_weights = sum(t.to_local().numel() * t.element_size()
+                        for t in flatten(server.params)[0])
+    lengths = [len(t) for t in tokens]
+    row = {"arch": ENGINE_ARCH, "requests": ENGINE_REQUESTS, "slots": ENGINE_SLOTS,
+           "prompt_len": args.engine_prompt_len, "new_tokens": args.new_tokens,
+           "lengths": lengths, "stats": stats, "wall_s": wall,
+           "useful_tokens_per_s": sum(lengths) / wall,
+           "slot_table_bytes_card": local, "slot_table_bytes_whole": whole,
+           "weights_bytes_card": local_weights, "weights_bytes_whole": weights,
+           "placed": server.placed, "init_peak_gb": init_peak[0],
+           "serve_peak_gb": _peak(args.device)}
+    if args.device == "cuda":
+        row["card_bytes"] = torch.cuda.get_device_properties(0).total_memory
+    out["engine"] = row
+    chip_smoke.log(f"rank {out['rank']} engine: " + json.dumps(row))
+    chip_smoke.check(server.placed and lengths == [args.new_tokens] * ENGINE_REQUESTS,
+                     f"engine: {row}")
+    chip_smoke.check(_same_everywhere(torch.as_tensor(tokens, device=server.device)),
+                     "engine: the ranks' tokens differ")
+    del server, engines, leaves
+
+
 def _rank_main(args) -> int:
     import torch.distributed as dist
 
@@ -648,9 +791,10 @@ def _rank_main(args) -> int:
         ).stdout.strip().splitlines()[0]
     out = {"card": card, "world": WORLD, "rank": comm.rank(), "part": args.part}
     t0 = time.perf_counter()
-    if args.elastic:
+    if args.part is not None:
         {"drill": _elastic_drill, "controls": _elastic_controls,
-         "plans": lambda a, o: _train_plans(a, o, {})}[args.part](args, out)
+         "plans": lambda a, o: _train_plans(a, o, {}), "ring_prefill": _ring_prefill,
+         "engine": _engine}[args.part](args, out)
     else:
         if not args.skip_serve:
             _serve_qwen(args, out)
@@ -686,9 +830,10 @@ def main(argv=None) -> int:
            f"--nproc-per-node={WORLD}", __file__, *(argv if argv is not None else sys.argv[1:])]
     # the elastic parts run in processes of their own: a placed trainer that
     # followed the drill's in one process ran out of memory (PERF.md §7)
-    for part in ELASTIC_PARTS if args.elastic and args.part is None else (None,):
+    parts = (ELASTIC_PARTS if args.elastic else ()) + (PLACED_PARTS if args.ring_engine else ())
+    for part in parts if args.part is None and parts else (None,):
         rc = subprocess.run(cmd + (["--part", part] if part else []), env=env,
-                            cwd=str(ROOT), timeout=1800).returncode
+                            cwd=str(ROOT), timeout=PART_LIMIT_S).returncode
         if rc:
             return rc
     return 0

@@ -246,7 +246,17 @@ any failure.  In order:
     moments, depth cut (``TRAIN_LAYERS``), grok-1 at 1 layer (2 flash
     launches a step) and deepseek-v2 at dense_0 and 1 MoE layer (3: the
     leading dense layer is not rematted, as in the reference); every
-    parameter leaf is held whole against its initial copy.  Then the two
+    parameter leaf is held whole against its initial copy.  Then ``tune``
+    (``phase_tune``): the tuner (``repro_torch.tune``, the H100's roofline
+    of ``core/tool.py``) over every applicable arch x ``SHAPES`` cell on 1,
+    4 and 8 cards, twice, equal; ``train --plan auto`` through
+    ``launch.train.resolve_plan`` for the full phi4-mini at b 2 x 2048, 4
+    steps (graph from step 2), flash launched once a layer and step if the
+    winner's remat is none, twice otherwise, the first loss bit for bit
+    the data-plan phase's, the winner's predicted step and peak beside the
+    warm step and ``max_memory_allocated``; ``serve --plan auto`` for
+    phi4-mini at full width and 8 layers, the winner ``d1``, tokens bit for
+    bit the plain server's, flash once a layer a prefill.  Then the two
     plans that re-form the fabric, on the NCCL world of one:
     ``train_phi4_mini_3_8b_ring``, the full phi4-mini with
     ``pcfg.ring_attention`` (a ring of one, which bypasses the rotation)
@@ -291,9 +301,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): the bound's rates
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.core import tool as _tool  # noqa: E402
+
+# published H100 SXM peaks (NVIDIA data sheet, dense): the bound's rates, the
+# bf16 peak and the HBM rate from the hardware model the tuner scores with
+PEAK_FLOPS = {"bfloat16": _tool.PEAK_FLOPS_BF16, "float32": 67e12}
+HBM_BYTES_PER_S = _tool.HBM_BANDWIDTH
 # Each element is held as |kernel - plain| <= atol + rtol * |plain|, where
 # plain is the plain version in fp32 on the same values (it upcasts its
 # inputs in any case).  Both compute in fp32; a bf16 output is the kernel's
@@ -4092,6 +4105,167 @@ def phase_grad_sync():
     return "grad_sync_phi4_mini", launches
 
 
+# the tuner (repro_torch.tune, the H100's roofline): the device counts of
+# its sweep over every applicable (arch x SHAPES) cell, the arch it tunes on
+# the card, and serve --plan auto's depth (cut, widths full) and requests
+TUNE_DEVICES = (1, 4, 8)
+TUNE_ARCH = "phi4_mini_3_8b"
+TUNE_SERVE_LAYERS, TUNE_SERVE_PROMPT, TUNE_SERVE_REQUESTS = 8, 2048, 2
+
+
+def _tune_sweep(session) -> dict:
+    """The tuner's verdict on every applicable (arch x shape) cell of
+    ``SHAPES`` on each of ``TUNE_DEVICES`` cards (one slice, nothing
+    registered): the winner's slug, predicted step and peak, and the
+    candidates scored."""
+
+    from repro_torch import tune
+    from repro_torch.configs import base
+
+    out = {}
+    for arch in base.ARCHITECTURES:
+        cfg = base.get_config(arch)
+        for name, shape in base.SHAPES.items():
+            if not base.shape_applicable(cfg, shape)[0]:
+                continue
+            for n in TUNE_DEVICES:
+                r = tune.tune(arch, shape, n, slices=1, register=False, session=session)
+                out[f"{arch} {name} {n}"] = {
+                    "plan": r.plan.slug(), "step_s": r.score.step_s,
+                    "peak_gb": r.score.peak_bytes / 1e9, "fits": r.score.fits,
+                    "candidates": r.n_candidates}
+    return out
+
+
+def phase_tune():
+    """The tuner on the card.  The sweep (``_tune_sweep``) twice, equal,
+    its time and winners on one line.  ``train --plan auto``: the plan
+    ``launch.train.resolve_plan`` tunes for the full phi4-mini at b
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` on this one card trains
+    ``TRAIN_STEPS`` steps through ``Trainer`` (step 1 eager, one graph
+    from step 2): flash launched once a layer and step if the winner's
+    remat is none (the backward recomputes through the plain version),
+    twice otherwise; the first loss bit for bit the data-plan phase's
+    (``train_phi4_mini_3_8b``: the same seed and batch); the winner's
+    predicted step and peak logged beside the warm step and
+    ``torch.cuda.max_memory_allocated``.  ``serve --plan auto``: phi4-mini
+    at full width and ``TUNE_SERVE_LAYERS`` layers through
+    ``launch.serve.run`` (the one-card winner d1), tokens bit for bit the
+    plain ``Server``'s on the same prompts, flash once a layer a prefill."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.configs import base
+    from repro_torch.core.session import default_session
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    session = default_session()
+    t0 = time.perf_counter()
+    sweeps = [_tune_sweep(session) for _ in range(2)]
+    sweep_s = time.perf_counter() - t0
+    check(sweeps[0] == sweeps[1], "tune: two sweeps of the same cells disagree")
+    log(json.dumps({"tune_sweep": {"cells": len(sweeps[0]), "two_sweeps_s": sweep_s,
+                                   "winners": {k: v["plan"] for k, v in sweeps[0].items()}}}))
+    row = {"sweep": sweeps[0], "two_sweeps_s": sweep_s}
+    launches = {}
+
+    # train --plan auto
+    cfg, pcfg = base.get_config(TUNE_ARCH), base.get_parallel(TUNE_ARCH)
+    args = train._parser().parse_args(["--arch", TUNE_ARCH, "--plan", "auto", "--batch",
+                                       str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+    plan = train.resolve_plan(args, cfg, session.group().size())
+    shape = base.ShapeConfig(f"train_{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    predicted = tune.tune(TUNE_ARCH, shape, 1, config=cfg, space=base.plan_space(TUNE_ARCH),
+                          register=False, session=session)
+    check(predicted.plan == plan, f"tune: {predicted.plan} against the CLI's {plan}")
+    remat = plan.remat if plan.remat is not None else pcfg.remat
+    path = f"tune_train_{TUNE_ARCH}"
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _trainer(cfg, pcfg, "cuda", steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                       plan=plan)
+    _reset_launches()
+    result = trainer.run()
+    launches[path] = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = result["metrics"]
+    warm = sorted(m["duration_s"] for m in metrics[1:])[(len(metrics) - 1) // 2]
+    per_step = {"flash_attention_fwd": cfg.num_layers * (1 if remat == "none" else 2)}
+    data_plan = RESULTS["train"][f"train_{TUNE_ARCH}"]
+    row["train"] = {
+        "plan": plan.slug(), "remat": remat, "candidates": predicted.n_candidates,
+        "predicted": predicted.score.as_dict(), "losses": [m["loss"] for m in metrics],
+        "grad_norms": [m["grad_norm"] for m in metrics],
+        "step_s": [m["duration_s"] for m in metrics], "warm_step_s": warm,
+        "max_memory_allocated": peak, "card_bytes": torch.cuda.get_device_properties(0).total_memory,
+        "measured_over_predicted_step": warm / predicted.score.step_s,
+        "measured_over_predicted_peak": peak / predicted.score.peak_bytes,
+        "data_plan_first_loss": data_plan["losses"][0],
+        "data_plan_warm_step_s": data_plan["warm_step_s"],
+        "data_plan_peak_gb": data_plan["peak_mem_gb"], "launches": launches[path],
+        "graph_captures": trainer._request.captured}
+    log_row({"tune_train": row["train"]})
+    for name, n in launches[path].items():
+        want = per_step.get(name, 0) * TRAIN_STEPS
+        check(n == want, f"{path}: {name} launches {n}, want {want} (remat {remat})")
+    check(trainer._request.captured == 1, f"{path}: {trainer._request.captured} captures")
+    check(all(math.isfinite(m["loss"]) for m in metrics), f"{path}: {metrics}")
+    check(metrics[0]["loss"] == data_plan["losses"][0],
+          f"{path}: first loss {metrics[0]['loss']} against the data plan's "
+          f"{data_plan['losses'][0]}")
+    del trainer, result
+    _free()
+
+    # serve --plan auto, at full width and a cut depth
+    small = dataclasses.replace(cfg, num_layers=TUNE_SERVE_LAYERS)
+    get_config = base.get_config
+    base.get_config = lambda arch: small if arch == TUNE_ARCH else get_config(arch)
+    try:
+        _reset_launches()
+        server, tokens, stats = serve.run(
+            ["--arch", TUNE_ARCH, "--plan", "auto", "--requests", str(TUNE_SERVE_REQUESTS),
+             "--prompt-len", str(TUNE_SERVE_PROMPT), "--new-tokens", str(NEW_TOKENS)])
+        path = f"tune_serve_{TUNE_ARCH}"
+        launches[path] = _launches()
+    finally:
+        base.get_config = get_config
+    served = tune.tune(TUNE_ARCH, base.ShapeConfig(f"prefill_{TUNE_SERVE_PROMPT}",
+                                                   TUNE_SERVE_PROMPT, TUNE_SERVE_REQUESTS,
+                                                   "prefill"),
+                       1, config=small, space=base.plan_space(TUNE_ARCH), register=False,
+                       session=session)
+    grid = tuple(server.comm.shape)
+    del server
+    _free()
+    plain = Server(small, pcfg, ServerConfig(max_batch=TUNE_SERVE_REQUESTS,
+                                             max_new_tokens=NEW_TOKENS),
+                   make_host_communicator(device="cuda"))
+    want, plain_stats = plain.generate(serve.requests(small, TUNE_SERVE_REQUESTS,
+                                                      TUNE_SERVE_PROMPT))
+    del plain
+    _free()
+    row["serve"] = {"plan": served.plan.slug(), "grid": grid, "layers": TUNE_SERVE_LAYERS,
+                    "prompt_len": TUNE_SERVE_PROMPT, "predicted": served.score.as_dict(),
+                    "prefill_s": stats["prefill_s"], "plain_prefill_s": plain_stats["prefill_s"],
+                    "tokens_per_s": stats["tokens_per_s"],
+                    "tokens_equal_plain": bool(np.array_equal(tokens, want)),
+                    "launches": launches[path]}
+    log_row({"tune_serve": row["serve"]})
+    check(served.plan.slug() == "d1" and grid == (1, 1), f"{path}: plan {row['serve']}")
+    check(row["serve"]["tokens_equal_plain"], f"{path}: tokens differ from the plain server's")
+    for name, n in launches[path].items():
+        want_n = TUNE_SERVE_LAYERS if name == "flash_attention_fwd" else 0
+        check(n == want_n, f"{path}: {name} launches {n}, want {want_n}")
+    RESULTS["tune"] = row
+    return launches
+
+
 def _eager_train(cfg, pcfg) -> dict:
     """The reference for ``phase_train``'s graph steps: the same trainer's
     init and batches through ``make_train_step`` called eagerly,
@@ -4202,6 +4376,7 @@ def main() -> int:
     _phase(phase_train_checkpoint)
     launches.update([_phase(phase_elastic)])
     launches.update(_phase(phase_train, *spec) for spec in TRAIN_FULL)
+    launches.update(_phase(phase_tune))
     launches.update([_phase(phase_train, *TRAIN_FULL[0], ring=True),
                      _phase(phase_train_pipeline)])
     launches.update([_phase(phase_grad_sync)])

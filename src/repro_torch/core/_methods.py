@@ -9,7 +9,9 @@ Counters for the MPI_T pvar interface are incremented at this layer, under
 the reference's names.  The immediate forms of ``send_recv`` and ``shift``
 return a future over the pending point-to-point work; the other immediate
 collectives run when issued (on the card they are queued on the stream) and
-their future's ``get()`` waits for the device.  ``comm.persistent`` and the
+their future's ``get()`` waits for the device.
+``comm.immediate_ring_allgather`` returns the ring gather's deferred future
+(:class:`~repro_torch.core.overlap.RingAllGatherFuture`).  ``comm.persistent`` and the
 persistent collectives (``allreduce_init`` and friends) bind
 persistent requests (:class:`~repro_torch.core.futures.PersistentRequest`);
 ``comm.partitioned_allreduce`` a partitioned request
@@ -87,6 +89,19 @@ def _bind() -> None:
         imethod.__name__ = f"immediate_{name}"
         imethod.__doc__ = f"Nonblocking {name}: returns a Future (MPI_I{name.capitalize()})."
         setattr(Communicator, f"immediate_{name}", imethod)
+
+    # decomposed/overlappable forms
+    tool.pvar_register("immediate_ring_allgather",
+                       "ring-decomposed allgather futures (overlappable)")
+
+    def immediate_ring_allgather(self, x, *, axis=0):
+        tool.pvar_count("immediate_ring_allgather")
+        return overlap.immediate_all_gather(self, x, axis=axis)
+
+    immediate_ring_allgather.__doc__ = (
+        "Ring-decomposed allgather: a :class:`~repro_torch.core.overlap."
+        "RingAllGatherFuture` (``get()`` gathers, ``then_matmul`` fuses).")
+    Communicator.immediate_ring_allgather = immediate_ring_allgather
 
     # persistent operations (MPI_*_init / MPI_Start)
     def persistent(self, fn, *example_args, donate_argnums=(), warm_start=False):

@@ -9,6 +9,18 @@ step's compute is queued, and the two are joined with
 
 Contents:
 
+* :func:`ring_all_gather` / :func:`ring_all_gather_bidirectional` /
+  :func:`ring_reduce_scatter` — the explicit ring algorithms, drop-in for
+  the collectives: each ring step one matched exchange
+  (:func:`~repro_torch.core.collectives.send_recv`, a
+  ``dist.batch_isend_irecv``); on one rank the input comes back as it is.
+* :class:`RingAllGatherFuture` and the ``immediate_*`` helpers — the
+  future-returning forms (``comm.immediate_ring_allgather``): ``get()``
+  runs the ring gather, ``then_matmul`` never gathers and runs
+  :func:`all_gather_matmul` instead.
+* :func:`partitioned_ring_reduce_scatter` /
+  :func:`partitioned_ring_all_gather` — the rings, one a partition of a
+  :class:`~repro_torch.core.futures.PartitionedRequest`.
 * :func:`ring_rotate_compute` — the double-buffered rotate-while-compute
   schedule, the engine under ring attention
   (:mod:`repro_torch.kernels.ring_attention`).
@@ -34,8 +46,13 @@ Contents:
 * :func:`pipeline_spmd` — the microbatch schedule over a cart ``stage``
   dim, under the trainer's pipeline plan; differentiable.
 
-Not ported yet, each with its callers (``ROADMAP.md`` A14):
-``ring_all_gather`` and the partitioned ring schedules.
+The ring schedules, their futures and their partitioned forms are eager
+calls, never captured into a CUDA graph: their point-to-point exchanges are
+those that hung inside a graph captured across cards (``ROADMAP.md``, A
+item 1).  Every rank of the communicator makes the same calls in the same
+order; a deferred future (the gather's, the reduce-scatter's, a fused
+continuation's) exchanges when it is waited, so every rank waits them in
+the same order.
 """
 
 from __future__ import annotations
@@ -48,7 +65,7 @@ from repro_torch.core import collectives, errors, topology
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.compress import BLOCK
 from repro_torch.core.descriptors import CollectiveSpec, Compression, ReduceOp
-from repro_torch.core.futures import Future, PartitionedRequest, when_all
+from repro_torch.core.futures import DeferredFuture, Future, PartitionedRequest, when_all
 from repro_torch.kernels.quant import ops as quant
 
 
@@ -64,6 +81,77 @@ def _axis(comm: Communicator) -> tuple[str, int]:
     )
     name = comm.axis_names[0]
     return name, comm.axis_size(name)
+
+
+# ---------------------------------------------------------------------------
+# ring all-gather / reduce-scatter
+# ---------------------------------------------------------------------------
+
+
+def ring_all_gather(comm: Communicator, x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
+    """All-gather decomposed into ``n-1`` ring steps (tiled concat along
+    ``axis``): at each step every rank passes the block it last received to
+    the next rank and files the one it gets under its source."""
+
+    _, n = _axis(comm)
+    if n == 1:
+        return x
+    idx = comm.rank()
+    blocks = [None] * n
+    blocks[idx] = chunk = x
+    for step in range(1, n):
+        chunk = collectives.send_recv(comm, chunk, _ring_perm(n))
+        blocks[(idx - step) % n] = chunk
+    return torch.cat(blocks, dim=axis)
+
+
+def ring_all_gather_bidirectional(comm: Communicator, x: torch.Tensor, *,
+                                  axis: int = 0) -> torch.Tensor:
+    """Bidirectional ring: halves the steps by sending both ways (each
+    step's two exchanges are issued together, so both directions of every
+    link carry a block at once)."""
+
+    _, n = _axis(comm)
+    if n == 1:
+        return x
+    idx = comm.rank()
+    blocks = [None] * n
+    blocks[idx] = fwd = bwd = x
+    steps_fwd, steps_bwd = n // 2, (n - 1) // 2
+    for step in range(1, steps_fwd + 1):
+        f = collectives.send_recv_start(comm, fwd, _ring_perm(n, +1))
+        b = collectives.send_recv_start(comm, bwd, _ring_perm(n, -1)) if step <= steps_bwd \
+            else None
+        blocks[(idx - step) % n] = fwd = f.get()
+        if b is not None:
+            blocks[(idx + step) % n] = bwd = b.get()
+    return torch.cat(blocks, dim=axis)
+
+
+def ring_reduce_scatter(comm: Communicator, x: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
+    """Reduce-scatter decomposed into a ring of exchange + add steps: the
+    sum of block ``b`` starts at rank ``b+1`` and gathers one rank's block
+    a step, in the reference's order."""
+
+    _, n = _axis(comm)
+    if n == 1:
+        return x
+    idx = comm.rank()
+    errors.check(
+        x.shape[axis] % n == 0,
+        errors.ErrorClass.ERR_COUNT,
+        f"ring_reduce_scatter axis {axis} of {tuple(x.shape)} not divisible by {n}",
+    )
+    block = x.shape[axis] // n
+
+    def take(b):
+        return x.narrow(axis, b * block, block)
+
+    acc = take((idx - 1) % n)
+    for step in range(n - 1):
+        acc = collectives.send_recv(comm, acc, _ring_perm(n))
+        acc = acc + take((idx - 2 - step) % n)
+    return acc
 
 
 def ring_rotate_compute(rotate, buf, steps: int, step_fn, carry):
@@ -228,6 +316,22 @@ def partitioned_allreduce(comm: Communicator, num_partitions: int, *,
     return _partitioned(num_partitions, lambda x: collectives.allreduce(comm, x), continuation)
 
 
+def partitioned_ring_reduce_scatter(comm: Communicator, num_partitions: int, *, axis: int = 0,
+                                    continuation=None) -> PartitionedRequest:
+    """Reduce-scatter rings, one a partition, issued in index order."""
+
+    return _partitioned(num_partitions, lambda x: ring_reduce_scatter(comm, x, axis=axis),
+                        continuation)
+
+
+def partitioned_ring_all_gather(comm: Communicator, num_partitions: int, *, axis: int = 0,
+                                continuation=None) -> PartitionedRequest:
+    """All-gather rings, one a partition, issued in index order."""
+
+    return _partitioned(num_partitions, lambda x: ring_all_gather(comm, x, axis=axis),
+                        continuation)
+
+
 # ---------------------------------------------------------------------------
 # fused compute/communication schedules
 # ---------------------------------------------------------------------------
@@ -293,6 +397,49 @@ def matmul_reduce_scatter(comm: Communicator, x: torch.Tensor, w: torch.Tensor, 
         acc = collectives.shift(comm, acc)
         acc = acc + partial_block((idx - 2 - step) % n)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# immediate (future-returning) forms
+# ---------------------------------------------------------------------------
+
+
+class RingAllGatherFuture(DeferredFuture):
+    """Future over a decomposed all-gather whose continuation may fuse.
+
+    ``get()`` runs the plain ring gather (:func:`ring_all_gather`);
+    ``then_matmul(x_full)`` — the continuation the paper chains with
+    ``.then`` — *never* gathers and runs :func:`all_gather_matmul` instead.
+    Both are deferred: they exchange when waited."""
+
+    def __init__(self, comm: Communicator, x: torch.Tensor, axis: int = 0):
+        super().__init__(lambda: ring_all_gather(comm, x, axis=axis))
+        self._comm = comm
+        self._x = x
+
+    def then_matmul(self, x_full: torch.Tensor, **kw) -> DeferredFuture:
+        """Fused continuation: ``x_full @ gathered`` (this future's payload
+        is the contraction-sharded weight)."""
+
+        return DeferredFuture(lambda: all_gather_matmul(self._comm, x_full, self._x, **kw))
+
+
+def immediate_all_gather(comm: Communicator, x: torch.Tensor, *,
+                         axis: int = 0) -> RingAllGatherFuture:
+    return RingAllGatherFuture(comm, x, axis=axis)
+
+
+def immediate_all_reduce(comm: Communicator, x: torch.Tensor) -> Future:
+    return Future(collectives.allreduce(comm, x))
+
+
+def immediate_reduce_scatter(comm: Communicator, x: torch.Tensor, *,
+                             axis: int = 0) -> DeferredFuture:
+    return DeferredFuture(lambda: ring_reduce_scatter(comm, x, axis=axis))
+
+
+def immediate_send_recv(comm: Communicator, x, perm) -> Future:
+    return collectives.send_recv_start(comm, x, perm)
 
 
 # ---------------------------------------------------------------------------

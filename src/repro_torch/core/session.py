@@ -3,12 +3,21 @@
 A :class:`Session` enumerates the ranks of the default
 ``torch.distributed`` process group, one device per rank (``cuda:<local
 rank>``, or the CPU when ``device_type="cpu"``), into named process sets —
-``repro://world``, ``repro://self``, ``repro://host/<i>`` and
-``repro://platform/<type>`` — plus user-registered sets.  Each member is a
-:class:`RankDevice`.  If no process group exists, the session initialises
-one: from ``RANK`` / ``WORLD_SIZE`` (``env://``, as ``torchrun`` sets them)
-when they are set, otherwise a world of one.  The backend is NCCL for
-``cuda`` and gloo for ``cpu``; the card never falls back to gloo.
+``repro://world``, ``repro://self``, ``repro://host/<i>``,
+``repro://platform/<type>`` and ``repro://slice/<k>`` — plus user-registered
+sets.  Each member is a :class:`RankDevice`.  If no process group exists,
+the session initialises one: from ``RANK`` / ``WORLD_SIZE`` (``env://``, as
+``torchrun`` sets them) when they are set, otherwise a world of one.  The
+backend is NCCL for ``cuda`` and gloo for ``cpu``; the card never falls back
+to gloo.
+
+A slice (the reference's TPU pod slice: devices joined by the fast fabric,
+slices joined by the slow one) is a port-only reading: a member that
+carries a ``slice_index`` (as the reference's devices do, and the tests'
+fakes) is in the slice it names; otherwise, in a world that spans several
+hosts, a slice is one host, since NVLink joins the cards inside a node and
+the NIC links nodes.  A world on one host has no slice sets, as a TPU
+backend that reports no slices has none.
 
 :class:`Group` is the immutable ordered member set with the full MPI group
 algebra, copied from :mod:`repro.core.session`.
@@ -43,7 +52,7 @@ _ALIAS_SCHEME = "mpi://"
 WORLD_PSET = _SCHEME + "world"
 SELF_PSET = _SCHEME + "self"
 
-_BUILTIN_PREFIXES = (f"{_SCHEME}host/", f"{_SCHEME}platform/")
+_BUILTIN_PREFIXES = (f"{_SCHEME}host/", f"{_SCHEME}platform/", f"{_SCHEME}slice/")
 
 #: Device types a session can enumerate.
 DEVICE_TYPES = ("cuda", "cpu")
@@ -372,6 +381,17 @@ class Session:
             self._psets[f"{_SCHEME}host/{host}"] = tuple(devs)
         for platform, devs in sorted(by_platform.items()):
             self._psets[f"{_SCHEME}platform/{platform}"] = tuple(devs)
+        # slices: a member's own slice_index where it has one, else the
+        # hosts of a world that spans several
+        by_slice: dict[int, list[Any]] = {}
+        for d in self._devices:
+            s = getattr(d, "slice_index", None)
+            if s is not None:
+                by_slice.setdefault(s, []).append(d)
+        if not by_slice and len(by_host) > 1:
+            by_slice = by_host
+        for s, devs in sorted(by_slice.items()):
+            self._psets[f"{_SCHEME}slice/{s}"] = tuple(devs)
 
     # -- lifecycle ---------------------------------------------------------
 

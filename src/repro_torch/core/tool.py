@@ -1,12 +1,18 @@
 """Tool interface (paper §II — MPI 4.0 chapter 15, ``MPI_T_``): the pvar/cvar
-registry of :mod:`repro.core.tool`, without its HLO parsing and TPU roofline
-constants, which describe XLA artifacts and a TPU and have no counterpart in
-the port.
+registry of :mod:`repro.core.tool`, and its hardware model for the roofline
+with an NVIDIA H100's numbers in place of the TPU's.  Its HLO parsing
+(``parse_hlo_collectives``, ``CollectiveStats``, ``flops_and_bytes``,
+``roofline_terms``) reads XLA artifacts; only the dry run calls it, and it
+waits for that slice.
 
 * **pvars** are call-site counters (``pvar_count`` / ``pvar_add``), with a
   documented registry (``PVARS``) and an optional strict mode that rejects
   writes to unregistered names.
 * **cvars** are a typed runtime configuration registry (error checking).
+* **the hardware model** (:data:`PEAK_FLOPS_BF16` and friends, the
+  reference's names) and the ring algorithm's wire bytes
+  (:func:`_wire_factor`): what the tuner (:mod:`repro_torch.tune`) scores
+  plans with, and the bounds ``chip_smoke.py`` holds kernels to.
 
 Kernel launch counts are not pvars: each kernel wrapper keeps a plain
 integer, fed through the launch-counter registry below, so that a CUDA graph
@@ -23,6 +29,63 @@ from collections import Counter, defaultdict
 from typing import Any, Callable, Iterator
 
 from repro_torch.core import errors
+
+# --------------------------------------------------------------------------
+# hardware model: one NVIDIA H100 SXM5 80GB, NVLink 4 inside a node
+# --------------------------------------------------------------------------
+#
+# The reference's names, each meaning on this card:
+#
+# * PEAK_FLOPS_BF16 — dense bf16 tensor-core FLOP/s of one card (NVIDIA
+#   H100 datasheet, SXM part, without sparsity; at the 700 W power limit);
+# * HBM_BANDWIDTH — HBM3 bytes/s of one card (datasheet);
+# * ICI_BANDWIDTH — the link between two cards of a node: NVLink 4, 900
+#   GB/s a card in both directions together (datasheet), 450e9 a direction;
+# * DCN_BANDWIDTH — across nodes: one 400 Gb/s NDR InfiniBand NIC a card,
+#   50e9 bytes/s (the DGX H100's layout);
+# * HBM_BYTES — ``torch.cuda.get_device_properties(0).total_memory`` as
+#   read on an NVIDIA H100 80GB HBM3 (``tools/shard_ranks.py --tune``);
+# * COLLECTIVE_LAUNCH_S — the fixed cost of one collective: the median
+#   latency of an 8-byte NCCL ``all_reduce`` over four H100s joined by
+#   NVLink, host launch included (``tools/shard_ranks.py --tune``).
+
+PEAK_FLOPS_BF16 = 989e12     # FLOP/s per card
+HBM_BANDWIDTH = 3.35e12      # bytes/s per card
+ICI_BANDWIDTH = 450e9        # bytes/s per card and direction (NVLink 4)
+DCN_BANDWIDTH = 50e9         # bytes/s per card (one 400 Gb/s NIC)
+HBM_BYTES = 85_017_493_504   # bytes on the card: NVIDIA H100 80GB HBM3
+COLLECTIVE_LAUNCH_S = 9.2746e-5  # seconds per collective: 92.7 µs
+
+COLLECTIVE_KINDS = (
+    "all-gather",
+    "all-reduce",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+    "collective-broadcast",
+)
+
+
+def _wire_factor(kind: str, n: int) -> float:
+    """Ring-algorithm bytes crossing one device's link, as a multiple of the
+    payload (operand bytes for reductions, result bytes for gathers)."""
+
+    if kind in ("collective-permute", "collective-broadcast"):
+        # permutes/broadcasts move the payload once regardless of group
+        # size; they carry source-target pairs, not replica_groups, so the
+        # parsed group size (default 1) must not zero them out — ring
+        # schedules and ch. 8 neighbor exchanges are all permutes, and
+        # their wire bytes used to read as 0 here
+        return 1.0
+    if n <= 1:
+        return 0.0
+    frac = (n - 1) / n
+    if kind == "all-reduce":
+        return 2.0 * frac
+    if kind in ("all-gather", "reduce-scatter", "all-to-all"):
+        return frac
+    return 1.0
+
 
 # --------------------------------------------------------------------------
 # control variables (cvars)

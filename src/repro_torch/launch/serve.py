@@ -47,9 +47,15 @@ dist-graph fan-out adjacency; on the CPU, four gloo ranks::
 
 ``--plan`` takes the reference's grammar (``configs.base.parse_plan``):
 ``fanout=P:D`` selects the disaggregated split, any other plan folds its
-data and model dims onto the host communicator.  ``--plan auto`` needs the
-tuner (``repro.tune``), which is not ported yet (ROADMAP A15): it raises
-``ERR_UNSUPPORTED_OPERATION``.  The reference's usage errors are kept:
+data and model dims onto the host communicator.  ``--plan auto`` tunes the
+cell ``prefill_<prompt-len>`` (``--requests`` rows) over the session's
+ranks with :mod:`repro_torch.tune` (the H100's roofline), prints the winner
+and its predicted step, and serves under it::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4_mini_3_8b \
+        --smoke --device cpu --plan auto
+
+The reference's usage errors are kept:
 ``--plan`` with ``--fanout`` or ``--mesh``, ``--mesh`` with
 ``--disaggregate``, ``--continuous-batching`` with ``--disaggregate``.
 """
@@ -90,10 +96,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--plan",
         default=None,
-        help="the unified parallelism plan: 'DxT' dims, or key=value pairs; "
-        "'fanout=P:D' selects the heterogeneous disaggregated split; 'auto' "
-        "(the tuner's search) is not ported yet and raises "
-        "ERR_UNSUPPORTED_OPERATION",
+        help="the unified parallelism plan: 'auto' (run the repro_torch.tune "
+        "roofline autotuner for this cell), 'DxT' dims, or key=value pairs; "
+        "'fanout=P:D' selects the heterogeneous disaggregated split",
     )
     ap.add_argument(
         "--fanout",
@@ -170,11 +175,14 @@ def run(argv=None):
     # the same grammar as "fanout=P:D"
     plan = None
     if args.plan == "auto":
-        errors.fail(
-            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-            "--plan auto searches plans with the tuner (repro.tune), which is "
-            "not ported yet (ROADMAP A15); pass a plan",
-        )
+        from repro_torch import tune as tune_mod
+
+        shape = base.ShapeConfig(f"prefill_{args.prompt_len}", args.prompt_len, args.requests,
+                                 "prefill")
+        result = tune_mod.tune(args.arch, shape, config=cfg, space=base.plan_space(args.arch),
+                               device_type=args.device)
+        plan = result.plan
+        print(f"autotuned plan: {plan.slug()} (predicted {result.score.step_s:.4f}s)")
     elif args.plan or args.fanout is not None:
         spec = args.plan or f"fanout={args.fanout}"
         devices = default_session(device_type=args.device).group().size()

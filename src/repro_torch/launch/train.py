@@ -39,8 +39,13 @@ at a step; every rank runs the same schedule::
         --arch phi4_mini_3_8b --smoke --device cpu --steps 8 --batch 12 \
         --checkpoint-dir /tmp/ck --checkpoint-every 2 --evict-at 3:1 --admit-at 6
 
-Not ported yet, raising ``ERR_UNSUPPORTED_OPERATION``: ``--plan auto``
-(the tuner, ROADMAP A15).
+``--plan auto`` tunes the cell ``train_<seq>`` (``--batch`` rows) over the
+communicator's ranks with :mod:`repro_torch.tune` (the H100's roofline),
+logs the winner, its predicted step and its candidates, and trains under
+it::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi4_mini_3_8b \
+        --smoke --device cpu --steps 4 --plan auto
 """
 
 from __future__ import annotations
@@ -50,22 +55,32 @@ import json
 import logging
 
 
-def resolve_plan(args, devices):
-    """One parser for every layout flag: ``--plan`` wins; the deprecated
+def resolve_plan(args, cfg, devices):
+    """One parser for every layout flag: ``--plan`` wins (``auto`` runs the
+    :mod:`repro_torch.tune` roofline search for this cell: ``cfg`` at
+    ``--seq`` x ``--batch`` on ``devices`` ranks, the winner registered in
+    the default session of ``--device``); the deprecated
     ``--pipeline-stages``/``--ring-attention`` flags are aliases that build
     the equivalent spec and route through
     :func:`repro_torch.configs.base.parse_plan`.  Returns ``None`` (pure
     data plan) when nothing asked for a fold."""
 
     from repro_torch.configs import base
-    from repro_torch.core import errors
 
     if args.plan:
-        errors.check(
-            args.plan != "auto",
-            errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
-            "--plan auto (the parallelism tuner) is not ported yet: it waits for ROADMAP A15",
-        )
+        if args.plan == "auto":
+            from repro_torch import tune as tune_mod
+
+            shape = base.ShapeConfig(f"train_{args.seq}", args.seq, args.batch, "train")
+            result = tune_mod.tune(
+                args.arch, shape, devices, config=cfg, space=base.plan_space(args.arch),
+                device_type=args.device,
+            )
+            logging.getLogger("repro.launch").info(
+                "autotuned plan: %s (predicted %.4fs over %d candidates)",
+                result.plan.slug(), result.score.step_s, result.n_candidates,
+            )
+            return result.plan
         return base.parse_plan(args.plan, devices=devices)
     parts = []
     if args.pipeline_stages > 1:
@@ -97,9 +112,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="checkpoint writes overlap the next steps "
                          "(--no-async-checkpoint joins each save)")
     ap.add_argument("--plan", default=None,
-                    help="the parallelism plan: key=value pairs such as "
-                         "'data=2,tensor=2', 'ring=2' or 'stage=2,micro=2' ('auto' is "
-                         "not ported yet)")
+                    help="the parallelism plan: 'auto' (the repro_torch.tune roofline "
+                         "search for this cell), or key=value pairs such as "
+                         "'data=2,tensor=2', 'ring=2' or 'stage=2,micro=2'")
     ap.add_argument("--pipeline-stages", type=int, default=0,
                     help="alias for --plan stage=N (with --pipeline-microbatches)")
     ap.add_argument("--pipeline-microbatches", type=int, default=2,
@@ -143,7 +158,7 @@ def run(argv=None):
         d, m = (int(t) for t in args.mesh.split("x"))
         comm = make_host_communicator(d, m, pset=args.pset, device=args.device)
 
-    plan = resolve_plan(args, comm.group().size())
+    plan = resolve_plan(args, cfg, comm.group().size())
     tcfg = TrainerConfig(
         steps=args.steps,
         lr=args.lr,

@@ -69,6 +69,10 @@ _TRAINING = ("optim/adamw.py", "optim/clip.py", "optim/schedules.py", "optim/gra
 _SERVING = ("runtime/server.py", "runtime/engine.py", "runtime/kvpool.py")
 
 
+_TUNER = ("tune/__init__.py", "tune/__main__.py", "tune/score.py", "tune/search.py",
+          "core/tool.py", "core/session.py")
+
+
 _MODELS = ("models/transformer.py", "models/encdec.py", "models/api.py", "models/mlp.py",
            "models/attention.py", "configs/paligemma_3b.py", "configs/seamless_m4t_large_v2.py",
            "configs/grok_1_314b.py", "configs/deepseek_v2_236b.py", "launch/serve.py")
@@ -81,7 +85,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     covered = {str(f.relative_to(package)) for f in files if f.is_relative_to(package)}
     assert ROOT / "tools" / "quant_variants.py" in files
     assert set(_MULTI_RANK) <= covered and set(_TRAINING) <= covered
-    assert set(_MODELS) <= covered and set(_SERVING) <= covered
+    assert set(_MODELS) <= covered and set(_SERVING) <= covered and set(_TUNER) <= covered
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -160,7 +164,8 @@ def test_collective_facade_equals_the_reference():
     from repro_torch.core import tool as ttool
     from repro_torch.core.communicator import Communicator as TComm
 
-    names = tmethods._BLOCKING + tuple(f"immediate_{n}" for n in tmethods._IMMEDIATE)
+    names = (tmethods._BLOCKING + tuple(f"immediate_{n}" for n in tmethods._IMMEDIATE)
+             + ("immediate_ring_allgather",))
     for name in names:
         assert callable(getattr(TComm, name)) and callable(getattr(JComm, name)), name
         assert name in ttool.PVARS and ttool.PVARS[name] == jtool.PVARS[name], name

@@ -203,7 +203,7 @@ def test_cli_builds_the_reference_plans(argv, want):
     from repro.launch import train as jlaunch
 
     args = tlaunch._parser().parse_args(["--arch", "phi4_mini_3_8b"] + argv)
-    got = tlaunch.resolve_plan(args, 4)
+    got = tlaunch.resolve_plan(args, None, 4)
     ref = jlaunch.resolve_plan(argparse.Namespace(**vars(args)), None, 4)
     if want is None:
         assert got is None and ref is None

@@ -554,7 +554,8 @@ def test_unported_paths_raise(tmp_path, case):
     """Every path the port does not run raises a typed error; the tensor,
     ring and pipeline plans are ported, and on one rank they do not fold
     (``ERR_DIMS``, as the reference's); a ring of one (``ring_pcfg``)
-    trains, as the data plan does.  The elastic paths are ported: evicting
+    trains, as the data plan does; ``--plan auto`` (``plan_auto``) trains
+    under the plan the reference's tuner picks for the cell.  The elastic paths are ported: evicting
     the only rank (``evict``, ``evict_flag``) leaves no survivor
     (``ERR_PROC_FAILED``, as the reference's trainer raises), an admission
     with no spare rank (``admit``) trains on; the eager steps
@@ -575,7 +576,8 @@ def test_unported_paths_raise(tmp_path, case):
         "ring_pcfg": lambda: make(pcfg=dataclasses.replace(pcfg, ring_attention=True)),
         "tensor": lambda: make(TrainerConfig(plan=tbase.ParallelPlan(tensor=2))),
         "plan_auto": lambda: tlaunch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device",
-                                          "cpu", "--plan", "auto"]),
+                                          "cpu", "--plan", "auto", "--steps", "2",
+                                          "--batch", "2", "--seq", "32"]),
         "evict_flag": lambda: tlaunch.run(["--arch", "phi4_mini_3_8b", "--smoke", "--device",
                                            "cpu", "--evict-at", "2:0"]),
         "no_donation": lambda: make(TrainerConfig(steps=3, log_every=1, donate=False)),
@@ -591,6 +593,18 @@ def test_unported_paths_raise(tmp_path, case):
         ring = [(m["loss"], m["grad_norm"]) for m in trainer.run()["metrics"]]
         data = [(m["loss"], m["grad_norm"]) for m in make().run()["metrics"]]
         np.testing.assert_allclose(ring, data, rtol=2e-2)   # bf16: the ring rounds apart
+        return
+    if case == "plan_auto":
+        from repro import tune as jtune
+
+        trainer, result = runs[case]()
+        shape = jbase.ShapeConfig("train_32", 32, 2, "train")
+        want = jtune.tune("phi4_mini_3_8b", shape, 1, register=False,
+                          config=jbase.get_smoke_config("phi4_mini_3_8b"),
+                          space=jbase.plan_space("phi4_mini_3_8b")).plan
+        assert dataclasses.asdict(trainer.plan) == dataclasses.asdict(want)
+        assert result["final_step"] == 2
+        assert all(np.isfinite(m["loss"]) for m in result["metrics"])
         return
     if case in ("admit", "no_donation", "not_persistent"):
         trainer = runs[case]()

@@ -1640,7 +1640,94 @@ def prog_engine_placed(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
-PROGRAMS = {"collectives": prog_collectives, "ring": prog_ring, "server": prog_server,
+def prog_overlap_schedules(rank: int, world: int, inputs: dict) -> dict:
+    """The decomposed ring schedules of ``core/overlap.py`` on this rank's
+    slice of the inputs: the three rings on axes 0 and 1, the reduce-scatter
+    on an axis that does not divide (its error class), the ring gather's
+    future (``get``, ``then_matmul``) through ``comm.immediate_ring_allgather``
+    and its pvar, the ``immediate_*`` helpers, and the partitioned rings in
+    two ``pready`` orders with the reference test's continuation."""
+
+    from repro_torch.core import overlap, tool
+    from repro_torch.core.communicator import world as world_comm
+
+    comm = world_comm(device_type="cpu")
+    x, y, y1, w, xf, p0, p1 = (torch_from(inputs[k][rank]) for k in
+                               ("x", "y", "y1", "w", "xf", "p0", "p1"))
+    out = {}
+    for a in (0, 1):
+        out[f"gather{a}"] = overlap.ring_all_gather(comm, x, axis=a)
+        out[f"bidir{a}"] = overlap.ring_all_gather_bidirectional(comm, x, axis=a)
+    out["rs0"] = overlap.ring_reduce_scatter(comm, y, axis=0)
+    out["rs1"] = overlap.ring_reduce_scatter(comm, y1, axis=1)
+    before = tool.pvar_read().get("immediate_ring_allgather", 0)
+    out["future_get"] = comm.immediate_ring_allgather(x, axis=1).get()
+    fut = comm.immediate_ring_allgather(w)
+    out["then_matmul"] = fut.then_matmul(xf).get()
+    pvar = tool.pvar_read()["immediate_ring_allgather"] - before
+    out["imm_allgather"] = overlap.immediate_all_gather(comm, x).get()
+    out["imm_allreduce"] = overlap.immediate_all_reduce(comm, x).get()
+    out["imm_reduce_scatter"] = overlap.immediate_reduce_scatter(comm, y, axis=0).get()
+    out["imm_send_recv"] = overlap.immediate_send_recv(comm, x, [(0, 2), (2, 1), (1, 0)]).get()
+    for name, order in (("a", (1, 0)), ("b", (0, 1))):
+        for kind, fn, pay in (("rs", overlap.partitioned_ring_reduce_scatter, (y, p0)),
+                              ("ag", overlap.partitioned_ring_all_gather, (x, p1))):
+            req = fn(comm, 2, continuation=lambda i, g: g.sum() + i)
+            for i in order:
+                req.pready(i, pay[i])
+            for i, r in enumerate(req.wait()):
+                out[f"part_{kind}{i}_{name}"] = r
+    result = {k: v.numpy() for k, v in out.items()}
+    result["err_rs"] = np.array(_err(lambda: overlap.ring_reduce_scatter(comm, y1, axis=0)))
+    result["pvar"] = np.array(pvar)
+    return result
+
+
+def prog_tune_cli(rank: int, world: int, inputs: dict) -> dict:
+    """``serve`` and ``train --plan auto`` (``inputs["serve_argv"]``,
+    ``["train_argv"]``; phi4-mini's smoke model in fp32) on every rank, on
+    the reference's weights (``serve/param/...``, ``train/param/...``): the
+    serve CLI's printed plan and tokens, the trainer's plan, grid, losses
+    and grad norms."""
+
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.configs import base
+    from repro_torch.launch import serve, train
+    from repro_torch.runtime import server as tserver
+    from repro_torch.runtime.trainer import Trainer
+
+    smoke = base.get_smoke_config
+    base.get_smoke_config = lambda arch: dataclasses.replace(smoke(arch), dtype="float32")
+    generate = tserver.Server.generate
+
+    def on_reference_weights(self, reqs):
+        self.params = _params(_prefixed(inputs, "serve/"))
+        return generate(self, reqs)
+
+    tserver.Server.generate = on_reference_weights
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, tokens, _ = serve.run([str(a) for a in inputs["serve_argv"]])
+    Trainer.init_state = lambda self: self.place_state(_params(_prefixed(inputs, "train/")))
+    trainer, result = train.run([str(a) for a in inputs["train_argv"]])
+    return {"serve_line": np.array(printed.getvalue().splitlines()[0]), "tokens": tokens,
+            "train_plan": np.array(trainer.plan.slug()), "dims": np.array(trainer.comm.shape),
+            "placed": np.array(trainer.placed),
+            "losses": np.array([m["loss"] for m in result["metrics"]]),
+            "grad_norms": np.array([m["grad_norm"] for m in result["metrics"]])}
+
+
+def torch_from(a):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+PROGRAMS = {"collectives": prog_collectives, "overlap_schedules": prog_overlap_schedules,
+            "tune_cli": prog_tune_cli, "ring": prog_ring, "server": prog_server,
             "zamba2_ring": prog_zamba2_ring, "trainer": prog_trainer,
             "requests": prog_requests, "grad_sync": prog_grad_sync, "rma": prog_rma,
             "neighbors": prog_neighbors, "moe_neighbor": prog_moe_neighbor,

@@ -79,8 +79,29 @@ mesh (whole weights on every card) and the tokens compared; then
 ``--new-tokens``, the same on every card, useful tokens/s, each card's
 peak and the slot table's bytes on a card against the whole table's.
 
+With ``--tune`` (instead of everything above): three parts, each a
+``torchrun`` of its own that runs whatever the others did.  ``tune_rings``:
+the median latency of an 8-byte NCCL ``all_reduce`` (``TUNE_LATENCY_REPS``
+timed calls a rank, each ended by a synchronise; the hardware model's
+``COLLECTIVE_LAUNCH_S``), and the decomposed rings of ``core/overlap.py``
+over NVLink against NCCL on the same bytes, at phi4-mini's ``w_up`` split
+four ways by rows (768 x 8192): ``ring_all_gather`` and its bidirectional
+form against ``all_gather_into_tensor`` on the bf16 shard, bit for bit,
+``ring_reduce_scatter`` against ``reduce_scatter_tensor`` on a whole fp32
+(3072 x 8192) gradient, within fp32 rounding of four terms; each timed
+beside NCCL's (medians of ``TUNE_RING_REPS``).  ``tune_train``: ``train
+--plan auto`` for phi4-mini at b ``--batch`` x ``--seq`` on the four cards
+(``launch.train.resolve_plan``), the winner trained ``--steps`` steps —
+eagerly (``Trainer(persistent=False)``) where its ring or stages span the
+cards, since the captured step refuses there — its predicted step and
+peak beside the warm step and each card's peak.  ``tune_serve``: ``serve
+--plan auto`` for qwen1.5-32b at 2 x ``--prompt-len`` (``launch.serve.run``):
+the winner, its predicted peak, the tokens (the same on every card),
+``prefill_s`` and each card's peak.  A part that fails is recorded (its
+exit code in ``artifacts/shard_ranks_tune.json``) and the next runs.
+
 Rank 0 writes everything, with the card's name and power limit, to
-``artifacts/shard_ranks.json``.
+``artifacts/shard_ranks.json`` (a part to ``shard_ranks_<part>.json``).
 """
 
 from __future__ import annotations
@@ -118,6 +139,10 @@ RING_BATCH = 2
 # the engine over qwen1.5-32b at TP 4: requests, slots, prompt bucket, budget
 ENGINE_ARCH = "qwen1_5_32b"
 ENGINE_REQUESTS, ENGINE_SLOTS = 8, 4
+# --tune: timed calls of the 8-byte all_reduce, and of each ring and NCCL
+# collective; phi4-mini's w_up (d_model x d_ff), split by rows over the cards
+TUNE_LATENCY_REPS, TUNE_RING_REPS = 200, 20
+TUNE_W_UP = (3072, 8192)
 
 
 def _args(argv=None):
@@ -140,7 +165,10 @@ def _args(argv=None):
                          "at TP 4 (after the --elastic parts, with it)")
     ap.add_argument("--ring-requests", type=int, default=4)
     ap.add_argument("--engine-prompt-len", type=int, default=2048)
-    ap.add_argument("--part", choices=ELASTIC_PARTS + PLACED_PARTS, default=None,
+    ap.add_argument("--tune", action="store_true",
+                    help="the all_reduce latency and the ring schedules against NCCL, then "
+                         "train and serve --plan auto across the cards (nothing else)")
+    ap.add_argument("--part", choices=ELASTIC_PARTS + PLACED_PARTS + TUNE_PARTS, default=None,
                     help="one part of --elastic or --ring-engine (each runs in processes of "
                          "its own)")
     return ap.parse_args(argv)
@@ -365,6 +393,8 @@ ELASTIC_DIR = ROOT / "build" / "shard_ranks_elastic"
 ELASTIC_PARTS = ("drill", "controls", "plans")
 #: the parts of ``--ring-engine``
 PLACED_PARTS = ("ring_prefill", "engine")
+# the --tune parts
+TUNE_PARTS = ("tune_rings", "tune_train", "tune_serve")
 
 
 def _control(args, cfg, pcfg, ckpt, step, comm, steps) -> list | None:
@@ -775,6 +805,194 @@ def _engine(args, out) -> None:
     del server, engines, leaves
 
 
+def _timed(fn, reps, device) -> tuple:
+    """(result, median seconds): ``reps`` calls of ``fn`` on every rank,
+    each started together (a barrier) and ended by a synchronise."""
+
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return result, statistics.median(times)
+
+
+def _tune_rings(args, out) -> None:
+    """The 8-byte ``all_reduce``'s latency and the ring schedules against
+    NCCL's collectives (see the module's docstring)."""
+
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.core import overlap
+    from repro_torch.core.communicator import world
+
+    comm = world(device_type=args.device)
+    rank = comm.rank()
+    word = torch.zeros(2, dtype=torch.float32, device=comm.device)
+    lat = []
+    for i in range(20 + TUNE_LATENCY_REPS):
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(word)
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        if i >= 20:   # after 20 warm calls
+            lat.append(time.perf_counter() - t0)
+    medians = [None] * WORLD
+    dist.all_gather_object(medians, statistics.median(lat))
+    rows, cols = TUNE_W_UP
+    gen = torch.Generator(device=comm.device).manual_seed(1000 + rank)
+    shard = torch.randn((rows // WORLD, cols), generator=gen, device=comm.device,
+                        dtype=torch.bfloat16)
+    grad = torch.randn((rows, cols), generator=gen, device=comm.device)
+    gathered = torch.empty((rows, cols), dtype=torch.bfloat16, device=comm.device)
+    scattered = torch.empty((rows // WORLD, cols), device=comm.device)
+    nccl_ag, nccl_ag_s = _timed(lambda: (dist.all_gather_into_tensor(gathered, shard),
+                                         gathered)[1], TUNE_RING_REPS, args.device)
+    ring_ag, ring_ag_s = _timed(lambda: overlap.ring_all_gather(comm, shard),
+                                TUNE_RING_REPS, args.device)
+    bidir, bidir_s = _timed(lambda: overlap.ring_all_gather_bidirectional(comm, shard),
+                            TUNE_RING_REPS, args.device)
+    nccl_rs, nccl_rs_s = _timed(lambda: (dist.reduce_scatter_tensor(scattered, grad),
+                                         scattered)[1], TUNE_RING_REPS, args.device)
+    ring_rs, ring_rs_s = _timed(lambda: overlap.ring_reduce_scatter(comm, grad),
+                                TUNE_RING_REPS, args.device)
+    # four fp32 terms summed in another order: apart by at most 3 roundings
+    # of partial sums no larger than the sum of the terms' magnitudes
+    mags = grad.abs()
+    dist.all_reduce(mags)
+    bound = 3 * 2.0 ** -23 * mags.narrow(0, rank * (rows // WORLD), rows // WORLD)
+    rs_err = float((ring_rs - nccl_rs).abs().max())
+    gb = rows * cols * 2 / 1e9
+    row = {
+        "all_reduce_8_bytes_median_s_by_rank": medians,
+        "collective_launch_s": statistics.median(medians),
+        "w_up": list(TUNE_W_UP), "shard": [rows // WORLD, cols],
+        "all_gather_bf16": {"nccl_s": nccl_ag_s, "ring_s": ring_ag_s,
+                            "ring_bidirectional_s": bidir_s, "gathered_gb": gb,
+                            "ring_equal": bool(torch.equal(ring_ag, nccl_ag)),
+                            "bidirectional_equal": bool(torch.equal(bidir, nccl_ag))},
+        "reduce_scatter_fp32": {"nccl_s": nccl_rs_s, "ring_s": ring_rs_s,
+                                "input_gb": 2 * gb, "max_abs_diff": rs_err,
+                                "within_rounding": bool(((ring_rs - nccl_rs).abs()
+                                                         <= bound).all())}}
+    out["tune_rings"] = row
+    chip_smoke.log(f"rank {rank} tune rings: " + json.dumps(row))
+    ag, rs = row["all_gather_bf16"], row["reduce_scatter_fp32"]
+    chip_smoke.check(ag["ring_equal"] and ag["bidirectional_equal"],
+                     f"tune rings: the ring gathers differ from NCCL's: {row}")
+    chip_smoke.check(rs["within_rounding"], f"tune rings: the ring reduce-scatter is {rs_err} "
+                                            f"from NCCL's, past fp32 rounding")
+
+
+def _tune_train(args, out) -> None:
+    """``train --plan auto`` for phi4-mini across the cards."""
+
+    import chip_smoke
+    from repro_torch import tune
+    from repro_torch.configs import base
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.faults import StragglerPolicy
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg, pcfg = _train_cfg(args)
+    targs = train._parser().parse_args(["--arch", "phi4_mini_3_8b", "--plan", "auto",
+                                        "--batch", str(args.batch), "--seq", str(args.seq),
+                                        "--device", args.device])
+    plan = train.resolve_plan(targs, cfg, WORLD)
+    shape = base.ShapeConfig(f"train_{args.seq}", args.seq, args.batch, "train")
+    predicted = tune.tune("phi4_mini_3_8b", shape, WORLD, config=cfg, register=False,
+                          space=base.plan_space("phi4_mini_3_8b"), device_type=args.device)
+    chip_smoke.check(predicted.plan == plan, f"tune train: {predicted.plan} against {plan}")
+    eager = plan.ring > 1 or plan.stage > 1
+    _reset(args.device)
+    t = Trainer(cfg, pcfg, TrainerConfig(steps=args.steps, lr=3e-4, log_every=1, plan=plan,
+                                         persistent=not eager),
+                make_host_communicator(device=args.device), seq_len=args.seq,
+                global_batch=args.batch,
+                straggler=StragglerPolicy(deadline_factor=float("inf")))
+    signal.alarm(TRAINER_RUN_LIMIT_S)
+    try:
+        result = t.run()
+    finally:
+        signal.alarm(0)
+    metrics = result["metrics"]
+    warm = sorted(m["duration_s"] for m in metrics[1:])[(len(metrics) - 1) // 2]
+    row = {"plan": plan.slug(), "candidates": predicted.n_candidates,
+           "predicted": predicted.score.as_dict(), "eager": eager,
+           "cart": list(t.comm.shape), "placed": t.placed, "batch": args.batch,
+           "seq": args.seq, "losses": [m["loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "step_s": [m["duration_s"] for m in metrics], "warm_step_s": warm,
+           "peak_gb": _peak(args.device),
+           "measured_over_predicted_step": warm / predicted.score.step_s}
+    if args.device == "cuda":
+        row["measured_over_predicted_peak"] = row["peak_gb"] * 1e9 / predicted.score.peak_bytes
+    out["tune_train"] = row
+    chip_smoke.log(f"rank {out['rank']} tune train: " + json.dumps(row))
+    chip_smoke.check(all(x == x for x in row["losses"]), f"tune train: {row}")
+    del t
+
+
+def _tune_serve(args, out) -> None:
+    """``serve --plan auto`` for qwen1.5-32b across the cards."""
+
+    import contextlib
+    import io
+
+    import torch
+
+    import chip_smoke
+    from repro_torch import tune
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+
+    arch = "qwen1_5_32b"
+    argv = ["--arch", arch, "--device", args.device, "--plan", "auto", "--requests", "2",
+            "--prompt-len", str(args.prompt_len), "--new-tokens", str(args.new_tokens)]
+    cfg = base.get_smoke_config(arch) if args.smoke else base.get_config(arch)
+    if args.smoke:
+        argv.append("--smoke")
+    predicted = tune.tune(arch, base.ShapeConfig(f"prefill_{args.prompt_len}", args.prompt_len,
+                                                 2, "prefill"),
+                          WORLD, config=cfg, register=False, space=base.plan_space(arch),
+                          device_type=args.device)
+    out["tune_serve"] = row = {"arch": arch, "plan": predicted.plan.slug(),
+                               "candidates": predicted.n_candidates,
+                               "predicted": predicted.score.as_dict(),
+                               "prompt_len": args.prompt_len}
+    _dump(out)   # the prediction stands should the serve fail
+    _reset(args.device)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        server, tokens, stats = serve.run(argv)
+    row.update(printed=printed.getvalue().strip(), grid=list(server.comm.shape),
+               placed=server.placed, tokens=tokens.tolist(),
+               prefill_s=stats["prefill_s"], tokens_per_s=stats["tokens_per_s"],
+               peak_gb=_peak(args.device),
+               tokens_equal_on_every_rank=_same_everywhere(
+                   torch.as_tensor(tokens, device=server.device)))
+    chip_smoke.log(f"rank {out['rank']} tune serve: " + json.dumps(row))
+    chip_smoke.check(row["tokens_equal_on_every_rank"], "tune serve: the ranks' tokens differ")
+    del server
+
+
 def _rank_main(args) -> int:
     import torch.distributed as dist
 
@@ -794,7 +1012,8 @@ def _rank_main(args) -> int:
     if args.part is not None:
         {"drill": _elastic_drill, "controls": _elastic_controls,
          "plans": lambda a, o: _train_plans(a, o, {}), "ring_prefill": _ring_prefill,
-         "engine": _engine}[args.part](args, out)
+         "engine": _engine, "tune_rings": _tune_rings, "tune_train": _tune_train,
+         "tune_serve": _tune_serve}[args.part](args, out)
     else:
         if not args.skip_serve:
             _serve_qwen(args, out)
@@ -830,6 +1049,17 @@ def main(argv=None) -> int:
            f"--nproc-per-node={WORLD}", __file__, *(argv if argv is not None else sys.argv[1:])]
     # the elastic parts run in processes of their own: a placed trainer that
     # followed the drill's in one process ran out of memory (PERF.md §7)
+    if args.tune and args.part is None:
+        # every part runs whatever the others did; their exit codes recorded
+        rcs = {}
+        for part in TUNE_PARTS:
+            rcs[part] = subprocess.run(cmd + ["--part", part], env=env, cwd=str(ROOT),
+                                       timeout=PART_LIMIT_S).returncode
+            path = ROOT / "artifacts" / "shard_ranks_tune.json"
+            path.parent.mkdir(exist_ok=True)
+            path.write_text(json.dumps({"exit_codes": rcs}, indent=1))
+        print(json.dumps({"tune_exit_codes": rcs}), flush=True)
+        return max(rcs.values())
     parts = (ELASTIC_PARTS if args.elastic else ()) + (PLACED_PARTS if args.ring_engine else ())
     for part in parts if args.part is None and parts else (None,):
         rc = subprocess.run(cmd + (["--part", part] if part else []), env=env,

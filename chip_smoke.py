@@ -256,8 +256,27 @@ any failure.  In order:
     the data-plan phase's, the winner's predicted step and peak beside the
     warm step and ``max_memory_allocated``; ``serve --plan auto`` for
     phi4-mini at full width and 8 layers, the winner ``d1``, tokens bit for
-    bit the plain server's, flash once a layer a prefill.  Then the two
-    plans that re-form the fabric, on the NCCL world of one:
+    bit the plain server's, flash once a layer a prefill.  Then ``dryrun``
+    (``phase_dryrun``): the dry run (``repro_torch.launch.dryrun``, its
+    stand-ins on the card's device type, nothing launched), each cell a
+    process of its own, one after another: phi4-mini
+    ``train_4k`` on the fake ``pod_16x16`` world (256 ranks; flash traced
+    as the custom op, collectives counted), the ``tune`` cell (b 2 x 2048,
+    one card, no remat) beside the tuner's prediction and the ``tune``
+    phase's measured peak and step, and qwen1.5-32b's 2 x 4096 prefill on
+    four cards as ``d4``, over the card, and on the grid of ``serve --plan
+    auto``'s winner, not ``d4`` and within the card (ROADMAP C22), each
+    one's trace time, peak a card against ``HBM_BYTES``, dominant term and
+    useful-flops ratio;
+    ``tune.load_calibration`` reads the pod artifact and the tuner's
+    calibrated step is printed.  Then ``analyze`` (``phase_analyze``),
+    under the ``analysis_recording`` cvar: phi4-mini at full width and 4
+    layers served with the int8 cache (flash and the quant kernels launch)
+    and 2 ``Trainer`` steps (one capture), 0 findings; a seeded start
+    fired while the previous start's future is unconsumed, exactly one
+    ``ERR_REQUEST``; a warm decode replay and an eager immediate allreduce
+    timed with recording on and off.
+    Then the two plans that re-form the fabric, on the NCCL world of one:
     ``train_phi4_mini_3_8b_ring``, the full phi4-mini with
     ``pcfg.ring_attention`` (a ring of one, which bypasses the rotation)
     through ``Trainer`` as above, the ring-step kernel launched exactly
@@ -291,6 +310,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -4266,6 +4286,296 @@ def phase_tune():
     return launches
 
 
+DRYRUN_ARCH = "phi4_mini_3_8b"
+#: qwen1.5-32b's serve at 2 x 4096 on four cards (ROADMAP C22)
+QWEN_SERVE = ("qwen1_5_32b", 4096, 2, 4)
+#: the dry run's cells, each a ``python -m repro_torch.launch.dryrun`` of
+#: its own (a process holds one fake world): the pod cell, the ``tune``
+#: phase's cell on a grid of one (the winner's remat, none) with the
+#: tuner's prediction, and qwen1.5-32b's 2 x 4096 prefill on four cards as
+#: ``d4`` (the plan C22 ran out of memory on) and on the grid ``serve --plan
+#: auto`` tunes (``_qwen_grid``)
+DRYRUN_CELLS = {
+    "pod": ["--arch", DRYRUN_ARCH, "--shape", "train_4k"],
+    "tune_cell": ["--arch", DRYRUN_ARCH, "--shape", f"train_{TRAIN_SEQ}", "--batch",
+                  str(TRAIN_BATCH), "--grid", "1x1", "--overrides", '{"remat": "none"}',
+                  "--plan", "auto"],
+    "qwen_d4": ["--arch", QWEN_SERVE[0], "--shape", f"prefill_{QWEN_SERVE[1]}", "--batch",
+                str(QWEN_SERVE[2]), "--grid", f"{QWEN_SERVE[3]}x1", "--plan", "data=4"],
+}
+DRYRUN_LIMIT_S = 300
+
+
+def _qwen_grid() -> str:
+    """``DxM`` of the grid ``serve --plan auto`` folds qwen1.5-32b's 2 x
+    4096 serve onto four cards (``launch/serve.py``)."""
+
+    from repro_torch import tune
+    from repro_torch.configs import base
+
+    arch, seq, batch, devices = QWEN_SERVE
+    plan = tune.search(base.get_config(arch), base.ShapeConfig(f"prefill_{seq}", seq, batch,
+                                                               "prefill"),
+                       devices, space=base.plan_space(arch),
+                       default_remat=base.get_parallel(arch).remat).plan
+    d, m = (plan.fold_dims() + (1,))[:2]
+    return f"{d}x{m}"
+
+
+def _dryrun_record(name: str, args: list, out: Path) -> dict:
+    """Run one cell of the dry run (host work on fake tensors: no kernel
+    launches, and only a CUDA context on the card) into ``out``; its
+    record."""
+
+    from repro_torch.launch import dryrun
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--device", "cuda",
+             "--artifacts", str(out)],
+            capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=DRYRUN_LIMIT_S)
+        rc, text = proc.returncode, proc.stdout + proc.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, text = None, f"{e.stdout or ''}{e.stderr or ''}"
+    check(rc == 0, f"dryrun {name}: exit {rc}\n{text[-3000:]}")
+    opt = dict(zip(args[::2], args[1::2]))
+    tag = dryrun.cell_tag(opt.get("--plan"), opt.get("--tag", ""))
+    rec = json.loads(dryrun.artifact_path(opt["--arch"], opt["--shape"], False, tag,
+                                          grid=opt.get("--grid"), artifacts=out).read_text())
+    check(rec["status"] == "ok", f"dryrun {name}: {rec}")
+    return rec
+
+
+def phase_dryrun():
+    """The dry run (``repro_torch.launch.dryrun``) with stand-ins on the
+    card's device type, each cell in a process of its own, one after
+    another: phi4-mini ``train_4k`` on the fake ``pod_16x16`` world (256
+    ranks): its trace time, peak a card against ``HBM_BYTES``, dominant term
+    and useful-flops ratio; phi4-mini at b ``TRAIN_BATCH`` x ``TRAIN_SEQ`` on
+    a grid of one (the ``tune`` phase's cell and plan): its traced peak and
+    compute term beside the tuner's prediction and the ``tune`` phase's
+    measured ``max_memory_allocated`` and warm step; and qwen1.5-32b's 2 x
+    4096 prefill on four cards as ``d4``, whose traced peak must exceed
+    ``HBM_BYTES`` as the tuner predicts, and on the grid of ``serve --plan
+    auto``'s winner, which must not be ``d4`` and whose traced peak must
+    fit the card (C22).  ``tune.load_calibration`` reads the pod artifact's
+    flops ratio from the run's directory, and the tuner's calibrated step
+    for the ``tune`` cell is printed beside the measured one.  No kernel
+    launches here."""
+
+    import tempfile
+
+    from repro_torch import tune
+    from repro_torch.configs import base
+    from repro_torch.core import tool
+
+    card = RESULTS["device"]["nvidia_smi"]
+    cells = dict(DRYRUN_CELLS)
+    cells["qwen_auto"] = ["--arch", QWEN_SERVE[0], "--shape", f"prefill_{QWEN_SERVE[1]}",
+                          "--batch", str(QWEN_SERVE[2]), "--grid", _qwen_grid(),
+                          "--plan", "auto"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build"))
+    recs = {name: _dryrun_record(name, args, out) for name, args in cells.items()}
+    pod, cell = recs["pod"], recs["tune_cell"]
+    qwen_d4, qwen = recs["qwen_d4"], recs["qwen_auto"]
+    for name, rec in recs.items():
+        log_row({"dryrun": name, "card": card, "mesh": rec["mesh"], "chips": rec["chips"],
+                 "trace_s": rec["trace_s"],
+                 "peak_gb_per_card": rec["memory"]["peak_bytes_per_device"] / 1e9,
+                 "peak_gb_by_category": {k: v / 1e9 for k, v
+                                         in rec["memory"]["peak_by_category"].items() if v},
+                 "hbm_gb": tool.HBM_BYTES / 1e9,
+                 "fits": rec["memory"]["peak_bytes_per_device"] <= tool.HBM_BYTES,
+                 "dominant": rec["roofline"]["dominant"],
+                 "useful_flop_ratio": rec["useful_flop_ratio"],
+                 "compute_s": rec["roofline"]["compute_s"],
+                 "memory_s": rec["roofline"]["memory_s"],
+                 "collective_s": rec["roofline"]["collective_s"],
+                 "kernels_traced": rec["roofline"]["kernels"],
+                 "plan": rec.get("plan_slug"),
+                 "predicted_peak_gb": (rec["predicted_roofline"]["peak_bytes"] / 1e9
+                                       if "predicted_roofline" in rec else None)})
+    check(pod["chips"] == 256 and pod["roofline"]["collectives"]["total_operand_bytes"] > 0,
+          f"dryrun pod: {pod['chips']} chips, no collectives")
+    check(pod["roofline"]["kernels"].get("repro_torch.flash_attention_fwd", 0) > 0,
+          f"dryrun pod: flash not traced: {pod['roofline']['kernels']}")
+    check(qwen_d4["plan_slug"] == "d4"
+          and qwen_d4["memory"]["peak_bytes_per_device"] > tool.HBM_BYTES
+          and not qwen_d4["predicted_roofline"]["fits"],
+          f"dryrun qwen d4: traced {qwen_d4['memory']}, predicted "
+          f"{qwen_d4['predicted_roofline']}")
+    check(qwen["plan_slug"] != "d4" and qwen["predicted_roofline"]["fits"]
+          and qwen["memory"]["peak_bytes_per_device"] <= tool.HBM_BYTES,
+          f"dryrun qwen: the tuned {qwen['plan_slug']} on {qwen['mesh']} traced "
+          f"{qwen['memory']}, predicted {qwen['predicted_roofline']}")
+    calib = tune.load_calibration(DRYRUN_ARCH, "train_4k", out)
+    check(calib.get("flops_scale") == 1.0 / pod["useful_flop_ratio"],
+          f"dryrun: calibration {calib} from ratio {pod['useful_flop_ratio']}")
+    cfg = base.get_config(DRYRUN_ARCH)
+    shape = base.ShapeConfig(f"train_{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = base.ParallelPlan(**cell["plan"])
+    calibrated = tune.score_plan(cfg, shape, plan, calibration=calib)
+    measured = RESULTS.get("tune", {}).get("train", {})
+    row = {
+        "card": card, "plan": cell["plan_slug"],
+        "calibration": calib,
+        "predicted_step_s": cell["predicted_roofline"]["step_s"],
+        "calibrated_step_s": calibrated.step_s,
+        "measured_warm_step_s": measured.get("warm_step_s"),
+        "predicted_peak_gb": cell["predicted_roofline"]["peak_bytes"] / 1e9,
+        "traced_peak_gb": cell["memory"]["peak_bytes_per_device"] / 1e9,
+        "measured_max_memory_allocated_gb": (measured["max_memory_allocated"] / 1e9
+                                             if measured else None),
+        "traced_compute_s": cell["roofline"]["compute_s"],
+        "traced_memory_s": cell["roofline"]["memory_s"],
+        "predicted_compute_s": cell["predicted_roofline"]["compute_s"],
+        "qwen": {rec["plan_slug"]: {"grid": rec["mesh"],
+                                    "predicted_peak_gb": rec["predicted_roofline"]["peak_bytes"]
+                                    / 1e9,
+                                    "traced_peak_gb": rec["memory"]["peak_bytes_per_device"]
+                                    / 1e9}
+                 for rec in (qwen_d4, qwen)},
+    }
+    log_row({"dryrun_tune_cell": row})
+    RESULTS["dryrun"] = {"cells": recs, "tune_cell": row}
+    return {}
+
+
+ANALYZE_LAYERS = 4
+ANALYZE_PROMPT = 2048
+ANALYZE_DECODE_REPS = 8
+ANALYZE_EAGER_REPS = 200
+
+
+def phase_analyze():
+    """The analyzer on the card, under ``analysis_recording``: the full-width
+    phi4-mini at ``ANALYZE_LAYERS`` layers served with the int8 cache (flash
+    and the quant kernels launch), then 2 ``Trainer`` steps at b
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (step 1 eager, step 2 captured): the
+    checkers find nothing in this rank's ledger.  Then one seeded defect, a
+    persistent start fired while the previous start's future is unconsumed:
+    exactly one finding, ``ERR_REQUEST``.  A warm decode step (the server's
+    graph replay, which runs no hook) is timed with recording on and off,
+    and so is an eager immediate allreduce and its ``get``, where the hooks
+    run."""
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis import checkers, events
+    from repro_torch.configs import base
+    from repro_torch.core import tool
+    from repro_torch.core.communicator import world
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    launches = {}
+    cfg = dataclasses.replace(base.get_config(DRYRUN_ARCH), num_layers=ANALYZE_LAYERS)
+    pcfg = dataclasses.replace(base.get_parallel(DRYRUN_ARCH), kv_cache_dtype="int8")
+    events.reset()
+    tool.cvar_set("analysis_recording", True)
+    try:
+        _reset_launches()
+        server = Server(cfg, pcfg, ServerConfig(max_batch=2, max_new_tokens=NEW_TOKENS),
+                        make_host_communicator(device="cuda"))
+        reqs = serve.requests(cfg, 2, ANALYZE_PROMPT)
+        tokens, stats = server.generate(reqs)
+        launches["analyze_serve"] = _launches()
+        _reset_launches()
+        trainer = _trainer(dataclasses.replace(cfg), base.get_parallel(DRYRUN_ARCH), "cuda",
+                           steps=2, seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+        result = trainer.run()
+        launches["analyze_train"] = _launches()
+        captured = trainer._request.captured
+        del trainer
+        _free()
+        recorded = len(events.ledger())
+        clean = checkers.run_all(events.merge([events.ledger()]))
+
+        # the seeded defect: start 2 fired while start 1's future is unconsumed
+        events.reset()
+        comm = world(device_type="cuda")
+        x = torch.ones(1024, device="cuda")
+        req = comm.persistent(lambda t: t * 2, x)
+        first = req.start(x)
+        req.start(x).get()
+        seeded = checkers.run_all(events.merge([events.ledger()]))
+        first.get()
+
+        # a warm decode step (the server's graph replay on a fresh prefill's
+        # cache: a capture, then ANALYZE_DECODE_REPS replays), recording on
+        # and off
+        batch, _ = server._pad_batch(reqs)
+        decode = {}
+        for on in (True, False):
+            tool.cvar_set("analysis_recording", on)
+            with torch.inference_mode():
+                logits, cache = server.bundle.prefill(server.params, batch, server.pcfg,
+                                                      extra_capacity=NEW_TOKENS)
+                tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1).to(torch.int32)
+                tok = tok[:, None]
+                req = server._decode_request(cache, tok)
+                req(server.params, cache, tok)
+                req(server.params, cache, tok)    # the capturing start
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ANALYZE_DECODE_REPS):
+                    req(server.params, cache, tok)
+                torch.cuda.synchronize()
+                decode["on" if on else "off"] = (time.perf_counter() - t0) / ANALYZE_DECODE_REPS
+                req.release()
+            del logits, cache
+
+        # what recording costs where its hooks run: an eager immediate
+        # allreduce (a hook at the call, one at its future's get), recording
+        # on and off, twice each; a replay runs no hook, so the decode times
+        # above are equal by construction
+        y = torch.ones(1024, device="cuda")
+        eager: dict = {"on": [], "off": []}
+        for on in (True, False, True, False):
+            tool.cvar_set("analysis_recording", on)
+            events.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ANALYZE_EAGER_REPS):
+                comm.immediate_allreduce(y).get()
+            torch.cuda.synchronize()
+            eager["on" if on else "off"].append((time.perf_counter() - t0) / ANALYZE_EAGER_REPS)
+    finally:
+        tool.cvar_set("analysis_recording", False)
+        events.reset()
+    del server
+    _free()
+    row = {"events": recorded, "findings": [str(f) for f in clean],
+           "seeded": [f.as_dict() for f in seeded],
+           "serve_tokens_per_s": stats["tokens_per_s"],
+           "train_losses": [m["loss"] for m in result["metrics"]], "captures": captured,
+           "decode_step_s_recording_on": decode["on"],
+           "decode_step_s_recording_off": decode["off"],
+           "eager_allreduce_us_recording_on": min(eager["on"]) * 1e6,
+           "eager_allreduce_us_recording_off": min(eager["off"]) * 1e6,
+           "launches": launches}
+    log_row({"analyze": row})
+    check(recorded > 0, "analyze: nothing recorded")
+    check(clean == [], f"analyze: findings on a clean run: {row['findings']}")
+    check([f.code.name for f in seeded] == ["ERR_REQUEST"], f"analyze: seeded {row['seeded']}")
+    check(captured == 1 and all(math.isfinite(m["loss"]) for m in result["metrics"]),
+          f"analyze: train {row['train_losses']}, {captured} captures")
+    check(launches["analyze_serve"]["flash_attention_fwd"] == ANALYZE_LAYERS
+          and launches["analyze_serve"][QUANT] > 0 and launches["analyze_serve"][DEQUANT] > 0,
+          f"analyze: serve launches {launches['analyze_serve']}")
+    RESULTS["analyze"] = row
+    return launches
+
+
 def _eager_train(cfg, pcfg) -> dict:
     """The reference for ``phase_train``'s graph steps: the same trainer's
     init and batches through ``make_train_step`` called eagerly,
@@ -4377,6 +4687,8 @@ def main() -> int:
     launches.update([_phase(phase_elastic)])
     launches.update(_phase(phase_train, *spec) for spec in TRAIN_FULL)
     launches.update(_phase(phase_tune))
+    _phase(phase_dryrun)
+    launches.update(_phase(phase_analyze))
     launches.update([_phase(phase_train, *TRAIN_FULL[0], ring=True),
                      _phase(phase_train_pipeline)])
     launches.update([_phase(phase_grad_sync)])

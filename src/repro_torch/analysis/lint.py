@@ -1,0 +1,192 @@
+"""The analyzer CLI — the CI gate, :mod:`repro.analysis.lint` for the port.
+
+    python -m repro_torch.analysis.lint --strict
+
+Two passes:
+
+1. **Static** — the source meta-checks (:mod:`repro_torch.analysis.static`)
+   over ``src/repro_torch``, ``chip_smoke.py`` and ``tools``: swallowed
+   ``except Exception`` handlers and unregistered pvar writes.
+2. **Dynamic** — every target runs in fresh processes, one a rank, with
+   the ``analysis_recording`` cvar on and ``pvar_strict(True)``.  Each rank
+   writes its ledger to a file of a temporary directory
+   (:func:`repro_torch.analysis.events.dump`); the parent merges the files
+   (:func:`~repro_torch.analysis.events.merge`) and runs
+   :func:`~repro_torch.analysis.checkers.run_all` over them.  Files, not a
+   gather: a run with mismatched collectives or a wait-for cycle may hang,
+   and that is what the checkers exist to report.  A target that does not
+   finish in time is a ``script-timeout`` finding (the ranks' files are
+   still checked), one that fails a ``script-failed`` finding, as in the
+   reference.
+
+**Port-only choice: the default targets.**  The reference's defaults are
+its ``examples/`` scripts, which are JAX programs the port cannot run.  The
+port's defaults (:data:`DEFAULT_TARGETS`) are its own CLIs at smoke size on
+the CPU: ``serve --smoke --device cpu`` on one rank, and ``train`` for 2
+steps on one rank and on two gloo ranks (``torch.distributed.run``).  A
+target given on the command line is a script path, run as the reference
+runs its examples, on ``--ranks`` ranks.
+
+``--strict`` exits non-zero on any finding; without it the lint only
+reports.  ``--no-run`` skips the dynamic pass (static checks only).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import runpy
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+from repro_torch.analysis.checkers import Finding
+from repro_torch.core.errors import ErrorClass
+
+ROOT = Path(__file__).resolve().parents[3]
+
+#: (ranks, arguments after ``python``) of the default dynamic targets: the
+#: port's CLIs at smoke size on the CPU.
+DEFAULT_TARGETS: tuple[tuple[int, tuple[str, ...]], ...] = (
+    (1, ("-m", "repro_torch.launch.serve", "--arch", "phi4_mini_3_8b", "--smoke",
+         "--device", "cpu", "--requests", "2", "--prompt-len", "16", "--new-tokens", "4")),
+    (1, ("-m", "repro_torch.launch.train", "--arch", "phi4_mini_3_8b", "--smoke",
+         "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "32")),
+    (2, ("-m", "repro_torch.launch.train", "--arch", "phi4_mini_3_8b", "--smoke",
+         "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "32")),
+)
+
+#: the file a rank writes its ledger to, in the target's directory
+LEDGER_FILE = "rank{rank}.jsonl"
+
+
+def _env() -> dict[str, str]:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env.setdefault("OMP_NUM_THREADS", "1")
+    return env
+
+
+def record(out_dir: str, argv: list[str]) -> int:
+    """Run one rank of a target under recording (``argv`` is ``-m module
+    ...`` or ``script ...``) and write its ledger to ``out_dir``; the
+    target's exit code."""
+
+    from repro_torch.analysis import events
+    from repro_torch.core import tool
+
+    tool.cvar_set("analysis_recording", True)
+    tool.pvar_strict(True)
+    rank = int(os.environ.get("RANK", "0"))
+    module = argv[0] == "-m"
+    target = argv[1] if module else argv[0]
+    sys.argv = [target] + argv[(2 if module else 1):]
+    rc = 0
+    try:
+        if module:
+            runpy.run_module(target, run_name="__main__", alter_sys=True)
+        else:
+            runpy.run_path(target, run_name="__main__")
+    except SystemExit as exc:
+        rc = int(exc.code or 0) if not isinstance(exc.code, str) else 1
+    finally:
+        events.dump(Path(out_dir) / LEDGER_FILE.format(rank=rank))
+    return rc
+
+
+def _command(ranks: int, argv: tuple[str, ...], out_dir: str) -> list[str]:
+    runner = ["-m", "repro_torch.analysis.lint", "--record", out_dir, "--", *argv]
+    if ranks == 1:
+        return [sys.executable, *runner]
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={ranks}", *runner]
+
+
+def lint_target(ranks: int, argv: tuple[str, ...], *, timeout: int = 900) -> list[Finding]:
+    """Run one target on ``ranks`` ranks under recording; the event-graph
+    findings over its ranks' merged ledgers."""
+
+    from repro_torch.analysis import checkers, events
+
+    subject = " ".join(argv) + (f" [{ranks} ranks]" if ranks > 1 else "")
+    findings: list[Finding] = []
+    with tempfile.TemporaryDirectory(prefix="repro_lint_") as out_dir:
+        try:
+            proc = subprocess.run(_command(ranks, argv, out_dir), capture_output=True,
+                                  text=True, env=_env(), timeout=timeout, cwd=str(ROOT))
+        except subprocess.TimeoutExpired:
+            findings.append(Finding(
+                ErrorClass.ERR_OTHER, "script-timeout",
+                f"did not finish within {timeout}s under recording", subject,
+            ))
+            proc = None
+        if proc is not None and proc.returncode != 0:
+            tail = proc.stderr.strip().splitlines()
+            findings.append(Finding(
+                ErrorClass.ERR_OTHER, "script-failed",
+                f"exited {proc.returncode}: {tail[-1] if tail else 'no stderr'}", subject,
+            ))
+        files = sorted(Path(out_dir).glob(LEDGER_FILE.format(rank="*")))
+        if len(files) < ranks and proc is not None and proc.returncode == 0:
+            findings.append(Finding(
+                ErrorClass.ERR_OTHER, "no-findings-channel",
+                f"{len(files)} of {ranks} ranks wrote a ledger", subject,
+            ))
+        merged = events.merge(events.load(f) for f in files)
+        for f in checkers.run_all(merged):
+            findings.append(Finding(f.code, f.check, f.message, f.subject or subject))
+    return findings
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["--record"]:
+        # one rank of a target (started by lint_target)
+        out_dir, rest = argv[1], argv[2:]
+        return record(out_dir, rest[1:] if rest[:1] == ["--"] else rest)
+
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.analysis.lint",
+        description="communication-correctness lint: static meta-checks + "
+                    "event-graph analysis of recorded runs",
+    )
+    ap.add_argument("paths", nargs="*", default=[],
+                    help="scripts to run under recording (default: the port's CLIs "
+                         "at smoke size on the CPU)")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="ranks each script given in paths runs on")
+    ap.add_argument("--strict", action="store_true",
+                    help="exit non-zero on any finding")
+    ap.add_argument("--no-run", action="store_true",
+                    help="static meta-checks only; skip running targets")
+    ap.add_argument("--static-paths", nargs="*",
+                    default=["src/repro_torch", "chip_smoke.py", "tools"],
+                    help="trees for the static meta-checks")
+    ap.add_argument("--timeout", type=int, default=900)
+    args = ap.parse_args(argv)
+
+    from repro_torch.analysis.static import run_static
+
+    findings = run_static([ROOT / p for p in args.static_paths])
+    if args.no_run:
+        targets: list = []
+    elif args.paths:
+        targets = [(args.ranks, (str(Path(p)),)) for p in args.paths]
+    else:
+        targets = list(DEFAULT_TARGETS)
+    for ranks, target in targets:
+        print(f"[lint] {' '.join(target)} ({ranks} rank{'s' if ranks > 1 else ''})",
+              flush=True)
+        findings.extend(lint_target(ranks, target, timeout=args.timeout))
+
+    for f in findings:
+        print(f"  {f}")
+    n = len(findings)
+    print(f"[lint] {len(targets)} target(s) analyzed, {n} finding(s)")
+    return 1 if (args.strict and n) else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -46,8 +46,9 @@ whole): the two packages restore each other's checkpoints either way.
   handle (and view) each;
 * an ``atexit`` hook joins the outstanding save.
 
-The reference's ``analysis_events`` recording of async saves waits for the
-analyzer's port (ROADMAP A15) and is left out.
+Under analysis recording an async save and its join are recorded, as the
+reference's are (an async save never joined is an ``unjoined-save``
+finding).
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.analysis import events as analysis_events
 from repro_torch.core import datatypes, errors, tool
 from repro_torch.core import io as pio
 from repro_torch.core.descriptors import Mode
@@ -295,6 +297,10 @@ class CheckpointManager:
 
         completion = pio.IORequest(f"ckpt[{step}] commit", drive)
         if self.async_save and comm is None:
+            if analysis_events.RECORDING:
+                # only async saves can dangle: a sync save joins inline below
+                analysis_events.record_ckpt("ckpt_save", id(self), step,
+                                            rank=analysis_events.process_rank())
             self._pending = completion
         else:
             completion._wait_value()
@@ -310,6 +316,9 @@ class CheckpointManager:
         req, self._pending = self._pending, None
         if req is None:
             return None
+        if analysis_events.RECORDING:
+            analysis_events.record_ckpt("ckpt_join", id(self),
+                                        rank=analysis_events.process_rank())
         if not req.valid():
             # caller consumed the returned request (get/then); only re-raise
             # a failure that was never delivered to anyone

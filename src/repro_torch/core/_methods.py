@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis import events
 from repro_torch.core import collectives, datatypes, overlap, tool
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.futures import (
@@ -57,8 +58,8 @@ _STARTS = {"send_recv": collectives.send_recv_start, "shift": collectives.shift_
 
 def _immediate(comm: Communicator, name: str, *a, **k) -> Future:
     if name in _STARTS:
-        return _STARTS[name](comm, *a, **k)
-    return Future(getattr(collectives, name)(comm, *a, **k))
+        return _STARTS[name](comm, *a, **k)._track(f"immediate_{name}")
+    return Future(getattr(collectives, name)(comm, *a, **k))._track(f"immediate_{name}")
 
 
 def _bind() -> None:
@@ -69,6 +70,10 @@ def _bind() -> None:
 
         def method(self, *a, _fn=fn, _name=name, **k):
             tool.pvar_count(_name)
+            if events.RECORDING and _name not in ("send_recv", "shift"):
+                # send_recv/shift record a p2p matching round in
+                # collectives.py instead (the deadlock checker's input)
+                events.record_collective(self, _name, a[0] if a else None, rank=self.rank())
             return _fn(self, *a, **k)
 
         method.__name__ = name
@@ -84,6 +89,8 @@ def _bind() -> None:
 
         def imethod(self, *a, _name=name, **k):
             tool.pvar_count(f"immediate_{_name}")
+            if events.RECORDING and _name not in ("send_recv", "shift"):
+                events.record_collective(self, _name, a[0] if a else None, rank=self.rank())
             return _immediate(self, _name, *a, **k)
 
         imethod.__name__ = f"immediate_{name}"
@@ -96,6 +103,8 @@ def _bind() -> None:
 
     def immediate_ring_allgather(self, x, *, axis=0):
         tool.pvar_count("immediate_ring_allgather")
+        if events.RECORDING:
+            events.record_collective(self, "ring_allgather", x, rank=self.rank())
         return overlap.immediate_all_gather(self, x, axis=axis)
 
     immediate_ring_allgather.__doc__ = (

@@ -32,6 +32,7 @@ from typing import Any, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import events as analysis_events
 from repro_torch.core import errors
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.descriptors import CollectiveSpec, ReduceOp, resolve
@@ -448,6 +449,10 @@ def send_recv_start(comm: Communicator, value: Any, perm: Sequence[tuple[int, in
         "a rank may send to at most one destination per send_recv",
     )
     me = comm.rank()
+    if analysis_events.RECORDING:
+        # the combined sendrecv form completes round-atomically — cycles are
+        # legal here; the deadlock checker only rejects mode="sync" rounds
+        analysis_events.record_p2p_round(comm, perm, mode="sendrecv", size=n, rank=me)
     return exchange(value, me=me,
                     src=next((s for s, d in perm if d == me), None),
                     dst=next((d for s, d in perm if s == me), None),

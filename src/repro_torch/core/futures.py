@@ -41,6 +41,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from repro_torch.analysis import events as analysis_events
 from repro_torch.core import errors, tool
 
 
@@ -116,12 +117,41 @@ def _sync(tree: Any) -> None:
 class Future:
     """Host-level future over queued (asynchronous) results; with ``works``
     (a sequence of ``torch.distributed`` work handles, possibly empty), a
-    request whose completion is that work's."""
+    request whose completion is that work's.
+
+    Under analysis recording, the futures a caller is handed for pending
+    communication (the immediate collectives, a persistent start, and the
+    chains and joins over them) carry a ledger token, so that the lifecycle
+    checker sees which were never consumed (``get()``, ``then()``,
+    :func:`when_all`) — the reference's ``TraceFuture`` bookkeeping."""
+
+    #: the ledger token of a tracked future (0: not tracked)
+    _token = 0
 
     def __init__(self, value: Any, works: Sequence | None = None):
         self._value = value
         self._works = None if works is None else list(works)
         self._valid = True
+
+    def _track(self, label: str) -> "Future":
+        """Record this future's creation in the analyzer's ledger (under
+        recording); returns it."""
+
+        if analysis_events.RECORDING:
+            self._token = analysis_events.next_token()
+            analysis_events.record_future_create(
+                self._token, label, rank=analysis_events.process_rank())
+        return self
+
+    def _consume(self, how: str) -> bool:
+        """Record the consumption of a tracked future; whether it was
+        tracked."""
+
+        token, self._token = self._token, 0
+        if token:
+            analysis_events.record_future_consume(
+                token, how, rank=analysis_events.process_rank())
+        return bool(token)
 
     def _complete(self) -> None:
         if self._works is None:
@@ -146,6 +176,7 @@ class Future:
 
         errors.check(self._valid, errors.ErrorClass.ERR_REQUEST, "future already consumed")
         self._valid = False
+        self._consume("get")
         return self._wait_value()
 
     def _wait_value(self) -> Any:
@@ -183,11 +214,14 @@ class Future:
         )
         result = fn(self)
         self._valid = False
+        tracked = self._consume("then")
         if result is self:
-            return Future(self._value, self._works)
-        if isinstance(result, Future):
-            return result
-        return Future(result)
+            out = Future(self._value, self._works)
+        elif isinstance(result, Future):
+            out = result
+        else:
+            out = Future(result)
+        return out._track("then") if tracked and not out._token else out
 
 
 class DeferredFuture(Future):
@@ -230,6 +264,7 @@ class DeferredFuture(Future):
             self._valid, errors.ErrorClass.ERR_REQUEST, "then() on a consumed future"
         )
         self._valid = False
+        tracked = self._consume("then")
         parent = self
 
         def resolver():
@@ -249,7 +284,8 @@ class DeferredFuture(Future):
 
         # no probe: the continuation only runs at wait, so completion is not
         # observable earlier
-        return DeferredFuture(resolver)
+        out = DeferredFuture(resolver)
+        return out._track("then") if tracked else out
 
 
 def when_all(futures: Sequence[Future]) -> Future:
@@ -269,21 +305,24 @@ def when_all(futures: Sequence[Future]) -> Future:
             f"when_all: future {i} already consumed",
         )
         seen.add(id(f))
+    tracked = False
     for f in futures:
         f._valid = False
+        tracked |= f._consume("when_all")
     if any(isinstance(f, DeferredFuture) for f in futures):
         # a join over in-flight host I/O stays lazy: waiting the join waits
         # every input (in order) and surfaces the first failure (ERR_IO from
         # a background write propagates, MPI_Waitall-style)
         inputs = tuple(futures)
-        return DeferredFuture(
+        out = DeferredFuture(
             lambda: tuple(f._wait_value() for f in inputs),
             probe=lambda: all(f.test() for f in inputs),
         )
-    values = tuple(f._value for f in futures)
-    if any(f._works is None for f in futures):
-        return Future(values)
-    return Future(values, [w for f in futures for w in f._works])
+    else:
+        values = tuple(f._value for f in futures)
+        out = (Future(values) if any(f._works is None for f in futures)
+               else Future(values, [w for f in futures for w in f._works]))
+    return out._track("when_all") if tracked else out
 
 
 def when_any(
@@ -473,6 +512,15 @@ class PersistentRequest:
         self._out: Any = None
         self._launches: dict[str, int] = {}
         self._previous: list = []    # weak references to the last start's leaves
+        # analysis bookkeeping: the last start()'s chained future, held
+        # weakly so the analyzer never extends buffer lifetimes
+        self._token = 0
+        self._last_future: weakref.ref | None = None
+        if analysis_events.RECORDING:
+            self._token = analysis_events.next_token()
+            analysis_events.record_persistent_init(
+                self._token, donated=bool(self.donate_argnums),
+                rank=analysis_events.process_rank())
         if warm_start:
             self._warm_start(leaves)
 
@@ -609,9 +657,20 @@ class PersistentRequest:
         """``MPI_Start``: fire the persistent operation; returns a host
         future, chained through any registered ``then()`` continuations."""
 
-        fut = Future(self(*args))
+        if analysis_events.RECORDING and self._token:
+            prev = self._last_future() if self._last_future else None
+            analysis_events.record_persistent_start(
+                self._token,
+                donated=bool(self.donate_argnums),
+                prev_outstanding=prev is not None and prev.valid(),
+                has_continuations=bool(self._continuations),
+                rank=analysis_events.process_rank(),
+            )
+        fut = Future(self(*args))._track("persistent_start")
         for fn in self._continuations:
             fut = fut.then(fn)
+        if analysis_events.RECORDING and self._token:
+            self._last_future = weakref.ref(fut)
         return fut
 
     def then(self, fn: Callable[[Future], Any]) -> "PersistentRequest":

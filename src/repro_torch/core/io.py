@@ -27,9 +27,8 @@ active per handle, ``ERR_REQUEST`` otherwise); ``MPI_File_set_view`` →
 
 Completion of the manifest write is the sync point; nonblocking operations
 complete at ``get()``/``wait()`` on their request, where a background
-failure is re-raised as ``ERR_IO``.  The reference's ``analysis_events``
-hooks (MUST-style recording of split collectives) wait for the analyzer's
-port, ROADMAP A15, and are left out here.
+failure is re-raised as ``ERR_IO``.  Under analysis recording the split
+collectives record their begin and end, as the reference's do.
 """
 
 from __future__ import annotations
@@ -49,6 +48,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis import events as analysis_events
 from repro_torch.core import datatypes, errors, tool
 from repro_torch.core.descriptors import FileSpec, Mode
 from repro_torch.core.futures import DeferredFuture
@@ -544,6 +544,9 @@ class File:
 
         self._check_split_free()
         tool.pvar_count("io_split_begin")
+        if analysis_events.RECORDING:
+            analysis_events.record_io_split("io_split_begin", str(self.path), name,
+                                            rank=analysis_events.process_rank())
         self._split = ("write", name, self.iwrite_at_all(name, array))
 
     def write_at_all_end(self, name: str) -> dict:
@@ -557,6 +560,9 @@ class File:
 
         self._check_split_free()
         tool.pvar_count("io_split_begin")
+        if analysis_events.RECORDING:
+            analysis_events.record_io_split("io_split_begin", str(self.path), name,
+                                            rank=analysis_events.process_rank())
         self._split = ("read", name, self.iread_at_all(name, device))
 
     def read_at_all_end(self, name: str) -> Any:
@@ -584,6 +590,9 @@ class File:
             f"{kind}_at_all_end({name!r}) does not match the active split "
             f"collective {k}_at_all({n!r})",
         )
+        if analysis_events.RECORDING:
+            analysis_events.record_io_split("io_split_end", str(self.path), name,
+                                            rank=analysis_events.process_rank())
         self._split = None
         return req.get()
 

@@ -45,9 +45,10 @@ written twice in one epoch), ``ERR_COUNT`` for a page out of range,
 lock/unlock is refused, as the reference refuses it; what transfers is the
 active-target (fence-epoch) subset.  The reference's ``fence_barrier`` is a
 program-order barrier, not a cross-rank one; its counterpart here is that
-a fence completes the epoch's works.  The reference's analyzer hooks
-(``analysis_events``, src/repro/core/onesided.py:49) are left out until
-``analysis/`` is ported (ROADMAP A15).
+a fence completes the epoch's works.  Under analysis recording a window
+records its fences, puts and page traffic, as the reference's does; a put
+is applied in the epoch it was issued in (the fence completes every request
+of its epoch), and the fence consumes the epoch's request futures.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from typing import Any, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import events as analysis_events
 from repro_torch.core import collectives, datatypes, errors, tool
 from repro_torch.core._methods import _LEAF_OPERANDS
 from repro_torch.core.communicator import Communicator
@@ -101,7 +103,10 @@ class Window:
         # the epoch's requests in issue order, each with the tensors its
         # sends read (held until the fence completes it)
         self._pending: list[tuple[Future, list]] = []
+        # monotonically increasing fence-epoch id; with the window token it
+        # lets the analyzer prove a put was applied in its issue epoch
         self._epoch_id = 0
+        self._win_token = analysis_events.next_token()
         # per-epoch write ledger: target rank -> page specs written (None =
         # the whole window); overlapping writes in one epoch are a data race
         self._writes: dict[int, list[tuple[int, int] | None]] = {}
@@ -176,6 +181,9 @@ class Window:
             )
         self._attached.update(ids)
         tool.pvar_add("rma_attach", len(ids))
+        if analysis_events.RECORDING:
+            analysis_events.record_rma_pages("rma_attach", self._win_token, len(ids),
+                                             rank=self.comm.rank())
         return self
 
     def detach(self, pages: Sequence[int]) -> "Window":
@@ -192,6 +200,9 @@ class Window:
             )
         self._attached.difference_update(ids)
         tool.pvar_add("rma_detach", len(ids))
+        if analysis_events.RECORDING:
+            analysis_events.record_rma_pages("rma_detach", self._win_token, len(ids),
+                                             rank=self.comm.rank())
         return self
 
     @property
@@ -271,9 +282,13 @@ class Window:
         while self._pending:
             fut, _sends = self._pending.pop(0)
             fut._complete()
+            fut._consume("fence")
         self._epoch_open = not self._epoch_open
         self._writes = {}
         self._epoch_id += 1
+        if analysis_events.RECORDING:
+            analysis_events.record_fence(self._win_token, self._epoch_id,
+                                         rank=self.comm.rank())
         return self
 
     def _check_epoch(self):
@@ -479,12 +494,19 @@ class Window:
             )
         return page
 
-    def _check_put(self, perm, page) -> tuple[int, int] | None:
+    def _check_put(self, perm, page, *, requested: bool) -> tuple[int, int] | None:
         self._check_epoch()
         self._validate_perm(perm, writes=True)
         page = self._resolve_page(page)
         self._check_attached(page)
         self._note_writes(perm, page)
+        if analysis_events.RECORDING:
+            rank = self.comm.rank()
+            analysis_events.record_rma_put(
+                self._win_token, self._epoch_id,
+                (d for _, d in perm), page, requested=requested, rank=rank)
+            analysis_events.record_rma_apply(
+                self._win_token, self._epoch_id, self._epoch_id, rank=rank)
         return page
 
     def put(
@@ -500,7 +522,7 @@ class Window:
         packed extent (leading axis for plain tensors); a bare ``page=i``
         divides by ``spec.num_pages``.  Returns once the put is complete."""
 
-        page = self._check_put(perm, page)
+        page = self._check_put(perm, page, requested=False)
         tool.pvar_count("rma_put")
         works, _sends = self._issue_put(value, perm, page)
         for w in works:
@@ -518,10 +540,10 @@ class Window:
         completes when the data is in the target's window (``get()``, a
         ``then()`` chain, or the closing :meth:`fence`)."""
 
-        page = self._check_put(perm, page)
+        page = self._check_put(perm, page, requested=True)
         tool.pvar_count("rma_rput")
         works, sends = self._issue_put(value, perm, page)
-        fut = Future(self.buffer, works)
+        fut = Future(self.buffer, works)._track("rput")
         self._pending.append((fut, sends))
         return fut
 

@@ -266,11 +266,19 @@ def _rank_device(device_type: str, rank: int, world: int) -> torch.device:
     return torch.device("cuda", rank % _local_world_size(world))
 
 
+#: The backend of ``torch.testing._internal.distributed.fake_pg``: a world
+#: of many ranks in one process whose collectives move nothing.  The dry run
+#: (:mod:`repro_torch.launch.dryrun`) initialises it as its fake cluster,
+#: and a session reads it as it reads any default group.
+FAKE_BACKEND = "fake"
+
+
 def process_world(device_type: str = "cuda") -> tuple[int, int]:
     """(rank, world size) of the default process group, initialising it if
     none exists: from ``RANK`` / ``WORLD_SIZE`` when set, otherwise a world
     of one over an in-process store.  A world of more than one rank must
-    run ``device_type``'s wire (NCCL for ``cuda``, gloo for ``cpu``)."""
+    run ``device_type``'s wire (NCCL for ``cuda``, gloo for ``cpu``), or be
+    the dry run's fake cluster (:data:`FAKE_BACKEND`)."""
 
     backend = BACKENDS[device_type]
     wire = {"cuda": "nccl", "cpu": "gloo"}[device_type]
@@ -284,8 +292,9 @@ def process_world(device_type: str = "cuda") -> tuple[int, int]:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
                                     timeout=GROUP_TIMEOUT)
     rank, world = dist.get_rank(), dist.get_world_size()
+    backend_name = str(dist.get_backend()).lower()
     errors.check(
-        world == 1 or wire in str(dist.get_backend()).lower(),
+        world == 1 or wire in backend_name or backend_name == FAKE_BACKEND,
         errors.ErrorClass.ERR_SESSION,
         f"a {device_type} session over {world} ranks needs the {wire} backend; the "
         f"default process group runs {dist.get_backend()}",

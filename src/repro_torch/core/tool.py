@@ -1,14 +1,24 @@
 """Tool interface (paper §II — MPI 4.0 chapter 15, ``MPI_T_``): the pvar/cvar
 registry of :mod:`repro.core.tool`, and its hardware model for the roofline
-with an NVIDIA H100's numbers in place of the TPU's.  Its HLO parsing
-(``parse_hlo_collectives``, ``CollectiveStats``, ``flops_and_bytes``,
-``roofline_terms``) reads XLA artifacts; only the dry run calls it, and it
-waits for that slice.
+with an NVIDIA H100's numbers in place of the TPU's.
+
+**Port-only choice: dispatch counts in place of HLO counts.**  The
+reference's roofline pvars come from a compiled XLA executable
+(``cost_analysis`` and the HLO text).  The port has no executable: its dry
+run (:mod:`repro_torch.launch.dryrun`) traces a step once on fake tensors
+under a ``__torch_dispatch__`` mode that counts, one aten op at a time and
+with no fusion, the op's flops (``torch.utils.flop_counter``'s formulas and
+the port's kernels' own), the bytes it reads and writes, and each
+collective's operand, result and wire bytes (:class:`CollectiveStats`).
+:func:`flops_and_bytes` and :func:`roofline_terms` keep the reference's
+names and return keys over that count.  The HLO text parser
+(``parse_hlo_collectives``) has no counterpart (ROADMAP A16).
 
 * **pvars** are call-site counters (``pvar_count`` / ``pvar_add``), with a
   documented registry (``PVARS``) and an optional strict mode that rejects
   writes to unregistered names.
-* **cvars** are a typed runtime configuration registry (error checking).
+* **cvars** are a typed runtime configuration registry (error checking,
+  the analyzer's event recording).
 * **the hardware model** (:data:`PEAK_FLOPS_BF16` and friends, the
   reference's names) and the ring algorithm's wire bytes
   (:func:`_wire_factor`): what the tuner (:mod:`repro_torch.tune`) scores
@@ -28,6 +38,7 @@ import threading
 from collections import Counter, defaultdict
 from typing import Any, Callable, Iterator
 
+from repro_torch.analysis import events as analysis_events
 from repro_torch.core import errors
 
 # --------------------------------------------------------------------------
@@ -64,6 +75,84 @@ COLLECTIVE_KINDS = (
     "collective-permute",
     "collective-broadcast",
 )
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """Aggregated collective pvars for one traced step (per device)."""
+
+    count: dict[str, int] = dataclasses.field(default_factory=lambda: defaultdict(int))
+    operand_bytes: dict[str, float] = dataclasses.field(
+        default_factory=lambda: defaultdict(float)
+    )
+    result_bytes: dict[str, float] = dataclasses.field(
+        default_factory=lambda: defaultdict(float)
+    )
+    wire_bytes: dict[str, float] = dataclasses.field(
+        default_factory=lambda: defaultdict(float)
+    )
+
+    @property
+    def total_operand_bytes(self) -> float:
+        return float(sum(self.operand_bytes.values()))
+
+    @property
+    def total_wire_bytes(self) -> float:
+        return float(sum(self.wire_bytes.values()))
+
+    @property
+    def total_count(self) -> int:
+        return int(sum(self.count.values()))
+
+    def as_dict(self) -> dict[str, Any]:
+        return {
+            "count": dict(self.count),
+            "operand_bytes": dict(self.operand_bytes),
+            "result_bytes": dict(self.result_bytes),
+            "wire_bytes": dict(self.wire_bytes),
+            "total_operand_bytes": self.total_operand_bytes,
+            "total_wire_bytes": self.total_wire_bytes,
+        }
+
+
+def flops_and_bytes(counted) -> tuple[float, float]:
+    """(flops, bytes accessed) of one traced step on one device: ``counted``
+    is the dry run's dispatch count (:class:`repro_torch.launch.dryrun.
+    DispatchCount`, with ``flops`` and ``bytes``), where the reference reads
+    an executable's ``cost_analysis``."""
+
+    return float(counted.flops), float(counted.bytes)
+
+
+def roofline_terms(
+    counted,
+    *,
+    chips: int = 1,
+    peak_flops: float = PEAK_FLOPS_BF16,
+    hbm_bw: float = HBM_BANDWIDTH,
+    link_bw: float = ICI_BANDWIDTH,
+) -> dict[str, Any]:
+    """The three roofline terms (seconds) for one traced step, the
+    reference's keys.  ``counted`` is the dry run's dispatch count of one
+    device's step (``flops``, ``bytes`` and ``collectives``, a
+    :class:`CollectiveStats`); ``chips`` divides, for whole-model
+    analyses, as in the reference."""
+
+    flops, bytes_accessed = flops_and_bytes(counted)
+    colls = counted.collectives
+    terms = {
+        "compute_s": flops / (chips * peak_flops),
+        "memory_s": bytes_accessed / (chips * hbm_bw),
+        "collective_s": colls.total_operand_bytes / (chips * link_bw),
+        "collective_wire_s": colls.total_wire_bytes / (chips * link_bw),
+        "hlo_flops": flops,
+        "hlo_bytes": bytes_accessed,
+        "collectives": colls.as_dict(),
+    }
+    terms["dominant"] = max(
+        ("compute_s", "memory_s", "collective_s"), key=lambda k: terms[k]
+    )
+    return terms
 
 
 def _wire_factor(kind: str, n: int) -> float:
@@ -143,6 +232,16 @@ cvar_register(
     True,
     "argument validation (the paper's compile-time macro)",
     on_set=errors.set_error_checking,
+)
+
+cvar_register(
+    "analysis_recording",
+    bool,
+    False,
+    "record communication events into the repro_torch.analysis ledger "
+    "(MUST-style event-graph lint; off by default — disabled cost is one "
+    "module-attribute read per call site)",
+    on_set=analysis_events.set_recording,
 )
 
 

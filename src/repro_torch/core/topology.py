@@ -35,9 +35,11 @@
   from the reference; :func:`serving_fanout_graph` builds the graph over a
   serving bridge.
 
-The reference's analyzer hooks (``analysis_events``) are left out until
-its ``analysis/`` package is ported (ROADMAP A15); ``cart_refold`` comes
-with elastic epochs (A15).
+Under analysis recording every exchange records its matching rounds, as
+the reference's do, each rank its own part (:mod:`repro_torch.analysis.
+events`): the generic engine one round a table, a shift exchange its
+dimension's round over the whole grid, :func:`fanout_rounds` the rounds
+it splits.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis import events as analysis_events
 from repro_torch.core import collectives, datatypes, errors, tool
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.futures import (
@@ -347,6 +350,9 @@ class _NeighborComm(Communicator):
         me, ranks, group = self._member_rank(), self.global_ranks(), self.process_group()
         parts = []
         for out_slot, in_slot, perm in self._round_tables():
+            if analysis_events.RECORDING:
+                analysis_events.record_p2p_round(
+                    self, perm, mode="sendrecv", op="neighbor_exchange", rank=me)
             src = next((s for s, d in perm if d == me), None)
             dst = next((d for s, d in perm if s == me), None)
             if src is None and dst is None:
@@ -598,6 +604,11 @@ class CartComm(_NeighborComm):
         shift = self.cart_shift(dim, disp)
         me = self._member_rank()
         src, dst = shift.sources[me], shift.destinations[me]
+        if analysis_events.RECORDING:
+            # the dimension's round over the whole grid, in member ranks
+            perm = [(r, int(d)) for r, d in enumerate(shift.destinations) if d != PROC_NULL]
+            analysis_events.record_p2p_round(
+                self, perm, mode="sendrecv", op=f"cart_shift[{dim}]", rank=me)
         return collectives.exchange(
             value, me=me, src=None if src == PROC_NULL else src,
             dst=None if dst == PROC_NULL else dst,
@@ -1014,6 +1025,12 @@ def fanout_rounds(
                 break
         else:
             rounds.append([(int(src), int(dst))])
+    if analysis_events.RECORDING and rounds:
+        size = 1 + max(max(s, d) for rnd in rounds for s, d in rnd)
+        rank = analysis_events.process_rank()
+        for rnd in rounds:
+            analysis_events.record_p2p_round(
+                "fanout", rnd, mode="sendrecv", op="fanout_round", size=size, rank=rank)
     return rounds
 
 

@@ -9,7 +9,11 @@ Nothing is built when this module is imported.
 
 :func:`flash_attention_fwd` takes CUDA tensors only, launches on the current
 stream and counts its launches in :data:`LAUNCHES`; a build or launch
-failure raises.  The values may be narrower than the queries and keys
+failure raises.  The launch is the CUDA implementation of the custom op
+``torch.ops.repro_torch.flash_attention_fwd`` (:mod:`repro_torch.kernels.
+registry`): on fake tensors it gives the output's shape, the reference
+kernel's flops (its 512 x 512 tiles, the causal skip included) and bytes,
+and launches nothing.  The values may be narrower than the queries and keys
 (``dv <= d``, MLA's).  bf16 inputs run on the tensor cores, their tiles copied by
 TMA and 16-byte cp.async copies, so each of q, k and v must have contiguous
 rows on 16-byte boundaries (:func:`check_copyable`); fp32 inputs run on the
@@ -23,9 +27,11 @@ import math
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import errors, tool
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, registry
+from repro_torch.kernels.registry import attention_tiles
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 MAX_HEAD_DIM = 256
@@ -139,6 +145,10 @@ def flash_attention_fwd(
     h % hk == 0, any strides.  → contiguous (b, sq, h, dv) in q's dtype
     (bf16 or fp32)."""
 
+    return _FLASH_OP(q, k, v, causal, sliding_window, prefix_len, logit_softcap, scale)
+
+
+def _launch(q, k, v, causal, sliding_window, prefix_len, logit_softcap, scale):
     _check_inputs(q, k, v)
     errors.check(
         sliding_window is None or sliding_window >= 1,
@@ -182,3 +192,27 @@ def flash_attention_fwd(
         )
     _count_launch()
     return out
+
+
+def _fake(q, k, v, causal, sliding_window, prefix_len, logit_softcap, scale):
+    b, sq, h, _ = q.shape
+    return q.new_empty((b, sq, h, v.shape[3]))
+
+
+_FLASH_OP = registry.define(
+    "flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int? sliding_window, int? prefix_len, "
+    "float? logit_softcap, float? scale) -> Tensor", _launch, _fake)
+
+
+@register_flop_formula(_FLASH_OP)
+def _flash_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwargs) -> int:
+    """The reference kernel's two matmuls over the tiles it computes."""
+
+    b, sq, h, d = q_shape
+    sk, dv = k_shape[1], v_shape[3]
+    bq, bk = min(512, sq), min(512, sk)
+    return attention_tiles(sq, sk, causal) * b * h * 2 * bq * bk * (d + dv)
+
+
+registry.register_bytes_formula(_FLASH_OP)(registry.read_once_write_once)

@@ -43,9 +43,10 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import errors, tool
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, registry
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quant_int8.cu"
 #: The widest row the warp and vector bodies take; wider rows take the wide body.
@@ -133,8 +134,14 @@ def _launch(symbol: str, args: tuple, device: torch.device, what: str) -> None:
 
 def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (rows, width) fp32 or bf16 → (int8 (rows, width), fp32 scales
-    (rows, 1)), one launch of :func:`quant_body`'s choice."""
+    (rows, 1)), one launch of :func:`quant_body`'s choice: the CUDA
+    implementation of the op ``torch.ops.repro_torch.quantize_int8_rows``
+    (:mod:`repro_torch.kernels.registry`)."""
 
+    return _QUANTIZE_OP(x)
+
+
+def _quantize(x):
     _check_rows("x", x, _DTYPE_CODES)
     rows, width = x.shape
     q = torch.empty((rows, width), dtype=torch.int8, device=x.device)
@@ -151,8 +158,13 @@ def dequantize_int8_rows(
     q: torch.Tensor, s: torch.Tensor, out_dtype=torch.float32
 ) -> torch.Tensor:
     """(int8 (rows, width), fp32 (rows, 1)) → ``q·s`` in ``out_dtype`` (fp32
-    or bf16), one launch."""
+    or bf16), one launch: the op ``torch.ops.repro_torch.
+    dequantize_int8_rows``."""
 
+    return _DEQUANTIZE_OP(q, s, out_dtype)
+
+
+def _dequantize(q, s, out_dtype):
     _check_rows("q", q, (torch.int8,))
     errors.check(
         s.is_cuda and s.device == q.device and s.dtype == torch.float32
@@ -173,3 +185,42 @@ def dequantize_int8_rows(
              rows, width, q.stride(0)),
             q.device, f"q {tuple(q.shape)} → {out_dtype}")
     return out
+
+
+def _quantize_fake(x):
+    rows, width = x.shape
+    return (x.new_empty((rows, width), dtype=torch.int8),
+            x.new_empty((rows, 1), dtype=torch.float32))
+
+
+def _dequantize_fake(q, s, out_dtype):
+    return q.new_empty(tuple(q.shape), dtype=out_dtype)
+
+
+_QUANTIZE_OP = registry.define("quantize_int8_rows", "(Tensor x) -> (Tensor, Tensor)",
+                               _quantize, _quantize_fake)
+_DEQUANTIZE_OP = registry.define("dequantize_int8_rows",
+                                 "(Tensor q, Tensor s, ScalarType out_dtype) -> Tensor",
+                                 _dequantize, _dequantize_fake)
+
+
+@register_flop_formula(_QUANTIZE_OP)
+def _quantize_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
+    """The reference kernel's work an element: its absolute value into the
+    row's maximum, and the scaling (rounding and clipping are not
+    counted)."""
+
+    rows, width = x_shape
+    return 2 * rows * width
+
+
+@register_flop_formula(_DEQUANTIZE_OP)
+def _dequantize_flops(q_shape, *args, out_shape=None, **kwargs) -> int:
+    """One multiply an element."""
+
+    rows, width = q_shape
+    return rows * width
+
+
+for _op in (_QUANTIZE_OP, _DEQUANTIZE_OP):
+    registry.register_bytes_formula(_op)(registry.read_once_write_once)

@@ -10,7 +10,10 @@ module is imported.
 :func:`ring_step_fwd` dispatches on where the tensors lie: a CPU tensor
 runs the plain twin (``ref.ring_step_ref``), a CUDA tensor launches the
 kernel — on the current stream, counted in :data:`LAUNCHES` — or raises.
-On the card the carry is updated in place and returned.  The kernel shares
+On the card the carry is updated in place and returned; the launch is
+the CUDA implementation of the op ``torch.ops.repro_torch.
+ring_step_fwd``, which mutates the carry (:mod:`repro_torch.kernels.
+registry`).  The kernel shares
 the flash kernel's tile body: bf16 q, k and v run on the tensor cores and
 must have contiguous rows on 16-byte boundaries
 (``flash_attention.kernel.check_copyable``); fp32 ones run on the CUDA
@@ -24,9 +27,10 @@ import math
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import errors, tool
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, registry
 from repro_torch.kernels.flash_attention.kernel import check_copyable
 from repro_torch.kernels.ring_attention import ref as _ref
 
@@ -122,7 +126,7 @@ def _check_inputs(q, k, v, m, l, acc, info) -> None:
     )
 
 
-def _launch(q, k, v, m, l, acc, info, scale: float, causal: bool) -> None:
+def _launch(q, k, v, m, l, acc, info, scale, causal) -> None:
     _check_inputs(q, k, v, m, l, acc, info)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -180,5 +184,43 @@ def ring_step_fwd(
         q_off, k_off, n_valid = (int(x) for x in info.tolist())
         return _ref.ring_step_ref(q, k, v, m, l, acc, q_offset=q_off, k_offset=k_off,
                                   kv_len=n_valid, scale=scale, causal=causal)
-    _launch(q, k, v, m, l, acc, info, scale, causal)
+    _RING_STEP_OP(q, k, v, m, l, acc, info, float(scale), causal)
     return m, l, acc
+
+
+def _fake(q, k, v, m, l, acc, info, scale, causal):
+    return None
+
+
+_RING_STEP_OP = registry.define(
+    "ring_step_fwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor(a!) m, Tensor(b!) l, Tensor(c!) acc, Tensor info, "
+    "float scale, bool causal) -> ()", _launch, _fake)
+
+
+@register_flop_formula(_RING_STEP_OP, get_raw=True)
+def _ring_step_flops(q, k, v, m, l, acc, info, scale, causal, *args, out_val=None,
+                     **kwargs) -> int:
+    """The reference kernel's two matmuls over the tiles it computes.  Its
+    causal skip depends on the offsets in ``info``: read when ``info`` holds
+    values, every tile counted when it is a fake tensor (no values)."""
+
+    from torch._subclasses.fake_tensor import is_fake
+
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if causal and not is_fake(info):
+        q_off, k_off, _ = (int(x) for x in info.tolist())
+        tiles = registry.attention_tiles(sq, sk, True, q_offset=q_off, k_offset=k_off)
+    else:
+        tiles = registry.attention_tiles(sq, sk, False)
+    bq, bk = min(512, sq), min(512, sk)
+    return tiles * b * h * 2 * bq * bk * (d + v.shape[3])
+
+
+@registry.register_bytes_formula(_RING_STEP_OP)
+def _ring_step_bytes(args, kwargs, out) -> int:
+    """q, k and v read; the carry (m, l, acc) read and written in place."""
+
+    q, k, v, m, l, acc = args[:6]
+    return registry.tensor_bytes((q, k, v)) + 2 * registry.tensor_bytes((m, l, acc))

@@ -18,9 +18,10 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import errors, tool
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, registry
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan_fwd.cu"
 MAX_HEAD_DIM = 64  # the kernel's PMAX: mamba2 and zamba2 have p 64
@@ -115,8 +116,17 @@ def ssd_scan_fwd(
     (b, l, h, p) in x's dtype, and with ``return_state`` also the fp32
     final state (b, h, p, n) from the same launch.  ``chunk`` is held to
     the reference's contract (``l % chunk == 0``); the kernel's own tile is
-    64 rows, which gives the same result."""
+    64 rows, which gives the same result.  The launch is the CUDA
+    implementation of the op ``torch.ops.repro_torch.ssd_scan_fwd``
+    (:mod:`repro_torch.kernels.registry`)."""
 
+    y, state = _SSD_OP(x, dt, A, B, C, chunk, return_state)
+    return (y, state) if return_state else y
+
+
+def _launch(x, dt, A, B, C, chunk, return_state):
+    # (y, state); without return_state the state is empty (an op returns a
+    # fixed structure)
     _check_inputs(x, dt, A, B, C)
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -127,14 +137,14 @@ def ssd_scan_fwd(
     )
     A = A.contiguous()
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
-    state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-             if return_state else None)
+    state = torch.empty((b, h, p, n) if return_state else (0,), dtype=torch.float32,
+                        device=x.device)
     entry = LIBRARY.entry("ssd_scan_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = entry(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), state.data_ptr() if state is not None else None,
+            y.data_ptr(), state.data_ptr() if return_state else None,
             _DTYPE_CODES[x.dtype], b, l, h, g, p, n,
             *x.stride(), *dt.stride(), *B.stride(), *C.stride(),
             stream,
@@ -146,7 +156,36 @@ def ssd_scan_fwd(
             f"(x {tuple(x.shape)} {x.dtype}, B {tuple(B.shape)})",
         )
     _count_launch()
-    return (y, state) if return_state else y
+    return y, state
+
+
+def _fake(x, dt, A, B, C, chunk, return_state):
+    b, l, h, p = x.shape
+    n = B.shape[3]
+    return (x.new_empty((b, l, h, p)),
+            x.new_empty((b, h, p, n) if return_state else (0,), dtype=torch.float32))
+
+
+_SSD_OP = registry.define(
+    "ssd_scan_fwd",
+    "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, int chunk, bool return_state) "
+    "-> (Tensor, Tensor)", _launch, _fake)
+
+
+@register_flop_formula(_SSD_OP)
+def _ssd_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk, *args,
+               out_shape=None, **kwargs) -> int:
+    """The reference kernel's four matmuls a (batch, head, chunk) step:
+    ``C Bᵀ``, ``(C Bᵀ ⊙ L) X``, the carried state into the chunk
+    (``C H``) and the chunk into the state (``Bᵀ X``)."""
+
+    b, l, h, p = x_shape
+    n = B_shape[3]
+    c = chunk
+    return b * h * (l // c) * (2 * c * c * n + 2 * c * c * p + 4 * c * n * p)
+
+
+registry.register_bytes_formula(_SSD_OP)(registry.read_once_write_once)
 
 
 def launch_shape(dtype: torch.dtype, n: int) -> dict:

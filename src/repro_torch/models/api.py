@@ -5,12 +5,20 @@ reference: ``dense``, ``moe`` and ``vlm`` (the transformer trunk), ``ssm``,
 The loss, prefill and decode entry points run under DTensor's implicit
 replication (:func:`repro_torch.sharding.local.implicit_replication`), so
 that on placed parameters the plain tensors they make (positions, masks,
-indices) count as replicated."""
+indices) count as replicated.
+
+:func:`param_structs` and :func:`cache_structs` are the reference's
+``eval_shape`` stand-ins: the bundle's ``init`` and ``init_cache`` run under
+``FakeTensorMode``, so the stand-ins are fake tensors (shape, dtype and
+device, no storage) and nothing is allocated — the dry run's substrate."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.core import errors
 from repro_torch.models import encdec, ssm_lm, transformer
@@ -94,3 +102,67 @@ def _build(cfg) -> ModelBundle:
         f"model family {fam!r} ({cfg.name}) is not a family of the reference; "
         f"the port serves the dense, moe, vlm, ssm, hybrid and encdec families",
     )
+
+
+# ---------------------------------------------------------------------------
+# shape-only helpers (dry-run substrate: no allocation, fake tensors)
+# ---------------------------------------------------------------------------
+
+
+def fake_mode() -> FakeTensorMode:
+    """The fake-tensor mode for stand-ins: the active one, else a new one
+    whose tensors may be mixed with plain ones (a position table, a mask)
+    in a traced step."""
+
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() or FakeTensorMode(allow_non_fake_inputs=True)
+
+
+def _on(tree: Any, device) -> Any:
+    """Stand-ins of ``tree``'s tensors on ``device`` (a stand-in has no
+    values to move: each is made anew there)."""
+
+    if isinstance(tree, torch.Tensor):
+        if tree.device == device:
+            return tree
+        return torch.empty_strided(tuple(tree.shape), tree.stride(), dtype=tree.dtype,
+                                   device=device)
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on(v, device) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _on(getattr(tree, f.name), device) for f in dataclasses.fields(tree)})
+    return tree
+
+
+def param_structs(bundle: ModelBundle, device="cpu", mode: FakeTensorMode | None = None) -> Any:
+    """Parameter stand-ins on ``device`` (``"cuda"`` needs no card): the
+    bundle's ``init`` under ``FakeTensorMode``, never materialised.  The
+    draw runs on the CPU generator and the stand-ins move to ``device``."""
+
+    with mode or fake_mode():
+        with torch.no_grad():
+            params = bundle.init(torch.Generator().manual_seed(0))
+        return _on(params, torch.device(device))
+
+
+def cache_structs(bundle: ModelBundle, pcfg, batch: int, length: int,
+                  enc_len: int | None = None, device="cpu",
+                  mode: FakeTensorMode | None = None) -> Any:
+    """Cache stand-ins for decode dry runs (an encoder-decoder's from a
+    prefill of stand-in parameters over ``enc_len`` frames)."""
+
+    with mode or fake_mode(), torch.no_grad():
+        if bundle.cfg.family == "encdec":
+            params = param_structs(bundle, device)
+            b = {
+                "frames": torch.zeros((batch, enc_len or length, bundle.cfg.d_model),
+                                      dtype=torch.bfloat16, device=device),
+                "tokens": torch.zeros((batch, length), dtype=torch.int32, device=device),
+            }
+            _, cache = bundle.prefill(params, b, pcfg)
+            return cache
+        return bundle.init_cache(pcfg, batch, length, torch.device(device))

@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 Params = dict[str, Any]
 
@@ -32,6 +33,10 @@ def dtype_of(cfg) -> torch.dtype:
 
 def _draw(gen: torch.Generator, shape, stddev: float) -> torch.Tensor:
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if is_fake(x):
+        # a shape stand-in (``models/api.param_structs``): the truncation's
+        # redraw loop reads values, which a fake tensor has none of
+        return x
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return x.mul_(stddev)
 

@@ -20,7 +20,6 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp, transformer
 from repro_torch.models.attention import KVCache
@@ -75,10 +74,9 @@ def _self_attention(p, h, cfg, pcfg, positions, *, causal):
     v = attn._proj(h, p["wv"])
     q = common.rope(q, positions, theta=cfg.rope_theta)
     k = common.rope(k, positions, theta=cfg.rope_theta)
-    out = fa_ops.flash_attention(
-        q, k, v, causal=causal, scale=1.0 / math.sqrt(cfg.head_dim),
-        impl=getattr(pcfg, "attn_impl", "ref"),
-    )
+    # on placed heads the kernel runs on this rank's shards (``local_map``):
+    # the custom op has no sharding rule of its own (ROADMAP C25)
+    out = attn._flash(q, k, v, pcfg, causal=causal, scale=1.0 / math.sqrt(cfg.head_dim))
     return attn._out(out, p["wo"])
 
 

@@ -398,6 +398,26 @@ def moe_neighbor(
     return y, aux
 
 
+class _GradPlacedAs(torch.autograd.Function):
+    """The identity, whose backward hands on the gradient split as the input
+    was (replicated where the input was a partial sum; a plain tensor's as
+    it comes)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placed = None
+        if is_dtensor(x):
+            ctx.placed = (x.device_mesh, tuple(Replicate() if pl.is_partial() else pl
+                                               for pl in x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.placed is not None and is_dtensor(g) and tuple(g.placements) != ctx.placed[1]:
+            g = g.redistribute(*ctx.placed)
+        return g
+
+
 def moe(
     p: common.Params, x: torch.Tensor, cfg, *, capacity: int | None = None, pcfg=None
 ) -> tuple[torch.Tensor, dict]:
@@ -410,7 +430,10 @@ def moe(
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.moe_top_k
     t = b * s
-    xt = x.reshape(t, d)
+    # the token rows' gradient may come back split over more ranks than
+    # the batch rows divide: it returns to the rows' placement before the
+    # (b, s) merge's backward splits it (ROADMAP C24)
+    xt = _GradPlacedAs.apply(x.reshape(t, d))
     logits, probs, top_p, top_e = _route(p, xt, k)           # (t, k)
     if capacity is None:
         capacity = _round_up(int(cfg.capacity_factor * t * k / e) or 1, 8)

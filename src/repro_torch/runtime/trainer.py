@@ -426,14 +426,27 @@ def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def state_specs(params, opt_state, mesh_shape: dict, pcfg, pspecs=None):
-    """The optimizer state's specs: a moment inherits the spec of the first
-    parameter of its shape, as the reference's ``_state_shardings`` does;
-    an int8 moment's scales are split as its payload's rows (the reference
-    replicates them); the rest is replicated.  ``pspecs`` are the
-    parameters' specs (by default ``rules.param_specs``)."""
+    """The optimizer state's specs: a moment inherits the spec of its own
+    parameter; an int8 moment's scales are split as its payload's rows (the
+    reference replicates them); the rest is replicated.  ``pspecs`` are the
+    parameters' specs (by default ``rules.param_specs``).
+
+    Port-only (ROADMAP C23, not shared): the reference's
+    ``_state_shardings`` gives a moment the sharding of the first parameter
+    of its shape, which XLA reshards where two parameters of one shape are
+    split differently (deepseek-v2's); the port's AdamW updates on matching
+    shards and refused such a moment, so a moment follows its parameter by
+    path.  Other leaves of a state without ``mu``/``nu`` inherit by shape."""
 
     if pspecs is None:
         pspecs = rules.param_specs(params, mesh_shape, pcfg)
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return dataclasses.replace(
+            opt_state, **{f.name: (_moment_specs_by_path(getattr(opt_state, f.name), pspecs)
+                                   if f.name in ("mu", "nu")
+                                   else state_specs(params, getattr(opt_state, f.name),
+                                                    mesh_shape, pcfg, pspecs))
+                          for f in dataclasses.fields(opt_state)})
     by_shape: dict = {}
     for leaf, spec in zip(flatten(params)[0], rules.spec_leaves(pspecs)):
         by_shape.setdefault(tuple(leaf.shape), spec)
@@ -452,6 +465,21 @@ def state_specs(params, opt_state, mesh_shape: dict, pcfg, pspecs=None):
         return by_shape.get(tuple(node.shape), (None,) * node.ndim)
 
     return spec(opt_state)
+
+
+def _moment_specs_by_path(moments, pspecs):
+    """A moment tree's specs: each leaf its own parameter's (the trees nest
+    alike); an int8 moment's scales split as its payload's rows."""
+
+    if moments is None:
+        return None
+    if isinstance(moments, dict):
+        return {k: _moment_specs_by_path(v, pspecs[k]) for k, v in moments.items()}
+    if isinstance(moments, (list, tuple)) and not rules._is_spec(pspecs):
+        return type(moments)(_moment_specs_by_path(v, s) for v, s in zip(moments, pspecs))
+    if isinstance(moments, _Q8):
+        return _Q8(q=pspecs, scale=pspecs[:-1] + (None,) if pspecs else ())
+    return pspecs
 
 
 def _synchronize(device: torch.device) -> None:

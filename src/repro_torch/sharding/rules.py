@@ -29,6 +29,7 @@ import math
 from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core import errors
 
@@ -270,14 +271,22 @@ def distribute(tree: Any, specs: Any, device_mesh) -> Any:
             return leaf.redistribute(device_mesh, pl)
         out = distribute_tensor(leaf, device_mesh, pl, src_data_rank=None)
         local = out.to_local()
-        if local.numel() < leaf.numel() and \
-                local.untyped_storage().data_ptr() == leaf.untyped_storage().data_ptr():
+        if local.numel() < leaf.numel() and _shares_storage(local, leaf):
             # a leading-dim shard is a view: its own copy lets the leaf go
             out = DTensor.from_local(local.clone(), device_mesh, pl, run_check=False,
                                      shape=out.shape, stride=out.stride())
         return out
 
     return _zip_spec(place, tree, specs, inplace=True)
+
+
+def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` is a view into ``b``'s storage.  A fake tensor (the dry run's
+    stand-ins) has no data pointer: a view of one is taken as sharing."""
+
+    if is_fake(a) or is_fake(b):
+        return a._is_view()
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
 def _zip_spec(fn: Callable, tree: Any, specs: Any, inplace: bool = False) -> Any:

@@ -78,6 +78,12 @@ _MODELS = ("models/transformer.py", "models/encdec.py", "models/api.py", "models
            "configs/grok_1_314b.py", "configs/deepseek_v2_236b.py", "launch/serve.py")
 
 
+_DRY_RUN_AND_ANALYZER = ("analysis/__init__.py", "analysis/events.py", "analysis/checkers.py",
+                         "analysis/static.py", "analysis/lint.py", "launch/dryrun.py",
+                         "launch/specs.py", "launch/steps.py", "launch/mesh.py",
+                         "kernels/registry.py")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
@@ -86,6 +92,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert ROOT / "tools" / "quant_variants.py" in files
     assert set(_MULTI_RANK) <= covered and set(_TRAINING) <= covered
     assert set(_MODELS) <= covered and set(_SERVING) <= covered and set(_TUNER) <= covered
+    assert set(_DRY_RUN_AND_ANALYZER) <= covered
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}

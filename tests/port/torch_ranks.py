@@ -1720,6 +1720,88 @@ def prog_tune_cli(rank: int, world: int, inputs: dict) -> dict:
             "grad_norms": np.array([m["grad_norm"] for m in result["metrics"]])}
 
 
+def prog_dryrun_counts(rank: int, world: int, inputs: dict) -> dict:
+    """The dry run's placed train step of smoke phi4-mini (b 4 x 32) on a
+    2 x 2 grid of real gloo ranks, over real tensors shaped as its
+    stand-ins, counted by the dry run's mode: its collectives."""
+
+    import torch
+
+    from repro_torch.configs import base
+    from repro_torch.core.futures import flatten, unflatten
+    from repro_torch.launch import dryrun, specs, steps
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import rules
+
+    arch = "phi4_mini_3_8b"
+    cfg, pcfg = base.get_smoke_config(arch), base.get_parallel(arch)
+    comm = make_host_communicator(2, 2, device="cpu")
+    mesh = comm.device_mesh
+    shape = dryrun.shape_config("train_32", 4)
+    opt = AdamW(lr=1e-4, moment_dtype=pcfg.moment_dtype)
+    kind, (structs, sp) = specs.cell_structs(arch, shape, rules.mesh_shape(mesh), pcfg,
+                                             opt=opt, cfg=cfg)
+    gen = torch.Generator().manual_seed(int(inputs["seed"]))
+    placed = {}
+    with torch.no_grad():
+        for name, tree in structs.items():
+            leaves, treedef = flatten(tree)
+            real = [(torch.randn(tuple(x.shape), generator=gen) * 0.02).to(x.dtype)
+                    if x.dtype.is_floating_point else torch.zeros(tuple(x.shape), dtype=x.dtype)
+                    for x in leaves]
+            placed[name] = rules.distribute(unflatten(treedef, real), sp[name], mesh)
+    for leaf in flatten(placed["params"])[0]:
+        leaf.requires_grad_(True)
+    step = steps.make_step(kind, cfg, pcfg, opt)
+    with dryrun.DispatchCount() as counted:
+        step(*steps.example_args(kind, placed))
+    st = counted.collectives
+    return {"collectives": np.array(json.dumps(
+        {"count": dict(st.count), "operand_bytes": dict(st.operand_bytes)}, sort_keys=True))}
+
+
+def prog_analysis(rank: int, world: int, inputs: dict) -> dict:
+    """The interface under analysis recording on every rank: a clean
+    program (allreduce, a ring ``send_recv``, an immediate allreduce
+    consumed), written to ``clean<r>.jsonl``; then the same program with
+    rank 1's first two collectives swapped (``reduce`` and ``allreduce``
+    move the same bytes on the wire, so the run completes) and an immediate
+    allreduce never consumed on every rank, written to ``defect<r>.jsonl``."""
+
+    import torch
+
+    from repro_torch.analysis import events
+    from repro_torch.core import tool
+    from repro_torch.core.communicator import world as world_comm
+
+    workdir = Path(str(inputs["workdir"]))
+    tool.cvar_set("analysis_recording", True)
+    comm = world_comm(device_type="cpu")
+    x = torch.ones(8) * (rank + 1)
+    perm = [(i, (i + 1) % comm.size()) for i in range(comm.size())]
+
+    def program(swap: bool, leak: bool):
+        first, second = ("allreduce", "reduce") if not (swap and rank == 1) else \
+            ("reduce", "allreduce")
+        y = getattr(comm, first)(x)
+        y = getattr(comm, second)(y)
+        y = comm.send_recv(y, perm)
+        y = y + comm.immediate_allreduce(x).get()
+        if leak:
+            comm.immediate_allreduce(x)          # never consumed
+        return y
+
+    events.reset()
+    clean = program(False, False)
+    events.dump(workdir / f"clean{rank}.jsonl")
+    events.reset()
+    program(True, True)
+    events.dump(workdir / f"defect{rank}.jsonl")
+    tool.cvar_set("analysis_recording", False)
+    return {"clean": clean.numpy()}
+
+
 def torch_from(a):
     import torch
 
@@ -1740,7 +1822,8 @@ PROGRAMS = {"collectives": prog_collectives, "overlap_schedules": prog_overlap_s
             "ring_placed_train": prog_ring_placed_train, "engine_placed": prog_engine_placed,
             "serve_cb_mesh": prog_serve_cb_mesh,
             "ring_placed_elastic": prog_ring_placed_elastic, "train_cli": prog_train_cli,
-            "four_model_ranks": prog_four_model_ranks}
+            "four_model_ranks": prog_four_model_ranks, "dryrun_counts": prog_dryrun_counts,
+            "analysis": prog_analysis}
 
 
 def main(argv: list[str]) -> int:

@@ -316,6 +316,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -4302,8 +4303,20 @@ DRYRUN_CELLS = {
                   "--plan", "auto"],
     "qwen_d4": ["--arch", QWEN_SERVE[0], "--shape", f"prefill_{QWEN_SERVE[1]}", "--batch",
                 str(QWEN_SERVE[2]), "--grid", f"{QWEN_SERVE[3]}x1", "--plan", "data=4"],
+    # a cell of each class that failed on torch 2.11 before ROADMAP C26's
+    # repair: E2 (the ring buffer's roll), E1 (a flatten of split heads in
+    # the decode attention), E3 (the MoE counts over split rows)
+    "c26_e2": ["--arch", "gemma2_9b", "--shape", "prefill_32k"],
+    "c26_e1": ["--arch", "granite_3_8b", "--shape", "decode_32k"],
+    "c26_e3": ["--arch", "deepseek_v2_236b", "--shape", "prefill_32k"],
 }
 DRYRUN_LIMIT_S = 300
+# the cells' processes at once: every cell (host work, one thread each;
+# the card's machine has 8 cores)
+DRYRUN_JOBS = 7
+# qwen's tuned cell: its traced peak within this factor of the tuner's
+# prediction either way (ROADMAP C27)
+QWEN_PEAK_FACTOR = 1.25
 
 
 def _qwen_grid() -> str:
@@ -4353,17 +4366,20 @@ def _dryrun_record(name: str, args: list, out: Path) -> dict:
 
 def phase_dryrun():
     """The dry run (``repro_torch.launch.dryrun``) with stand-ins on the
-    card's device type, each cell in a process of its own, one after
-    another: phi4-mini ``train_4k`` on the fake ``pod_16x16`` world (256
+    card's device type, each cell in a process of its own, ``DRYRUN_JOBS``
+    at a time: phi4-mini ``train_4k`` on the fake ``pod_16x16`` world (256
     ranks): its trace time, peak a card against ``HBM_BYTES``, dominant term
     and useful-flops ratio; phi4-mini at b ``TRAIN_BATCH`` x ``TRAIN_SEQ`` on
     a grid of one (the ``tune`` phase's cell and plan): its traced peak and
     compute term beside the tuner's prediction and the ``tune`` phase's
     measured ``max_memory_allocated`` and warm step; and qwen1.5-32b's 2 x
-    4096 prefill on four cards as ``d4``, whose traced peak must exceed
-    ``HBM_BYTES`` as the tuner predicts, and on the grid of ``serve --plan
+    4096 prefill on four cards as ``d4``, which the tuner must predict over
+    ``HBM_BYTES`` and at no less than its traced peak, and on the grid of ``serve --plan
     auto``'s winner, which must not be ``d4`` and whose traced peak must
-    fit the card (C22).  ``tune.load_calibration`` reads the pod artifact's
+    fit the card (C22) and lie within ``QWEN_PEAK_FACTOR`` of the tuner's
+    prediction (C27); and one formerly failing cell of each of C26's
+    classes (gemma2 ``prefill_32k``, granite ``decode_32k``, deepseek
+    ``prefill_32k``), which must trace.  ``tune.load_calibration`` reads the pod artifact's
     flops ratio from the run's directory, and the tuner's calibrated step
     for the ``tune`` cell is printed beside the measured one.  No kernel
     launches here."""
@@ -4381,7 +4397,10 @@ def phase_dryrun():
                           "--plan", "auto"]
     (ROOT / "build").mkdir(exist_ok=True)
     out = Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build"))
-    recs = {name: _dryrun_record(name, args, out) for name, args in cells.items()}
+    with ThreadPoolExecutor(DRYRUN_JOBS) as ex:
+        futures = {name: ex.submit(_dryrun_record, name, args, out)
+                   for name, args in cells.items()}
+        recs = {name: f.result() for name, f in futures.items()}
     pod, cell = recs["pod"], recs["tune_cell"]
     qwen_d4, qwen = recs["qwen_d4"], recs["qwen_auto"]
     for name, rec in recs.items():
@@ -4401,12 +4420,19 @@ def phase_dryrun():
                  "plan": rec.get("plan_slug"),
                  "predicted_peak_gb": (rec["predicted_roofline"]["peak_bytes"] / 1e9
                                        if "predicted_roofline" in rec else None)})
+    traced_gb = qwen["memory"]["peak_bytes_per_device"] / 1e9
+    predicted_gb = qwen["predicted_roofline"]["peak_bytes"] / 1e9
+    log(f"dryrun qwen {qwen['plan_slug']}: traced peak {traced_gb:.2f} GB a card, the "
+        f"tuner's predicted peak {predicted_gb:.2f} GB")
     check(pod["chips"] == 256 and pod["roofline"]["collectives"]["total_operand_bytes"] > 0,
           f"dryrun pod: {pod['chips']} chips, no collectives")
     check(pod["roofline"]["kernels"].get("repro_torch.flash_attention_fwd", 0) > 0,
           f"dryrun pod: flash not traced: {pod['roofline']['kernels']}")
+    # the tuner charges d4 more than it traces (a prefill's cache twice,
+    # where the prefill holds it once since ROADMAP C27) and over the card
     check(qwen_d4["plan_slug"] == "d4"
-          and qwen_d4["memory"]["peak_bytes_per_device"] > tool.HBM_BYTES
+          and qwen_d4["memory"]["peak_bytes_per_device"]
+          <= qwen_d4["predicted_roofline"]["peak_bytes"]
           and not qwen_d4["predicted_roofline"]["fits"],
           f"dryrun qwen d4: traced {qwen_d4['memory']}, predicted "
           f"{qwen_d4['predicted_roofline']}")
@@ -4414,6 +4440,9 @@ def phase_dryrun():
           and qwen["memory"]["peak_bytes_per_device"] <= tool.HBM_BYTES,
           f"dryrun qwen: the tuned {qwen['plan_slug']} on {qwen['mesh']} traced "
           f"{qwen['memory']}, predicted {qwen['predicted_roofline']}")
+    check(1 / QWEN_PEAK_FACTOR <= traced_gb / predicted_gb <= QWEN_PEAK_FACTOR,
+          f"dryrun qwen {qwen['plan_slug']}: traced {traced_gb:.2f} GB against the predicted "
+          f"{predicted_gb:.2f} (C27)")
     calib = tune.load_calibration(DRYRUN_ARCH, "train_4k", out)
     check(calib.get("flops_scale") == 1.0 / pod["useful_flop_ratio"],
           f"dryrun: calibration {calib} from ratio {pod['useful_flop_ratio']}")

@@ -25,7 +25,9 @@ port's defaults (:data:`DEFAULT_TARGETS`) are its own CLIs at smoke size on
 the CPU: ``serve --smoke --device cpu`` on one rank, and ``train`` for 2
 steps on one rank and on two gloo ranks (``torch.distributed.run``).  A
 target given on the command line is a script path, run as the reference
-runs its examples, on ``--ranks`` ranks.
+runs its examples, on ``--ranks`` ranks.  :func:`lint_script` is the
+reference's one-script call: the script in one process, its findings on
+the :data:`MARKER` line.
 
 ``--strict`` exits non-zero on any finding; without it the lint only
 reports.  ``--no-run`` skips the dynamic pass (static checks only).
@@ -34,8 +36,10 @@ reports.  ``--no-run`` skips the dynamic pass (static checks only).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import runpy
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -59,6 +63,28 @@ DEFAULT_TARGETS: tuple[tuple[int, tuple[str, ...]], ...] = (
 
 #: the file a rank writes its ledger to, in the target's directory
 LEDGER_FILE = "rank{rank}.jsonl"
+
+#: the line on which :func:`lint_script`'s runner reports its findings
+MARKER = "ANALYSIS_FINDINGS "
+
+_RUNNER = r"""
+import json, runpy, sys
+from repro_torch.core import tool
+from repro_torch.analysis import checkers
+
+path = sys.argv[1]
+sys.argv = [path] + sys.argv[2:]
+tool.cvar_set("analysis_recording", True)
+tool.pvar_strict(True)
+rc = 0
+try:
+    runpy.run_path(path, run_name="__main__")
+except SystemExit as exc:
+    rc = int(exc.code or 0) if not isinstance(exc.code, str) else 1
+findings = checkers.run_all()
+print(MARKER + json.dumps([f.as_dict() for f in findings]))
+sys.exit(rc)
+""".replace("MARKER", repr(MARKER))
 
 
 def _env() -> dict[str, str]:
@@ -102,6 +128,59 @@ def _command(ranks: int, argv: tuple[str, ...], out_dir: str) -> list[str]:
         return [sys.executable, *runner]
     return [sys.executable, "-m", "torch.distributed.run", "--standalone",
             f"--nproc-per-node={ranks}", *runner]
+
+
+def _lint_args(path: Path) -> list[str]:
+    """Per-script lint arguments: a ``# lint-args: …`` line in the script's
+    head scales a long-running script down to gate size."""
+
+    for line in Path(path).read_text().splitlines()[:30]:
+        if line.strip().startswith("# lint-args:"):
+            return shlex.split(line.split(":", 1)[1])
+    return []
+
+
+def lint_script(path: Path, *, timeout: int = 900) -> list[Finding]:
+    """Run one script under recording, in one process (a rank of one), as
+    the reference runs each of its examples: its event-graph findings,
+    reported on the :data:`MARKER` line.  A script that does not finish in
+    ``timeout`` seconds, exits non-zero or reports no findings line is a
+    finding itself.  :func:`lint_target` runs a target on several ranks."""
+
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _RUNNER, str(path), *_lint_args(path)],
+            capture_output=True, text=True, env=_env(), timeout=timeout, cwd=str(ROOT),
+        )
+    except subprocess.TimeoutExpired:
+        return [Finding(
+            ErrorClass.ERR_OTHER, "script-timeout",
+            f"did not finish within {timeout}s under recording", str(path),
+        )]
+    findings: list[Finding] = []
+    payload = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(MARKER):
+            payload = json.loads(line[len(MARKER):])
+    if proc.returncode != 0:
+        tail = proc.stderr.strip().splitlines()
+        findings.append(Finding(
+            ErrorClass.ERR_OTHER, "script-failed",
+            f"exited {proc.returncode}: {tail[-1] if tail else 'no stderr'}", str(path),
+        ))
+    if payload is None:
+        if proc.returncode == 0:
+            findings.append(Finding(
+                ErrorClass.ERR_OTHER, "no-findings-channel",
+                f"script produced no {MARKER.strip()} line", str(path),
+            ))
+    else:
+        for f in payload:
+            findings.append(Finding(
+                ErrorClass[f["code"]], f["check"], f["message"],
+                f.get("subject") or str(path),
+            ))
+    return findings
 
 
 def lint_target(ranks: int, argv: tuple[str, ...], *, timeout: int = 900) -> list[Finding]:

@@ -38,6 +38,9 @@ from repro_torch.core.communicator import Communicator
 from repro_torch.core.descriptors import CollectiveSpec, ReduceOp, resolve
 from repro_torch.core.futures import Future, flatten, unflatten
 
+#: names of mesh axes (the communicator's), as the reference types them
+Axes = tuple[str, ...]
+
 _WIRE_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
              ReduceOp.MIN: dist.ReduceOp.MIN}
 

@@ -26,6 +26,18 @@ them (NCCL communicators included) and forgets them — the elastic epochs
 release it when they revoke it.  The default group is shared by everyone
 and never destroyed here.  The collectives are bound as methods by
 :mod:`repro_torch.core._methods`.
+
+**No counterpart (ROADMAP A16): the reference's ``Communicator.spmd``,
+``run``, ``sharding`` and ``device_put``.**  They enter JAX's SPMD program
+(``shard_map`` over the communicator's mesh, jitted) and build
+``NamedSharding`` objects on that mesh.  The port has no SPMD region to enter:
+every rank is a process that runs the program itself, and the rank and
+the collectives are live everywhere.  Their roles are taken by
+:attr:`Communicator.device_mesh` (the ``DeviceMesh`` DTensor places
+tensors on), :func:`repro_torch.sharding.rules.distribute` (a tree placed
+under specs, ``device_put``'s and ``sharding``'s role) and
+:mod:`repro_torch.sharding.local`'s ``local_map`` wrappers (a function of
+each rank's shards, ``spmd``'s and ``run``'s role).
 """
 
 from __future__ import annotations

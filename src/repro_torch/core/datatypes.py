@@ -338,3 +338,23 @@ def apply_packed(fn, obj: Any):
     buffers = dt.pack(obj)
     out = [fn(b) for b in buffers]
     return dt.unpack(out)
+
+
+def apply_leafwise(fn, obj: Any):
+    """Leaf-wise variant (no packing) — used when the collective must see the
+    leaf shapes (e.g. scatter along a leaf axis).  A leaf that is not
+    MPI-compliant raises ``ERR_TYPE``."""
+
+    _ensure_registered(obj)
+    leaves, treedef = flatten(obj)
+    return unflatten(treedef, [_call_on_leaf(fn, leaf) for leaf in leaves])
+
+
+def _call_on_leaf(fn, leaf):
+    dt = _leaf_dtype(leaf)
+    if dt is None:
+        errors.fail(
+            errors.ErrorClass.ERR_TYPE,
+            f"leaf of type {type(leaf).__name__} is not mpi-compliant",
+        )
+    return fn(_as_array(leaf, dt))

@@ -359,6 +359,13 @@ class CommEpoch:
         return self._comm
 
     @property
+    def mesh(self):
+        """The epoch's communicator's ``DeviceMesh`` (the reference's is its
+        ``jax.sharding.Mesh``)."""
+
+        return self.comm.device_mesh
+
+    @property
     def member(self) -> bool:
         """This process is a rank of the active group (it computes in this
         epoch; the others idle, ``MPI_COMM_NULL``)."""

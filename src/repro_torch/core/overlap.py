@@ -46,10 +46,12 @@ Contents:
 * :func:`pipeline_spmd` — the microbatch schedule over a cart ``stage``
   dim, under the trainer's pipeline plan; differentiable.
 
-The ring schedules, their futures and their partitioned forms are eager
-calls, never captured into a CUDA graph: their point-to-point exchanges are
-those that hung inside a graph captured across cards (``ROADMAP.md``, A
-item 1).  Every rank of the communicator makes the same calls in the same
+The ring schedules, their futures and their partitioned forms run eagerly
+or inside a captured CUDA graph: their point-to-point exchanges replay bit
+for bit as the eager ones on four H100s with NCCL's registration of
+captured buffers off, as a cuda session sets it
+(``tools/shard_ranks.py --capture``'s ``capture_ring_schedules``; ROADMAP
+A item 2).  Every rank of the communicator makes the same calls in the same
 order; a deferred future (the gather's, the reduce-scatter's, a fused
 continuation's) exchanges when it is waited, so every rank waits them in
 the same order.

@@ -273,15 +273,31 @@ def _rank_device(device_type: str, rank: int, world: int) -> torch.device:
 FAKE_BACKEND = "fake"
 
 
+#: the environment variable with which NCCL registers the buffers of the
+#: operations captured in a CUDA graph (on unless it reads "0")
+GRAPH_REGISTER_ENV = "NCCL_GRAPH_REGISTER"
+
+
 def process_world(device_type: str = "cuda") -> tuple[int, int]:
     """(rank, world size) of the default process group, initialising it if
     none exists: from ``RANK`` / ``WORLD_SIZE`` when set, otherwise a world
-    of one over an in-process store.  A world of more than one rank must
+    of one over an in-process store.  A ``cuda`` session turns NCCL's buffer
+    registration in CUDA graphs off (:data:`GRAPH_REGISTER_ENV`), unless the
+    caller set it.  A world of more than one rank must
     run ``device_type``'s wire (NCCL for ``cuda``, gloo for ``cpu``), or be
     the dry run's fake cluster (:data:`FAKE_BACKEND`)."""
 
     backend = BACKENDS[device_type]
     wire = {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    if device_type == "cuda":
+        # NCCL registers the buffers of the operations a CUDA graph captures;
+        # a point-to-point exchange of a buffer the graph's pool handed on
+        # within the capture then deadlocked at the first replay on four
+        # H100s (NCCL 2.28), where without registration the captured ring
+        # and pipeline steps replay bit for bit as their eager steps
+        # (ROADMAP A item 2).  NCCL reads it at its first use; a caller's
+        # own setting stands
+        os.environ.setdefault(GRAPH_REGISTER_ENV, "0")
     if not dist.is_initialized():
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
             rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])

@@ -31,7 +31,13 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import errors, tool
 from repro_torch.kernels import nvcc, registry
+from repro_torch.kernels.flash_attention.ref import NEG_INF  # noqa: F401
 from repro_torch.kernels.registry import attention_tiles
+
+# the reference's Pallas blocks, over which the op's flop formula counts the
+# tiles the reference kernel computes; the CUDA kernel tiles by 64 itself
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 512
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 MAX_HEAD_DIM = 256
@@ -211,8 +217,9 @@ def _flash_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwa
 
     b, sq, h, d = q_shape
     sk, dv = k_shape[1], v_shape[3]
-    bq, bk = min(512, sq), min(512, sk)
-    return attention_tiles(sq, sk, causal) * b * h * 2 * bq * bk * (d + dv)
+    bq, bk = min(DEFAULT_BLOCK_Q, sq), min(DEFAULT_BLOCK_K, sk)
+    return attention_tiles(sq, sk, causal, block_q=DEFAULT_BLOCK_Q,
+                           block_k=DEFAULT_BLOCK_K) * b * h * 2 * bq * bk * (d + dv)
 
 
 registry.register_bytes_formula(_FLASH_OP)(registry.read_once_write_once)

@@ -35,6 +35,10 @@ and its launch's reasons).  The **warp body** takes every other shape
 lane per load.  The entry point checks the choice and refuses a vector body
 the shape does not allow, and a wide body on rows the other two take (or
 theirs on wider rows).  All three are bit for bit the plain version.
+
+The reference's ``ROW_TILE`` (the 64 rows a Pallas grid step takes) has no
+counterpart (ROADMAP A16): each CUDA body picks its own rows a block, and
+the wrappers take any row count.
 """
 
 from __future__ import annotations

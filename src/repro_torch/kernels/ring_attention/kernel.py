@@ -33,6 +33,7 @@ from repro_torch.core import errors, tool
 from repro_torch.kernels import nvcc, registry
 from repro_torch.kernels.flash_attention.kernel import check_copyable
 from repro_torch.kernels.ring_attention import ref as _ref
+from repro_torch.kernels.ring_attention.ref import ring_step_ref  # noqa: F401 (the plain twin)
 
 NEG_INF = _ref.NEG_INF
 # the reference's Pallas blocks: the ops layer pads shards to their

@@ -70,6 +70,14 @@ PRODUCTION_GRIDS = {
 }
 
 
+def make_host_mesh(data: int | None = None, model: int = 1, *, device: str | None = None):
+    """A small mesh over whatever devices exist (tests / examples / benches):
+    the ``DeviceMesh`` of :func:`make_host_communicator`'s communicator (the
+    reference returns its ``jax.sharding.Mesh``) on ``device``'s ranks."""
+
+    return make_host_communicator(data, model, device=device).device_mesh
+
+
 def make_production_communicator(*, multi_pod: bool = False, session=None,
                                   device: str | None = None):
     """The production communicator: the session's world folded onto the pod

@@ -471,8 +471,10 @@ def attention_prefill(
 ):
     """Full-sequence attention that also returns the layer's new KV entries
     (B, S_cache, Hk, Dh) — S_cache is min(S, window) for windowed layers.
-    The entries come from the whole, replicated ``k`` and ``v``, so decode
-    is the same with or without the ring."""
+    The entries are ``k`` and ``v`` as the projections place them (on
+    placed weights the batch rows over data and the heads over model,
+    ``cache_specs``'s layout: ROADMAP C27 found them so), never the ring's
+    sequence blocks, so decode is the same with or without the ring."""
 
     q, k, v = _project_qkv(p, x, cfg, positions)
     y = _out(_attend(q, k, v, cfg, pcfg, sliding_window, prefix_len, mesh), p["wo"])
@@ -481,10 +483,17 @@ def attention_prefill(
         s = k.shape[1]
         start = s - sliding_window
         roll = s % sliding_window
-        k_keep = torch.roll(k[:, start:], roll, dims=1)
-        v_keep = torch.roll(v[:, start:], roll, dims=1)
-        return y, (k_keep, v_keep)
+        return y, (_roll_seq(k[:, start:], roll), _roll_seq(v[:, start:], roll))
     return y, (k, v)
+
+
+def _roll_seq(t: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(t, shift, dims=1)`` as the concatenation of its two
+    slices, which DTensor carries on any placement (it has no rule for
+    ``aten.roll`` on every torch: ROADMAP C26)."""
+
+    cut = t.shape[1] - shift
+    return torch.cat([t[:, cut:], t[:, :cut]], dim=1)
 
 
 def attention_decode(
@@ -532,7 +541,14 @@ def attention_decode(
                                   pcfg, mesh, dtype)
     else:
         kc, vc = cache_layer_read(k_layer, v_layer, k_scale_l, v_scale_l, dtype)
-        y = _decode_attend(q, kc, vc, valid, cfg)
+        if _local.is_dtensor(q):
+            # on this rank's rows and heads: the scores' einsum flattens
+            # (b, h), and DTensor cannot flatten a split head dim on every
+            # torch (ROADMAP C26)
+            y = _local.attention_heads(
+                lambda ql, kl, vl, ml: _decode_attend(ql, kl, vl, ml, cfg), q, kc, vc, valid)
+        else:
+            y = _decode_attend(q, kc, vc, valid, cfg)
     return _out(y, p["wo"]), (k_layer, v_layer, k_scale_l, v_scale_l)
 
 

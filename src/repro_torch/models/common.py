@@ -4,6 +4,11 @@ Numerics follow :mod:`repro.models.common` exactly: ``rms_norm`` scales by
 ``1 + scale`` in fp32 (the scale is stored as zeros, gemma-style), RoPE
 splits the head dimension into halves with fp32 angles, and ``"gelu"`` is
 the tanh form (``jax.nn.gelu`` defaults to ``approximate=True``).
+
+The reference's ``key_iter`` (an endless stream of ``jax.random.split``
+keys) has no counterpart (ROADMAP A16): the port draws from one seeded
+``torch.Generator`` that each initialiser advances in turn, which is the
+stream ``key_iter`` stands for in JAX's stateless random numbers.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp, transformer
 from repro_torch.models.attention import KVCache
+from repro_torch.sharding import local as _local
 
 
 def _init_enc_layer(gen, cfg, dtype, *, stack: tuple[int, ...] = ()) -> common.Params:
@@ -85,10 +86,18 @@ def _cross_attention(p, h, enc_k, enc_v, cfg):
     fp32 softmax as in the reference."""
 
     q = attn._proj(h, p["wq"])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), enc_k.float())
-    s = s / math.sqrt(cfg.head_dim)
-    pr = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", pr, enc_v.float()).to(h.dtype)
+
+    def attend(q, enc_k, enc_v):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), enc_k.float())
+        s = s / math.sqrt(cfg.head_dim)
+        pr = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", pr, enc_v.float()).to(h.dtype)
+
+    # on placed heads, on this rank's rows and heads: the einsums flatten
+    # (b, h), and DTensor cannot flatten a split head dim on every torch
+    # (ROADMAP C26)
+    out = (_local.attention_heads(attend, q, enc_k, enc_v) if _local.is_dtensor(q)
+           else attend(q, enc_k, enc_v))
     return attn._out(out, p["wo"])
 
 

@@ -44,7 +44,7 @@ from torch.distributed.tensor import Replicate
 from repro_torch.core import errors
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
-from repro_torch.sharding.local import is_dtensor, rowwise
+from repro_torch.sharding.local import counts_over_rows, is_dtensor, rowwise
 
 
 def _round_up(x: int, m: int) -> int:
@@ -200,9 +200,17 @@ def _combine(out_slots: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor, k
 
 def _aux(logits, probs, top_e, slot, e: int, c: int) -> dict:
     me = probs.reshape(-1, e).mean(0)                          # (e,)
-    flat_e = top_e.reshape(-1)
-    ce_frac = torch.zeros(e, device=probs.device).index_add(
-        0, flat_e, torch.ones(flat_e.shape, device=probs.device)) / flat_e.numel()
+
+    def counts(top_e):
+        flat_e = top_e.reshape(-1)
+        return torch.zeros(e, device=top_e.device).index_add(
+            0, flat_e, torch.ones(flat_e.shape, device=top_e.device))
+
+    # placed, each rank counts its own rows' choices and the counts are
+    # summed: DTensor cannot index_add split indices on every torch
+    # (ROADMAP C26)
+    ce_frac = (counts_over_rows(counts, top_e) if is_dtensor(top_e)
+               else counts(top_e)) / top_e.numel()
     return {
         "load_balance_loss": e * torch.sum(me * ce_frac),
         "router_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),

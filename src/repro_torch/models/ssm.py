@@ -154,6 +154,12 @@ def mamba2_decode(p, x1, conv_hist, state, cfg, pcfg):
     A = -torch.exp(p["a_log"])
 
     xh = common.split_dim(xs, -1, (nh, hp))
-    y, state = ssd_ops.ssd_decode_step(state, xh, dt, A, B, C)
+    if _local.is_dtensor(state):
+        # on this rank's rows and heads: the step's einsum flattens (b, h),
+        # and DTensor cannot flatten a split head dim on every torch
+        # (ROADMAP C26)
+        y, state = _local.ssd_step_heads(ssd_ops.ssd_decode_step, state, xh, dt, A, B, C)
+    else:
+        y, state = ssd_ops.ssd_decode_step(state, xh, dt, A, B, C)
     out = _gated_out(p, y.float()[:, None], z, xh[:, None], cfg, x1.dtype)
     return out, (conv_hist, state)

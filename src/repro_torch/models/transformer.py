@@ -31,7 +31,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
 from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.common import dense_init
-from repro_torch.sharding.local import is_dtensor, local_map
+from repro_torch.sharding.local import gather_unit, is_dtensor, local_map
 
 _AUX = ("load_balance_loss", "router_z_loss", "dropped_fraction")
 
@@ -165,10 +165,16 @@ def _num_units(cfg) -> int:
 
 
 def _unit(tree: Any, i: int) -> Any:
-    """Unit ``i`` of a stacked parameter tree (views, no copy)."""
+    """Unit ``i`` of a stacked parameter tree (views, no copy; under an
+    inference entry point's lazy FSDP gather, the unit gathered:
+    :func:`repro_torch.sharding.local.gather_unit`)."""
 
+    return gather_unit(_unit_view(tree, i))
+
+
+def _unit_view(tree: Any, i: int) -> Any:
     if isinstance(tree, dict):
-        return {k: _unit(v, i) for k, v in tree.items()}
+        return {k: _unit_view(v, i) for k, v in tree.items()}
     return tree[i]
 
 
@@ -177,10 +183,16 @@ def _units(tree: Any) -> list:
     ``torch.unbind`` per leaf.  Under autograd its backward stacks the
     units' gradients once; taking the units one by one (:func:`_unit`)
     would give each its own zero-filled gradient of the whole stack, summed
-    unit by unit — a stack's worth of memory traffic per layer."""
+    unit by unit — a stack's worth of memory traffic per layer.  Under an
+    inference entry point's lazy FSDP gather each unit is gathered
+    (:func:`repro_torch.sharding.local.gather_unit`)."""
 
+    return [gather_unit(u) for u in _unit_views(tree)]
+
+
+def _unit_views(tree: Any) -> list:
     if isinstance(tree, dict):
-        parts = {k: _units(v) for k, v in tree.items()}
+        parts = {k: _unit_views(v) for k, v in tree.items()}
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
     return list(torch.unbind(tree))
@@ -464,8 +476,12 @@ def lm_prefill(params, batch: dict, cfg, pcfg, mesh=None, extra_capacity: int = 
             entry, cfg, pcfg, stack=True, extra=extra_capacity
         )
     plan = _unit_plan(cfg)
-    entries: dict[str, list] = {name: [] for name, _, _ in plan}
-    for u in range(_num_units(cfg)):
+    n_units = _num_units(cfg)
+    # windowed layers use a fixed ring buffer — no headroom needed
+    entries = {name: _EntryStack(n_units, 0 if (window is not None and seq > window)
+                                 else extra_capacity)
+               for name, _, window in plan}
+    for u in range(n_units):
         unit_params = _unit(params["layers"], u)
         x = common.constrain(x, pcfg)
         for name, kind, window in plan:
@@ -474,18 +490,97 @@ def lm_prefill(params, batch: dict, cfg, pcfg, mesh=None, extra_capacity: int = 
                 positions=positions, prefix_len=prefix_len, mesh=mesh, collect_cache=True,
             )
             x = common.constrain(x, pcfg)
-            entries[name].append(entry)
+            entries[name].put(u, entry)
+        del unit_params
     pos = torch.tensor(seq, dtype=torch.int32, device=x.device)
-    for name, _, window in plan:
-        # windowed layers use a fixed ring buffer — no headroom needed
-        extra = 0 if (window is not None and seq > window) else extra_capacity
-        stacked = tuple(torch.stack(parts) for parts in zip(*entries[name]))
+    for name, _, _ in plan:
+        stacked, extra = entries.pop(name).stacked()
         caches[name] = _entry_to_cache(stacked, cfg, pcfg, stack=False, extra=extra)
     caches = {name: dataclasses.replace(c, pos=pos) for name, c in caches.items()}
     logits = _head(params, x[:, -1:], cfg, pcfg)
     if cfg.final_logit_softcap:
         logits = common.softcap(logits, cfg.final_logit_softcap)
     return logits, caches
+
+
+class _EntryStack:
+    """One kind of layer's cache entries (each a tuple of (B, S, ...)
+    arrays), written layer by layer into (L, B, S + extra, ...) buffers
+    whose ``extra`` headroom slots are zeros: ``torch.stack`` and
+    :func:`_pad_seq` of the entries, bit for bit, without holding the
+    entries, their stack and its padded copy at once (ROADMAP C27).  A
+    placed entry is written into this rank's shard and the stack is placed
+    as the first layer's entries, one dim on (a later layer placed
+    otherwise is moved to that placement first).  Entries whose placement
+    a shard cannot carry (a split sequence, a pending sum) are stacked and
+    padded as a whole, as before."""
+
+    def __init__(self, n_units: int, extra: int):
+        self.n, self.extra = n_units, extra
+        self.bufs: list | None = None
+        self.like: list = []        # per array: (mesh, placements) or None
+        self.parts: list | None = None
+
+    def put(self, u: int, entry: tuple) -> None:
+        if self.bufs is None and self.parts is None:
+            from torch.distributed.tensor import Replicate, Shard
+
+            whole = [is_dtensor(t) and not all(
+                isinstance(p, Replicate) or (type(p) is Shard and p.dim != 1)
+                for p in t.placements) for t in entry]
+            if any(whole):
+                self.parts = []
+            else:
+                self._alloc(entry)
+        if self.parts is not None:
+            self.parts.append(entry)
+            return
+        for buf, like, t in zip(self.bufs, self.like, entry):
+            if like is not None:
+                if tuple(t.placements) != like[1]:
+                    t = t.redistribute(like[0], list(like[1]))
+                t = t.to_local()
+            buf[u, :, : t.shape[1]].copy_(t)
+
+    def _alloc(self, entry: tuple) -> None:
+        self.bufs = []
+        for t in entry:
+            self.like.append((t.device_mesh, tuple(t.placements)) if is_dtensor(t) else None)
+            local = t.to_local() if is_dtensor(t) else t
+            seq = local.shape[1]
+            buf = torch.empty((self.n, local.shape[0], seq + self.extra, *local.shape[2:]),
+                              dtype=local.dtype, device=local.device)
+            if self.extra:
+                buf[:, :, seq:].zero_()
+            self.bufs.append((buf, tuple(t.shape)))
+        self.bufs, self.shapes = [b for b, _ in self.bufs], [g for _, g in self.bufs]
+
+    def stacked(self) -> tuple[tuple, int]:
+        """(The stacked entries, the headroom still to pad)."""
+
+        if self.parts is not None:
+            return tuple(torch.stack(parts) for parts in zip(*self.parts)), self.extra
+        from torch.distributed.tensor import DTensor, Shard
+
+        out = []
+        for buf, like, shape in zip(self.bufs, self.like, self.shapes):
+            if like is None:
+                out.append(buf)
+                continue
+            mesh, placements = like
+            pl = [Shard(p.dim + 1) if p.is_shard() else p for p in placements]
+            whole = (self.n, shape[0], shape[1] + self.extra, *shape[2:])
+            out.append(DTensor.from_local(buf, mesh, pl, run_check=False, shape=whole,
+                                          stride=_contiguous_strides(whole)))
+        return tuple(out), 0
+
+
+def _contiguous_strides(shape) -> tuple:
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= n
+    return tuple(reversed(strides))
 
 
 def _pad_seq(arr, extra: int):

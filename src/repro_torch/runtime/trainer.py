@@ -116,11 +116,14 @@ through :func:`~repro_torch.core.overlap.pipeline_spmd` on local tensors.
 The deprecated ``pipeline_stages``/``ring_attention`` knobs build the same
 plans (:meth:`TrainerConfig.resolved_plan`).
 
-On the card a captured step of a plan whose ring or stages span more than
-one rank is refused at the step's build (``ERR_UNSUPPORTED_OPERATION``):
-its NCCL point-to-point exchanges hung inside the captured step on four
-H100s.  The trainer does not switch to eager steps on its own: the caller
-asks for them with ``TrainerConfig(persistent=False)``.
+On the card both plans' steps are captured and replayed as any step is:
+their NCCL point-to-point exchanges replay bit for bit as the eager steps
+on four H100s, with NCCL's registration of captured buffers off, which a
+``cuda`` session sets (``session.GRAPH_REGISTER_ENV``; with it on the first
+replay deadlocked).  Where a caller turned it on, such a captured step is
+refused at its build (``ERR_UNSUPPORTED_OPERATION``); the trainer does not
+switch to eager steps on its own: ``TrainerConfig(persistent=False)`` asks
+for them.
 ``ParallelConfig(moment_dtype="int8")`` trains with the int8 moments of
 :mod:`repro_torch.optim.adamw`, inside the same graph.
 """
@@ -129,6 +132,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 import warnings
 from typing import Callable
@@ -137,7 +141,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ParallelPlan
-from repro_torch.core import datatypes, errors, overlap, tool
+from repro_torch.core import datatypes, errors, overlap, session, tool
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.epoch import CommEpoch, TopologySpec
 from repro_torch.core.futures import PersistentRequest, flatten, unflatten
@@ -603,6 +607,12 @@ class Trainer:
         return self._epoch.comm
 
     @property
+    def mesh(self):
+        """The epoch's communicator's ``DeviceMesh``."""
+
+        return self._epoch.comm.device_mesh
+
+    @property
     def placed(self) -> bool:
         """The state is placed (DTensors on the communicator's device
         mesh): on more than one rank, under the ring too.  Setting it
@@ -750,22 +760,31 @@ class Trainer:
             "train_step", lambda _ep: self._build_step(params, opt_state))
         return self._compiled
 
-    def _build_step(self, params, opt_state):
-        tool.pvar_count("trace:train_step")
-        # on the card a persistent, donating step is a CUDA graph from start
-        # 2; a step of four H100s whose ring exchanged point to point over
-        # NCCL hung once captured (all-reduces, as the data plan's,
-        # capture), so such a step is refused, never run otherwise
+    def _check_capturable(self) -> None:
+        """On the card a persistent, donating step is a CUDA graph from
+        start 2.  A step whose ring or stages span ranks exchanges point to
+        point over NCCL inside it, which replays bit for bit as the eager
+        step on four H100s with NCCL's buffer registration in graphs off
+        (a cuda session's default, ``session.GRAPH_REGISTER_ENV``) and
+        deadlocked at its first replay with it on: refused there."""
+
         captures = self.tcfg.persistent and self.tcfg.donate
         exchanges = self.plan.stage > 1 or (self._ring_line is not None
                                             and self._ring_line.size() > 1)
+        registers = os.environ.get(session.GRAPH_REGISTER_ENV, "1") != "0"
         errors.check(
-            not (exchanges and captures and self.device.type == "cuda"),
+            not (exchanges and captures and registers and self.device.type == "cuda"),
             errors.ErrorClass.ERR_UNSUPPORTED_OPERATION,
             f"plan {self.plan.slug()!r} exchanges point to point over NCCL inside its step, "
-            f"which the trainer captures as a CUDA graph, and such a capture hangs: it is "
-            f"refused on the card; TrainerConfig(persistent=False) runs the step eagerly",
+            f"which the trainer captures as a CUDA graph, and {session.GRAPH_REGISTER_ENV} is "
+            f"not 0: NCCL's registration of the captured buffers deadlocks such a step's "
+            f"replay; set {session.GRAPH_REGISTER_ENV}=0 before NCCL starts, or "
+            f"TrainerConfig(persistent=False) runs the step eagerly",
         )
+
+    def _build_step(self, params, opt_state):
+        tool.pvar_count("trace:train_step")
+        self._check_capturable()
         if self.plan.stage > 1:
             base_step = make_pipeline_train_step(self.cfg, self.pcfg, self.tcfg, self.opt,
                                                  self.comm, plan=self.plan)

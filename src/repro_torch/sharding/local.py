@@ -9,8 +9,13 @@ see a device's block under GSPMD.
   ranks, as paligemma's one) they stay whole and each rank picks the ones
   its query heads read, by its own head offset; their gradient is then
   summed over the ranks that split the query heads (each read a part).
+  Row tensors beside them (the decode's validity mask) reach the function
+  as this rank's rows.
 * :func:`ssd_heads` — the SSD scan over this rank's batch rows and heads
-  (groups of ``B``/``C`` picked the same way).
+  (groups of ``B``/``C`` picked the same way); :func:`ssd_step_heads` its
+  decode step, placed as the cached state.
+* :func:`counts_over_rows` — a count over index entries split as rows
+  are (the MoE's expert loads), each rank's part summed.
 * :func:`rowwise` — a function of whole rows (the int8 quantize and
   dequantize): any dim but the last may stay sharded.
 
@@ -21,13 +26,17 @@ every process (:func:`_stable_placement_hashes`), so every rank breaks
 DTensor's strategy ties alike.  Around
 the model: :func:`replicating` runs an entry point under a re-entrant
 :func:`implicit_replication` on the FSDP-gathered parameters
-(:func:`gather_fsdp`), off the data axes where they do not split the
-batch (:class:`_DataFree`).
+(:func:`gather_fsdp`; without autograd one stacked unit at a time,
+:func:`gather_unit`), off the data axes where they do not split the
+batch (:class:`_DataFree`).  torch 2.11's DTensor cannot flatten a split
+head dim or ``index_add`` split indices, where torch 2.13's can: the
+helpers above take such ops onto local shards (ROADMAP C26).
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import functools
 import math
 
@@ -164,25 +173,73 @@ def _read_in_part(mesh, qp, gp, heads_dim) -> list:
             if a.is_shard(heads_dim) and not b.is_shard(heads_dim) and mesh.size(i) > 1]
 
 
-def attention_heads(fn, q, k, v):
-    """``fn(q, k, v)`` (B, S, H, D) attention on local shards; the output
-    is placed as the query."""
+def attention_heads(fn, q, k, v, *rows):
+    """``fn(q, k, v, *rows)`` (B, S, H, D) attention on local shards; the
+    output is placed as the query.  Each of ``rows`` (a mask, say) has the
+    batch rows on dim 0 and reaches ``fn`` as this rank's rows: a DTensor
+    through its placement, a plain tensor sliced here."""
+
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
     h, hk = q.shape[2], k.shape[2]
     qp, kp = _grouped_placements(q, 2, h, hk)
     needed = _local_groups(mesh, qp, kp, 2, h, hk)
     partly = _read_in_part(mesh, qp, kp, 2)
+    rp = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in qp)
+    off, n = shard_range(qp, mesh, 0, q.shape[0])
 
-    def body(ql, kl, vl):
+    def body(ql, kl, vl, *rl):
         if partly and torch.is_grad_enabled():
             kl, vl = _SummedGradient.apply(kl, partly), _SummedGradient.apply(vl, partly)
         if not _native(needed, kl.shape[2]):
             kl, vl = _pick(kl, 2, needed), _pick(vl, 2, needed)
-        return fn(ql, kl, vl)
+        rl = [r if is_dtensor(w) else r[off:off + n] for r, w in zip(rl, rows)]
+        return fn(ql, kl, vl, *rl)
 
-    return local_map(body, out_placements=list(qp), in_placements=(qp, kp, kp),
-                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    in_pl = (qp, kp, kp) + tuple(rp if is_dtensor(r) else None for r in rows)
+    return local_map(body, out_placements=list(qp), in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v, *rows)
+
+
+def ssd_step_heads(fn, state, x, dt, A, B, C):
+    """``fn(state, x, dt, A, B, C)`` (one SSD decode step: state (b, h, p,
+    n), x (b, h, p), dt (b, h), A (h,), B/C (b, g, n)) on local shards,
+    placed as the state (the cache's layout): batch rows on dim 0, heads on
+    dim 1; y is placed so too."""
+
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = state.device_mesh
+    h, g = state.shape[1], B.shape[1]
+    sp, bp = _grouped_placements(state, 1, h, g)
+    ap = tuple(Shard(0) if pl.is_shard(1) else Replicate() for pl in sp)
+    needed = _local_groups(mesh, sp, bp, 1, h, g)
+
+    def body(sl, xl, dtl, Al, Bl, Cl):
+        if not _native(needed, Bl.shape[1]):
+            Bl, Cl = _pick(Bl, 1, needed), _pick(Cl, 1, needed)
+        return fn(sl, xl, dtl, Al, Bl, Cl)
+
+    return local_map(body, out_placements=(list(sp), list(sp)),
+                     in_placements=(sp, sp, sp, ap, bp, bp),
+                     device_mesh=mesh, redistribute_inputs=True)(state, x, dt, A, B, C)
+
+
+def counts_over_rows(fn, idx):
+    """``fn(idx)``, a count over the entries of ``idx`` (an index tensor
+    whose entries are split as rows are), summed over the ranks that split
+    them: each rank counts its own entries, and the sum of the parts is the
+    whole's count.  Exact for counts an fp32 holds."""
+
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = _row_placements(idx) if idx.dim() > 1 else tuple(
+        p if p.is_shard(0) else Replicate() for p in idx.placements)
+    out = [Partial() if p.is_shard() else Replicate() for p in pl]
+    summed = local_map(fn, out_placements=out, in_placements=(pl,),
+                       device_mesh=idx.device_mesh, redistribute_inputs=True)(idx)
+    return summed.redistribute(idx.device_mesh, [Replicate()] * len(out))
 
 
 def ssd_heads(fn, x, dt, A, B, C, *, with_state: bool):
@@ -262,16 +319,26 @@ def implicit_replication():
         yield
 
 
-def gather_fsdp(params, pcfg):
+#: the ParallelConfig of the inference entry point whose stacked units are
+#: gathered one at a time (:func:`gather_unit`), else None
+_UNIT_GATHER: contextvars.ContextVar = contextvars.ContextVar("unit_gather", default=None)
+
+
+def gather_fsdp(params, pcfg, *, units: bool = True):
     """The FSDP gather: every DTensor leaf with its data-axis shards made
     whole (``redistribute``; a leaf split only over ``model`` is returned
     as it is).  Under autograd the gather's backward is the reduce-scatter
-    of the gradient over the data axes."""
+    of the gradient over the data axes.  ``units=False`` leaves the
+    stacked unit trees (``rules._STACKED``) as they are, for
+    :func:`gather_unit` to gather one unit at a time."""
 
     from torch.distributed.tensor import Replicate
 
     from repro_torch.core.futures import flatten, unflatten
+    from repro_torch.sharding.rules import _STACKED
 
+    if not units and isinstance(params, dict):
+        return {k: v if k in _STACKED else gather_fsdp(v, pcfg) for k, v in params.items()}
     leaves, treedef = flatten(params)
     if not leaves or not is_dtensor(leaves[0]):
         return params
@@ -284,6 +351,17 @@ def gather_fsdp(params, pcfg):
         out.append(leaf if pl == list(leaf.placements) else
                    leaf.redistribute(leaf.device_mesh, pl))
     return unflatten(treedef, out)
+
+
+def gather_unit(unit):
+    """One unit of a stacked parameter tree, FSDP-gathered when an
+    inference entry point (:func:`replicating` with autograd off) left the
+    stacked trees placed: a step then holds one unit's gathered weights at
+    a time, not the whole model's (ROADMAP C27).  The values are the whole
+    gather's, sliced.  Otherwise ``unit`` as it is."""
+
+    pcfg = _UNIT_GATHER.get()
+    return unit if pcfg is None else gather_fsdp(unit, pcfg)
 
 
 def rows_split(rows: int, device_mesh, pcfg) -> bool:
@@ -386,12 +464,20 @@ def replicating(fn, pcfg_at: int):
     @functools.wraps(fn)
     def run(params, *args, **kwargs):
         pcfg = args[pcfg_at]
+        # without autograd (serving) the stacked units are gathered one at
+        # a time as the layers run (gather_unit); under autograd the whole
+        # model at once, its backward one reduce-scatter a leaf
+        lazy = not torch.is_grad_enabled()
         with implicit_replication():
-            params = gather_fsdp(params, pcfg)
             first = _first_dtensor(params)
             rows = _rows(args[pcfg_at - 1])
             if first is None or rows is None or rows_split(rows, first.device_mesh, pcfg):
-                return fn(params, *args, **kwargs)
+                token = _UNIT_GATHER.set(pcfg if lazy else None)
+                try:
+                    return fn(gather_fsdp(params, pcfg, units=not lazy), *args, **kwargs)
+                finally:
+                    _UNIT_GATHER.reset(token)
+            params = gather_fsdp(params, pcfg)
             view = _DataFree(first.device_mesh, pcfg)
             args = tuple(a if i == pcfg_at else view.onto(a) for i, a in enumerate(args))
             return view.back(fn(view.onto(params), *args, **kwargs))

@@ -39,28 +39,27 @@ Terms (train kind; serving shapes drop the backward/pipeline/grad terms):
   over-budget plan is *penalized* quadratically rather than discarded, so
   search stays total even at device counts where nothing fits.
 
-**Port-only choice (ROADMAP C22, not shared): a serving plan is charged
-as the port's server holds it.**  The reference splits every plan's
-weights over all its devices (``bf16 · params / n``, in the HBM traffic
-and in the peak).  The port's server keeps plain tensors on a grid with no
-model axis (:mod:`repro_torch.runtime.server`): a serving plan that folds
-onto data alone (no stage, ring or tensor fold) holds its weights whole on
-every rank and runs the whole batch there, so it is charged ``bf16 ·
-params`` and a peak working set over the whole batch's rows.  Any other
+**Port-only choice (ROADMAP C22 and C28, not shared): a serving plan is
+charged as the port's server holds it.**  The reference splits every
+plan's weights over all its devices (``bf16 · params / n``, in the HBM
+traffic and in the peak) and its batch over the data axis.  The port's
+server keeps plain tensors on a grid with no model axis
+(:mod:`repro_torch.runtime.server`): a serving plan that folds onto data
+alone (no stage, ring or tensor fold) holds its weights whole on every
+rank and runs the whole batch there, so it is charged ``bf16 · params``, a
+peak working set over the whole batch's rows (C22), and the whole batch's
+compute and activation traffic on each rank (C28).  Any other
 serving grid places the weights under the reference's specs, over every
 axis (FSDP over data), so the reference's ``/ n`` holds there, and so does
 training's: the port's trainer places its state over data too.  On any
-grid a prefill's working set is charged :data:`PREFILL_CACHE_COPIES` times:
-the port's prefill holds each layer's k and v until it stacks them into
-the cache.  Before the repair ``serve --plan auto`` for qwen1.5-32b at 2 x
+grid a prefill's working set is charged :data:`PREFILL_CACHE_COPIES` times.
+Before the repair ``serve --plan auto`` for qwen1.5-32b at 2 x
 4096 on four H100s chose ``d4``, predicted at 20.3 GB a card, and every
 card ran out of memory holding the 70.4 GB of weights; ``d4`` is now
 predicted at 91.87 GB a card (the dry run of that prefill traces 91.95)
 and the search picks ``d2_r2``, placed on a 2 x 2 grid.  Every other term
-(compute, the activations' HBM traffic, bubble, wire, launches) is the
-reference's, so a data-only serving grid is still credited with splitting
-the batch's compute, and a placed grid's working set is the reference's
-(ROADMAP C27: the dry run reads more there).
+(bubble, wire, launches; a placed grid's compute, traffic and working set)
+is the reference's.
 
 Wire-byte factors reuse :func:`repro_torch.core.tool._wire_factor` — the
 reference's ring-algorithm accounting.
@@ -89,10 +88,12 @@ REMAT_FLOP_MULT = {"none": 1.0, "dots": 7.0 / 6.0, "full": 8.0 / 6.0}
 #: boundaries only (~2).
 REMAT_RESIDENCY = {"none": 14.0, "dots": 6.0, "full": 2.0}
 
-#: the port's prefill at its peak holds the KV cache twice: each layer's
-#: (k, v) entries and their stack into the cache (``models/transformer.py``
-#: ``lm_prefill``); a serving plan's working set is charged that many times
-#: in a prefill (C22, port-only)
+#: a serving plan's working set is charged this many times in a prefill
+#: (C22, port-only): the port's prefill holds its stacked cache once
+#: (``models/transformer._EntryStack``), and the second copy is the margin
+#: for what the reference's working set does not count (the placed
+#: prefill's gathered units of weights, the int8 quantize's output beside
+#: its input)
 PREFILL_CACHE_COPIES = 2.0
 
 #: fraction of ring-rotation wire hidden behind blockwise compute (the
@@ -188,20 +189,23 @@ def score_plan(
         model_flops *= float(calibration["flops_scale"])
     if is_train:
         model_flops *= REMAT_FLOP_MULT[remat]
-    compute_s = model_flops / (n * tool.PEAK_FLOPS_BF16)
+    # a serving plan on data alone holds the weights whole on every rank
+    # (C22) and runs the whole batch there: its compute and its
+    # activations' traffic are the whole batch's on each rank (C28)
+    whole = not is_train and s == r == t == 1
+    shards = 1 if whole else n
+    rows_local = tokens if whole else tokens_local
+    compute_s = model_flops / (shards * tool.PEAK_FLOPS_BF16)
 
     # -- HBM traffic ---------------------------------------------------------
     # weights: sharded over every axis (fsdp over data, slices over
-    # stage/tensor); touched fwd + bwd + optimizer update in train.  A
-    # serving plan on data alone holds them whole on every rank (C22)
-    whole = not is_train and s == r == t == 1
-    shards = 1 if whole else n
+    # stage/tensor); touched fwd + bwd + optimizer update in train
     param_bytes_local = bf16 * cfg.param_count() / shards
     weight_touches = 3.0 if is_train else 1.0
     layers_local = cfg.num_layers / s
     act_residency = REMAT_RESIDENCY[remat] if is_train else 2.0
     act_traffic = (
-        (tokens_local / max(r, 1)) * cfg.d_model * layers_local
+        (rows_local / max(r, 1)) * cfg.d_model * layers_local
         * act_residency * bf16 / max(t, 1)
     )
     memory_s = (
@@ -287,7 +291,6 @@ def score_plan(
     # batch; a prefill's held twice, C22)
     state_mult = (bf16 + 8) if is_train else bf16
     state_bytes = state_mult * cfg.param_count() / shards
-    rows_local = tokens if whole else tokens_local
     act_store = (
         (rows_local / (m * max(r, 1))) * cfg.d_model * layers_local
         * (REMAT_RESIDENCY[remat] if is_train else 2.0) * bf16 / max(t, 1)

@@ -460,15 +460,42 @@ def test_c22_serving_weights_are_charged_as_the_server_holds_them(tpu_constants,
             got = tscore.score_plan(tcfg, shp(tbase), plan).as_dict()
             ref = jscore.score_plan(jcfg, shp(jbase), jplan).as_dict()
             want = c22_score(jcfg, shp(jbase), jplan).as_dict()
-            # every term but the weights' HBM traffic and the peak is the
-            # reference's; those are the reckoning's (``tune_reckoning``)
-            for k in ("compute_s", "bubble_s", "wire_s", "launch_s"):
+            # every term but the HBM traffic, the peak and a data-only
+            # serving plan's compute (C28) is the reference's; those are the
+            # reckoning's (``tune_reckoning``)
+            whole = not is_train and plan.stage == plan.ring == plan.tensor == 1
+            for k in ("bubble_s", "wire_s", "launch_s") + (() if whole else ("compute_s",)):
                 assert got[k] == ref[k], (plan.slug(), k)
             assert got == want, plan.slug()
             if is_train:
                 assert got == ref, plan.slug()
             checked += 1
     assert checked > 0
+
+
+def test_c28_data_only_serving_is_charged_the_whole_batch_on_every_rank(tpu_constants):
+    """qwen1.5-32b served at 2 x 4096 on four cards: ``d4`` runs the whole
+    batch on each card, so its compute is four times the reference's (which
+    splits the batch) and its activations' traffic that of the whole
+    batch; ``d2_r2``, placed, keeps the reference's compute."""
+
+    from repro.tune import score as jscore
+    from repro_torch.tune import score as tscore
+
+    cfg, shape = tbase.get_config("qwen1_5_32b"), tbase.ShapeConfig("prefill_4096", 4096, 2,
+                                                                     "prefill")
+    jcfg, jshape = jbase.get_config("qwen1_5_32b"), jbase.ShapeConfig("prefill_4096", 4096, 2,
+                                                                       "prefill")
+    d4 = tscore.score_plan(cfg, shape, tbase.ParallelPlan(data=4))
+    ref = jscore.score_plan(jcfg, jshape, jbase.ParallelPlan(data=4))
+    tokens = 2 * 4096
+    assert d4.compute_s == pytest.approx(4 * ref.compute_s, rel=1e-12)
+    traffic = tokens * cfg.d_model * cfg.num_layers * 2.0 * 2
+    weights = 2 * cfg.param_count()
+    assert d4.memory_s * ttool.HBM_BANDWIDTH == pytest.approx(weights + traffic, rel=1e-12)
+    placed = tbase.ParallelPlan(data=2, ring=2)
+    assert tscore.score_plan(cfg, shape, placed).compute_s == jscore.score_plan(
+        jcfg, jshape, jbase.ParallelPlan(data=2, ring=2)).compute_s
 
 
 def test_c22_qwen_d4_is_charged_its_whole_weights():

@@ -15,10 +15,13 @@ the reference's same plan and of the port's data plan (fp32 throughout:
 the plans only reorder sums); the pipeline's parameters after the last
 step hold within 1e-5 of the data plan's, and its checkpoint, written from
 the 4 ranks' fragments, restores on one rank and in the reference's
-manager.  On the card the trainer refuses to capture a step with these
-exchanges (``ERR_UNSUPPORTED_OPERATION`` at the step's build, naming
-``persistent=False``); through the eager step (``persistent=False``) both
-plans take the persistent step's losses bit for bit.  The CLI
+manager.  On the card the trainer captures a step with these exchanges
+where NCCL's registration of captured buffers is off (a cuda session's
+setting), and refuses it where a caller turned it on
+(``ERR_UNSUPPORTED_OPERATION`` at the step's build, naming
+``NCCL_GRAPH_REGISTER`` and ``persistent=False``); through the eager step
+(``persistent=False``) both plans take the persistent step's losses bit
+for bit.  The CLI
 builds the reference's plans from ``--plan`` and the
 ``--pipeline-stages``/``--ring-attention`` aliases.
 """
@@ -145,9 +148,13 @@ def test_plan_on_four_ranks_holds_the_reference_and_the_data_plan(plans, name):
             np.testing.assert_allclose(got, [m[metric] for m in data_metrics],
                                        rtol=RTOL, atol=0)
         np.testing.assert_array_equal(r[f"{name}/params"], ranks[0][f"{name}/params"])
-        # on the card its exchanges would be captured in a CUDA graph: refused,
-        # naming the eager step as the way; the eager step trains the same
+        # on the card its exchanges are captured in a CUDA graph: built where
+        # NCCL's registration of captured buffers is off (a cuda session's
+        # setting), refused where it is on, naming the setting and the eager
+        # step; the eager step trains the same
+        assert str(r[f"{name}/card_lifted"]) == "none"
         assert str(r[f"{name}/card_error"]) == "ERR_UNSUPPORTED_OPERATION"
+        assert "NCCL_GRAPH_REGISTER" in str(r[f"{name}/card_message"])
         assert "persistent=False" in str(r[f"{name}/card_message"])
         assert bool(r[f"{name}/eager_request"])
         np.testing.assert_array_equal(r[f"{name}/eager_losses"], r[f"{name}/losses"])

@@ -935,6 +935,13 @@ def prog_train_plans(rank: int, world: int, inputs: dict) -> dict:
             card.compile(*state)
         except Exception as e:  # noqa: BLE001  (the message is what is held)
             out[f"{name}/card_message"] = np.array(str(e))
+        # with NCCL's registration of captured buffers off (what a cuda
+        # session sets), the card captures the step
+        os.environ["NCCL_GRAPH_REGISTER"] = "0"
+        try:
+            out[f"{name}/card_lifted"] = np.array(_err(card._check_capturable))
+        finally:
+            del os.environ["NCCL_GRAPH_REGISTER"]
         # the eager step (persistent=False), the plan's way on the card
         eager = Trainer(train_plan_cfg(name), ParallelConfig(), dataclasses.replace(
             tcfg, checkpoint_dir=None, persistent=False), make_host_communicator(device="cpu"),
@@ -1761,6 +1768,169 @@ def prog_dryrun_counts(rank: int, world: int, inputs: dict) -> dict:
         {"count": dict(st.count), "operand_bytes": dict(st.operand_bytes)}, sort_keys=True))}
 
 
+def prog_placed_repairs(rank: int, world: int, inputs: dict) -> dict:
+    """The functions rewritten for ROADMAP C26 and C27 on a 2 x 2 grid,
+    each on DTensors placed as the models place them (batch rows over
+    data, heads over model), beside their former forms on the same
+    DTensors (which torch 2.13's DTensor carries) and on plain tensors:
+    the decode attention and the cross-attention (values, and the latter's
+    gradients) through ``attention_heads``, the SSD decode step through
+    ``ssd_step_heads``, the MoE balance counts through ``counts_over_rows``,
+    the ring buffer's roll as a concatenation, and the prefill's
+    ``_EntryStack`` against ``torch.stack`` + ``_pad_seq``.  Each result
+    whole (``full_tensor``), with its placements."""
+
+    import math
+
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import base
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.models import attention, encdec, mlp, transformer
+    from repro_torch.sharding import local
+
+    mesh = make_host_communicator(2, 2, device="cpu").device_mesh
+    gen = torch.Generator().manual_seed(int(inputs["seed"]))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def place(t, *pl):
+        return distribute_tensor(t, mesh, list(pl))
+
+    def whole(t):
+        return (t.full_tensor() if local.is_dtensor(t) else t).detach().numpy()
+
+    out: dict = {}
+    rows_heads = (Shard(0), Shard(2))
+    cfg = base.ModelConfig(name="t", family="dense", num_layers=1, d_model=16, num_heads=4,
+                           num_kv_heads=2, head_dim=8, d_ff=32, vocab_size=64,
+                           attn_logit_softcap=30.0)
+    # -- decode attention: as many kv heads as query heads, GQA (2 kv
+    # heads) and one kv head (paligemma's); the former form on DTensors
+    # only where torch 2.13 can repeat the split kv heads (none to repeat)
+    for hk in (4, 2, 1):
+        q, kc, vc = randn(2, 1, 4, 8), randn(2, 16, hk, 8), randn(2, 16, hk, 8)
+        valid = torch.arange(16)[None, :] <= torch.tensor([[9], [15]])
+        pq, pk, pv = place(q, *rows_heads), place(kc, *rows_heads), place(vc, *rows_heads)
+        new = local.attention_heads(
+            lambda ql, kl, vl, ml: attention._decode_attend(ql, kl, vl, ml, cfg),
+            pq, pk, pv, valid)
+        plain = attention._decode_attend(q, kc, vc, valid, cfg)
+        old = new
+        if hk == 4:
+            with local.implicit_replication():
+                old = attention._decode_attend(pq, pk, pv, valid, cfg)
+        out[f"decode{hk}"] = np.stack([whole(new), whole(old), whole(plain)])
+        out[f"decode{hk}_placements"] = np.array([str(new.placements), str(old.placements)])
+
+    # -- cross-attention, forward and backward
+    p = {"wq": randn(16, 4, 8), "wo": randn(4, 8, 16)}
+    h, ek, ev = randn(2, 3, 16), randn(2, 5, 4, 8), randn(2, 5, 4, 8)
+
+    def cross_old(p, h, enc_k, enc_v):
+        q = attention._proj(h, p["wq"])
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), enc_k.float()) / math.sqrt(8)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr, enc_v.float()).to(h.dtype)
+        return attention._out(o, p["wo"])
+
+    grads = []
+    for fn, placed in ((encdec._cross_attention, True), (cross_old, True),
+                       (encdec._cross_attention, False)):
+        args = (h, ek, ev)
+        pp = p
+        if placed:
+            pp = {"wq": place(p["wq"], Replicate(), Shard(1)),
+                  "wo": place(p["wo"], Replicate(), Shard(0))}
+            args = (place(h, Shard(0), Replicate()), place(ek, *rows_heads),
+                    place(ev, *rows_heads))
+        args = [a.detach().requires_grad_(True) for a in args]
+        with local.implicit_replication():
+            y = fn(pp, *args) if fn is cross_old else fn(pp, args[0], args[1], args[2], cfg)
+            (y * y).sum().backward()
+        grads.append([whole(y)] + [whole(a.grad) for a in args])
+    for i, name in enumerate(("cross_y", "cross_dh", "cross_dk", "cross_dv")):
+        out[name] = np.stack([g[i] for g in grads])
+
+    # -- the SSD decode step: groups that split (2) and one group (mamba2's,
+    # whole on every model rank); the former form on DTensors only where
+    # torch 2.13 can repeat the groups (one, not split)
+    for g in (2, 1):
+        st, x, dt = randn(2, 4, 4, 8), randn(2, 4, 4), randn(2, 4).abs()
+        A, B, C = -randn(4).abs(), randn(2, g, 8), randn(2, g, 8)
+        hp = (Shard(0), Shard(1))
+        gp = hp if g > 1 else (Shard(0), Replicate())
+        ps, px, pdt = place(st, *hp), place(x, *hp), place(dt, *hp)
+        pA, pB, pC = place(A, Replicate(), Shard(0)), place(B, *gp), place(C, *gp)
+        ny, ns = local.ssd_step_heads(ssd_ops.ssd_decode_step, ps, px, pdt, pA, pB, pC)
+        oy, os_ = ny, ns
+        if g == 1:
+            oy, os_ = ssd_ops.ssd_decode_step(ps, px, pdt, pA, pB, pC)
+        py, pst = ssd_ops.ssd_decode_step(st, x, dt, A, B, C)
+        out[f"ssd{g}_y"] = np.stack([whole(ny), whole(oy), whole(py)])
+        out[f"ssd{g}_state"] = np.stack([whole(ns), whole(os_), whole(pst)])
+        out[f"ssd{g}_placements"] = np.array([str(ns.placements), str(ps.placements)])
+
+    # -- the MoE balance counts: rows split over both axes, and over data
+    e, c = 6, 3
+    for name, pl in (("aux_both", (Shard(0), Shard(1))), ("aux_data", (Shard(0), Replicate()))):
+        logits = randn(2, 8, e)
+        probs = torch.softmax(logits, -1)
+        top_e = torch.argsort(-probs, -1)[..., :2]
+        slot = torch.randint(0, e * c + 1, (2, 16), generator=gen)
+        placed = [place(t, *pl) for t in (logits, probs, top_e, slot)]
+        new = mlp._aux(*placed, e, c)
+
+        def old_aux(logits, probs, top_e, slot):
+            me = probs.reshape(-1, e).mean(0)
+            flat_e = top_e.reshape(-1)
+            ce = torch.zeros(e).index_add(0, flat_e, torch.ones(flat_e.shape)) / flat_e.numel()
+            return {"load_balance_loss": e * torch.sum(me * ce),
+                    "router_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+                    "dropped_fraction": torch.mean((slot == e * c).float())}
+
+        with local.implicit_replication():
+            old = old_aux(*placed)
+        plain = mlp._aux(logits, probs, top_e, slot, e, c)
+        out[name] = np.array([[float(whole(d[k])) for k in sorted(plain)]
+                              for d in (new, old, plain)])
+
+    # -- the ring buffer's roll
+    k = randn(2, 12, 4, 8)
+    pk = place(k, *rows_heads)
+    for r in (0, 5):
+        new = attention._roll_seq(pk, r)
+        old = torch.roll(pk, r, dims=1)
+        out[f"roll{r}"] = np.stack([whole(new), whole(old), whole(attention._roll_seq(k, r)),
+                                    whole(torch.roll(k, r, dims=1))])
+        out[f"roll{r}_placements"] = np.array([str(new.placements), str(old.placements)])
+
+    # -- the prefill's stacked cache (C27), with and without headroom; and
+    # entries whose sequence is split, which are stacked as a whole
+    entries = [(place(randn(2, 6, 4, 8), *rows_heads), place(randn(2, 6, 4, 8), *rows_heads))
+               for _ in range(3)]
+    split_seq = [tuple(place(t.full_tensor(), Shard(0), Shard(1)) for t in ent)
+                 for ent in entries]
+    for extra in (0, 3, "seq"):
+        if extra == "seq":
+            entries, extra = split_seq, 3
+        acc = transformer._EntryStack(3, extra)
+        for u, ent in enumerate(entries):
+            acc.put(u, ent)
+        got, left = acc.stacked()
+        padded = [transformer._pad_seq(t, left) for t in got]
+        want = [transformer._pad_seq(torch.stack(parts), extra) for parts in zip(*entries)]
+        key = "stack_seq" if entries is split_seq else f"stack{extra}"
+        out[key] = np.stack([np.stack([whole(a), whole(b)]) for a, b in zip(padded, want)])
+        out[f"{key}_meta"] = np.array(
+            [left, str(got[0].placements), str(want[0].placements),
+             str(tuple(got[0].to_local().shape)), str(tuple(want[0].to_local().shape))])
+    return out
+
+
 def prog_analysis(rank: int, world: int, inputs: dict) -> dict:
     """The interface under analysis recording on every rank: a clean
     program (allreduce, a ring ``send_recv``, an immediate allreduce
@@ -1823,7 +1993,7 @@ PROGRAMS = {"collectives": prog_collectives, "overlap_schedules": prog_overlap_s
             "serve_cb_mesh": prog_serve_cb_mesh,
             "ring_placed_elastic": prog_ring_placed_elastic, "train_cli": prog_train_cli,
             "four_model_ranks": prog_four_model_ranks, "dryrun_counts": prog_dryrun_counts,
-            "analysis": prog_analysis}
+            "analysis": prog_analysis, "placed_repairs": prog_placed_repairs}
 
 
 def main(argv: list[str]) -> int:

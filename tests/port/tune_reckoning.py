@@ -1,14 +1,15 @@
-"""The reference's tuner under the port's serving reckoning (ROADMAP C22),
-shared by the port's tuner and dry-run tests.
+"""The reference's tuner under the port's serving reckoning (ROADMAP C22,
+C28), shared by the port's tuner and dry-run tests.
 
 :func:`c22_score` is the reference's ``score_plan`` with a serving plan
 charged as the port's server holds it: on data alone (no stage, ring or
 tensor fold) its weights whole on every rank (a config whose
 ``param_count`` is the model's times the plan's devices: the reference's
-``bf16 · params / n`` then reads ``bf16 · params``) and a peak working set
-of the whole batch; on any grid a prefill's working set twice (its layers'
-``(k, v)`` entries and their stack into the cache).  The peak is written
-out below in the port's order of operations.  Training plans are scored as
+``bf16 · params / n`` then reads ``bf16 · params``), a peak working set
+of the whole batch (C22), and the whole batch's compute and activation
+traffic on every rank (C28); on any grid a prefill's working set twice.
+The peak, and a data-only plan's compute and traffic, are written out
+below in the port's order of operations.  Training plans are scored as
 the reference scores them.
 """
 
@@ -61,6 +62,19 @@ def c22_score(cfg, shape, plan, **kw):
     n, whole = plan.total_devices, plan.stage == plan.ring == plan.tensor == 1
     s = score.score_plan(Held(cfg, n) if whole else cfg, shape, plan, **kw)
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    if whole:
+        # C28: each rank computes the whole batch and moves its
+        # activations: the reference's compute and traffic terms with one
+        # rank's share of the batch made the whole batch
+        flops = 2.0 * cfg.active_param_count() * tokens
+        calibration = kw.get("calibration")
+        if calibration and calibration.get("flops_scale"):
+            flops *= float(calibration["flops_scale"])
+        traffic = ((tokens / 1) * cfg.d_model * (cfg.num_layers / plan.stage) * 2.0 * 2
+                   / max(plan.tensor, 1))
+        s = dataclasses.replace(
+            s, compute_s=flops / (1 * tool.PEAK_FLOPS_BF16),
+            memory_s=(1.0 * (2 * cfg.param_count() / 1) + traffic) / tool.HBM_BANDWIDTH)
     rows = tokens if whole else tokens / plan.data
     act = ((rows / (max(1, plan.microbatches) * max(plan.ring, 1))) * cfg.d_model
            * (cfg.num_layers / plan.stage) * 2.0 * 2 / max(plan.tensor, 1))

@@ -11,6 +11,8 @@ on a mesh of one.
     python3 tools/shard_ranks.py --elastic --ring-engine
                                             # and the placed ring prefill
                                             # and the engine at TP 4
+    python3 tools/shard_ranks.py --capture  # exchanges and the ring and
+                                            # pipeline steps in CUDA graphs
 
 Needs four CUDA devices and ``nvcc`` (or ``--device cpu``); run on demand,
 apart from ``chip_smoke.py``.  Every rank, in turn:
@@ -41,10 +43,8 @@ apart from ``chip_smoke.py``.  Every rank, in turn:
   ``--seq``: 8 layers a card, microbatches of one row), ``--steps`` steps
   each, eagerly through the eager trainer's step function; then through
   ``Trainer(persistent=False)``, whose steps must take the step
-  function's losses bit for bit (the default ``Trainer`` refuses to
-  capture a step with these exchanges on the card — its NCCL
-  point-to-point calls hung inside the captured graph — and the refusal,
-  which names ``persistent=False``, is logged).  The pipeline's losses are
+  function's losses bit for bit (the default ``Trainer`` must build its
+  captured step too: ``--capture`` runs it).  The pipeline's losses are
   held within ``LOSS_RTOL`` of the data plan's above (the same batch); the
   ring's first loss within ``RING_LOSS_RTOL`` of the data plan's forward
   on the same weights and batch (forward only: the data plan's backward
@@ -91,14 +91,33 @@ form against ``all_gather_into_tensor`` on the bf16 shard, bit for bit,
 (3072 x 8192) gradient, within fp32 rounding of four terms; each timed
 beside NCCL's (medians of ``TUNE_RING_REPS``).  ``tune_train``: ``train
 --plan auto`` for phi4-mini at b ``--batch`` x ``--seq`` on the four cards
-(``launch.train.resolve_plan``), the winner trained ``--steps`` steps —
-eagerly (``Trainer(persistent=False)``) where its ring or stages span the
-cards, since the captured step refuses there — its predicted step and
-peak beside the warm step and each card's peak.  ``tune_serve``: ``serve
+(``launch.train.resolve_plan``), the winner trained ``--steps`` steps by
+the default ``Trainer``, its predicted step and peak beside the warm step
+and each card's peak.  ``tune_serve``: ``serve
 --plan auto`` for qwen1.5-32b at 2 x ``--prompt-len`` (``launch.serve.run``):
 the winner, its predicted peak, the tokens (the same on every card),
 ``prefill_s`` and each card's peak.  A part that fails is recorded (its
 exit code in ``artifacts/shard_ranks_tune.json``) and the next runs.
+
+With ``--capture`` (instead of everything above): each part a
+``torchrun`` of its own, each a rank's threads' stacks printed before its
+limit should it hang.  Probes, each eagerly first, then captured in a
+CUDA graph and replayed three times, every replay bit for bit the eager
+result: ``capture_shift`` (a cart shift, one ``batch_isend_irecv``),
+``capture_alltoall`` (the shift as an ``all_to_all_single``),
+``capture_chain`` (``CHAIN_SHIFTS`` shifts of buffers made inside the
+step), ``capture_backward`` (a differentiable shift and its backward),
+``capture_ring_schedules`` (``core/overlap.py``'s rings); two more that
+reproduce the failures on request (``--capture-parts``):
+``capture_shift_cold`` (captured with no eager shift first: NCCL
+connects the pair inside the capture, which CUDA refuses) and
+``capture_chain_registered`` (``NCCL_GRAPH_REGISTER=1``: the first replay
+deadlocks).  Then ``capture_ring`` and ``capture_pipeline``: the ring and
+pipeline plans above trained ``--steps`` steps by ``Trainer(persistent=
+False)`` and by the default ``Trainer``, whose step is captured at its
+second start: losses, gradient norms and final parameters bit for bit,
+the warm step times of both.  The exit codes go to
+``artifacts/shard_ranks_capture.json``.
 
 Rank 0 writes everything, with the card's name and power limit, to
 ``artifacts/shard_ranks.json`` (a part to ``shard_ranks_<part>.json``).
@@ -168,7 +187,13 @@ def _args(argv=None):
     ap.add_argument("--tune", action="store_true",
                     help="the all_reduce latency and the ring schedules against NCCL, then "
                          "train and serve --plan auto across the cards (nothing else)")
-    ap.add_argument("--part", choices=ELASTIC_PARTS + PLACED_PARTS + TUNE_PARTS, default=None,
+    ap.add_argument("--capture", action="store_true",
+                    help="exchanges captured in CUDA graphs, then the ring and pipeline "
+                         "plans' captured steps against their eager steps (nothing else)")
+    ap.add_argument("--capture-parts", default=",".join(CAPTURE_DEFAULT),
+                    help="--capture: the parts to run, in order")
+    ap.add_argument("--part", choices=ELASTIC_PARTS + PLACED_PARTS + TUNE_PARTS + CAPTURE_PARTS,
+                    default=None,
                     help="one part of --elastic or --ring-engine (each runs in processes of "
                          "its own)")
     return ap.parse_args(argv)
@@ -395,6 +420,21 @@ ELASTIC_PARTS = ("drill", "controls", "plans")
 PLACED_PARTS = ("ring_prefill", "engine")
 # the --tune parts
 TUNE_PARTS = ("tune_rings", "tune_train", "tune_serve")
+#: --capture: three exchanges each captured in a CUDA graph (one torchrun
+#: each), then the ring and pipeline plans' captured steps against eager
+CAPTURE_PROBES = ("capture_shift", "capture_alltoall", "capture_chain", "capture_backward",
+                  "capture_ring_schedules", "capture_shift_cold", "capture_chain_registered")
+CAPTURE_PLANS = ("capture_ring", "capture_pipeline")
+CAPTURE_PARTS = CAPTURE_PROBES + CAPTURE_PLANS
+# the parts ``--capture`` runs unless ``--capture-parts`` names others: all
+# but the two that reproduce the failures (a capture refused, a replay that
+# deadlocks until the part's limit)
+CAPTURE_DEFAULT = tuple(p for p in CAPTURE_PARTS
+                        if p not in ("capture_shift_cold", "capture_chain_registered"))
+# the longest a probe's torchrun may take, and a plan's
+CAPTURE_PROBE_LIMIT_S, CAPTURE_PLAN_LIMIT_S = 60, 240
+# a chain probe's shifts, each of a fresh buffer of this many fp32
+CHAIN_SHIFTS, CHAIN_ELEMS = 16, 1 << 22
 
 
 def _control(args, cfg, pcfg, ckpt, step, comm, steps) -> list | None:
@@ -631,7 +671,7 @@ def _train_plans(args, out, rows) -> None:
         _reset(args.device)
         t = trainer()
         try:
-            t.compile(None, None)   # the default, captured step: refused on the card
+            t.compile(None, None)   # the default, captured step: built on the card too
         except errors.Error as e:
             row["captured_step_error"] = str(e)
         del t
@@ -683,8 +723,7 @@ def _train_plans(args, out, rows) -> None:
                          f"plan's {rows['data_plan']['losses']}")
     for name, row in plans.items():
         chip_smoke.check(all(x == x for x in row["eager"]["losses"]), f"{name}: {row}")
-        refused = "persistent=False" in row.get("captured_step_error", "")
-        chip_smoke.check(refused is (args.device == "cuda"),
+        chip_smoke.check("captured_step_error" not in row,
                          f"{name}: the captured step's build on {args.device}: {row}")
         chip_smoke.check(not row["step_request"] and row["trainer_equals_eager"],
                          f"{name}: the eager trainer's steps {row['losses']} differ from the "
@@ -920,10 +959,8 @@ def _tune_train(args, out) -> None:
     predicted = tune.tune("phi4_mini_3_8b", shape, WORLD, config=cfg, register=False,
                           space=base.plan_space("phi4_mini_3_8b"), device_type=args.device)
     chip_smoke.check(predicted.plan == plan, f"tune train: {predicted.plan} against {plan}")
-    eager = plan.ring > 1 or plan.stage > 1
     _reset(args.device)
-    t = Trainer(cfg, pcfg, TrainerConfig(steps=args.steps, lr=3e-4, log_every=1, plan=plan,
-                                         persistent=not eager),
+    t = Trainer(cfg, pcfg, TrainerConfig(steps=args.steps, lr=3e-4, log_every=1, plan=plan),
                 make_host_communicator(device=args.device), seq_len=args.seq,
                 global_batch=args.batch,
                 straggler=StragglerPolicy(deadline_factor=float("inf")))
@@ -935,7 +972,7 @@ def _tune_train(args, out) -> None:
     metrics = result["metrics"]
     warm = sorted(m["duration_s"] for m in metrics[1:])[(len(metrics) - 1) // 2]
     row = {"plan": plan.slug(), "candidates": predicted.n_candidates,
-           "predicted": predicted.score.as_dict(), "eager": eager,
+           "predicted": predicted.score.as_dict(),
            "cart": list(t.comm.shape), "placed": t.placed, "batch": args.batch,
            "seq": args.seq, "losses": [m["loss"] for m in metrics],
            "grad_norms": [m["grad_norm"] for m in metrics],
@@ -993,6 +1030,209 @@ def _tune_serve(args, out) -> None:
     del server
 
 
+def _capture_probe(args, out) -> None:
+    """One exchange, a shift by one along a ring of the four ranks (each
+    sends 4 MiB of fp32 to the next), eagerly and then captured in a CUDA
+    graph and replayed three times on new values, each replay checked
+    against the values the rank before sent, bit for bit.
+    ``capture_shift``: the cart's ``shift_exchange`` (one
+    ``batch_isend_irecv`` on the ring's process group), the eager call
+    first; ``capture_shift_cold``: the same captured with no eager call
+    before it; ``capture_alltoall``: the same shift as an
+    ``all_to_all_single`` with one non-empty chunk a rank.  A capture or
+    replay that hangs ends the torchrun at ``CAPTURE_PROBE_LIMIT_S``, after
+    each rank printed its threads' stacks."""
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.core import topology
+    from repro_torch.core.communicator import world
+
+    comm = world(device_type=args.device)
+    cart = topology.cart_create(comm, [WORLD], [True])
+    me, n = cart.rank(), WORLD
+    src, dst = (me - 1) % n, (me + 1) % n
+    group = cart.axis_group(cart.axis_names[0])
+    dev = torch.device(args.device, torch.cuda.current_device()) if args.device == "cuda" \
+        else torch.device("cpu")
+    x = torch.arange(1 << 20, dtype=torch.float32, device=dev) + 1e6 * me
+
+    def shift(x):
+        if args.part == "capture_alltoall":
+            out_ = torch.empty_like(x)
+            dist.all_to_all_single(out_, x, output_split_sizes=[x.numel() * (j == src)
+                                                                for j in range(n)],
+                                   input_split_sizes=[x.numel() * (j == dst) for j in range(n)],
+                                   group=group)
+            return out_
+        return cart.shift_exchange(x, 0, 1).get()
+
+    def want(k: int):
+        return torch.arange(1 << 20, dtype=torch.float32, device=dev) + 1e6 * src + k
+
+    if args.part not in ("capture_shift", "capture_alltoall", "capture_shift_cold"):
+        return _capture_probe_chain(args, out, comm, cart, dev)
+    row = {"probe": args.part, "eager_first": args.part != "capture_shift_cold"}
+    out["probe"] = row
+    _dump(out)
+    if row["eager_first"]:
+        row["eager_equal"] = bool(torch.equal(shift(x), want(0)))
+        torch.cuda.synchronize() if args.device == "cuda" else None
+    if args.device != "cuda":
+        row["replays_equal"] = [bool(torch.equal(shift(x), want(0)))]
+        return
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        y = shift(x)
+    torch.cuda.synchronize()
+    row["capture_s"] = time.perf_counter() - t0
+    _dump(out)
+    row["replays_equal"] = []
+    for k in range(1, 4):
+        x.add_(1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        row["replays_equal"].append(bool(torch.equal(y, want(k))))
+    chip_smoke.log(f"rank {me} {args.part}: " + json.dumps(row))
+    chip_smoke.check(all(row["replays_equal"]) and row.get("eager_equal", True),
+                     f"{args.part}: {row}")
+    del graph
+
+
+def _capture_probe_chain(args, out, comm, cart, dev) -> None:
+    """``capture_chain``: ``CHAIN_SHIFTS`` shifts chained in one graph, each
+    of a buffer of ``CHAIN_ELEMS`` fp32 made inside the step (the graph's
+    pool hands freed buffers on, as in a training step), the sum of what
+    arrived returned, under the session's NCCL setting (buffer
+    registration in graphs off); ``capture_chain_registered`` the same with
+    registration on (``NCCL_GRAPH_REGISTER=1``, set by the parent): its
+    first replay deadlocked; ``capture_backward``: a differentiable shift
+    and its backward (a shift by -1, which autograd's device thread issues)
+    in one graph; ``capture_ring_schedules``: ``core/overlap.py``'s
+    ``ring_all_gather`` and ``ring_reduce_scatter`` over the four ranks.
+    Each eagerly first, then captured and replayed three times: every
+    replay's result equal to the eager one's, bit for bit."""
+
+    import torch
+
+    import chip_smoke
+    from repro_torch.core import overlap, topology
+    from repro_torch.core.futures import flatten
+
+    me = cart.rank()
+    base = (torch.arange(CHAIN_ELEMS, device=dev) % 1024).float() + me
+
+    def chain(x):
+        acc = torch.zeros_like(x)
+        for i in range(CHAIN_SHIFTS):
+            acc = acc + cart.shift_exchange(x * (i + 1), 0, 1).get()
+            x = x + 1
+        return acc
+
+    w = torch.linspace(-1, 1, CHAIN_ELEMS, device=dev) * (me + 1)
+
+    def backward(x):
+        x = x.detach().requires_grad_(True)
+        y = topology.shift_differentiable(cart, x, 0, 1)
+        return torch.autograd.grad((y * w).sum(), x)[0]
+
+    def schedules(x):
+        return (overlap.ring_all_gather(comm, x.view(64, -1)),
+                overlap.ring_reduce_scatter(comm, x.view(64, -1)))
+
+    fn = {"capture_backward": backward, "capture_ring_schedules": schedules}.get(args.part,
+                                                                                chain)
+    row = {"probe": args.part, "nccl_graph_register": os.environ.get("NCCL_GRAPH_REGISTER")}
+    out["probe"] = row
+    _dump(out)
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(flatten(a)[0], flatten(b)[0]))
+
+    want = fn(base)
+    if args.device != "cuda":
+        row["replays_equal"] = [equal(fn(base), want)]
+        return
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        y = fn(base)
+    torch.cuda.synchronize()
+    row["capture_s"] = time.perf_counter() - t0
+    _dump(out)
+    row["replays_equal"] = []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        row["replays_equal"].append(equal(y, want))
+        _dump(out)
+    chip_smoke.log(f"rank {me} {args.part}: " + json.dumps(row))
+    chip_smoke.check(all(row["replays_equal"]), f"{args.part}: {row}")
+    del graph
+
+
+def _capture_plan(args, out) -> None:
+    """The ring plan (ring 4, b 2 x ``--ring-seq``) or the pipeline plan
+    (stage 4, micro 4, b ``--batch`` x ``--seq``) trained ``--steps``
+    steps by ``Trainer(persistent=False)`` (eager) and by the default
+    ``Trainer`` (start 1 eager, captured at start 2, replayed after): the
+    losses, the gradient norms and the final parameters must be equal bit
+    for bit; each run's step times, captures and peak logged."""
+
+    import torch
+
+    import chip_smoke
+    from repro_torch.configs.base import ParallelPlan
+    from repro_torch.core.futures import flatten
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.faults import StragglerPolicy
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg, pcfg = _train_cfg(args)
+    if args.part == "capture_ring":
+        plan, seq, batch = ParallelPlan(ring=WORLD), args.ring_seq, RING_BATCH
+    else:
+        plan, seq, batch = ParallelPlan(stage=WORLD, microbatches=WORLD), args.seq, args.batch
+    row = {"plan": plan.slug(), "seq": seq, "batch": batch, "steps": args.steps,
+           "nccl_graph_register": os.environ.get("NCCL_GRAPH_REGISTER")}
+    out["capture_plan"] = row
+    finals = {}
+    # bit for bit needs the deterministic kernels where PyTorch has a choice
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for name, persistent in (("eager", False), ("captured", True)):
+        _reset(args.device)
+        t = Trainer(cfg, pcfg, TrainerConfig(steps=args.steps, lr=3e-4, log_every=1, plan=plan,
+                                             persistent=persistent),
+                    make_host_communicator(device=args.device), seq_len=seq,
+                    global_batch=batch, straggler=StragglerPolicy(deadline_factor=float("inf")))
+        result = t.run()
+        metrics = result["metrics"]
+        row[name] = {"losses": [m["loss"] for m in metrics],
+                     "grad_norms": [m["grad_norm"] for m in metrics],
+                     "step_s": [m["duration_s"] for m in metrics],
+                     "captures": t._request.captured if t._request is not None else 0,
+                     "placed": t.placed, "peak_gb": _peak(args.device)}
+        finals[name] = [(x.to_local() if hasattr(x, "to_local") else x).detach().cpu()
+                        for x in flatten(t.params)[0]]
+        _dump(out)
+        del t, result
+    torch.use_deterministic_algorithms(False)
+    row["losses_equal"] = row["eager"]["losses"] == row["captured"]["losses"]
+    row["grad_norms_equal"] = row["eager"]["grad_norms"] == row["captured"]["grad_norms"]
+    row["params_equal"] = all(torch.equal(a, b) for a, b in
+                              zip(finals["eager"], finals["captured"]))
+    for name in ("eager", "captured"):
+        row[name]["warm_step_s"] = sorted(row[name]["step_s"][2:])[len(row[name]["step_s"][2:])
+                                                                  // 2]
+    chip_smoke.log(f"rank {out['rank']} {args.part}: " + json.dumps(row))
+    _dump(out)
+    chip_smoke.check(row["losses_equal"] and row["grad_norms_equal"] and row["params_equal"],
+                     f"{args.part}: the captured steps differ from the eager ones: {row}")
+
+
 def _rank_main(args) -> int:
     import torch.distributed as dist
 
@@ -1009,7 +1249,16 @@ def _rank_main(args) -> int:
         ).stdout.strip().splitlines()[0]
     out = {"card": card, "world": WORLD, "rank": comm.rank(), "part": args.part}
     t0 = time.perf_counter()
-    if args.part is not None:
+    if args.part in CAPTURE_PARTS:
+        # a capture or replay that hangs blocks in the device, where no
+        # Python handler runs: each thread's stack is printed before the
+        # torchrun's limit ends the ranks
+        import faulthandler
+
+        limit = CAPTURE_PROBE_LIMIT_S if args.part in CAPTURE_PROBES else CAPTURE_PLAN_LIMIT_S
+        faulthandler.dump_traceback_later(limit - 30, exit=True)
+        (_capture_probe if args.part in CAPTURE_PROBES else _capture_plan)(args, out)
+    elif args.part is not None:
         {"drill": _elastic_drill, "controls": _elastic_controls,
          "plans": lambda a, o: _train_plans(a, o, {}), "ring_prefill": _ring_prefill,
          "engine": _engine, "tune_rings": _tune_rings, "tune_train": _tune_train,
@@ -1059,6 +1308,24 @@ def main(argv=None) -> int:
             path.parent.mkdir(exist_ok=True)
             path.write_text(json.dumps({"exit_codes": rcs}, indent=1))
         print(json.dumps({"tune_exit_codes": rcs}), flush=True)
+        return max(rcs.values())
+    if args.capture and args.part is None:
+        # every part runs whatever the others did; their exit codes recorded
+        rcs = {}
+        for part in args.capture_parts.split(","):
+            part_env = dict(env)
+            if part == "capture_chain_registered":
+                part_env["NCCL_GRAPH_REGISTER"] = "1"
+            limit = CAPTURE_PROBE_LIMIT_S if part in CAPTURE_PROBES else CAPTURE_PLAN_LIMIT_S
+            try:
+                rcs[part] = subprocess.run(cmd + ["--part", part], env=part_env, cwd=str(ROOT),
+                                           timeout=limit).returncode
+            except subprocess.TimeoutExpired:
+                rcs[part] = 124
+            path = ROOT / "artifacts" / "shard_ranks_capture.json"
+            path.parent.mkdir(exist_ok=True)
+            path.write_text(json.dumps({"exit_codes": rcs}, indent=1))
+        print(json.dumps({"capture_exit_codes": rcs}), flush=True)
         return max(rcs.values())
     parts = (ELASTIC_PARTS if args.elastic else ()) + (PLACED_PARTS if args.ring_engine else ())
     for part in parts if args.part is None and parts else (None,):

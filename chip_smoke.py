@@ -136,7 +136,11 @@ any failure.  In order:
    beside the warm generate's); one prefill and four decode steps are
    profiled, eager and as four replays of the server's request captured on
    that cache (the capturing start timed apart, the replays' launches
-   exact).  An int8 serve must give the bf16
+   exact; the step's program, recorded at the first generate's capture and
+   not again at that capture or a replay, holds exactly the capture's
+   launches as kernel ops; for gemma2's int8 cache the capture is taken
+   again with the program recorded at it, timed beside the capture without
+   the recorder).  An int8 serve must give the bf16
    serve's first token and hold its KV cache in 0.5 (1 + 4 / head_dim) of
    the bf16 cache's bytes; the prefill and first-decode logits' max |Δ| and
    the share of later tokens that agree are logged.  Last, phi4-mini in
@@ -227,7 +231,9 @@ any failure.  In order:
     moments), after the same steps run eagerly through ``make_train_step``
     from the same seed: the trainer's steps (step 1 eager, then one graph
     captured and replayed) must give the eager steps' losses and grad norms
-    bit for bit; finite losses and grad norms, every parameter leaf changed,
+    bit for bit, the step's program recorded once (at the capture) with
+    exactly the capture's launches as kernel ops, its ``cost_analysis()``
+    logged; finite losses and grad norms, every parameter leaf changed,
     flash (phi4-mini) or SSD (mamba2) launched exactly twice per layer and
     step (the forward and remat's recompute), step time, tokens/s and peak
     memory of both runs logged beside the card, and one warm step (a
@@ -269,7 +275,9 @@ any failure.  In order:
     one's trace time, peak a card against ``HBM_BYTES``, dominant term and
     useful-flops ratio;
     ``tune.load_calibration`` reads the pod artifact and the tuner's
-    calibrated step is printed.  Then ``analyze`` (``phase_analyze``),
+    calibrated step is printed, and the ``tune`` phase's trainer's
+    ``cost_analysis()`` (its program recorded at its capture) beside the
+    ``tune`` cell's counted flops and bytes.  Then ``analyze`` (``phase_analyze``),
     under the ``analysis_recording`` cvar: phi4-mini at full width and 4
     layers served with the int8 cache (flash and the quant kernels launch)
     and 2 ``Trainer`` steps (one capture), 0 findings; a seeded start
@@ -435,6 +443,46 @@ def log_row(row: dict) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+#: the serve path whose decode capture is timed with and without the
+#: recorder of the step's program (``core/hloanalysis.py``)
+RECORD_TIMED_PATH = "gemma2_9b_int8"
+
+
+@contextlib.contextmanager
+def _counting_records():
+    """Every recording of a request's program in the block: the list of the
+    step functions recorded (``hloanalysis.record``, which a
+    ``PersistentRequest`` calls at its capture or first eager start)."""
+
+    from repro_torch.core import hloanalysis
+
+    seen, real = [], hloanalysis.record
+
+    def counting(fn, *args, **kwargs):
+        seen.append(fn)
+        return real(fn, *args, **kwargs)
+
+    hloanalysis.record = counting
+    try:
+        yield seen
+    finally:
+        hloanalysis.record = real
+
+
+def _program_against_capture(path: str, req) -> dict:
+    """The request's recorded program (``req.compiled``, recorded at a
+    capture: never recorded anew here) against its last capture: each
+    kernel op's count must equal the launches the capture recorded."""
+
+    check(req._program is not None, f"{path}: no program was recorded at the capture")
+    program = req.compiled
+    ops = {k.removeprefix("repro_torch."): n for k, n in program.kernels().items()}
+    launched = {k: n for k, n in req._launches.items() if n}
+    check(ops == launched, f"{path}: the program's kernel ops {ops} != the capture's "
+                           f"launches {launched}")
+    return {"ops": len(program.ops), "kernel_ops": ops, "capture_launches": launched}
 
 
 # The clock (``time_device``).  Each rep holds the stream with a spin kernel
@@ -2040,22 +2088,46 @@ def _graph_decode(path, server, cache, tok, per_step) -> dict:
           f"{path}: the decode request does not capture (captures {req.captures}, "
           f"starts {req.starts})")
     captured = req.captured
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    req(server.params, cache, tok)
-    torch.cuda.synchronize()
-    capture_ms = (time.perf_counter() - t0) * 1e3
-    check(req.captured == captured + 1, f"{path}: the start did not capture")
-    _reset_launches()
-    profile = _profile(lambda: [req(server.params, cache, tok) for _ in range(4)])
-    launches = _launches()
+    with _counting_records() as recorded:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        req(server.params, cache, tok)
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        check(req.captured == captured + 1, f"{path}: the start did not capture")
+        _reset_launches()
+        profile = _profile(lambda: [req(server.params, cache, tok) for _ in range(4)])
+        launches = _launches()
+    # the program was recorded at the first generate's capture: not at this
+    # capture, nor at a replay
+    check(recorded == [], f"{path}: the program recorded {len(recorded)} times at a later "
+                          f"capture and its replays")
+    program = _program_against_capture(path, req)
     req.release()
     # _profile runs its function twice: 8 replays
     for name, n in launches.items():
         want = 8 * per_step.get(name, 0)
         check(n == want, f"{path}: {name} launches {n} over 8 graph replays, want {want}")
-    return {"capture_and_replay_ms": capture_ms, "launches_8_replays": launches,
-            "captures_this_server": req.captured, "profile": profile}
+    row = {"capture_and_replay_ms": capture_ms, "launches_8_replays": launches,
+           "captures_this_server": req.captured, "profile": profile, "program": program}
+    if path == RECORD_TIMED_PATH:
+        # the capture again with the program recorded at it: its time beside
+        # the capture without the recorder, and its kernel ops against its
+        # own launches
+        req._program = None
+        with _counting_records() as recorded:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            req(server.params, cache, tok)
+            torch.cuda.synchronize()
+            row["capture_and_replay_recorded_ms"] = (time.perf_counter() - t0) * 1e3
+        check(len(recorded) == 1, f"{path}: {len(recorded)} recordings at one capture")
+        row["program_recorded_at_capture"] = _program_against_capture(path, req)
+        req.release()
+        log(f"{path} decode capture: {capture_ms:.1f} ms, "
+            f"{row['capture_and_replay_recorded_ms']:.1f} ms with the program recorded; "
+            f"program {json.dumps(row['program_recorded_at_capture'])}")
+    return row
 
 
 def _against_flash(path, server, batch, seen) -> dict:
@@ -3844,9 +3916,17 @@ def phase_train(arch, layers, d_model, kernel, moments, ring=False):
     seen = _capture_init(trainer)
     _reset_launches()
     t0 = time.perf_counter()
-    result = trainer.run()
+    with _counting_records() as recorded:
+        result = trainer.run()
     wall = time.perf_counter() - t0
     launches = _launches()
+    # the step's program: recorded once, at the capture (step 2), never at
+    # the eager step 1 or a replay; its kernel ops are the capture's launches
+    step_recordings = sum(fn is trainer._request._fn for fn in recorded)
+    check(step_recordings == 1, f"{path}: the step's program recorded {step_recordings} times "
+                                f"in {TRAIN_STEPS} steps")
+    program = _program_against_capture(path, trainer._request)
+    program.update(trainer._request.cost_analysis())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     metrics = result["metrics"]
     # the encoder-decoder runs the kernel in its encoder's layers too; the
@@ -3876,7 +3956,8 @@ def phase_train(arch, layers, d_model, kernel, moments, ring=False):
            "wall_s_init_included": wall, "launches": launches,
            "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items() if n},
            f"{kernel}_per_step": launches[kernel] / TRAIN_STEPS, "leaves_changed": changed,
-           "graph_captures": trainer._request.captured,
+           "graph_captures": trainer._request.captured, "program": program,
+           "capture_step_s": metrics[1]["duration_s"],
            "losses_equal_eager_bitwise": losses == eager["losses"], "eager": eager,
            "device": RESULTS["device"]["nvidia_smi"]}
     fp32 = RESULTS.get("train", {}).get(f"train_{arch}")
@@ -4230,7 +4311,9 @@ def phase_tune():
         "data_plan_first_loss": data_plan["losses"][0],
         "data_plan_warm_step_s": data_plan["warm_step_s"],
         "data_plan_peak_gb": data_plan["peak_mem_gb"], "launches": launches[path],
-        "graph_captures": trainer._request.captured}
+        "graph_captures": trainer._request.captured,
+        "program": _program_against_capture(path, trainer._request)
+        | trainer._request.cost_analysis()}
     log_row({"tune_train": row["train"]})
     for name, n in launches[path].items():
         want = per_step.get(name, 0) * TRAIN_STEPS
@@ -4472,6 +4555,21 @@ def phase_dryrun():
                  for rec in (qwen_d4, qwen)},
     }
     log_row({"dryrun_tune_cell": row})
+    # the program the tune phase's trainer recorded at its capture (the same
+    # configuration: b TRAIN_BATCH x TRAIN_SEQ, one card, no remat) beside
+    # the dry run's count of that cell
+    program = measured.get("program", {})
+    cost = {"card": card, "program_flops": program.get("flops"),
+            "program_bytes_accessed": program.get("bytes accessed"),
+            "program_ops": program.get("ops"),
+            "dryrun_hlo_flops": cell["roofline"]["hlo_flops"],
+            "dryrun_hlo_bytes": cell["roofline"]["hlo_bytes"]}
+    if program:
+        cost["flops_program_over_dryrun"] = program["flops"] / cell["roofline"]["hlo_flops"]
+        cost["bytes_program_over_dryrun"] = (program["bytes accessed"]
+                                             / cell["roofline"]["hlo_bytes"])
+    log_row({"program_cost_against_dryrun": cost})
+    row["program_cost"] = cost
     RESULTS["dryrun"] = {"cells": recs, "tune_cell": row}
     return {}
 

@@ -10,15 +10,16 @@ repro_torch.analysis.lint``.
   order/signature matching, deadlock detection on the point-to-point
   matching graph, future/request lifecycle, RMA epoch discipline, I/O
   joins.  Findings carry typed :class:`~repro_torch.core.errors.ErrorClass`.
+* :mod:`repro_torch.analysis.hlo` — predicate passes over a step's
+  recorded program (no-collective, permute counts, wire fractions, ring
+  schedules, identical lowerings), in place of the reference's compiled
+  modules.
 * :mod:`repro_torch.analysis.static` — source meta-checks (swallowed
   failures, unregistered pvars).
 
-The reference's HLO passes (``repro.analysis.hlo``) read XLA's compiled
-modules and have no counterpart (ROADMAP A16).
-
 Only the ledger is imported eagerly (it is import-light by design); the
-checker layers import on demand so the core interface does not pay for
-them.
+checker and pass layers import on demand so the core interface does not
+pay for them.
 """
 
 from repro_torch.analysis import events

@@ -25,6 +25,11 @@ eager PyTorch form.
   eagerly (the warm-up), the second captures the step and replays it, every
   later start replays.  Other requests run the step eagerly at each start.
 
+  A request's program — the ops one run of its step dispatches on this
+  rank (:mod:`repro_torch.core.hloanalysis`) — is recorded once, where the
+  step runs anyway: at the capture, or at an eager request's first start
+  (``compiled``, ``as_text()``, ``cost_analysis()``).
+
 * :class:`PersistentCollective` — ``MPI_Allreduce_init`` and friends: one
   persistent request per dtype bucket of the example's reflected datatype.
 
@@ -39,6 +44,7 @@ import time
 import weakref
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.analysis import events as analysis_events
@@ -421,6 +427,30 @@ def _capturable(leaf: Any) -> bool:
     return isinstance(leaf, torch.Tensor) and leaf.is_cuda
 
 
+def _zeros_maker(leaf: Any) -> Callable[[], Any]:
+    """A function making zeros of ``leaf``'s shape, strides, dtype, device
+    (a DTensor's mesh and placements) and ``requires_grad``, holding no
+    reference to its buffer (a numpy array's zeros likewise); any other
+    leaf as it is."""
+
+    if isinstance(leaf, np.ndarray):
+        shape, dtype = leaf.shape, leaf.dtype
+        return lambda: np.zeros(shape, dtype)
+    if not isinstance(leaf, torch.Tensor):
+        return lambda: leaf
+    grad = leaf.requires_grad and leaf.is_leaf
+    shape, dtype = tuple(leaf.shape), leaf.dtype
+    if _is_dtensor(leaf):
+        from torch.distributed.tensor import zeros
+
+        mesh, placements = leaf.device_mesh, tuple(leaf.placements)
+        return lambda: zeros(shape, dtype=dtype, device_mesh=mesh, placements=placements,
+                             requires_grad=grad)
+    stride, device = leaf.stride(), leaf.device
+    return lambda: torch.empty_strided(shape, stride, dtype=dtype, device=device).zero_(
+    ).requires_grad_(grad)
+
+
 def _graph_capture(fn: Callable, args: tuple) -> tuple[Any, Any]:
     """Capture ``fn(*args)`` as a ``torch.cuda.CUDAGraph`` (its kernels
     are recorded, not run): (the graph, the outputs, which are the graph's
@@ -476,6 +506,17 @@ class PersistentRequest:
       zeros the request owns in place of its tensor arguments (safe under
       donation), so that kernel builds and allocator growth happen before
       the first real start; on the card, start 1 still runs eagerly.
+    * **the program** — ``compiled`` (a :class:`~repro_torch.core.
+      hloanalysis.Program`), ``as_text()`` and ``cost_analysis()`` (XLA's
+      ``"flops"`` and ``"bytes accessed"``, this rank's) read the ops one
+      run of the step dispatches here.  They are recorded once, where the
+      step runs anyway: at the capture (the graph holds exactly those
+      ops), or at an eager request's first start; never at a later start
+      or a replay.  Asked for before then, they are recorded by one run on
+      zeros the request owns (the warm start's, safe under donation): a
+      collective call when the step communicates, which counts no pvar and
+      no kernel launch and never touches the caller's buffers.  A recording
+      that fails raises (``ERR_OTHER``) and leaves no program.
     * **continuations** — ``then(fn)`` registers a continuation applied to
       every start's host future.
     """
@@ -502,6 +543,8 @@ class PersistentRequest:
         self._continuations: list[Callable[[Future], Any]] = []
         self._started = 0
         leaves = _leaves(example_args)
+        self._zeros = [_zeros_maker(leaf) for leaf in leaves]
+        self._program: Any = None     # the recorded hloanalysis.Program
         #: whether the steady state is a CUDA graph replay
         self.captures = bool(self.donate_argnums and leaves) and all(map(_capturable, leaves))
         #: graphs captured so far (a release and a new buffer capture again)
@@ -522,14 +565,57 @@ class PersistentRequest:
                 self._token, donated=bool(self.donate_argnums),
                 rank=analysis_events.process_rank())
         if warm_start:
-            self._warm_start(leaves)
+            self._warm_start()
 
-    def _warm_start(self, leaves: list) -> None:
-        """Prefetch: fire once on zero buffers the request owns."""
+    def _warm_start(self, record: bool = False) -> None:
+        """Prefetch: fire once on zero buffers the request owns (recording
+        the program, with ``record``)."""
 
-        zeros = [torch.zeros_like(leaf) if isinstance(leaf, torch.Tensor) else leaf
-                 for leaf in leaves]
-        _sync(self._fn(*unflatten(self._signature[0], zeros)))
+        zeros = [make() for make in self._zeros]
+        fn = self._recording(self._fn) if record else self._fn
+        _sync(fn(*unflatten(self._signature[0], zeros)))
+
+    def _recording(self, fn: Callable) -> Callable:
+        """``fn``, recording the request's program at its call while there
+        is none (then plain ``fn``: a stand-in graph's replays call it
+        again).  It holds the request weakly: a graph that keeps it must
+        not keep the request alive."""
+
+        request = weakref.ref(self)
+
+        def once(*args):
+            req = request()
+            if req is None or req._program is not None:
+                return fn(*args)
+            from repro_torch.core.hloanalysis import record
+
+            out, req._program = record(fn, *args)
+            return out
+
+        return once
+
+    @property
+    def compiled(self):
+        """The step's program on this rank (:class:`repro_torch.core.
+        hloanalysis.Program`); recorded by a run on owned zeros if the step
+        has not run under the recorder yet (collective)."""
+
+        if self._program is None:
+            with tool.pvars_paused(), tool.recording_launches():
+                self._warm_start(record=True)
+        return self._program
+
+    def cost_analysis(self) -> dict[str, float]:
+        """XLA's ``cost_analysis()`` keys over this rank's program:
+        ``"flops"`` and ``"bytes accessed"``."""
+
+        from repro_torch.core.hloanalysis import analyze_hlo
+
+        cost = analyze_hlo(self.as_text())
+        return {"flops": cost.flops, "bytes accessed": cost.bytes}
+
+    def as_text(self) -> str:
+        return self.compiled.as_text()
 
     @property
     def starts(self) -> int:
@@ -575,8 +661,10 @@ class PersistentRequest:
             self._validate(args)
         if self.captures and self._started:
             out = self._replay(args)
-        else:
+        elif self.captures:
             out = self._fn(*args)
+        else:
+            out = self._recording(self._fn)(*args)
         if self.captures:
             self._previous = [weakref.ref(leaf) for leaf in _leaves(args)]
         tool.pvar_count("persistent_start")
@@ -636,7 +724,7 @@ class PersistentRequest:
             in_place.append(keep)
         try:
             with tool.recording_launches() as launches:
-                graph, out = _graph_capture(self._fn, unflatten(treedef, bound))
+                graph, out = _graph_capture(self._recording(self._fn), unflatten(treedef, bound))
             graph.replay()
         except torch.OutOfMemoryError as e:
             raise errors.exception(
@@ -712,6 +800,11 @@ class PersistentCollective:
         requests — one logical start fires every bucket once)."""
 
         return max((r.starts for r in self._requests), default=0)
+
+    def as_text(self) -> str:
+        """The bucket requests' programs, one after another."""
+
+        return "\n".join(r.as_text() for r in self._requests)
 
     def start(self, value: Any) -> Future:
         if self.datatype is None:

@@ -11,8 +11,9 @@ with no fusion, the op's flops (``torch.utils.flop_counter``'s formulas and
 the port's kernels' own), the bytes it reads and writes, and each
 collective's operand, result and wire bytes (:class:`CollectiveStats`).
 :func:`flops_and_bytes` and :func:`roofline_terms` keep the reference's
-names and return keys over that count.  The HLO text parser
-(``parse_hlo_collectives``) has no counterpart (ROADMAP A16).
+names and return keys over that count.  The same mode records a step's
+program as text (:mod:`repro_torch.core.hloanalysis`), which
+:func:`parse_hlo_collectives` reads in place of HLO text.
 
 * **pvars** are call-site counters (``pvar_count`` / ``pvar_add``), with a
   documented registry (``PVARS``) and an optional strict mode that rejects
@@ -34,6 +35,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+import re
 import threading
 from collections import Counter, defaultdict
 from typing import Any, Callable, Iterator
@@ -174,6 +177,102 @@ def _wire_factor(kind: str, n: int) -> float:
     if kind in ("all-gather", "reduce-scatter", "all-to-all"):
         return frac
     return 1.0
+
+
+def _add_collective(stats: CollectiveStats, kind: str, operand_bytes: float,
+                    result_bytes: float, n: int) -> None:
+    """Count one collective of ``kind`` over a group of ``n`` into
+    ``stats``: its operand and result bytes, and its wire bytes (the
+    operand for reductions, all-to-alls and permutes, the result for
+    gathers and broadcasts, times :func:`_wire_factor`)."""
+
+    payload = operand_bytes if kind in ("all-reduce", "reduce-scatter", "all-to-all",
+                                        "collective-permute") else result_bytes
+    stats.count[kind] += 1
+    stats.operand_bytes[kind] += operand_bytes
+    stats.result_bytes[kind] += result_bytes
+    stats.wire_bytes[kind] += payload * _wire_factor(kind, n)
+
+
+# --------------------------------------------------------------------------
+# recorded programs (repro_torch.core.hloanalysis's text)
+# --------------------------------------------------------------------------
+
+#: bytes an element of each dtype name of a program's types (XLA's short
+#: names); ``b<bits>`` names a dtype XLA has none for
+DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1, "f8e5m2": 1, "s16": 2, "u16": 2,
+               "f16": 2, "bf16": 2, "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8,
+               "f64": 8, "c64": 8, "c128": 16}
+
+_PROGRAM_HEADER_RE = re.compile(r"^# repro_torch program: (\d+) ops$")
+_PROGRAM_LINE_RE = re.compile(r"^%(\d+) = (\S+?)\(([^()]*)\) -> \(([^()]*)\)((?: \w+=\S+)*)$")
+_TYPE_RE = re.compile(r"([a-z][a-z0-9]*)\[([0-9,]*)\]")
+
+
+def _dtype_bytes(name: str) -> int:
+    if name in DTYPE_BYTES:
+        return DTYPE_BYTES[name]
+    errors.check(name.startswith("b") and name[1:].isdigit(), errors.ErrorClass.ERR_ARG,
+                 f"unknown dtype {name!r} in a recorded program")
+    return int(name[1:]) // 8
+
+
+def _type_bytes(segment: str) -> int:
+    """Bytes of every ``<dtype>[<dims>]`` type in ``segment``."""
+
+    total = 0
+    for m in _TYPE_RE.finditer(segment):
+        dims = m.group(2)
+        total += (math.prod(int(d) for d in dims.split(",")) if dims else 1) * _dtype_bytes(
+            m.group(1))
+    return total
+
+
+def _program_ops(text: str) -> Iterator[tuple[str, str, str, dict[str, str]]]:
+    """(op, operands, results, attributes) of each op line of recorded
+    program text (one program or several concatenated).  ``ERR_ARG`` on
+    text without a program's header, a line that is not an op, or a
+    program whose op count is not its header's."""
+
+    errors.check(isinstance(text, str), errors.ErrorClass.ERR_ARG,
+                 f"a recorded program's text is a str, got {type(text).__name__}")
+    expected, seen, programs = None, 0, 0
+    for raw in text.splitlines():
+        header = _PROGRAM_HEADER_RE.match(raw)
+        if header:
+            errors.check(expected is None or seen == expected, errors.ErrorClass.ERR_ARG,
+                         f"recorded program of {expected} ops has {seen} op lines")
+            expected, seen, programs = int(header.group(1)), 0, programs + 1
+            continue
+        m = _PROGRAM_LINE_RE.match(raw)
+        errors.check(m is not None and expected is not None, errors.ErrorClass.ERR_ARG,
+                     f"not a line of a recorded program: {raw[:200]!r}")
+        seen += 1
+        attrs = dict(kv.split("=", 1) for kv in m.group(5).split())
+        yield m.group(2), m.group(3), m.group(4), attrs
+    errors.check(programs > 0, errors.ErrorClass.ERR_ARG,
+                 "not a recorded program (no '# repro_torch program' header): "
+                 "see repro_torch.core.hloanalysis")
+    errors.check(seen == expected, errors.ErrorClass.ERR_ARG,
+                 f"recorded program of {expected} ops has {seen} op lines")
+
+
+def parse_hlo_collectives(hlo_text: str, default_group: int = 1) -> CollectiveStats:
+    """Every collective of recorded program text
+    (:mod:`repro_torch.core.hloanalysis`, in place of the reference's HLO
+    text): per kind, the count, the operand and result bytes (from the
+    types the line gives) and the ring-adjusted wire bytes over the line's
+    group (``default_group`` where a line names none)."""
+
+    stats = CollectiveStats()
+    for _op, _operands, _results, attrs in _program_ops(hlo_text):
+        kind = attrs.get("kind")
+        if kind is None:
+            continue
+        _add_collective(stats, kind, float(_type_bytes(attrs["operand"])),
+                        float(_type_bytes(attrs["result"])),
+                        int(attrs.get("group", default_group)))
+    return stats
 
 
 # --------------------------------------------------------------------------

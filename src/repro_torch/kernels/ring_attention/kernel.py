@@ -204,13 +204,16 @@ def _ring_step_flops(q, k, v, m, l, acc, info, scale, causal, *args, out_val=Non
                      **kwargs) -> int:
     """The reference kernel's two matmuls over the tiles it computes.  Its
     causal skip depends on the offsets in ``info``: read when ``info`` holds
-    values, every tile counted when it is a fake tensor (no values)."""
+    values the host may read, every tile counted when it is a fake tensor
+    (no values) or lies on a card whose stream captures a CUDA graph (a
+    read would sync)."""
 
     from torch._subclasses.fake_tensor import is_fake
 
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if causal and not is_fake(info):
+    if causal and not is_fake(info) and not (info.is_cuda
+                                             and torch.cuda.is_current_stream_capturing()):
         q_off, k_off, _ = (int(x) for x in info.tolist())
         tiles = registry.attention_tiles(sq, sk, True, q_offset=q_off, k_offset=k_off)
     else:

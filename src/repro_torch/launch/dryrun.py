@@ -35,9 +35,9 @@ has one default process group).
   are custom ops whose fake implementations give shapes and whose formulas
   give flops and bytes (:mod:`repro_torch.kernels.registry`); nothing is
   launched.  ``lower_s`` / ``compile_s`` become ``trace_s``.
-* **Dispatch counts in place of HLO counts** (:class:`DispatchCount`, a
-  ``__torch_dispatch__`` mode under DTensor, so it sees each rank's local
-  ops): flops from ``torch.utils.flop_counter``'s formulas and the kernels',
+* **Dispatch counts in place of HLO counts** (:class:`DispatchCount`, the
+  recorder of :mod:`repro_torch.core.hloanalysis`, a ``__torch_dispatch__``
+  mode under DTensor, so it sees each rank's local ops): flops from ``torch.utils.flop_counter``'s formulas and the kernels',
   bytes as each op's inputs read and outputs written — one aten op at a
   time, with no fusion, so ``memory_s`` is an upper bound of an eager
   step's traffic — and each collective by kind with its operand, result and
@@ -70,135 +70,27 @@ from pathlib import Path
 from typing import Any
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.core.hloanalysis import Recorder, active_fake_mode
 from repro_torch.kernels.registry import tensor_bytes
-
-try:  # torch >= 2.12
-    from torch._guards import active_fake_mode
-except ImportError:  # the fake mode on the dispatch stack, as it reads it
-    from torch._guards import detect_fake_mode as active_fake_mode
 
 ROOT = Path(__file__).resolve().parents[3]
 ARTIFACTS = ROOT / "artifacts" / "dryrun_torch"
 
-#: collective op (``namespace.name`` of its packet) → (kind, index of its
-#: operand argument, index of the argument it writes its result to, or
-#: None: the op returns it)
-COLLECTIVE_OPS = {
-    "_c10d_functional.all_reduce": ("all-reduce", 0, None),
-    "_c10d_functional.all_reduce_": ("all-reduce", 0, 0),
-    "_c10d_functional.all_gather_into_tensor": ("all-gather", 0, None),
-    "_c10d_functional.reduce_scatter_tensor": ("reduce-scatter", 0, None),
-    "_c10d_functional.all_to_all_single": ("all-to-all", 0, None),
-    "_c10d_functional.broadcast": ("collective-broadcast", 0, None),
-    "c10d.allreduce_": ("all-reduce", 0, 0),
-    "c10d.broadcast_": ("collective-broadcast", 0, 0),
-    "c10d.allgather_": ("all-gather", 1, 0),
-    "c10d._allgather_base_": ("all-gather", 1, 0),
-    "c10d.allgather_into_tensor_coalesced_": ("all-gather", 1, 0),
-    "c10d.reduce_scatter_": ("reduce-scatter", 1, 0),
-    "c10d._reduce_scatter_base_": ("reduce-scatter", 1, 0),
-    "c10d.alltoall_": ("all-to-all", 1, 0),
-    "c10d.alltoall_base_": ("all-to-all", 1, 0),
-    "c10d.send": ("collective-permute", 0, None),
-}
-#: ops that move no bytes of their own: allocations, metadata, waits
-_NO_TRAFFIC = ("aten.empty", "aten.empty_strided", "aten.empty_like", "prim.device",
-               "aten.detach", "aten.lift_fresh", "aten._to_copy_meta",
-               "_c10d_functional.wait_tensor", "c10d.recv_")
-
-
-def _group_size(args) -> int:
-    """The size of the process group a collective op names (a group name
-    string or a ProcessGroup argument); 1 if none is found."""
-
-    import torch.distributed as dist
-
-    for a in args:
-        if isinstance(a, str):
-            try:
-                return dist.distributed_c10d._resolve_process_group(a).size()
-            except (KeyError, RuntimeError, ValueError):
-                continue
-        if isinstance(a, torch.ScriptObject) or isinstance(a, dist.ProcessGroup):
-            size = getattr(a, "size", None)
-            if callable(size):
-                return int(size())
-    return 1
-
-
-class DispatchCount(TorchDispatchMode):
+class DispatchCount(Recorder):
     """A ``__torch_dispatch__`` mode that counts one device's step: flops,
     bytes and collectives (``flops``, ``bytes``, ``collectives``, a
     :class:`repro_torch.core.tool.CollectiveStats`), one op at a time, and
-    the port's kernels by op (``kernels``).
+    the port's kernels by op (``kernels``) — the recorder of
+    :mod:`repro_torch.core.hloanalysis`, whose ``program`` holds the step's
+    ops: ``analyze_hlo(counted.program.as_text())`` reads the same sums
+    back.
 
     It lets DTensor run first (it returns ``NotImplemented`` on DTensor
     arguments), so it sees the local ops of this rank; it skips the ops
     DTensor's sharding propagation runs under a fake mode of its own, as
     ``MemTracker`` does (the mode active when counting began is the step's).
     """
-
-    def __init__(self):
-        super().__init__()
-        from repro_torch.core.tool import CollectiveStats
-
-        self.flops = 0
-        self.bytes = 0
-        self.ops = 0
-        self.kernels: dict[str, int] = {}
-        self.collectives = CollectiveStats()
-        self._entry_fake = None
-
-    def __enter__(self):
-        self._entry_fake = active_fake_mode()
-        return super().__enter__()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor
-
-        kwargs = kwargs or {}
-        if any(issubclass(t, DTensor) for t in types):
-            return NotImplemented
-        out = func(*args, **kwargs)
-        if active_fake_mode() is not self._entry_fake:
-            return out          # DTensor's sharding propagation
-        self._count(func, args, kwargs, out)
-        return out
-
-    def _count(self, func, args, kwargs, out) -> None:
-        from torch.utils.flop_counter import flop_registry
-
-        from repro_torch.core.tool import _wire_factor
-        from repro_torch.kernels.registry import BYTES_FORMULAS
-
-        packet = func.overloadpacket
-        name = packet._qualified_op_name.replace("::", ".")
-        self.ops += 1
-        coll = COLLECTIVE_OPS.get(name)
-        if coll is not None:
-            kind, operand_at, result_at = coll
-            operand = tensor_bytes(args[operand_at])
-            result = tensor_bytes(out if result_at is None else args[result_at])
-            n = _group_size(list(args) + list(kwargs.values()))
-            payload = operand if kind in ("all-reduce", "reduce-scatter", "all-to-all",
-                                          "collective-permute") else result
-            st = self.collectives
-            st.count[kind] += 1
-            st.operand_bytes[kind] += operand
-            st.result_bytes[kind] += result
-            st.wire_bytes[kind] += payload * _wire_factor(kind, n)
-            return
-        flop = flop_registry.get(packet)
-        if flop is not None:
-            self.flops += int(flop(*args, **kwargs, out_val=out))
-        if name.startswith("repro_torch."):
-            self.kernels[name] = self.kernels.get(name, 0) + 1
-        if packet in BYTES_FORMULAS:
-            self.bytes += int(BYTES_FORMULAS[packet](args, kwargs, out))
-        elif not func.is_view and name not in _NO_TRAFFIC:
-            self.bytes += tensor_bytes(args) + tensor_bytes(kwargs) + tensor_bytes(out)
 
 
 def peak_tracker():

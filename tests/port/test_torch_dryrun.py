@@ -306,7 +306,14 @@ def test_fake_peak_is_the_real_steps_peak(shape):
     assert rec["memory"]["peak_bytes_per_device"] == peak > 0
 
 
-def test_collectives_on_a_fake_grid_are_a_real_runs(background):
+@pytest.fixture(scope="module")
+def real_ranks(background):
+    """The 4 real gloo ranks' results of ``torch_ranks.py dryrun_counts``."""
+
+    return finish_ranks(background["real"])
+
+
+def test_collectives_on_a_fake_grid_are_a_real_runs(background, real_ranks):
     """The same placed train step on a fake (2, 2) grid and on 4 real gloo
     ranks, counted by the same mode: equal collectives by kind, equal
     operand bytes."""
@@ -315,13 +322,26 @@ def test_collectives_on_a_fake_grid_are_a_real_runs(background):
     proc = background["fake"]
     out, err = proc.communicate(timeout=600)
     assert proc.returncode == 0, err[-4000:]
-    ranks = finish_ranks(background["real"])
+    ranks = real_ranks
     rec = json.loads((work / "phi4_mini_3_8b__train_32__grid_2x2.json").read_text())
     fake = rec["roofline"]["collectives"]
     real = json.loads(str(ranks[0]["collectives"]))
     assert fake["count"] and fake["count"] == real["count"]
     assert fake["operand_bytes"] == real["operand_bytes"]
     assert all(json.loads(str(r["collectives"])) == real for r in ranks)
+
+
+def test_dispatch_count_is_the_recorded_programs_cost(real_ranks):
+    """On each of the 4 gloo ranks, the placed train step's
+    ``DispatchCount`` and ``analyze_hlo`` of the same step's program
+    (``record_program(...).as_text()``) give the same flops, bytes and
+    collectives (counts, operand, result and wire bytes by kind)."""
+
+    for r in real_ranks:
+        counted = json.loads(str(r["counted"]))
+        recorded = json.loads(str(r["recorded"]))
+        assert counted[0] > 0 and counted[1] > 0 and counted[2]["count"]
+        assert recorded == counted
 
 
 def test_kernels_trace_on_fake_cuda_tensors_without_launching():

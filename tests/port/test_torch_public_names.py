@@ -54,12 +54,11 @@ SRC = Path(__file__).resolve().parents[2] / "src"
 A16 = {
     ("repro_torch.core._compat", "<module>"):
         "jax version shims (core/_compat.py); the port runs on one torch",
-    ("repro_torch.core.hloanalysis", "<module>"):
-        "parses XLA HLO text; a port equivalent would count a torch.profiler trace",
-    ("repro_torch.analysis.hlo", "<module>"):
-        "parses XLA HLO text; a port equivalent would count a torch.profiler trace",
-    ("repro_torch.core.tool", "parse_hlo_collectives"):
-        "parses XLA HLO text; the dry run counts collectives by dispatch instead",
+    ("repro_torch.core.hloanalysis", "Computation"):
+        "an XLA computation nested in a module (a loop body, a branch); a recorded "
+        "program is flat: Python loops are unrolled as they run",
+    ("repro_torch.core.hloanalysis", "parse_computations"):
+        "splits XLA HLO text into its nested computations (see Computation)",
     ("repro_torch.core", "TraceFuture"):
         "a future over a traced JAX value; Future over dist.Work takes its role",
     ("repro_torch.core", "trace_when_all"): "joins TraceFutures (see TraceFuture)",

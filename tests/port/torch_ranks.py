@@ -1730,12 +1730,17 @@ def prog_tune_cli(rank: int, world: int, inputs: dict) -> dict:
 def prog_dryrun_counts(rank: int, world: int, inputs: dict) -> dict:
     """The dry run's placed train step of smoke phi4-mini (b 4 x 32) on a
     2 x 2 grid of real gloo ranks, over real tensors shaped as its
-    stand-ins, counted by the dry run's mode: its collectives."""
+    stand-ins, counted by the dry run's mode: its collectives; then the
+    step's program recorded again (``analysis.hlo.record_program``) and
+    read back by ``analyze_hlo``, beside the mode's flops, bytes and
+    collectives."""
 
     import torch
 
+    from repro_torch.analysis.hlo import record_program
     from repro_torch.configs import base
     from repro_torch.core.futures import flatten, unflatten
+    from repro_torch.core.hloanalysis import analyze_hlo
     from repro_torch.launch import dryrun, specs, steps
     from repro_torch.launch.mesh import make_host_communicator
     from repro_torch.optim import AdamW
@@ -1764,8 +1769,148 @@ def prog_dryrun_counts(rank: int, world: int, inputs: dict) -> dict:
     with dryrun.DispatchCount() as counted:
         step(*steps.example_args(kind, placed))
     st = counted.collectives
+    program = record_program(step, *steps.example_args(kind, placed))
+    recorded = analyze_hlo(program.as_text())
     return {"collectives": np.array(json.dumps(
-        {"count": dict(st.count), "operand_bytes": dict(st.operand_bytes)}, sort_keys=True))}
+        {"count": dict(st.count), "operand_bytes": dict(st.operand_bytes)}, sort_keys=True)),
+        "counted": np.array(json.dumps([counted.flops, counted.bytes, st.as_dict()])),
+        "recorded": np.array(json.dumps([recorded.flops, recorded.bytes,
+                                         recorded.collectives.as_dict()]))}
+
+
+def hlo_verdicts(passes, psum, ring, gather, n: int) -> dict:
+    """Every pass of ``passes`` (``repro.analysis.hlo`` or the port's) over
+    the programs of ``tests/test_analysis_hlo.py`` — an all-reduce, a
+    one-step ring permute and an all-gather of the (8·n, 16) fp32 array
+    every one of ``n`` ranks holds (the reference's ``spmd`` replicates its
+    input) — each on its passing and its failing side, and their
+    ``stats_dict`` rows: JSON text, the same in both packages."""
+
+    one_shard = 8 * n * 16 * 4
+    verdicts = {
+        "no_collective:psum": passes.no_collective(psum, "all-gather", "all-to-all"),
+        "no_collective:gather": passes.no_collective(gather, "all-gather"),
+        "collective_count:psum_1": passes.collective_count(psum, "all-reduce", 1),
+        "collective_count:psum_2": passes.collective_count(psum, "all-reduce", 2),
+        "permute_count:ring": passes.permute_count(ring, 1),
+        "permute_count:psum": passes.permute_count(psum, 1),
+        "identical_lowering:psum_psum": passes.identical_lowering(psum, psum),
+        "identical_lowering:psum_gather": passes.identical_lowering(psum, gather),
+        "wire_fraction_below:ring_gather": passes.wire_fraction_below(
+            ring, gather, 1.0 / (n - 1) + 1e-9),
+        "wire_fraction_below:gather_ring": passes.wire_fraction_below(gather, ring, 0.5),
+        "neighbor_sparsity:ring": passes.neighbor_sparsity(ring, gather),
+        "neighbor_sparsity:psum": passes.neighbor_sparsity(psum, gather),
+        "ring_schedule:ring": passes.ring_schedule(ring, 2, shard_bytes=2 * one_shard),
+        "ring_schedule:ring_n": passes.ring_schedule(ring, n, shard_bytes=n * one_shard),
+        "ring_schedule:gather": passes.ring_schedule(gather, 2),
+        "pvar_invariant:one": passes.pvar_invariant({"trace:train_step": 1},
+                                                    "trace:train_step", 1),
+        "pvar_invariant:two": passes.pvar_invariant({"trace:train_step": 1},
+                                                    "trace:train_step", 2),
+    }
+    rows = {name: [r.name, r.ok, r.detail, bool(r), str(r)] for name, r in verdicts.items()}
+    stats = {name: passes.stats_dict(m) for name, m in
+             (("psum", psum), ("ring", ring), ("gather", gather))}
+    return json.dumps({"verdicts": rows, "stats": stats}, sort_keys=True)
+
+
+def prog_hlo_passes(rank: int, world: int, inputs: dict) -> dict:
+    """The analyzer's passes over this rank's recorded programs: the
+    reference test's three programs (:func:`hlo_verdicts`); a persistent
+    ``allreduce_init`` against the immediate ``allreduce`` and raw
+    ``dist.all_reduce`` on the same group; one forward ``ring_attention``
+    on a ring of every rank (16 rows a rank, one key block); the pipeline
+    plan's train step (data 2, stage 2, micro 2; every stage sends: stage
+    0 its activations, stage 1 its gradients); ``moe_neighbor`` over the
+    radius-1 and the full expert graph."""
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis import hlo as passes
+    from repro_torch.configs.base import ModelConfig, ParallelConfig, ParallelPlan
+    from repro_torch.core import topology, tool
+    from repro_torch.core.communicator import world as world_comm
+    from repro_torch.kernels.ring_attention import ops as ring_ops
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.models import mlp
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    def verdict(r):
+        return [r.name, r.ok, r.detail]
+
+    comm = world_comm(device_type="cpu")
+    x = torch.from_numpy(inputs["x"][rank])
+    out = {"verdicts": np.array(hlo_verdicts(
+        passes, passes.record_program(comm.allreduce, x),
+        passes.record_program(comm.shift, x, 1), passes.record_program(comm.allgather, x),
+        world))}
+
+    # (b) the persistent collective's program, recorded before its first start
+    req = comm.allreduce_init(x)
+    starts = tool.pvar_read().get("persistent_start", 0)
+    immediate = passes.record_program(comm.allreduce, x)
+    raw = passes.record_program(dist.all_reduce, x.clone(), group=comm.process_group())
+    parity = {"immediate": passes.identical_lowering(req, immediate),
+              "raw": passes.identical_lowering(req, raw),
+              "gather": passes.identical_lowering(req, passes.record_program(comm.allgather, x))}
+    out["parity"] = np.array(json.dumps({k: verdict(r) for k, r in parity.items()}))
+    out["parity_starts"] = np.array([req.starts, tool.pvar_read().get("persistent_start", 0)
+                                     - starts])
+
+    # (c) one forward ring_attention call
+    cart = topology.cart_create(comm, (world,), (True,), axis_names=("ring",))
+    q, k, v = (torch.from_numpy(inputs[f"ring_{t}"]) for t in "qkv")
+    shard = q.shape[1] // world
+    rows = slice(rank * shard, (rank + 1) * shard)
+    ring = passes.record_program(ring_ops.ring_attention, cart, q[:, rows], k[:, rows],
+                                 v[:, rows], causal=True, global_len=q.shape[1],
+                                 block_q=shard, block_k=shard)
+    kv_bytes = 2 * k.numel() * k.element_size()
+    out["ring"] = np.array(json.dumps({
+        "schedule": verdict(passes.ring_schedule(ring, world, shard_bytes=kv_bytes)),
+        "schedule_wrong_n": verdict(passes.ring_schedule(ring, world + 1)),
+        "stats": passes.stats_dict(ring)}))
+
+    # (d) the pipeline plan's train step (the trainer's step request)
+    cfg = ModelConfig(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128, dtype="float32")
+    trainer = Trainer(cfg, ParallelConfig(),
+                      TrainerConfig(steps=2, log_every=1,
+                                    plan=ParallelPlan(stage=2, microbatches=2)),
+                      make_host_communicator(device="cpu"), seq_len=64, global_batch=8,
+                      clock=lambda: 0.0)
+    trainer.run()
+    stats = passes.collective_stats(trainer._compiled)
+    out["pipeline"] = np.array(json.dumps({
+        "counts": dict(stats.count),
+        "no_alltoall": verdict(passes.no_collective(trainer._compiled, "all-to-all")),
+        "stage": trainer.comm.cart_coords(trainer.comm.rank())[1],
+        "recorded_once": trainer._compiled.compiled is trainer._compiled._program,
+        "starts": trainer._compiled.starts}))
+
+    # (e) moe_neighbor over the radius-1 and the full expert graph
+    mcfg = ModelConfig(name="t", family="moe", num_layers=2, d_model=16, num_heads=2,
+                       num_kv_heads=2, head_dim=8, d_ff=32, vocab_size=64,
+                       num_experts=2 * world, moe_top_k=2, moe_d_ff=24)
+    el = mcfg.num_experts // world
+    p = {"router": torch.from_numpy(inputs["router"])}
+    for name in ("w_gate", "w_up", "w_down"):
+        p[name] = torch.from_numpy(inputs[name][rank * el:(rank + 1) * el])
+    t = inputs["moe_x"].shape[0] // world
+    xm = torch.from_numpy(inputs["moe_x"][rank * t:(rank + 1) * t])
+    moe = {}
+    for name, radius in (("r1", 1), ("full", None)):
+        g = topology.dist_graph_create_adjacent(
+            comm, *mlp.expert_dispatch_graph(world, mcfg.num_experts, radius=radius))
+        moe[name] = passes.record_program(mlp.moe_neighbor, p, xm, mcfg, g)
+    out["moe"] = np.array(json.dumps({
+        "counts": dict(passes.collective_stats(moe["r1"]).count),
+        "no_alltoall": verdict(passes.no_collective(moe["r1"], "all-to-all")),
+        "sparsity": verdict(passes.neighbor_sparsity(moe["r1"], moe["full"])),
+        "full_counts": dict(passes.collective_stats(moe["full"]).count)}))
+    return out
 
 
 def prog_placed_repairs(rank: int, world: int, inputs: dict) -> dict:
@@ -1993,7 +2138,8 @@ PROGRAMS = {"collectives": prog_collectives, "overlap_schedules": prog_overlap_s
             "serve_cb_mesh": prog_serve_cb_mesh,
             "ring_placed_elastic": prog_ring_placed_elastic, "train_cli": prog_train_cli,
             "four_model_ranks": prog_four_model_ranks, "dryrun_counts": prog_dryrun_counts,
-            "analysis": prog_analysis, "placed_repairs": prog_placed_repairs}
+            "analysis": prog_analysis, "placed_repairs": prog_placed_repairs,
+            "hlo_passes": prog_hlo_passes}
 
 
 def main(argv: list[str]) -> int:

@@ -119,6 +119,21 @@ second start: losses, gradient norms and final parameters bit for bit,
 the warm step times of both.  The exit codes go to
 ``artifacts/shard_ranks_capture.json``.
 
+With ``--programs`` (instead of everything above; one ``torchrun``): the
+analyzer's passes (``repro_torch.analysis.hlo``) over the programs each
+rank records (``core/hloanalysis.py``): ``ring_schedule`` at ring 4 on one
+forward ``ring_attention`` call (phi4-mini's heads, 2048 tokens a card,
+bf16: 3 permutes of the stacked KV, no all-gather, 1/4 of the KV a step,
+the ring-step kernel 4 times); ``permute_count`` and
+``no_collective("all-to-all")`` on the pipeline plan's step (stage 4,
+micro 4, ``Trainer``'s request, its program recorded at its capture, whose
+kernel ops must equal the capture's launches); ``neighbor_sparsity`` of
+``mlp.moe_neighbor`` over the radius-1 expert graph against the full one;
+``identical_lowering`` of ``comm.allreduce_init(x)`` against
+``comm.allreduce(x)`` and against raw ``dist.all_reduce`` on the same
+group.  Writes ``artifacts/shard_ranks_programs.json``; rehearse with
+``--device cpu --smoke --programs --seq 32`` (~30 s).
+
 Rank 0 writes everything, with the card's name and power limit, to
 ``artifacts/shard_ranks.json`` (a part to ``shard_ranks_<part>.json``).
 """
@@ -192,7 +207,11 @@ def _args(argv=None):
                          "plans' captured steps against their eager steps (nothing else)")
     ap.add_argument("--capture-parts", default=",".join(CAPTURE_DEFAULT),
                     help="--capture: the parts to run, in order")
-    ap.add_argument("--part", choices=ELASTIC_PARTS + PLACED_PARTS + TUNE_PARTS + CAPTURE_PARTS,
+    ap.add_argument("--programs", action="store_true",
+                    help="the analyzer's passes over each rank's recorded programs (nothing "
+                         "else)")
+    ap.add_argument("--part", choices=ELASTIC_PARTS + PLACED_PARTS + TUNE_PARTS + CAPTURE_PARTS
+                    + ("programs",),
                     default=None,
                     help="one part of --elastic or --ring-engine (each runs in processes of "
                          "its own)")
@@ -435,6 +454,14 @@ CAPTURE_DEFAULT = tuple(p for p in CAPTURE_PARTS
 CAPTURE_PROBE_LIMIT_S, CAPTURE_PLAN_LIMIT_S = 60, 240
 # a chain probe's shifts, each of a fresh buffer of this many fp32
 CHAIN_SHIFTS, CHAIN_ELEMS = 16, 1 << 22
+#: --programs: the ring call (b, tokens a card, heads, KV heads, head dim:
+#: phi4-mini's), the MoE dispatch (width, expert width, tokens a card; two
+#: experts a card, top-2, fp32), the all-reduce's (rows, columns) of bf16,
+#: and the longest the torchrun may take
+PROGRAMS_RING = (1, 2048, 24, 8, 128)
+PROGRAMS_MOE = (3072, 8192, 2048)
+PROGRAMS_ALLREDUCE = (4096, 3072)
+PROGRAMS_LIMIT_S = 600
 
 
 def _control(args, cfg, pcfg, ckpt, step, comm, steps) -> list | None:
@@ -1233,6 +1260,139 @@ def _capture_plan(args, out) -> None:
                      f"{args.part}: the captured steps differ from the eager ones: {row}")
 
 
+def _programs(args, out) -> None:
+    """``--programs``: the analyzer's passes over this rank's recorded
+    programs (the module docstring lists them); each verdict with its
+    evidence, and the checks the reference's tests make."""
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.analysis import hlo as passes
+    from repro_torch.configs.base import ModelConfig, ParallelPlan
+    from repro_torch.core import topology
+    from repro_torch.core.communicator import world
+    from repro_torch.kernels.ring_attention import ops as ring_ops
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.models import mlp
+    from repro_torch.runtime.faults import StragglerPolicy
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    def verdict(r):
+        return {"ok": r.ok, "detail": r.detail}
+
+    cuda = args.device == "cuda"
+    comm = world(device_type=args.device)
+    me = comm.rank()
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    dtype = torch.bfloat16 if cuda else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(1000 + me)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    row = {}
+    out["programs"] = row
+
+    # one forward ring_attention call on a ring of the four ranks
+    b, s, h, hk, d = (1, 64, 4, 2, 16) if args.smoke else PROGRAMS_RING
+    cart = topology.cart_create(comm, (WORLD,), (True,), axis_names=("ring",))
+    q, k, v = randn(b, s, h, d), randn(b, s, hk, d), randn(b, s, hk, d)
+    ring = passes.record_program(ring_ops.ring_attention, cart, q, k, v, causal=True,
+                                 global_len=WORLD * s)
+    kv_bytes = 2 * WORLD * k.numel() * k.element_size()
+    row["ring"] = {"shape": [b, WORLD * s, h, hk, d], "dtype": str(dtype),
+                   "schedule": verdict(passes.ring_schedule(ring, WORLD, shard_bytes=kv_bytes)),
+                   "stats": passes.stats_dict(ring), "kernels": ring.kernels(),
+                   "ops": len(ring.ops)}
+    chip_smoke.log(f"rank {me} programs ring: " + json.dumps(row["ring"]))
+    _dump(out)
+
+    # the pipeline plan's step: the Trainer's request, recorded at its capture
+    cfg, pcfg = _train_cfg(args)
+    plan = ParallelPlan(stage=WORLD, microbatches=WORLD)
+    trainer = Trainer(cfg, pcfg, TrainerConfig(steps=2, lr=3e-4, log_every=1, plan=plan),
+                      make_host_communicator(device=args.device), seq_len=args.seq,
+                      global_batch=args.batch,
+                      straggler=StragglerPolicy(deadline_factor=float("inf")))
+    trainer.run()
+    req = trainer._request
+    stage = trainer.comm.cart_coords(trainer.comm.rank())[trainer.comm.axis_names.index(
+        "stage")]
+    # a stage sends its activations forward, and its gradients back, at
+    # each shift between two of the schedule's microbatches + stages - 1
+    # ticks (overlap.pipeline_spmd); the first stage has no stage before
+    # it, the last none after it
+    shifts = plan.microbatches + WORLD - 2
+    sends = shifts * ((stage < WORLD - 1) + (stage > 0))
+    row["pipeline"] = {
+        "plan": plan.slug(), "stage": stage, "layers": cfg.num_layers,
+        "batch": args.batch, "seq": args.seq, "captures": req.captured,
+        "counts": passes.stats_dict(req)["counts"],
+        "permute_count": verdict(passes.permute_count(req, sends)),
+        "no_alltoall": verdict(passes.no_collective(req, "all-to-all")),
+        "kernels": req.compiled.kernels(), "capture_launches": dict(req._launches)}
+    chip_smoke.log(f"rank {me} programs pipeline: " + json.dumps(row["pipeline"]))
+    _dump(out)
+    del trainer, req
+
+    # moe_neighbor over the radius-1 expert graph against the full one
+    width, expert_width, tokens = (16, 24, 16) if args.smoke else PROGRAMS_MOE
+    experts = 2 * WORLD
+    mcfg = ModelConfig(name="moe", family="moe", num_layers=1, d_model=width, num_heads=2,
+                       num_kv_heads=2, head_dim=8, d_ff=expert_width, vocab_size=64,
+                       num_experts=experts, moe_top_k=2, moe_d_ff=expert_width)
+    torch.manual_seed(0)   # the router is the same on every rank, fp32 as the model's
+    router = (torch.randn(width, experts) * 0.02).to(dev)
+    # fp32 throughout, as chip_smoke.py's moe_neighbor phase runs it
+    params = {"router": router,
+              "w_gate": randn(2, width, expert_width, scale=0.02).float(),
+              "w_up": randn(2, width, expert_width, scale=0.02).float(),
+              "w_down": randn(2, expert_width, width, scale=0.02).float()}
+    x = randn(tokens, width).float()
+    moe = {}
+    for name, radius in (("r1", 1), ("full", None)):
+        graph = topology.dist_graph_create_adjacent(
+            comm, *mlp.expert_dispatch_graph(WORLD, experts, radius=radius))
+        moe[name] = passes.record_program(mlp.moe_neighbor, params, x, mcfg, graph)
+    row["moe_neighbor"] = {
+        "width": width, "expert_width": expert_width, "tokens_a_rank": tokens,
+        "experts": experts, "sparsity": verdict(passes.neighbor_sparsity(moe["r1"], moe["full"])),
+        "no_alltoall": verdict(passes.no_collective(moe["r1"], "all-to-all")),
+        "counts": passes.stats_dict(moe["r1"])["counts"],
+        "full_counts": passes.stats_dict(moe["full"])["counts"]}
+    chip_smoke.log(f"rank {me} programs moe_neighbor: " + json.dumps(row["moe_neighbor"]))
+    _dump(out)
+
+    # the persistent all-reduce against the immediate one and raw NCCL
+    y = randn(*((32, 16) if args.smoke else PROGRAMS_ALLREDUCE))
+    init = comm.allreduce_init(y)
+    row["allreduce_init"] = {
+        "shape": list(y.shape), "dtype": str(dtype),
+        "immediate": verdict(passes.identical_lowering(
+            init, passes.record_program(comm.allreduce, y))),
+        "raw": verdict(passes.identical_lowering(
+            init, passes.record_program(dist.all_reduce, y.clone(), group=comm.process_group())))}
+    chip_smoke.log(f"rank {me} programs allreduce_init: " + json.dumps(row["allreduce_init"]))
+    _dump(out)
+
+    chip_smoke.check(row["ring"]["schedule"]["ok"], f"ring schedule: {row['ring']}")
+    if cuda:
+        chip_smoke.check(row["ring"]["kernels"] == {"repro_torch.ring_step_fwd": WORLD},
+                         f"ring kernels: {row['ring']['kernels']}")
+    p = row["pipeline"]
+    chip_smoke.check(p["permute_count"]["ok"] and p["no_alltoall"]["ok"],
+                     f"pipeline stage traffic: {p}")
+    chip_smoke.check({k.removeprefix("repro_torch."): n for k, n in p["kernels"].items()}
+                     == {k: n for k, n in p["capture_launches"].items() if n},
+                     f"pipeline: the program's kernel ops against the capture's launches: {p}")
+    m = row["moe_neighbor"]
+    chip_smoke.check(m["sparsity"]["ok"] and m["no_alltoall"]["ok"], f"moe_neighbor: {m}")
+    a = row["allreduce_init"]
+    chip_smoke.check(a["immediate"]["ok"] and a["raw"]["ok"], f"allreduce_init: {a}")
+
+
 def _rank_main(args) -> int:
     import torch.distributed as dist
 
@@ -1259,7 +1419,7 @@ def _rank_main(args) -> int:
         faulthandler.dump_traceback_later(limit - 30, exit=True)
         (_capture_probe if args.part in CAPTURE_PROBES else _capture_plan)(args, out)
     elif args.part is not None:
-        {"drill": _elastic_drill, "controls": _elastic_controls,
+        {"drill": _elastic_drill, "controls": _elastic_controls, "programs": _programs,
          "plans": lambda a, o: _train_plans(a, o, {}), "ring_prefill": _ring_prefill,
          "engine": _engine, "tune_rings": _tune_rings, "tune_train": _tune_train,
          "tune_serve": _tune_serve}[args.part](args, out)
@@ -1327,6 +1487,14 @@ def main(argv=None) -> int:
             path.write_text(json.dumps({"exit_codes": rcs}, indent=1))
         print(json.dumps({"capture_exit_codes": rcs}), flush=True)
         return max(rcs.values())
+    if args.programs and args.part is None:
+        try:
+            rc = subprocess.run(cmd + ["--part", "programs"], env=env, cwd=str(ROOT),
+                                timeout=PROGRAMS_LIMIT_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = 124
+        print(json.dumps({"programs_exit_code": rc}), flush=True)
+        return rc
     parts = (ELASTIC_PARTS if args.elastic else ()) + (PLACED_PARTS if args.ring_engine else ())
     for part in parts if args.part is None and parts else (None,):
         rc = subprocess.run(cmd + (["--part", part] if part else []), env=env,

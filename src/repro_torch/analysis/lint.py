@@ -19,13 +19,18 @@ Two passes:
    still checked), one that fails a ``script-failed`` finding, as in the
    reference.
 
-**Port-only choice: the default targets.**  The reference's defaults are
-its ``examples/`` scripts, which are JAX programs the port cannot run.  The
-port's defaults (:data:`DEFAULT_TARGETS`) are its own CLIs at smoke size on
-the CPU: ``serve --smoke --device cpu`` on one rank, and ``train`` for 2
-steps on one rank and on two gloo ranks (``torch.distributed.run``).  A
-target given on the command line is a script path, run as the reference
-runs its examples, on ``--ranks`` ranks.  :func:`lint_script` is the
+**The default targets** (:data:`DEFAULT_TARGETS`) are, as the reference's,
+the example scripts: every ``examples_torch/*.py``, the port's counterparts
+of the reference's ``examples/``, then the port's CLIs at smoke size on the
+CPU (:data:`CLI_TARGETS`: ``serve --smoke --device cpu`` on one rank, and
+``train`` for 2 steps on one rank and on two gloo ranks).  A script takes
+the arguments of its head's ``# lint-args: …`` line, as in the reference,
+then ``--device cpu`` (the port's entry points run on the card unless
+told otherwise).  **Port-only convention:** a rank is a
+process, so a script's head may name the ranks it runs on with a ``#
+lint-ranks: N`` line (``torch.distributed.run``, gloo); without one it
+runs on ``--ranks`` ranks.  A target given on the command line is a script
+or a directory of scripts, run the same way.  :func:`lint_script` is the
 reference's one-script call: the script in one process, its findings on
 the :data:`MARKER` line.
 
@@ -50,9 +55,9 @@ from repro_torch.core.errors import ErrorClass
 
 ROOT = Path(__file__).resolve().parents[3]
 
-#: (ranks, arguments after ``python``) of the default dynamic targets: the
-#: port's CLIs at smoke size on the CPU.
-DEFAULT_TARGETS: tuple[tuple[int, tuple[str, ...]], ...] = (
+#: (ranks, arguments after ``python``) of the port's CLIs as lint targets,
+#: at smoke size on the CPU
+CLI_TARGETS: tuple[tuple[int, tuple[str, ...]], ...] = (
     (1, ("-m", "repro_torch.launch.serve", "--arch", "phi4_mini_3_8b", "--smoke",
          "--device", "cpu", "--requests", "2", "--prompt-len", "16", "--new-tokens", "4")),
     (1, ("-m", "repro_torch.launch.train", "--arch", "phi4_mini_3_8b", "--smoke",
@@ -130,14 +135,65 @@ def _command(ranks: int, argv: tuple[str, ...], out_dir: str) -> list[str]:
             f"--nproc-per-node={ranks}", *runner]
 
 
+def _head(path: Path, key: str) -> str | None:
+    for line in Path(path).read_text().splitlines()[:30]:
+        if line.strip().startswith(f"# {key}:"):
+            return line.split(":", 1)[1]
+    return None
+
+
 def _lint_args(path: Path) -> list[str]:
     """Per-script lint arguments: a ``# lint-args: …`` line in the script's
     head scales a long-running script down to gate size."""
 
-    for line in Path(path).read_text().splitlines()[:30]:
-        if line.strip().startswith("# lint-args:"):
-            return shlex.split(line.split(":", 1)[1])
-    return []
+    head = _head(path, "lint-args")
+    return shlex.split(head) if head is not None else []
+
+
+def _lint_ranks(path: Path, default: int = 1) -> int:
+    """The ranks a script runs on under the lint: its head's ``#
+    lint-ranks: N`` line (port-only), else ``default``."""
+
+    head = _head(path, "lint-ranks")
+    return int(head) if head is not None else default
+
+
+def _scripts(paths: list[str]) -> list[Path]:
+    """The scripts of ``paths``: each ``.py`` file, and every ``*.py`` of a
+    directory (sorted), as the reference's lint globs them."""
+
+    out: list[Path] = []
+    for p in paths:
+        path = Path(p)
+        if path.is_dir():
+            out.extend(sorted(path.glob("*.py")))
+        elif path.suffix == ".py":
+            out.append(path)
+    return out
+
+
+def script_targets(paths: list[str], *, ranks: int = 1) -> list[tuple[int, tuple[str, ...]]]:
+    """(ranks, arguments) of each script of ``paths`` as a lint target: its
+    ``# lint-ranks`` (else ``ranks``), its ``# lint-args``, then ``--device
+    cpu``."""
+
+    return [(_lint_ranks(s, ranks), (str(s), *_lint_args(s), "--device", "cpu"))
+            for s in _scripts(paths)]
+
+
+def _relative(path: Path) -> str:
+    try:
+        return str(path.relative_to(ROOT))
+    except ValueError:
+        return str(path)
+
+
+#: the default dynamic targets: the example scripts, then the CLIs
+DEFAULT_TARGETS: tuple[tuple[int, tuple[str, ...]], ...] = (
+    *((r, (_relative(Path(a[0])), *a[1:]))
+      for r, a in script_targets([str(ROOT / "examples_torch")])),
+    *CLI_TARGETS,
+)
 
 
 def lint_script(path: Path, *, timeout: int = 900) -> list[Finding]:
@@ -232,10 +288,11 @@ def main(argv: list[str] | None = None) -> int:
                     "event-graph analysis of recorded runs",
     )
     ap.add_argument("paths", nargs="*", default=[],
-                    help="scripts to run under recording (default: the port's CLIs "
-                         "at smoke size on the CPU)")
+                    help="scripts or directories to run under recording (default: "
+                         "examples_torch/, then the port's CLIs at smoke size on the CPU)")
     ap.add_argument("--ranks", type=int, default=1,
-                    help="ranks each script given in paths runs on")
+                    help="ranks a script runs on where its head names none "
+                         "(# lint-ranks: N)")
     ap.add_argument("--strict", action="store_true",
                     help="exit non-zero on any finding")
     ap.add_argument("--no-run", action="store_true",
@@ -252,7 +309,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.no_run:
         targets: list = []
     elif args.paths:
-        targets = [(args.ranks, (str(Path(p)),)) for p in args.paths]
+        targets = script_targets(args.paths, ranks=args.ranks)
     else:
         targets = list(DEFAULT_TARGETS)
     for ranks, target in targets:

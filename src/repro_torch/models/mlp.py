@@ -68,6 +68,14 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype, *, stack: tuple[int, .
 
 def mlp(p: common.Params, x: torch.Tensor, act: str) -> torch.Tensor:
     a = common.activation(act)
+    if is_dtensor(x):
+        # a pending sum over the model axis (the attention's row-parallel
+        # output, carried through the norm) is done here, before the gate's
+        # nonlinearity: left to DTensor, it was settled on the gate by a
+        # reduce-scatter over the rows, whose product then failed wherever
+        # the rows do not split evenly over every rank of the grid (a (4, 2)
+        # fabric at a global batch of 12, ROADMAP C30)
+        x = common._reduced(x)
     g = torch.matmul(x, p["w_gate"])
     u = torch.matmul(x, p["w_up"])
     return torch.matmul(a(g) * u, p["w_down"])

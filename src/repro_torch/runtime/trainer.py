@@ -135,6 +135,7 @@ import logging
 import os
 import time
 import warnings
+import weakref
 from typing import Callable
 
 import torch
@@ -193,6 +194,49 @@ def _warn_deprecated_knobs() -> None:
         DeprecationWarning,
         stacklevel=3,
     )
+
+
+class _EpochVerdict:
+    """The straggler policy of an epoch's ranks (port-only): each rank is a
+    process with its own clock, and a rank that re-dispatched or restored
+    alone while the others went on left their collectives unmatched (a
+    loaded host's elastic run hung, ROADMAP C31); the reference's one
+    controller takes one verdict.  Every rank's verdict on an attempt is its
+    own policy's (none where its step is ``exempt``: known work), and the
+    epoch's is any rank's, agreed by one all-reduce of a flag on the
+    epoch's ranks; an exempt duration stays out of the median.  It wraps
+    :class:`StragglerPolicy` for the guard, which :mod:`faults` keeps as
+    the reference's copy."""
+
+    def __init__(self, policy: StragglerPolicy, trainer: "Trainer"):
+        # weakly: a dropped trainer is freed without a gc pass
+        self.policy, self._trainer = policy, weakref.ref(trainer)
+        #: this rank's step runs known work (set before each step)
+        self.exempt = False
+
+    def is_straggler(self, duration_s: float) -> bool:
+        straggled = not self.exempt and self.policy.is_straggler(duration_s)
+        trainer = self._trainer()
+        comm = trainer.comm
+        if comm.size() == 1:
+            return straggled
+        flag = torch.tensor([int(straggled)], dtype=torch.int32, device=trainer.device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                     group=comm.process_group())
+        return bool(flag.item())
+
+    def observe(self, duration_s: float) -> None:
+        if not self.exempt:
+            self.policy.observe(duration_s)
+
+    def median(self) -> float:
+        # a rank told of another's straggler may hold too few samples for a
+        # median of its own (its exempt steps are not counted)
+        median = self.policy.median()
+        return float("nan") if median is None else median
+
+    def should_retry(self, attempts: int) -> bool:
+        return self.policy.should_retry(attempts)
 
 
 @dataclasses.dataclass
@@ -560,7 +604,7 @@ class Trainer:
             moment_dtype=self.pcfg.moment_dtype,
         )
         self.guard = StepGuard(
-            straggler or StragglerPolicy(), injector,
+            _EpochVerdict(straggler or StragglerPolicy(), self), injector,
             clock if clock is not None else time.perf_counter,
         )
         self.ckpt = (
@@ -912,16 +956,18 @@ class Trainer:
                 _synchronize(self.device)
                 return new_p, new_o, metrics
 
+            # a step sharing the host with an in-flight checkpoint save, or
+            # an epoch's first start (the warm-up, which records the step's
+            # program) or capture, is slow from known work, not from worker
+            # sickness (the reference compiles its step ahead, outside the
+            # guard; ROADMAP C32).  The epoch's ranks settle the verdict
+            # together (_EpochVerdict), so the guard times every step
+            self.guard.straggler.exempt = (
+                (self.ckpt is not None and self.ckpt.pending())
+                or (self._request is not None
+                    and (self._request.starts == 0 or not self._request.settled)))
             (params, opt_state, metrics), info = self.guard.run(
-                step,
-                do_step,
-                retry_safe=retry_safe,
-                # a step sharing the host with an in-flight checkpoint save,
-                # or capturing the CUDA graph, is slow from known work, not
-                # from worker sickness
-                exempt=(self.ckpt is not None and self.ckpt.pending())
-                or (self._request is not None and not self._request.settled),
-            )
+                step, do_step, retry_safe=retry_safe)
             step += 1
             if step % self.tcfg.log_every == 0 or step == steps:
                 pvars = tool.pvar_read()

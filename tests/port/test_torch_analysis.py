@@ -529,11 +529,51 @@ def test_lint_static_strict_over_the_port_is_clean(capsys):
     assert "0 finding(s)" in capsys.readouterr().out
 
 
-def test_lint_default_targets_give_no_findings(capsys):
-    assert lint.main(["--strict"]) == 0
+@pytest.mark.parametrize("target", lint.CLI_TARGETS, ids=lambda t: (
+    f"{t[1][1].rsplit('.', 1)[1]}-{t[0]}rank"))
+def test_lint_default_targets_give_no_findings(target):
+    """The CLI targets, one case each; the example targets that precede
+    them are run and checked by ``test_torch_examples_*.py`` (one run each
+    serves the comparison with the reference and the lint's check)."""
+
+    ranks, argv = target
+    assert target in lint.DEFAULT_TARGETS
+    assert lint.lint_target(ranks, argv) == []
+
+
+def test_lint_defaults_are_the_examples_then_the_clis():
+    """As the reference's lint defaults to ``examples/``, the port's to
+    ``examples_torch/``: every script, on its head's ``# lint-ranks``, with
+    its ``# lint-args`` and ``--device cpu``, then the three CLIs."""
+
+    scripts = sorted((lint.ROOT / "examples_torch").glob("*.py"))
+    names = sorted(p.name for p in (lint.ROOT / "examples").glob("*.py"))
+    assert [p.name for p in scripts] == names and len(names) == 11
+    examples = lint.DEFAULT_TARGETS[:len(scripts)]
+    assert lint.DEFAULT_TARGETS[len(scripts):] == lint.CLI_TARGETS
+    ranks = {"quickstart": 8, "elastic_train": 8, "session_train_serve": 4,
+             "disaggregated_serve": 4, "pipeline_expert_train": 4, "long_context_train": 4,
+             "serve_batched": 2, "fault_tolerant_train": 2, "async_checkpoint": 1,
+             "continuous_batching_serve": 1, "train_lm": 1}
+    for script, (n, argv) in zip(scripts, examples):
+        assert argv[0] == f"examples_torch/{script.name}" and n == ranks[script.stem]
+        assert argv[-2:] == ("--device", "cpu")
+    train_lm = dict(zip(scripts, examples))[lint.ROOT / "examples_torch" / "train_lm.py"]
+    assert train_lm[1][1:] == ("--small", "--steps", "60", "--device", "cpu")
+    # the reference's lint-args line is kept as it is
+    assert lint._lint_args(lint.ROOT / "examples" / "train_lm.py") == \
+        lint._lint_args(lint.ROOT / "examples_torch" / "train_lm.py")
+
+
+def test_lint_strict_over_an_example_path(capsys):
+    """``python -m repro_torch.analysis.lint examples_torch/<script> --strict``
+    runs the script as a default target runs it and finds nothing."""
+
+    assert lint.main([str(lint.ROOT / "examples_torch" / "async_checkpoint.py"),
+                      "--strict"]) == 0
     out = capsys.readouterr().out
-    assert "3 target(s) analyzed, 0 finding(s)" in out
-    assert "repro_torch.launch.serve" in out and "2 ranks" in out
+    assert "async_checkpoint.py --device cpu (1 rank)" in out
+    assert "1 target(s) analyzed, 0 finding(s)" in out
 
 
 def test_lint_reports_a_failing_and_a_hanging_script(tmp_path):

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the reference package, and what it copied
+"""The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``,
+``tools/`` nor the port's examples (``examples_torch/``) imports JAX or the
+reference package, and what it copied
 from the reference (error classes, the ported configs, the Group algebra,
 the collective facade's names and pvars, the fault policies, the token
 pipeline's host batches, the trainer's and optimizer's configuration, the
@@ -33,10 +34,12 @@ _DENSE = ("gemma2_9b", "phi4_mini_3_8b", "granite_3_8b", "qwen1_5_32b", "mamba2_
 
 
 def _port_files():
-    """The port's package, ``chip_smoke.py`` and the on-card tools."""
+    """The port's package, ``chip_smoke.py``, the on-card tools and the
+    port's examples."""
 
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "tools").glob("*.py")))
+            + sorted((ROOT / "tools").glob("*.py"))
+            + sorted((ROOT / "examples_torch").glob("*.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -90,6 +93,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     package = ROOT / "src" / "repro_torch"
     covered = {str(f.relative_to(package)) for f in files if f.is_relative_to(package)}
     assert ROOT / "tools" / "quant_variants.py" in files
+    examples = {f.name for f in files if f.parent == ROOT / "examples_torch"}
+    assert examples == {f.name for f in (ROOT / "examples").glob("*.py")} and len(examples) == 11
     assert set(_MULTI_RANK) <= covered and set(_TRAINING) <= covered
     assert set(_MODELS) <= covered and set(_SERVING) <= covered and set(_TUNER) <= covered
     assert set(_DRY_RUN_AND_ANALYZER) <= covered

@@ -2117,6 +2117,92 @@ def prog_analysis(rank: int, world: int, inputs: dict) -> dict:
     return {"clean": clean.numpy()}
 
 
+def prog_example(rank: int, world: int, inputs: dict) -> dict:
+    """``main(argv, **hooks)`` of ``examples_torch/<name>.py`` under the
+    analyzer's recording, as the lint runs a target, its trainers on a
+    clock that stands still: this rank's ledger written to the work
+    directory, ``main``'s result as JSON."""
+
+    import runpy
+
+    import torch
+
+    from repro_torch.analysis import events, lint
+    from repro_torch.core import tool
+
+    from repro_torch.runtime import trainer
+
+    workdir = Path(str(inputs["workdir"]))
+    hooks = torch.load(workdir / "hooks.pt") if (workdir / "hooks.pt").exists() else {}
+    # a clock that stands still: no step of a loaded host is a straggler
+    init = trainer.Trainer.__init__
+    trainer.Trainer.__init__ = lambda self, *a, **k: init(self, *a, **{"clock": lambda: 0.0,
+                                                                       **k})
+    main = runpy.run_path(str(ROOT / "examples_torch" / f"{inputs['name']}.py"))["main"]
+    tool.cvar_set("analysis_recording", True)
+    tool.pvar_strict(True)
+    try:
+        result = main([str(a) for a in inputs["argv"]], **hooks)
+    finally:
+        events.dump(workdir / lint.LEDGER_FILE.format(rank=rank))
+    return {"json": np.array(json.dumps(result, default=_jsonable))}
+
+
+def _jsonable(x):
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, (np.integer, np.floating, np.bool_)):
+        return x.item()
+    raise TypeError(f"{type(x).__name__} is not JSON")
+
+
+def prog_straggler(rank: int, world: int, inputs: dict) -> dict:
+    """The tiny model on a (2, 1) fabric under a fake clock each rank
+    advances by itself (0.01 s a start): ``agree``, rank 1 alone sees step 7
+    take 1 s (ROADMAP C31); ``first_start``, rank 1 is evicted at step 4
+    and re-admitted at step 7, and each epoch's first start takes 1 s on
+    every rank (C32).  Each case's result on this rank."""
+
+    from repro_torch.configs.base import ModelConfig, ParallelConfig
+    from repro_torch.launch.mesh import make_host_communicator
+    from repro_torch.runtime.faults import FaultInjector, StragglerPolicy
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    work = Path(str(inputs["work"]))
+    cfg = ModelConfig(**ELASTIC_CFG)
+    out = {}
+    for name, injector in (("agree", None),
+                           ("first_start", FaultInjector().evict_rank(4, 1).admit_rank(7))):
+        now = [0.0]
+        tcfg = TrainerConfig(steps=10, lr=1e-3, checkpoint_dir=str(work / name),
+                             checkpoint_every=2, log_every=1, seed=7)
+        t = Trainer(cfg, ParallelConfig(), tcfg, make_host_communicator(device="cpu"),
+                    seq_len=32, global_batch=4, injector=injector,
+                    straggler=StragglerPolicy(deadline_factor=3.0, min_samples=2),
+                    clock=lambda now=now: now[0])
+        real = t.compile
+        calls = [0]
+
+        def compile_timed(params, opt_state, t=t, real=real, name=name, now=now, calls=calls):
+            step = real(params, opt_state)
+
+            def timed_step(*args):
+                calls[0] += 1
+                slow = (rank == 1 and calls[0] == 7) if name == "agree" else step.starts == 0
+                now[0] += 1.0 if slow else 0.01
+                return step(*args)
+
+            t._compiled = timed_step
+            return timed_step
+
+        t.compile = compile_timed
+        res = t.run()
+        for key in ("final_step", "restarts", "evictions", "joins", "world_size"):
+            out[f"{name}/{key}"] = np.array(res[key])
+        del t
+    return out
+
+
 def torch_from(a):
     import torch
 
@@ -2139,7 +2225,8 @@ PROGRAMS = {"collectives": prog_collectives, "overlap_schedules": prog_overlap_s
             "ring_placed_elastic": prog_ring_placed_elastic, "train_cli": prog_train_cli,
             "four_model_ranks": prog_four_model_ranks, "dryrun_counts": prog_dryrun_counts,
             "analysis": prog_analysis, "placed_repairs": prog_placed_repairs,
-            "hlo_passes": prog_hlo_passes}
+            "hlo_passes": prog_hlo_passes, "example": prog_example,
+            "straggler": prog_straggler}
 
 
 def main(argv: list[str]) -> int:
